@@ -1,0 +1,13 @@
+"""The StableSR-SSL diffusion tree: serving (encode, spaced DDPM / DDIM /
+PLMS over the struct-cond encoder and the dual-cond UNet, decode, color fix).
+Counterpart of ``ssl_tpu/diffusion``; the train step waits for its slice."""
+from ssl_tpu_torch.diffusion.color_fix import adain_color_fix, wavelet_color_fix  # noqa: F401
+from ssl_tpu_torch.diffusion.ddpm_ssl import (  # noqa: F401
+    DiffusionSSLConfig, DiffusionState, StableSRSSL,
+)
+from ssl_tpu_torch.diffusion.sampler import ddim_sample, spaced_ddpm_sample, tiled_sample  # noqa: F401
+from ssl_tpu_torch.diffusion.schedules import (  # noqa: F401
+    build_schedule_arrays, make_beta_schedule, q_sample, space_timesteps,
+)
+from ssl_tpu_torch.diffusion.unet import EncoderUNetModelWT, UNetModelDualcondV2  # noqa: F401
+from ssl_tpu_torch.diffusion.vae import AutoencoderKL  # noqa: F401

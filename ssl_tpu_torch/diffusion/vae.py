@@ -1,0 +1,204 @@
+"""AutoencoderKL, the latent-diffusion VAE (ldm/models/autoencoder.py:291).
+
+Counterpart of ``ssl_tpu/diffusion/vae.py`` (``AutoencoderKL`` and its
+Encoder, Decoder, ResnetBlock and AttnBlock), in NCHW, with ldm's module
+names (``encoder.down.0.block.0.norm1``, ``decoder.mid.attn_1.q``, ...: the
+table of ``convert_ldm_vae``), so SD/ldm first-stage checkpoints keep their
+keys.  GroupNorm eps is 1e-6, with gcd(c, 32) groups where c is not a
+multiple of 32; the encoder's stride-2 convs pad (0, 1) on each axis; the
+decoder upsamples nearest x2.  The mid-block attention is one head of width
+c through ``ops/attention.py::sdp_attention`` (K2 on CUDA when eligible).
+
+The remat options (``remat_decoder_blocks``, ``remat_skip_lowres``) only
+change how the JAX package differentiates the decoder: they are accepted and
+leave the forward as it is.  ``compute_dtype`` and the CFW decoder
+(``AutoencoderKLResi``) are not ported yet."""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ssl_tpu_torch.diffusion.unet import check_compute_dtype
+from ssl_tpu_torch.ops.attention import sdp_attention
+
+
+def _num_groups(c: int) -> int:
+    return 32 if c % 32 == 0 else (math.gcd(c, 32) or 1)
+
+
+def Normalize(c: int) -> nn.GroupNorm:
+    return nn.GroupNorm(_num_groups(c), c, eps=1e-6)
+
+
+def _conv1x1(layer: nn.Conv2d, x_tokens: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv applied to (b, hw, c) tokens as a matmul."""
+    return F.linear(x_tokens, layer.weight[:, :, 0, 0], layer.bias)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.norm1 = Normalize(in_channels)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.norm2 = Normalize(out_channels)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        if in_channels != out_channels:
+            self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if hasattr(self, "nin_shortcut"):
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class AttnBlock(nn.Module):
+    """Single-head mid-block attention (model.py:154), width c, scale c^-1/2."""
+
+    def __init__(self, c: int, use_flash_attention: bool = False):
+        super().__init__()
+        self.use_flash_attention = use_flash_attention
+        self.norm = Normalize(c)
+        self.q = nn.Conv2d(c, c, 1)
+        self.k = nn.Conv2d(c, c, 1)
+        self.v = nn.Conv2d(c, c, 1)
+        self.proj_out = nn.Conv2d(c, c, 1)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        y = self.norm(x).flatten(2).transpose(1, 2)
+        q, k, v = (_conv1x1(layer, y).view(b, h * w, 1, c) for layer in (self.q, self.k, self.v))
+        out = sdp_attention(q, k, v, c ** -0.5, self.use_flash_attention).view(b, h * w, c)
+        return x + _conv1x1(self.proj_out, out).transpose(1, 2).reshape(b, c, h, w)
+
+
+class Downsample(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = nn.Conv2d(c, c, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class Upsample(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = nn.Conv2d(c, c, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+class _Mid(nn.Module):
+    def __init__(self, c: int, use_flash_attention: bool):
+        super().__init__()
+        self.block_1 = ResnetBlock(c, c)
+        self.attn_1 = AttnBlock(c, use_flash_attention)
+        self.block_2 = ResnetBlock(c, c)
+
+    def forward(self, x):
+        return self.block_2(self.attn_1(self.block_1(x)))
+
+
+class _Level(nn.Module):
+    """One resolution level: its ResnetBlocks and, where there is one, the
+    resampling conv (``downsample`` in the encoder, ``upsample`` in the decoder)."""
+
+    def __init__(self, blocks: list, resample: str | None = None, c: int = 0):
+        super().__init__()
+        self.block = nn.ModuleList(blocks)
+        if resample == "down":
+            self.downsample = Downsample(c)
+        elif resample == "up":
+            self.upsample = Upsample(c)
+
+
+class Encoder(nn.Module):
+    def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, in_channels: int = 3, z_channels: int = 4,
+                 double_z: bool = True, use_flash_attention: bool = False):
+        super().__init__()
+        self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
+        self.down = nn.ModuleList()
+        c = ch
+        for i, mult in enumerate(ch_mult):
+            blocks = []
+            for _ in range(num_res_blocks):
+                blocks.append(ResnetBlock(c, ch * mult))
+                c = ch * mult
+            last = i == len(ch_mult) - 1
+            self.down.append(_Level(blocks, None if last else "down", c))
+        self.mid = _Mid(c, use_flash_attention)
+        self.norm_out = Normalize(c)
+        self.conv_out = nn.Conv2d(c, 2 * z_channels if double_z else z_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for level in self.down:
+            for blk in level.block:
+                h = blk(h)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+        h = self.mid(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
+
+
+class Decoder(nn.Module):
+    def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, out_ch: int = 3, z_channels: int = 4,
+                 use_flash_attention: bool = False):
+        super().__init__()
+        c = ch * ch_mult[-1]
+        self.conv_in = nn.Conv2d(z_channels, c, 3, padding=1)
+        self.mid = _Mid(c, use_flash_attention)
+        levels = [None] * len(ch_mult)      # up.0 is the finest level, as in ldm
+        for i in reversed(range(len(ch_mult))):
+            blocks = []
+            for _ in range(num_res_blocks + 1):
+                blocks.append(ResnetBlock(c, ch * ch_mult[i]))
+                c = ch * ch_mult[i]
+            levels[i] = _Level(blocks, "up" if i != 0 else None, c)
+        self.up = nn.ModuleList(levels)
+        self.norm_out = Normalize(c)
+        self.conv_out = nn.Conv2d(c, out_ch, 3, padding=1)
+
+    def forward(self, z):
+        h = self.mid(self.conv_in(z))
+        for level in reversed(self.up):
+            for blk in level.block:
+                h = blk(h)
+            if hasattr(level, "upsample"):
+                h = level.upsample(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
+
+
+class AutoencoderKL(nn.Module):
+    """KL VAE with quant convs; ``encode`` returns (mean, logvar)."""
+
+    def __init__(self, embed_dim: int = 4, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, use_flash_attention: bool = False,
+                 remat_decoder_blocks: bool = True, remat_skip_lowres: int = 0,
+                 compute_dtype: str | None = None):
+        super().__init__()
+        check_compute_dtype(compute_dtype)
+        self.embed_dim = embed_dim
+        self.encoder = Encoder(ch, ch_mult, num_res_blocks, z_channels=embed_dim,
+                               use_flash_attention=use_flash_attention)
+        self.decoder = Decoder(ch, ch_mult, num_res_blocks, z_channels=embed_dim,
+                               use_flash_attention=use_flash_attention)
+        self.quant_conv = nn.Conv2d(2 * embed_dim, 2 * embed_dim, 1)
+        self.post_quant_conv = nn.Conv2d(embed_dim, embed_dim, 1)
+
+    def encode(self, x):
+        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def decode(self, z):
+        return self.decoder(self.post_quant_conv(z))

@@ -5,16 +5,26 @@ tree as nested dicts of numpy arrays (and, for the discriminator, its
 ``batch_stats``) and returns a state dict for the port's module of that
 family, so both compute the same function from the same weights.  It reads
 numpy only.  Conventions: conv kernels HWIO -> OIHW, Dense (in, out) ->
-Linear (out, in), BatchNorm scale/bias/mean/var -> weight/bias/running_*.
+Linear (out, in) (or Conv1d (out, in, 1) where the torch module is a
+kernel-1 Conv1d), norm scale -> weight, BatchNorm mean/var -> running_*.
 Load the result with ``load_state_dict(sd, strict=False)``: batch norms'
-``num_batches_tracked`` counters have no flax counterpart."""
+``num_batches_tracked`` counters have no flax counterpart (the diffusion
+families load strictly).
+
+The diffusion families name their torch modules as StableSR and ldm do; the
+flax names encode those paths (``input_blocks_1_0`` / ``in_layers_2`` is
+``input_blocks.1.0.in_layers.2``, ``down_0_block_1`` / ``GroupNorm_0`` is
+``down.0.block.1.norm1``), and the maps below undo the encoding."""
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
-FAMILIES = ("RRDBNet", "VGGStyleDiscriminator", "VGGFeatureExtractor")
+FAMILIES = ("RRDBNet", "VGGStyleDiscriminator", "VGGFeatureExtractor", "UNetModelDualcondV2",
+            "EncoderUNetModelWT", "AutoencoderKL", "StableSRSSL")
 
 
 def _t(a) -> torch.Tensor:
@@ -83,8 +93,100 @@ def _vgg_features(params: dict) -> dict:
     return sd
 
 
-def params_from_jax(family: str, params: dict, batch_stats: dict | None = None) -> dict:
-    """State dict for the port's ``family`` module from a flax params tree."""
+def _leaves(sd: dict, name: str, node: dict, conv1d: bool = False) -> None:
+    """One flax layer (kernel / scale / bias leaves) into ``sd`` under ``name``."""
+    for leaf, value in node.items():
+        a = np.asarray(value)
+        if leaf == "kernel":
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            else:
+                a = a.T[..., None] if conv1d else a.T
+            sd[f"{name}.weight"] = _t(a)
+        elif leaf == "scale":
+            sd[f"{name}.weight"] = _t(a)
+        elif leaf == "bias":
+            sd[f"{name}.bias"] = _t(a)
+        else:
+            raise KeyError(f"unexpected flax leaf {name}/{leaf}")
+
+
+# torch path segments that hold an underscore (openaimodel, attention.py, spade.py)
+_MULTI = {"in_layers", "emb_layers", "out_layers", "skip_connection", "mlp_shared", "mlp_gamma",
+          "mlp_beta", "proj_in", "proj_out", "transformer_blocks", "to_q", "to_k", "to_v",
+          "to_out", "param_free_norm"}
+
+
+def _dotted(inner: str) -> str:
+    """``transformer_blocks_0_attn1_to_q`` -> ``transformer_blocks.0.attn1.to_q``."""
+    tokens, out, i = inner.split("_"), [], 0
+    while i < len(tokens):
+        for width in (3, 2, 1):
+            seg = "_".join(tokens[i:i + width])
+            if width == 1 or seg in _MULTI:
+                out.append(seg)
+                i += width
+                break
+    return ".".join(out)
+
+
+def _openai_unet(params: dict) -> dict:
+    """UNetModelDualcondV2 / EncoderUNetModelWT: the inverse of
+    ssl_tpu.utils.weight_port._sd_openai_unet_tree."""
+    sd: dict = {}
+    for top, node in params.items():
+        m = re.fullmatch(r"(input_blocks|output_blocks)_(\d+)_(\d+)", top) or \
+            re.fullmatch(r"(middle_block|time_embed|out|fea_tran)_(\d+)", top)
+        if m is None:
+            raise KeyError(f"unexpected flax module {top}")
+        base = ".".join(m.groups())
+        if "kernel" in node or "scale" in node:
+            _leaves(sd, base, node)
+            continue
+        for inner, leaf in node.items():
+            # AttentionBlockQKV's qkv and proj_out are kernel-1 Conv1d layers in torch
+            _leaves(sd, f"{base}.{_dotted(inner)}", leaf,
+                    conv1d="qkv" in node and inner in ("qkv", "proj_out"))
+    return sd
+
+
+_VAE_RESNET = {"GroupNorm_0": "norm1", "Conv_0": "conv1", "GroupNorm_1": "norm2",
+               "Conv_1": "conv2", "Conv_2": "nin_shortcut"}
+
+
+def _ldm_vae(params: dict) -> dict:
+    """AutoencoderKL: the inverse of ssl_tpu.utils.weight_port.convert_ldm_vae."""
+    sd: dict = {}
+    for name in ("quant_conv", "post_quant_conv"):
+        _leaves(sd, name, params[name])
+    for coder in ("encoder", "decoder"):
+        for key, node in params[coder].items():
+            path = (key.replace("mid_block_", "mid.block_").replace("mid_attn", "mid.attn_1"))
+            path = re.sub(r"^(down|up)_(\d+)_block_(\d+)$", r"\1.\2.block.\3", path)
+            path = re.sub(r"^(down|up)_(\d+)_(downsample|upsample)$", r"\1.\2.\3.conv", path)
+            base = f"{coder}.{path}"
+            if "kernel" in node or "scale" in node:
+                _leaves(sd, base, node)
+                continue
+            attn = key == "mid_attn"
+            for inner, leaf in node.items():
+                sub = "norm" if attn and inner == "GroupNorm_0" else _VAE_RESNET.get(inner, inner)
+                _leaves(sd, f"{base}.{sub}", leaf)
+    return sd
+
+
+def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
+    """State dict for the port's ``family`` module from a flax params tree.
+    ``StableSRSSL`` takes the diffusion params dict {'unet', 'structcond',
+    'null_context'} and returns the same keys: two state dicts and a tensor."""
+    if family in ("UNetModelDualcondV2", "EncoderUNetModelWT"):
+        return _openai_unet(params)
+    if family == "AutoencoderKL":
+        return _ldm_vae(params)
+    if family == "StableSRSSL":
+        return {"unet": _openai_unet(params["unet"]),
+                "structcond": _openai_unet(params["structcond"]),
+                "null_context": _t(params["null_context"])}
     if family == "RRDBNet":
         return _rrdbnet(params)
     if family == "VGGStyleDiscriminator":

@@ -7,6 +7,11 @@ sets JAX up, out of the run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
+K2 (flash attention) is held against ``sdp_attention_reference`` at the
+diffusion serving path's shapes (``tests/torch_attention_cases.py``) with
+rtol 1e-4 and an atol of 1e-5 of the output's largest value: both sum in
+float32, in another order.
+
 Tolerances (K1): count exact; l1 rel 1e-4 and kl rel 1e-3, the contract of
 tests/test_ssg_pallas.py:30-31 (sums taken in another order); the (b, h, w)
 maps ``MAP_RTOL`` with an atol of 1e-6 of the map's largest value; d_sr rtol
@@ -15,9 +20,11 @@ maps ``MAP_RTOL`` with an atol of 1e-6 of the map's largest value; d_sr rtol
 import numpy as np
 import pytest
 import torch
+from torch_attention_cases import CUDA_CASES, attention_inputs
 from torch_ssg_cases import CASES, MAP_RTOL, case_inputs, grad_atol
 
-from ssl_tpu_torch.ops import ssg_cuda
+from ssl_tpu_torch.ops import attention_cuda, ssg_cuda
+from ssl_tpu_torch.ops.attention import sdp_attention, sdp_attention_reference
 from ssl_tpu_torch.ops.ssg import SSGConfig, ssl_loss_dense_bwd, ssl_loss_sums_reference
 
 
@@ -62,3 +69,44 @@ def test_k1_gradient_matches_plain_on_card(cuda_case):
     d_ref = ssl_loss_dense_bwd(sr, gt, mask, ref[3], ref[4], one, half, cfg,
                                a_map=ref[5], b_map=ref[6]).cpu().numpy()
     np.testing.assert_allclose(s.grad.cpu().numpy(), d_ref, rtol=1e-4, atol=grad_atol(d_ref))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the K2 kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_k2_kernel_matches_plain_on_card(card, case):
+    b, heads, n, m, d, scale, layout, logits = CUDA_CASES[case]
+    q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda")
+    before = attention_cuda.launches
+    got = sdp_attention(q, k, v, scale, use_flash=True)
+    assert attention_cuda.launches == before + 1
+    ref = sdp_attention_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (b, n, heads, d)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_k2_raises_instead_of_falling_back(card):
+    """An eligible CUDA call never takes the plain path: a gradient raises,
+    and so does a shape the kernel does not take."""
+    q, k, v = attention_inputs(1, 2, 512, 512, 64, 0.125, "proj", 8.0, device="cuda")
+    before = attention_cuda.launches
+    with pytest.raises(NotImplementedError, match="training slice"):
+        sdp_attention(q.requires_grad_(True), k, v, 0.125, use_flash=True)
+    q48, k48, v48 = (t[..., :48] for t in attention_inputs(1, 2, 512, 512, 64, 0.125, "proj",
+                                                            8.0, device="cuda"))
+    with pytest.raises(ValueError, match="head width 48"):
+        sdp_attention(q48, k48, v48, 0.125, use_flash=True)
+    assert attention_cuda.launches == before
+    with torch.no_grad():
+        sdp_attention(q, k, v, 0.125, use_flash=True)
+    assert attention_cuda.launches == before + 1

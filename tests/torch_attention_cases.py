@@ -1,0 +1,43 @@
+"""Inputs of the port's attention tests, made with numpy from a seed.
+
+Imports neither JAX nor ssl_tpu, so that the card-only tests
+(``test_torch_cuda.py``) can use it on a machine without JAX.
+
+Each case is (b, heads, n, m, d, sm_scale, layout, logit range):
+``proj`` lays q, k and v out as the UNet's ``to_q``/``to_k``/``to_v`` give
+them, (b, seq, heads·d) viewed as (b, seq, heads, d); ``qkv`` slices them out
+of one head-major packed (b, seq, heads, 3, d) tensor, as
+``AttentionBlockQKV`` does, so they are strided views.  q and k are scaled so
+that the largest |q·k·sm_scale| over the first 256 rows is the logit range."""
+
+import numpy as np
+import torch
+
+# the K2 shapes of the diffusion serving path at 512^2 (64^2 latent), ssl_base.yml
+CUDA_CASES = {
+    "unet_ds1": (1, 4, 4096, 4096, 64, 64 ** -0.5, "proj", 8.0),
+    "unet_ds2": (1, 8, 1024, 1024, 64, 64 ** -0.5, "proj", 8.0),
+    "struct_ds1": (1, 4, 4096, 4096, 64, 1.0, "qkv", 8.0),
+    "struct_ds2": (1, 4, 1024, 1024, 128, 1.0, "qkv", 8.0),
+    "vae_mid": (1, 1, 4096, 4096, 512, 512 ** -0.5, "proj", 8.0),
+    "large_logits": (2, 2, 512, 1024, 64, 64 ** -0.5, "proj", 50.0),
+}
+
+
+def attention_inputs(b, heads, n, m, d, sm_scale, layout, logit_range, seed=0, device="cpu"):
+    """(q, k, v) as float32 (b, seq, heads, d) tensors in the given layout."""
+    rng = np.random.RandomState(seed)
+    if layout == "qkv":
+        if n != m:
+            raise ValueError("the packed qkv layout is self-attention: n == m")
+        qkv = rng.randn(b, n, heads, 3, d).astype(np.float32)
+        q, k = qkv[..., 0, :], qkv[..., 1, :]
+    else:
+        q, k, v = (rng.randn(b, s, heads, d).astype(np.float32) for s in (n, m, m))
+    top = np.abs(np.einsum("bnhd,bmhd->bhnm", q[:, :256], k[:, :256]) * sm_scale).max()
+    gain = np.float32((logit_range / top) ** 0.5)
+    if layout == "qkv":
+        qkv[..., :2, :] *= gain
+        t = torch.from_numpy(qkv).to(device)
+        return t[..., 0, :], t[..., 1, :], t[..., 2, :]
+    return tuple(torch.from_numpy(a).to(device) for a in (q * gain, k * gain, v))
