@@ -5,7 +5,8 @@
 Phases, each printing JSON lines; the first failure exits non-zero:
 
 1. build   compile the port's CUDA kernels (K1 ssg_loss_fwd, K2
-           flash_attn_fwd) with nvcc, one process per source, all at once
+           flash_attn_fwd and flash_attn_bwd) with nvcc, one process per
+           source, all at once
 2. kernel  hold K1 (ssl_tpu_torch/csrc/ssg_loss_fwd.cu) against its plain
            PyTorch version on the card: a small case (search 9, window 5),
            the shipped search 25 / window 9 / sigma 0.004 on smooth images
@@ -13,12 +14,17 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            path's own inputs (bench.py's uniform images, on which every
            off-centre q is 0); forward outputs and d_sr through the autograd
            function, with the L1 subgradient's ties accounted for; times the
-           kernel, the plain forward and the backward.  Then hold K2
-           (ssl_tpu_torch/csrc/flash_attn_fwd.cu) against its plain version
-           at each shape the serving path gives it and at one case with
-           logits up to 50; times the kernel, the plain version and
+           kernel, the plain forward and the backward.  Then hold K2's
+           forward (ssl_tpu_torch/csrc/flash_attn_fwd.cu) against its plain
+           version at each shape the serving path gives it and at one case
+           with logits up to 50; times the kernel, the plain version and
            torch's scaled_dot_product_attention (the yardstick, which the
-           port never calls).  TF32 is off throughout.
+           port never calls).  Then K2's backward
+           (ssl_tpu_torch/csrc/flash_attn_bwd.cu, dkv and dq) and the
+           forward's lse at each shape of the training path: against
+           flash_attn_bwd_reference and autograd through the plain
+           attention; times the kernels (each alone from the profiler), the
+           plain backward and SDPA's backward.  TF32 is off throughout.
 3. diffusion  the StableSR-SSL model of options/diffusion/ssl_base.yml at
            full width with model.use_flash_attention on, random weights from
            seeds; every layer the init leaves at 0 is drawn from a seeded
@@ -31,12 +37,23 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            through the inference CLI's own ``restore``; times per request,
            per denoising step, VAE encode and decode, peak memory, and the
            K2 launch count, which must be 14 per step and 2 per request
-6. train   the ESRGAN-SSL train step at the shipped widths (RRDBNet 64/23/32,
+6. train_e2e  one training mini-step at 256^2, batch 2, TF32 off, through
+           the K2 route and the plain route from the same weights and draws:
+           the logs within TRAIN_LOG_RTOL and every parameter's gradient
+           within TRAIN_GRAD_REL_L2; K2 launches as derived
+7. diffusion_train  the shipped training options (lr 5e-5, 12 mini-steps
+           per update, EMA 0.9999) at 512^2, batch 2, on smooth synthetic
+           GT/LQ with a mask of density 0.25: one full accumulation cycle of
+           12 mini-steps through train_step; logs finite, weights unchanged
+           after mini-steps 1-11 and moved after 12, the EMA moved, K1 once
+           and K2 17 forward and 15 backward per mini-step; times, peak
+           memory and K2's backward device time per mini-step
+8. train   the ESRGAN-SSL train step at the shipped widths (RRDBNet 64/23/32,
            VGGStyleDiscriminator 64, VGG19 conv5_4, SSL 25/9/0.004), batch 16,
            gt 128: one warm-up step and 3 timed steps through build_model ->
            init_state -> train_step, with the K1 launch count read around
            them
-7. kernels one line per ported kernel: launches on its main path, error
+9. kernels one line per ported kernel: launches on its main paths, error
            against the plain version, times and the bound
 
 then the card's name and power limit as nvidia-smi reports them, and last
@@ -63,6 +80,14 @@ PEAK_FP32_PER_S = 67e12
 
 MAIN_B, MAIN_GT, SCALE = 16, 128, 4
 
+# The TPU kernels K2's backward replaces: upstream's Pallas TPU flash attention
+# (jax/experimental/pallas/ops/tpu/flash_attention.py, jax 0.9.0), whose custom
+# VJP ssl_tpu/ops/attention.py:32-39 reaches.
+UPSTREAM_DKV = ("jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
+                "_flash_attention_bwd_dkv (via ssl_tpu/ops/attention.py:32)")
+UPSTREAM_DQ = ("jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
+               "_flash_attention_bwd_dq (via ssl_tpu/ops/attention.py:32)")
+
 # |x - y| / max(x, y) below which the plain forward's sign(x - y) counts as
 # tied: q carries up to ~1e-5 of relative rounding at sigma 0.004 and the
 # kernel's inverse maps ~2e-5, so another summation order moves x - y by less.
@@ -88,6 +113,27 @@ SERVE_MIX = {"unet_ds1": 5 * SERVE_STEPS, "struct_ds1": 2 * SERVE_STEPS,
 # before the first run).
 E2E_LQ, E2E_STEPS, E2E_K2_LAUNCHES = 64, 5, 5 * 7 + 2
 E2E_REL_L2 = 1e-3
+# K2's backward against its plain version (flash_attn_bwd_reference and
+# autograd through the plain attention): each of dq, dk and dv within this
+# relative L2, and elementwise within rtol 1e-3 and an atol of 1e-4 of the
+# largest value.  dS = P * (dP - di) subtracts nearly equal numbers where a
+# logit barely matters, and the two sides form di in other orders, so single
+# elements carry the cancellation's error on the gradient's own scale.
+BWD_REL_L2, BWD_RTOL, BWD_ATOL = 1e-4, 1e-3, 1e-4
+# The training path: ssl_base.yml at 512^2 (64^2 latent), batch 2.  K2 per
+# mini-step: forward with lse in the UNet (10) and the struct-cond encoder
+# (4), the no-grad VAE encoder over [gt; lq] (1), the decoder's mid
+# attention (1) and its replay under remat (1); backward in all but the
+# encoder and the replay.  tests/test_torch_diffusion_config.py counts them
+# on the meta device.
+TRAIN_B, TRAIN_SIZE, TRAIN_MINI_STEPS = 2, 512, 12
+TRAIN_K2_FWD, TRAIN_K2_BWD = 17, 15
+# The K2-vs-plain hold of one mini-step at 256^2 (a 32^2 latent: the
+# UNet's and struct-cond encoder's ds-1 attentions and the VAE's mid
+# attention are eligible; 5 + 2 with lse, the encoder 1, the decoder 1 and
+# its replay 1), TF32 off.  Bounds stated before the first run (PERF.md).
+TRAIN_E2E_SIZE, TRAIN_E2E_K2 = 256, {"fwd": 10, "bwd": 8}
+TRAIN_LOG_RTOL, TRAIN_GRAD_REL_L2 = 1e-4, 1e-3
 
 
 def emit(obj) -> None:
@@ -213,7 +259,7 @@ def phase_build():
     """Compile every kernel of the port, one nvcc process per source, all at once."""
     from concurrent.futures import ThreadPoolExecutor
     from ssl_tpu_torch.ops import cuda_build
-    names = ("ssg_loss_fwd", "flash_attn_fwd")
+    names = ("ssg_loss_fwd", "flash_attn_fwd", "flash_attn_bwd")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         logs = dict(zip(names, pool.map(lambda n: cuda_build.build(n)[1], names)))
@@ -422,8 +468,111 @@ def phase_k2():
     return results
 
 
+def k2_bwd_times(b, h, n, m, d):
+    """The least times (ms) of K2's backward functions, (ops_ms, bytes_ms)
+    each: dkv needs q kᵀ, dO vᵀ, Pᵀ dO and dSᵀ q (8bhnmd) and 5bhnm for P and
+    dS; dq needs q kᵀ, dO vᵀ and dS k (6bhnmd) and the same 5bhnm; the whole
+    backward 10bhnmd + 8bhnm.  Bytes: q, k, v, dO, lse and di read once,
+    the function's outputs written once."""
+    inputs = 4 * b * h * (2 * n * d + 2 * m * d + 2 * n)
+    out = {"dkv": (8 * b * h * n * m * d + 5 * b * h * n * m, inputs + 4 * b * h * 2 * m * d),
+           "dq": (6 * b * h * n * m * d + 5 * b * h * n * m, inputs + 4 * b * h * n * d),
+           "bwd": (10 * b * h * n * m * d + 8 * b * h * n * m,
+                   inputs + 4 * b * h * (n * d + 2 * m * d))}
+    return {k: (1e3 * ops / PEAK_FP32_PER_S, 1e3 * nbytes / PEAK_BYTES_PER_S)
+            for k, (ops, nbytes) in out.items()}
+
+
+def device_ms(fn, names, iters: int = 5) -> dict:
+    """Device time (ms per call) of the kernels whose names contain each of
+    ``names``, from torch.profiler over ``iters`` calls of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    out = {n: sum(e.self_device_time_total for e in events if n in e.key) / 1e3 / iters
+           for n in names}
+    if not all(v > 0 for v in out.values()):
+        fail(f"the profiler shows no device time for {names}: {out}")
+    return out
+
+
+def phase_k2_bwd():
+    """K2's backward (and the forward's lse) against the plain versions at
+    the training path's shapes and at large logits; then times.  The plain
+    and SDPA times are of the whole backward (dq, dk and dv)."""
+    import torch
+    import torch.nn.functional as F
+    from torch_attention_cases import TRAIN_CASES, attention_inputs
+    from ssl_tpu_torch.ops import attention_cuda
+    from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_reference,
+                                             sdp_attention_reference)
+
+    results = {}
+    for name, (b, h, n, m, d, scale, layout, logit_range) in TRAIN_CASES.items():
+        q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logit_range, device="cuda")
+        do = torch.randn((b, n, h, d), generator=torch.Generator(device="cuda").manual_seed(11),
+                         device="cuda")
+        o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+        ref_o, ref_lse = sdp_attention_reference(q, k, v, scale), attention_lse_reference(q, k, scale)
+        errs = {"o": check_close(f"K2 bwd {name} o", o, ref_o, 1e-4,
+                                 1e-5 * float(ref_o.abs().max())),
+                "lse": check_close(f"K2 bwd {name} lse", lse, ref_lse, 1e-5, 1e-5)}
+        got = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+        refs = {"reference": flash_attn_bwd_reference(q, k, v, ref_o, ref_lse, do, scale)}
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        sdp_attention_reference(*leaves, scale).backward(do)
+        refs["autograd"] = [t.grad for t in leaves]
+        rel = {}
+        for against, ref in refs.items():
+            for g_name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                rel[f"{g_name}_vs_{against}"] = float((g - r).norm() / r.norm())
+                errs[f"{g_name}_vs_{against}"] = check_close(
+                    f"K2 bwd {name} {g_name} vs {against}", g, r, BWD_RTOL,
+                    BWD_ATOL * float(r.abs().max()))
+        if max(rel.values()) > BWD_REL_L2:
+            fail(f"K2 bwd {name}: relative L2 {rel} above {BWD_REL_L2}")
+        del refs, leaves
+
+        def kernel():
+            attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+
+        split = device_ms(kernel, ("flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel"))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        do_t = do.transpose(1, 2)
+        iters = 5 if d == 512 or n == 4096 else 20
+        kernel_ms = time_ms(kernel, iters)
+        plain_ms = time_ms(lambda: flash_attn_bwd_reference(q, k, v, o, lse, do, scale), iters)
+        library_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                                         retain_graph=True), iters)
+        bounds = k2_bwd_times(b, h, n, m, d)
+        results[name] = {"max_abs_err": max(errs.values()), "ms": kernel_ms,
+                         "dkv_ms": split["flash_attn_bwd_dkv_kernel"],
+                         "dq_ms": split["flash_attn_bwd_dq_kernel"], "plain_ms": plain_ms,
+                         "library_ms": library_ms,
+                         **{f"{f}_{kind}": bounds[f][i] for f in ("dkv", "dq")
+                            for i, kind in enumerate(("ops_ms", "bytes_ms"))}}
+        emit({"phase": "kernel", "kernel": "flash_attn_bwd", "case": name,
+              "b_heads_n_m_d": [b, h, n, m, d], "layout": layout, "sm_scale": scale,
+              "logit_range": logit_range, "max_abs_err": errs, "rel_l2": rel,
+              "kernel_ms": kernel_ms, "dkv_ms": split["flash_attn_bwd_dkv_kernel"],
+              "dq_ms": split["flash_attn_bwd_dq_kernel"], "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              "bound_ms": {k: max(v) for k, v in bounds.items()},
+              "fraction_of_bound": max(bounds["bwd"]) / kernel_ms})
+        del q, k, v, o, lse, do, got, qt, kt, vt, sdpa_out
+        torch.cuda.empty_cache()
+    return results
+
+
 def ssl_base_cfg() -> dict:
-    """options/diffusion/ssl_base.yml's model and sslopt blocks as a dict
+    """options/diffusion/ssl_base.yml's model, sslopt and train blocks as a dict
     (the card's machine has no yaml), with model.use_flash_attention on, as
     scripts/bench_diffusion_ssl.py sets it with BENCH_FLASH_ATTN=1."""
     return {
@@ -437,6 +586,8 @@ def ssl_base_cfg() -> dict:
         "sslopt": {"l1_weight": 0.5, "kl_weight": 0.5, "mask_stride": 3,
                    "kernel_size_search": 25, "kernel_size_window": 9, "sigma": 0.004,
                    "generalization": True, "impl": "dense"},
+        "train": {"lr": 5.0e-5, "accumulate_grad_batches": 12, "max_steps": 800000,
+                  "log_every": 100, "save_every": 1000},
     }
 
 
@@ -570,6 +721,148 @@ def phase_serve(model, state):
     return launches
 
 
+def train_batch(size: int, seed: int) -> dict:
+    """A smooth synthetic GT (2, 3, size, size) in [0, 1] made on the card,
+    its LQ (4x area-downsampled, bicubically upsampled back, as the pipeline
+    hands it over), and an edge mask of density 0.25 (bench.py's)."""
+    import torch
+    import torch.nn.functional as F
+    gt = torch.cat([lq_image(size, size, seed=seed + i) for i in range(TRAIN_B)])
+    lq = F.interpolate(F.avg_pool2d(gt, 4), size=(size, size), mode="bicubic",
+                       align_corners=False).clamp(0, 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mask = (torch.rand((TRAIN_B, 1, size, size), generator=gen, device="cuda") < 0.25).float()
+    return {"gt": gt, "lq": lq, "gt_mask": mask}
+
+
+def reset_training(state) -> None:
+    """Back to no accumulated gradient, mini-step 0 (the weights are as they
+    were: no update has been applied)."""
+    state.opt.zero_grad(set_to_none=True)
+    state.step = state.mini_step = 0
+
+
+def phase_train_e2e(model, state):
+    """One mini-step at 256^2 through the K2 route and the plain route, from
+    the same weights and handed-in draws; the first of 12 mini-steps leaves
+    the summed gradients in .grad and the weights untouched."""
+    import torch
+    from ssl_tpu_torch.diffusion.ddpm_ssl import latent_shape, trainable
+    from ssl_tpu_torch.ops import attention_cuda
+
+    batch = train_batch(TRAIN_E2E_SIZE, seed=20)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shape = latent_shape(state.frozen["vae"], TRAIN_B, TRAIN_E2E_SIZE, TRAIN_E2E_SIZE)
+    draws = {"enc_noise": torch.randn((2 * TRAIN_B, *shape[1:]), generator=gen, device="cuda"),
+             "t": torch.tensor([1, 3], device="cuda") * (model.sched.num_timesteps // 4),
+             "noise": torch.randn(shape, generator=gen, device="cuda")}
+    logs, grads, launches = {}, {}, {}
+    for route, flash in (("k2", True), ("plain", False)):
+        for m in flash_modules(state):
+            m.use_flash_attention = flash
+        reset_training(state)
+        attention_cuda.launches = attention_cuda.bwd_launches = 0
+        _, out = model.train_step(state, batch, draws)
+        torch.cuda.synchronize()
+        launches[route] = {"fwd": attention_cuda.launches, "bwd": attention_cuda.bwd_launches}
+        logs[route] = {k: float(v) for k, v in out.items()}
+        grads[route] = [p.grad.detach().clone() for p in trainable(state.params)]
+    for m in flash_modules(state):
+        m.use_flash_attention = True
+    reset_training(state)
+    if launches != {"k2": TRAIN_E2E_K2, "plain": {"fwd": 0, "bwd": 0}}:
+        fail(f"train_e2e: K2 launches {launches}, expected {TRAIN_E2E_K2} on the K2 route")
+    names = [f"{net}.{n}" for net in ("unet", "structcond")
+             for n, _ in state.params[net].named_parameters()] + ["null_context"]
+    norms = [float(g.norm()) for g in grads["plain"]]
+    # a gradient below 1e-6 of the largest one is rounding noise (the
+    # function does not depend on that parameter), so its relative error is
+    # not a measure of the kernels; such parameters are counted, not held
+    resolved = [n > 1e-6 * max(norms) for n in norms]
+    rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+           for a, b in zip(grads["k2"], grads["plain"])]
+    held = [r for r, ok in zip(rel, resolved) if ok]
+    total = float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(*grads.values())))
+                  / torch.sqrt(sum((b ** 2).sum() for b in grads["plain"])))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads["k2"])
+    log_err = {k: abs(logs["k2"][k] - v) / abs(v) for k, v in logs["plain"].items()}
+    worst = sorted(range(len(rel)), key=lambda i: -rel[i])[:5]
+    emit({"phase": "train_e2e", "size": TRAIN_E2E_SIZE, "batch": TRAIN_B, "k2_launches": launches,
+          "logs": logs, "log_rel_err": log_err, "grad_rel_l2_held_max": max(held),
+          "grad_rel_l2_all": total, "n_params": len(rel), "n_unresolved": len(rel) - len(held),
+          "grad_rel_l2_worst": [[names[i], rel[i], norms[i] / max(norms)] for i in worst],
+          "grad_bound": TRAIN_GRAD_REL_L2, "log_bound": TRAIN_LOG_RTOL,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+    if not finite or not all(map(lambda x: x == x, logs["k2"].values())):
+        fail("train_e2e: the K2 route's gradients or logs are not finite")
+    if max(log_err.values()) > TRAIN_LOG_RTOL:
+        fail(f"train_e2e: logs differ by {log_err} (rtol {TRAIN_LOG_RTOL})")
+    if max(held) > TRAIN_GRAD_REL_L2 or total > TRAIN_GRAD_REL_L2:
+        fail(f"train_e2e: a parameter's gradient differs by {max(held)} relative L2, all "
+             f"together by {total} (bound {TRAIN_GRAD_REL_L2})")
+
+
+def phase_diffusion_train(model, state):
+    """One full accumulation cycle at 512^2 through train_step; returns the
+    K1, K2 forward and K2 backward launch counts of the run."""
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.diffusion.ddpm_ssl import trainable
+    from ssl_tpu_torch.ops import attention_cuda, ssg_cuda
+
+    batches = [train_batch(TRAIN_SIZE, seed=30 + 2 * i) for i in range(TRAIN_MINI_STEPS)]
+    start = [p.detach().clone() for p in trainable(state.params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssg_cuda.launches = attention_cuda.launches = attention_cuda.bwd_launches = 0
+    ms, logs, k2_bwd_ms = [], [], None
+    for i, batch in enumerate(batches):
+        if i == TRAIN_MINI_STEPS - 1:
+            ema_before = [e.clone() for e in trainable(state.ema_params)]
+        t0 = time.perf_counter()
+        if i == 1:            # a warm mini-step under the profiler (kept out of the warm times)
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, out = model.train_step(state, batch)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            k2_bwd_ms = {n: sum(e.self_device_time_total for e in events if n in e.key) / 1e3
+                         for n in ("flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel",
+                                   "flash_attn_fwd_kernel")}
+            k2_bwd_ms["device_busy"] = sum(e.self_device_time_total for e in events) / 1e3
+        else:
+            _, out = model.train_step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        values = {k: float(v) for k, v in out.items()}
+        logs.append(values)
+        if not all(np.isfinite(v) for v in values.values()):
+            fail(f"diffusion_train: mini-step {i + 1} logged {values}")
+        same = all(torch.equal(a, p) for a, p in zip(start, trainable(state.params)))
+        if same != (i < TRAIN_MINI_STEPS - 1):
+            fail(f"diffusion_train: after mini-step {i + 1} the weights "
+                 f"{'did not move' if same else 'moved'}")
+    launches = {"k1": ssg_cuda.launches, "k2_fwd": attention_cuda.launches,
+                "k2_bwd": attention_cuda.bwd_launches}
+    if any(torch.equal(a, e) for a, e in zip(ema_before, trainable(state.ema_params))):
+        fail("diffusion_train: an EMA tensor did not move at the applying mini-step")
+    n = TRAIN_MINI_STEPS
+    expected = {"k1": n, "k2_fwd": n * TRAIN_K2_FWD, "k2_bwd": n * TRAIN_K2_BWD}
+    emit({"phase": "diffusion_train", "config": "options/diffusion/ssl_base.yml",
+          "size": TRAIN_SIZE, "batch": TRAIN_B, "mini_steps": n,
+          "accumulate": model.accumulate, "lr": model.lr, "ms_first": ms[0],
+          "ms_profiled": ms[1], "ms_warm_mean": sum(ms[2:-1]) / len(ms[2:-1]),
+          "ms_warm": ms[2:-1], "ms_applying": ms[-1], "logs_first": logs[0], "logs_last": logs[-1],
+          "launches": launches, "expected": expected,
+          "device_ms_profiled_mini_step": k2_bwd_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
+    if launches != expected:
+        fail(f"diffusion_train: launches {launches}, expected {expected}")
+    return launches
+
+
 def phase_train():
     import numpy as np
     import torch
@@ -641,33 +934,56 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     k1 = phase_kernel()
     k2 = phase_k2()
+    k2_bwd = phase_k2_bwd()
     model, state = phase_diffusion()
     phase_e2e(model, state)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     k2_launches = phase_serve(model, state)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    phase_train_e2e(model, state)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    train = phase_diffusion_train(model, state)
     del model, state
     torch.cuda.empty_cache()
     launches = phase_train()
 
-    # K2's times and bound as a mean per launch over one serving request's shapes
-    total = sum(SERVE_MIX.values())
+    def mean(results, mix, key):
+        """A per-launch mean over a path's mix of shapes ({case: launches})."""
+        return sum(w * results[case][key] for case, w in mix.items()) / sum(mix.values())
 
-    def k2_mean(key):
-        return sum(w * k2[case][key] for case, w in SERVE_MIX.items()) / total
+    from torch_attention_cases import TRAIN_MIX_BWD
+
+    def bwd_entry(f, replaces):
+        ops, nbytes = (mean(k2_bwd, TRAIN_MIX_BWD, f"{f}_{kind}") for kind in ("ops_ms", "bytes_ms"))
+        return {"name": f"flash_attn_bwd_{f}", "route": "cuda",
+                "source": "ssl_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": replaces,
+                "launches": train["k2_bwd"], "launches_by_path": {"diffusion_train": train["k2_bwd"]},
+                "max_abs_err": max(r["max_abs_err"] for r in k2_bwd.values()),
+                "ms": mean(k2_bwd, TRAIN_MIX_BWD, f"{f}_ms"),
+                "plain_ms": mean(k2_bwd, TRAIN_MIX_BWD, "plain_ms"), "bound_ms": max(ops, nbytes),
+                "bound_by": "operations" if ops >= nbytes else "bytes",
+                "library_ms": mean(k2_bwd, TRAIN_MIX_BWD, "library_ms"),
+                "times_are": "mean per launch over one training mini-step's mix of shapes; "
+                             "plain_ms and library_ms time the whole backward (dq, dk, dv)"}
 
     emit({"kernels": [{
         "name": "ssg_loss_fwd", "route": "cuda", "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu",
-        "replaces": "ssl_tpu/ops/ssg_pallas.py:41", "launches": launches,
+        "replaces": "ssl_tpu/ops/ssg_pallas.py:41", "launches": launches + train["k1"],
+        "launches_by_path": {"esrgan_train": launches, "diffusion_train": train["k1"]},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None}, {
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "ssl_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "ssl_tpu/ops/attention.py:28", "launches": k2_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k2.values()), "ms": k2_mean("ms"),
-        "plain_ms": k2_mean("plain_ms"), "bound_ms": max(k2_mean("ops_ms"), k2_mean("bytes_ms")),
-        "bound_by": "operations" if k2_mean("ops_ms") >= k2_mean("bytes_ms") else "bytes",
-        "library_ms": k2_mean("library_ms"),
-        "times_are": "mean per launch over one serving request's mix of shapes"}]})
+        "replaces": "ssl_tpu/ops/attention.py:28", "launches": k2_launches + train["k2_fwd"],
+        "launches_by_path": {"serve": k2_launches, "diffusion_train": train["k2_fwd"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+        "ms": mean(k2, SERVE_MIX, "ms"), "plain_ms": mean(k2, SERVE_MIX, "plain_ms"),
+        "bound_ms": max(mean(k2, SERVE_MIX, "ops_ms"), mean(k2, SERVE_MIX, "bytes_ms")),
+        "bound_by": ("operations" if mean(k2, SERVE_MIX, "ops_ms") >= mean(k2, SERVE_MIX, "bytes_ms")
+                     else "bytes"),
+        "library_ms": mean(k2, SERVE_MIX, "library_ms"),
+        "times_are": "mean per launch over one serving request's mix of shapes"},
+        bwd_entry("dkv", UPSTREAM_DKV), bwd_entry("dq", UPSTREAM_DQ)]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,6 +7,10 @@
 //     o[b, i, h, :] = sum_j softmax_j(sm_scale * q[b, i, h, :] . k[b, j, h, :]) v[b, j, h, :]
 // over float32 (b, seq, heads, d) tensors read through their strides (unit
 // stride along d), with n and m multiples of 128 (the wrapper checks both).
+// For training it also writes each row's log-sum-exp of the scaled logits,
+// lse = m + log(l) from the running max and sum it holds anyway; the backward
+// (csrc/flash_attn_bwd.cu) recomputes the probabilities from it.  Upstream
+// saves m and l apart (save_residuals), which carry the same information.
 //
 // What bounds it on this card: operations.  At the diffusion tree's shapes
 // (n = m = 4096 with d = 64 for the UNet's 4 heads, d = 512 for the VAE's one
@@ -66,8 +70,9 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 template <int D, int BM, int BN>
 __global__ void __launch_bounds__(NTHREADS)
 flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o, Strides st,
-                      int heads, int m, float sm_scale) {
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, Strides st, int heads, int n, int m,
+                      float sm_scale) {
   constexpr int TM = BM / 16;   // query rows per thread
   constexpr int TN = D / 16;    // output columns per thread
   constexpr int SJ = BN / 16;   // logit columns per thread and tile
@@ -174,19 +179,23 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = op + (long long)(q0 + ty * TM + i) * st.on;
 #pragma unroll
     for (int c = 0; c < TN; ++c) orow[tx + 16 * c] = acc[i][c] / row_l[i];
+    // the row's log-sum-exp of the scaled logits, for the backward's recompute
+    if (lse != nullptr && tx == 0)
+      lse[(long long)blockIdx.y * n + q0 + ty * TM + i] = row_m[i] + logf(row_l[i]);
   }
 }
 
 template <int D, int BM, int BN>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, const Strides& st,
-                   int b, int heads, int n, int m, float sm_scale, cudaStream_t stream) {
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse,
+                   const Strides& st, int b, int heads, int n, int m, float sm_scale,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D, BM, BN>();
   cudaError_t err = cudaFuncSetAttribute(flash_attn_fwd_kernel<D, BM, BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n / BM, b * heads);
-  flash_attn_fwd_kernel<D, BM, BN><<<grid, NTHREADS, smem, stream>>>(q, k, v, o, st, heads, m,
-                                                                      sm_scale);
+  flash_attn_fwd_kernel<D, BM, BN><<<grid, NTHREADS, smem, stream>>>(q, k, v, o, lse, st, heads,
+                                                                      n, m, sm_scale);
   return cudaGetLastError();
 }
 
@@ -198,9 +207,11 @@ const char* flash_attn_error_string(int err) { return cudaGetErrorString((cudaEr
 
 // q: (b, n, heads, d), k and v: (b, m, heads, d), o: (b, n, heads, d); float32
 // on the current device, element strides per (batch, seq, head), unit stride
-// along d; n and m multiples of 128.  Returns cudaGetLastError() after the launch.
-int flash_attn_fwd(const float* q, const float* k, const float* v, float* o, long long qb,
-                   long long qn, long long qh, long long kb, long long kn, long long kh,
+// along d; n and m multiples of 128.  lse: null, or a contiguous (b, heads, n)
+// output for each row's log-sum-exp of the scaled logits (what the backward
+// recomputes the probabilities from).  Returns cudaGetLastError() after the launch.
+int flash_attn_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
+                   long long qb, long long qn, long long qh, long long kb, long long kn, long long kh,
                    long long vb, long long vn, long long vh, long long ob, long long on,
                    long long oh, int b, int heads, int n, int m, int d, float sm_scale,
                    void* stream) {
@@ -208,9 +219,9 @@ int flash_attn_fwd(const float* q, const float* k, const float* v, float* o, lon
   const cudaStream_t s = (cudaStream_t)stream;
   if (n % 128 != 0 || m % 128 != 0) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 64: return (int)launch<64, 64, 64>(q, k, v, o, st, b, heads, n, m, sm_scale, s);
-    case 128: return (int)launch<128, 64, 64>(q, k, v, o, st, b, heads, n, m, sm_scale, s);
-    case 512: return (int)launch<512, 32, 32>(q, k, v, o, st, b, heads, n, m, sm_scale, s);
+    case 64: return (int)launch<64, 64, 64>(q, k, v, o, lse, st, b, heads, n, m, sm_scale, s);
+    case 128: return (int)launch<128, 64, 64>(q, k, v, o, lse, st, b, heads, n, m, sm_scale, s);
+    case 512: return (int)launch<512, 32, 32>(q, k, v, o, lse, st, b, heads, n, m, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

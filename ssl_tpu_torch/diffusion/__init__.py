@@ -1,6 +1,7 @@
-"""The StableSR-SSL diffusion tree: serving (encode, spaced DDPM / DDIM /
-PLMS over the struct-cond encoder and the dual-cond UNet, decode, color fix).
-Counterpart of ``ssl_tpu/diffusion``; the train step waits for its slice."""
+"""The StableSR-SSL diffusion tree: the train step (``StableSRSSL.train_step``)
+and serving (encode, spaced DDPM / DDIM / PLMS over the struct-cond encoder
+and the dual-cond UNet, decode, color fix).  Counterpart of
+``ssl_tpu/diffusion``; its training CLI waits for the data slice."""
 from ssl_tpu_torch.diffusion.color_fix import adain_color_fix, wavelet_color_fix  # noqa: F401
 from ssl_tpu_torch.diffusion.ddpm_ssl import (  # noqa: F401
     DiffusionSSLConfig, DiffusionState, StableSRSSL,

@@ -6,8 +6,11 @@ fans out to the UNet, the struct-cond encoder and the VAE, as there.  Not
 ported yet, and raising ``NotImplementedError``: ``compute_dtype`` (bf16
 activations), ``parallel`` (data and tensor parallelism), reference-schema
 configs (``model.target``), the SSL strategy zoo, and the checkpoint and
-CLIP weight paths.  The training options (the SSL setting, learning rate
-and accumulation) and the training CLI come with the training slice."""
+CLIP weight paths.  The training options come over as there: ``sslopt``
+into the SSL setting (``mask_stride`` 3 by default; ``capacity``, the gather
+API's, is read and ignored), ``train.lr`` and
+``train.accumulate_grad_batches``.  The training CLI (``train``) waits for the
+RealESRGAN data slice (ROADMAP.md, queue 1)."""
 
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import torch
 from ssl_tpu_torch.diffusion.ddpm_ssl import DiffusionSSLConfig, StableSRSSL
 from ssl_tpu_torch.diffusion.unet import NOT_PORTED, EncoderUNetModelWT, UNetModelDualcondV2
 from ssl_tpu_torch.diffusion.vae import AutoencoderKL
+from ssl_tpu_torch.losses.ssl_loss import SSLSetting
+from ssl_tpu_torch.ops.ssg import SSGConfig
 
 # the fused SSL loss under the names the reference configs give it
 DEFAULT_STRATEGIES = ("", "areaarea_mask_nonlocalavg_cuda_v1", "ssl_cuda")
@@ -57,8 +62,17 @@ def build_from_config(cfg: dict) -> StableSRSSL:
         unet = UNetModelDualcondV2(context_dim=dcfg.context_dim, **unet_cfg)
         structcond = EncoderUNetModelWT(**struct_cfg)
         vae = AutoencoderKL(**vae_cfg)
+    ssg = SSGConfig(search=sslopt.get("kernel_size_search", 25),
+                    window=sslopt.get("kernel_size_window", 9),
+                    sigma=sslopt.get("sigma", 0.004),
+                    generalization=sslopt.get("generalization", True))
+    setting = SSLSetting(ssg=ssg, mask_stride=sslopt.get("mask_stride", 3),
+                         l1_weight=dcfg.ssl_l1_weight, kl_weight=dcfg.ssl_kl_weight,
+                         impl=sslopt.get("impl", "dense"))
+    train = cfg.get("train", {})
     return StableSRSSL(
-        dcfg, unet=unet, structcond=structcond, vae=vae,
+        dcfg, unet=unet, structcond=structcond, vae=vae, ssl_setting=setting,
+        lr=train.get("lr", 5e-5), accumulate=train.get("accumulate_grad_batches", 1),
         vae_ckpt=model_cfg.get("vae_ckpt"),
         clip_text_ckpt=model_cfg.get("clip_text_ckpt"),
         text_prompt=model_cfg.get("text_prompt"),

@@ -39,14 +39,16 @@ SAMPLERS = {"ddpm": spaced_ddpm_sample, "ddim": ddim_sample, "plms": plms_sample
 
 def load_jax_params(state: DiffusionState, params: dict) -> None:
     """Carry a JAX params tree into the state's weights and their EMA, so
-    that sampling (which reads the EMA) uses the loaded weights."""
+    that sampling (which reads the EMA) uses the loaded weights.  Values are
+    copied in place: the optimizer keeps the same tensors."""
     carried = params_from_jax("StableSRSSL", params)
     for p in (state.params, state.ema_params):
         if p is None:
             continue
         p["unet"].load_state_dict(carried["unet"])
         p["structcond"].load_state_dict(carried["structcond"])
-        p["null_context"] = carried["null_context"].to(p["null_context"].device)
+        with torch.no_grad():
+            p["null_context"].copy_(carried["null_context"])
 
 
 def restore(model, state: DiffusionState, lq_up: torch.Tensor, generator: torch.Generator,

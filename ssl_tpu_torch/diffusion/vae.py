@@ -9,9 +9,17 @@ multiple of 32; the encoder's stride-2 convs pad (0, 1) on each axis; the
 decoder upsamples nearest x2.  The mid-block attention is one head of width
 c through ``ops/attention.py::sdp_attention`` (K2 on CUDA when eligible).
 
-The remat options (``remat_decoder_blocks``, ``remat_skip_lowres``) only
-change how the JAX package differentiates the decoder: they are accepted and
-leave the forward as it is.  ``compute_dtype`` and the CFW decoder
+Decoder remat as in the JAX package (``ssl_tpu/diffusion/vae.py:113-169``):
+with ``remat_decoder_blocks`` (the default) and grad enabled, every decoder
+block (mid block_1, attn_1, block_2 and each ``up`` ResnetBlock) runs under
+``torch.utils.checkpoint``, so a differentiable decode keeps only the block
+boundaries and replays one block at a time in the backward;
+``remat_skip_lowres = k`` exempts the ResnetBlocks of the k lowest-resolution
+stages (stage 0 = the mid blocks and the latent-resolution ``up`` level),
+while the mid attention always replays.  The replay runs the same function,
+so values are unchanged; with the flash switch on, the replayed mid
+attention launches K2's forward a second time.  Forward-only decoding (no
+grad) checkpoints nothing.  ``compute_dtype`` and the CFW decoder
 (``AutoencoderKLResi``) are not ported yet."""
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ssl_tpu_torch.diffusion.unet import check_compute_dtype
 from ssl_tpu_torch.ops.attention import sdp_attention
@@ -153,8 +162,11 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, out_ch: int = 3, z_channels: int = 4,
-                 use_flash_attention: bool = False):
+                 use_flash_attention: bool = False, remat_blocks: bool = True,
+                 remat_skip_lowres: int = 0):
         super().__init__()
+        self.remat_blocks = remat_blocks
+        self.remat_skip_lowres = remat_skip_lowres
         c = ch * ch_mult[-1]
         self.conv_in = nn.Conv2d(z_channels, c, 3, padding=1)
         self.mid = _Mid(c, use_flash_attention)
@@ -170,10 +182,22 @@ class Decoder(nn.Module):
         self.conv_out = nn.Conv2d(c, out_ch, 3, padding=1)
 
     def forward(self, z):
-        h = self.mid(self.conv_in(z))
-        for level in reversed(self.up):
+        remat = self.remat_blocks and torch.is_grad_enabled()
+
+        def run(block, h, stage=None):
+            """``block(h)``, replayed in the backward when remat is on and the
+            block's stage (resolution doublings above the latent) is not
+            exempt; the mid attention (stage None) always replays."""
+            if remat and (stage is None or stage >= self.remat_skip_lowres):
+                return checkpoint(block, h, use_reentrant=False)
+            return block(h)
+
+        h = run(self.mid.block_1, self.conv_in(z), 0)
+        h = run(self.mid.block_2, run(self.mid.attn_1, h), 0)
+        for i in reversed(range(len(self.up))):
+            level = self.up[i]
             for blk in level.block:
-                h = blk(h)
+                h = run(blk, h, len(self.up) - 1 - i)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
         return self.conv_out(F.silu(self.norm_out(h)))
@@ -192,7 +216,9 @@ class AutoencoderKL(nn.Module):
         self.encoder = Encoder(ch, ch_mult, num_res_blocks, z_channels=embed_dim,
                                use_flash_attention=use_flash_attention)
         self.decoder = Decoder(ch, ch_mult, num_res_blocks, z_channels=embed_dim,
-                               use_flash_attention=use_flash_attention)
+                               use_flash_attention=use_flash_attention,
+                               remat_blocks=remat_decoder_blocks,
+                               remat_skip_lowres=remat_skip_lowres)
         self.quant_conv = nn.Conv2d(2 * embed_dim, 2 * embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(embed_dim, embed_dim, 1)
 

@@ -1,22 +1,26 @@
-"""Scaled-dot-product attention, routed to the hand-written flash kernel (K2).
+"""Scaled-dot-product attention, routed to the hand-written flash kernels (K2).
 
 Counterpart of ``ssl_tpu/ops/attention.py``.  Same function as there,
 softmax(q kᵀ sm_scale) v over (b, seq, heads, d) tensors, and the same
 eligibility rule, with "the tensors lie on CUDA" in place of "the backend is
-a TPU": an eligible call launches K2 (``ops/attention_cuda.py``,
-``csrc/flash_attn_fwd.cu``) or raises; every other call, and every call on
-the CPU, takes the plain version below (einsum, softmax in float32, cast
-back), which the JAX package takes for the same shapes.
+a TPU".  An eligible call launches K2's forward (``ops/attention_cuda.py``,
+``csrc/flash_attn_fwd.cu``) or raises; with a gradient to take, it goes
+through ``FlashAttention``, whose backward launches K2's two backward kernels
+(``csrc/flash_attn_bwd.cu``) or raises, as upstream's custom VJP runs two
+Pallas kernels on the TPU.  Every other call, and every call on the CPU,
+takes the plain version below (einsum, softmax in float32, cast back, and
+autograd through it), which the JAX package takes for the same shapes.
 
-K2 has no backward yet.  A gradient through an eligible CUDA call raises
-``NotImplementedError``; it never quietly takes the plain path."""
+Beside the kernels stand their plain contracts: ``attention_lse_reference``
+(the forward's per-row log-sum-exp) and ``flash_attn_bwd_reference`` (the
+backward's recompute formula).  The CPU tests and ``chip_smoke.py`` hold the
+kernels against them; no path on a card calls them."""
 
 from __future__ import annotations
 
 import torch
 
-TRAINING_SLICE = ("K2's backward comes with the diffusion training slice "
-                  "(ROADMAP.md, queue 1 item 1 and queue 2 item 2)")
+from ssl_tpu_torch.ops import attention_cuda
 
 
 def flash_eligible(n: int, m: int, use_flash: bool, device) -> bool:
@@ -36,6 +40,49 @@ def sdp_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhnm,bmhd->bnhd", attn.to(v.dtype), v)
 
 
+def attention_lse_reference(q: torch.Tensor, k: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """Each row's log-sum-exp of the scaled logits, (b, heads, n) float32: the
+    plain version of what K2's forward writes for the backward."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * sm_scale
+    return torch.logsumexp(logits.float(), dim=-1)
+
+
+def flash_attn_bwd_reference(q, k, v, o, lse, do, sm_scale: float):
+    """The plain version of K2's backward: (dq, dk, dv) from the forward's
+    output o and log-sum-exp lse and the incoming gradient dO, by the
+    recompute formula of upstream's custom VJP:
+        P = exp(sm_scale q kᵀ - lse)    dP = dO vᵀ    di = rowsum(o * dO)
+        dS = P * (dP - di)    dV = Pᵀ dO    dK = sm_scale dSᵀ q    dQ = sm_scale dS k"""
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", q, k) * sm_scale - lse[..., None])
+    dp = torch.einsum("bnhd,bmhd->bhnm", do, v)
+    di = (o * do).sum(-1).transpose(1, 2)
+    ds = p * (dp - di[..., None])
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, do)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q) * sm_scale
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k) * sm_scale
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 with its gradient: the forward kernel writes o and lse, the backward
+    kernels recompute the probabilities from them.  Under
+    ``torch.utils.checkpoint`` the replayed forward launches the forward
+    kernel again and saves a fresh lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, sm_scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, ctx.sm_scale)
+        return dq, dk, dv, None
+
+
 def sdp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
                   use_flash: bool = False) -> torch.Tensor:
     """softmax(q @ kᵀ * sm_scale) @ v over (b, seq, heads, d) tensors."""
@@ -43,6 +90,5 @@ def sdp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: f
     if not flash_eligible(n, m, use_flash, q.device):
         return sdp_attention_reference(q, k, v, sm_scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(f"gradient through the flash attention kernel: {TRAINING_SLICE}")
-    from ssl_tpu_torch.ops.attention_cuda import flash_attn_fwd_cuda
-    return flash_attn_fwd_cuda(q, k, v, sm_scale)
+        return FlashAttention.apply(q, k, v, sm_scale)
+    return attention_cuda.flash_attn_fwd_cuda(q, k, v, sm_scale)

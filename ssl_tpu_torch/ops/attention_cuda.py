@@ -1,12 +1,15 @@
-"""K2 on Hopper: the flash-attention forward as a CUDA kernel.
+"""K2 on Hopper: flash attention's forward and backward as CUDA kernels.
 
 Replaces the Pallas TPU flash attention that ``ssl_tpu/ops/attention.py``
-(``sdp_attention``, flash branch :32-39) calls.  The kernel source is
-``ssl_tpu_torch/csrc/flash_attn_fwd.cu``.  It reads q, k and v through their
-(b, seq, heads, d) strides, so the UNet's (b, n, heads·d) projections and the
+(``sdp_attention``, flash branch :32-39) calls, and the two Pallas kernels of
+its custom VJP.  The kernel sources are ``ssl_tpu_torch/csrc/flash_attn_fwd.cu``
+and ``ssl_tpu_torch/csrc/flash_attn_bwd.cu`` (``flash_attn_bwd_dkv`` and
+``flash_attn_bwd_dq``).  They read q, k, v and dO through their (b, seq,
+heads, d) strides, so the UNet's (b, n, heads·d) projections and the
 head-major packed qkv of ``AttentionBlockQKV`` go in without a copy, and
-writes a contiguous (b, n, heads, d) output.  Callers route through
-``ops/attention.py::sdp_attention``, which checks eligibility."""
+write contiguous (b, seq, heads, d) outputs.  Callers route through
+``ops/attention.py::sdp_attention``, which checks eligibility and holds the
+autograd function."""
 
 from __future__ import annotations
 
@@ -16,24 +19,35 @@ import torch
 
 from ssl_tpu_torch.ops.cuda_build import load_library
 
-# Launches of the K2 kernel in this process (one per ``flash_attn_fwd_cuda`` call).
+# Launches of the K2 forward kernel in this process (one per ``flash_attn_fwd_cuda`` call).
 launches = 0
+# Calls of ``flash_attn_bwd_cuda`` in this process; each launches both backward
+# kernels (dkv, then dq) once, so this is the launch count of each.
+bwd_launches = 0
 
-# Head widths the kernel is instantiated for (a template on d in the source):
-# the serving path's UNet and struct-cond heads and the VAE's single head.
+# Head widths the kernels are instantiated for (a template on d in the
+# sources): the UNet's and struct-cond encoder's heads and the VAE's single head.
 HEAD_DIMS = (64, 128, 512)
 
 
-def _declare(lib) -> None:
+def _declare_fwd(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attn_fwd.argtypes = [p] * 4 + [ll] * 12 + [i] * 5 + [ctypes.c_float, p]
+    lib.flash_attn_fwd.argtypes = [p] * 5 + [ll] * 12 + [i] * 5 + [ctypes.c_float, p]
     lib.flash_attn_fwd.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
 
+def _declare_bwd(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_attn_bwd.argtypes = [p] * 9 + [ll] * 12 + [i] * 5 + [ctypes.c_float, p]
+    lib.flash_attn_bwd.restype = i
+    lib.flash_attn_bwd_error_string.argtypes = [i]
+    lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the kernel takes: float32 (b, seq, heads, d) tensors on one device,
+    """What the kernels take: float32 (b, seq, heads, d) tensors on one device,
     unit stride along d, n and m multiples of 128, d in ``HEAD_DIMS``."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q, k, v must be (b, seq, heads, d) with k and v alike, got "
@@ -54,22 +68,76 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head width {d} is not one of the kernel's {HEAD_DIMS}")
 
 
-def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        sm_scale: float) -> torch.Tensor:
-    """Launch K2 on CUDA tensors; returns what ``sdp_attention_reference`` does."""
+def check_bwd_inputs(q, k, v, o, lse, do) -> None:
+    """``check_inputs`` for q, k and v, plus the forward's o and lse and the
+    incoming gradient dO: o and dO shaped like q, lse (b, heads, n) and
+    contiguous, all float32 on q's device."""
+    check_inputs(q, k, v)
+    b, n, h, _ = q.shape
+    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape), ("lse", lse, (b, h, n))):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous (b, heads, n)")
+
+
+def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
+                        return_lse: bool = False):
+    """Launch K2's forward on CUDA tensors; returns what
+    ``sdp_attention_reference`` does, and with ``return_lse`` also each row's
+    log-sum-exp of the scaled logits as a contiguous (b, heads, n) tensor
+    (``attention_lse_reference``)."""
     global launches
     if not q.is_cuda:
         raise ValueError("flash_attn_fwd_cuda takes CUDA tensors")
     check_inputs(q, k, v)
-    lib = load_library("flash_attn_fwd", _declare)
+    lib = load_library("flash_attn_fwd", _declare_fwd)
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), device=q.device, dtype=torch.float32)
+    lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32) if return_lse else None
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):     # the C entry launches on the current device
         err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 *strides, b, h, n, k.shape[1], d, float(sm_scale),
+                                 lse.data_ptr() if return_lse else None, *strides, b, h, n,
+                                 k.shape[1], d, float(sm_scale),
                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: {lib.flash_attn_error_string(err).decode()}")
+        raise RuntimeError(f"flash_attn_fwd launch failed: "
+                           f"{lib.flash_attn_error_string(err).decode()}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, sm_scale: float):
+    """Launch K2's backward on CUDA tensors: (dq, dk, dv), what
+    ``flash_attn_bwd_reference`` returns.  di = rowsum(o * dO) is a plain
+    reduction here, as upstream leaves it to XLA; dO is taken through its
+    strides, or copied once if its last axis is not unit-stride."""
+    global bwd_launches
+    if not q.is_cuda:
+        raise ValueError("flash_attn_bwd_cuda takes CUDA tensors")
+    check_bwd_inputs(q, k, v, o, lse, do)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    lib = load_library("flash_attn_bwd", _declare_bwd)
+    b, n, h, d = q.shape
+    di = (o * do).sum(-1).transpose(1, 2).contiguous()      # (b, heads, n)
+    dq = torch.empty((b, n, h, d), device=q.device, dtype=torch.float32)
+    dk = torch.empty(k.shape, device=q.device, dtype=torch.float32)
+    dv = torch.empty(k.shape, device=q.device, dtype=torch.float32)
+    strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = lib.flash_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                 lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                 dv.data_ptr(), *strides, b, h, n, k.shape[1], d,
+                                 float(sm_scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd launch failed: "
+                           f"{lib.flash_attn_bwd_error_string(err).decode()}")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -78,16 +78,28 @@ def test_eligibility_is_the_jax_rule_with_cuda_for_tpu(monkeypatch, n, m, use_fl
 
 
 def test_an_eligible_call_never_falls_back(monkeypatch):
-    """Routing as on the card, with CPU tensors standing in: a gradient
-    raises and names the training slice; without one the call goes to the
-    kernel's wrapper, which refuses what it cannot launch instead of
-    returning the plain result."""
+    """Routing as on the card, with CPU tensors standing in: without a
+    gradient the call goes to the forward kernel's wrapper, which refuses
+    what it cannot launch instead of returning the plain result; with one it
+    goes through the autograd function, whose backward goes to the backward
+    kernels' wrapper (the forward's output stood in for here), which refuses
+    CPU tensors in the same way."""
     monkeypatch.setattr(attention, "flash_eligible", lambda *a: True)
-    q, k, v = attention_inputs(1, 2, 512, 512, 32, 32 ** -0.5, "proj", 8.0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        attention.sdp_attention(q.requires_grad_(True), k, v, 0.1, use_flash=True)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
-        attention.sdp_attention(q, k, v, 0.1, use_flash=True)
+    q, k, v = attention_inputs(1, 2, 512, 512, 64, 0.125, "proj", 8.0)
+    with torch.no_grad(), pytest.raises(ValueError, match="flash_attn_fwd_cuda takes CUDA"):
+        attention.sdp_attention(q, k, v, 0.125, use_flash=True)
+    with pytest.raises(ValueError, match="flash_attn_fwd_cuda takes CUDA"):
+        attention.sdp_attention(q.clone().requires_grad_(True), k, v, 0.125, use_flash=True)
+
+    def forward(q, k, v, sm_scale, return_lse=False):
+        assert return_lse                                   # the backward needs it
+        return (attention.sdp_attention_reference(q, k, v, sm_scale),
+                attention.attention_lse_reference(q, k, sm_scale))
+
+    monkeypatch.setattr(attention_cuda, "flash_attn_fwd_cuda", forward)
+    out = attention.sdp_attention(q.requires_grad_(True), k, v, 0.125, use_flash=True)
+    with pytest.raises(ValueError, match="flash_attn_bwd_cuda takes CUDA"):
+        out.square().sum().backward()
 
 
 def test_plain_path_keeps_its_gradient_on_cpu():

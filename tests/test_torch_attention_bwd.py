@@ -1,0 +1,173 @@
+"""K2's backward contract and its wiring against ssl_tpu (fp32, CPU).
+
+``flash_attn_bwd_reference`` (the recompute formula the CUDA kernels
+implement) and autograd through the port's ``sdp_attention`` are held
+against ``jax.vjp`` of ``ssl_tpu.ops.attention.sdp_attention``, which takes
+its einsum path on the CPU; ``attention_lse_reference`` against
+``jax.nn.logsumexp``.  Then the autograd function around the kernels runs
+with the kernels' wrappers replaced by their plain versions, so that the
+routing, the saved tensors, the packed-qkv layout's strided gradients and
+the replay under ``torch.utils.checkpoint`` are held here; the kernels
+themselves are held on the card (tests/test_torch_cuda.py, chip_smoke.py).
+Last, the VAE decoder's remat: the same gradient with remat on and off, and
+equal to ``jax.grad`` through the JAX decoder.
+
+Tolerances: rtol 1e-4 with an atol of 1e-5 of the reference's largest
+value.  The gradients are sums over up to 512 keys of products in float32,
+taken in another order, and dS = P * (dP - di) subtracts two nearly equal
+numbers where the output barely depends on a logit, so the error is set
+against the gradient's scale, not each element's."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ssl_tpu.diffusion.vae import AutoencoderKL as JVAE
+from ssl_tpu.ops import attention as jattn
+from ssl_tpu_torch.diffusion.vae import AutoencoderKL
+from ssl_tpu_torch.ops import attention, attention_cuda
+from ssl_tpu_torch.utils.weight_port import params_from_jax
+from torch_attention_cases import attention_inputs
+from torch_diffusion_cases import VAE, close, nchw, seeded_params
+
+
+def _do(b, n, h, d, seed=5):
+    return torch.from_numpy(np.random.RandomState(seed).randn(b, n, h, d).astype(np.float32))
+
+
+def _jax_vjp(q, k, v, do, scale):
+    out, vjp = jax.vjp(lambda a, b_, c: jattn.sdp_attention(a, b_, c, scale, use_flash=True),
+                       *(t.detach().numpy() for t in (q, k, v)))
+    return out, vjp(do.numpy())
+
+
+@pytest.mark.parametrize("d,layout,logits", [
+    (16, "proj", 8.0), (64, "proj", 8.0), (16, "qkv", 8.0), (64, "qkv", 8.0), (64, "proj", 50.0),
+])
+def test_backward_reference_matches_jax_vjp(d, layout, logits):
+    b, h, n, scale = 2, 2, 256, d ** -0.5
+    q, k, v = attention_inputs(b, h, n, n, d, scale, layout, logits, seed=d)
+    do = _do(b, n, h, d)
+    out, grads = _jax_vjp(q, k, v, do, scale)
+    o = attention.sdp_attention_reference(q, k, v, scale)
+    lse = attention.attention_lse_reference(q, k, scale)
+    close(o.numpy(), out)
+    got = attention.flash_attn_bwd_reference(q, k, v, o, lse, do, scale)
+    for g, ref in zip(got, grads):
+        assert float(np.abs(np.asarray(ref)).max()) > 0
+        close(g.numpy(), ref)
+    # autograd through the port's plain route gives the same gradients
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    attention.sdp_attention(*leaves, scale, use_flash=True).backward(do)
+    for leaf, ref in zip(leaves, grads):
+        close(leaf.grad.numpy(), ref)
+
+
+@pytest.mark.parametrize("logits", [8.0, 50.0])
+def test_lse_matches_jax_logsumexp(logits):
+    q, k, _ = attention_inputs(1, 2, 256, 384, 32, 32 ** -0.5, "proj", logits, seed=3)
+    got = attention.attention_lse_reference(q, k, 32 ** -0.5)
+    ref = jax.nn.logsumexp(jnp.einsum("bnhd,bmhd->bhnm", q.numpy(), k.numpy()) * 32 ** -0.5, -1)
+    assert got.shape == (1, 2, 256)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-5)
+
+
+@pytest.fixture
+def plain_kernels(monkeypatch):
+    """Route as on the card with CPU tensors: eligibility lifted, and each
+    kernel wrapper replaced by its plain version, with the calls counted."""
+    calls = {"fwd": 0, "fwd_lse": 0, "bwd": 0}
+
+    def fwd(q, k, v, sm_scale, return_lse=False):
+        calls["fwd_lse" if return_lse else "fwd"] += 1
+        o = attention.sdp_attention_reference(q, k, v, sm_scale)
+        return (o, attention.attention_lse_reference(q, k, sm_scale)) if return_lse else o
+
+    def bwd(q, k, v, o, lse, do, sm_scale):
+        calls["bwd"] += 1
+        attention_cuda.check_bwd_inputs(q, k, v, o, lse, do)
+        return attention.flash_attn_bwd_reference(q, k, v, o, lse, do, sm_scale)
+
+    monkeypatch.setattr(attention, "flash_eligible", lambda n, m, use_flash, device: use_flash)
+    monkeypatch.setattr(attention_cuda, "flash_attn_fwd_cuda", fwd)
+    monkeypatch.setattr(attention_cuda, "flash_attn_bwd_cuda", bwd)
+    return calls
+
+
+def test_packed_qkv_gradient_reaches_the_packed_tensor(plain_kernels):
+    """AttentionBlockQKV's layout: q, k and v are strided views of one packed
+    (b, n, heads, 3, d) tensor, q and k scaled.  The function's gradients
+    land on the right elements of the packed tensor."""
+    packed = torch.stack(attention_inputs(1, 2, 256, 256, 64, 1.0, "qkv", 8.0, seed=4), dim=3)
+    do = _do(1, 256, 2, 64)
+
+    def run(flash):
+        x = packed.clone().requires_grad_(True)
+        scale = 64 ** -0.25
+        out = attention.sdp_attention(x[..., 0, :] * scale, x[..., 1, :] * scale, x[..., 2, :],
+                                      1.0, use_flash=flash)
+        out.backward(do)
+        return x.grad
+
+    got = run(True)
+    assert plain_kernels == {"fwd": 0, "fwd_lse": 1, "bwd": 1}
+    with torch.no_grad():
+        attention.sdp_attention(*packed.unbind(3), 1.0, use_flash=True)
+    assert plain_kernels["fwd"] == 1                  # no gradient: the forward alone
+    ref = run(False)                                  # the plain route: autograd through einsum
+    assert float(ref[..., 2, :].abs().max()) > 0 and float(ref[..., 0, :].abs().max()) > 0
+    close(got.numpy(), ref.numpy())
+
+
+def test_checkpoint_replays_the_forward_kernel(plain_kernels):
+    """Under torch.utils.checkpoint the forward runs twice (the replay saves
+    a fresh lse) and the backward once; the gradient is unchanged."""
+    q, k, v = attention_inputs(1, 2, 256, 256, 64, 0.125, "proj", 8.0, seed=6)
+    do = _do(1, 256, 2, 64)
+    grads = []
+    for remat in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn = lambda a, b_, c: attention.sdp_attention(a, b_, c, 0.125, use_flash=True)  # noqa: E731
+        out = (torch.utils.checkpoint.checkpoint(fn, *leaves, use_reentrant=False) if remat
+               else fn(*leaves))
+        out.backward(do)
+        grads.append([t.grad for t in leaves])
+    assert plain_kernels == {"fwd": 0, "fwd_lse": 3, "bwd": 2}
+    for a, b_ in zip(*grads):
+        assert torch.equal(a, b_)
+
+
+@pytest.fixture(scope="module")
+def decoder_pair():
+    rng = np.random.RandomState(9)
+    img = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    z = rng.randn(2, 16, 16, 4).astype(np.float32)
+    j_vae = JVAE(**VAE)
+    vp = seeded_params(j_vae, img, seed=31)
+    w = rng.randn(2, 32, 32, 3).astype(np.float32)        # a fixed linear read-out
+
+    def loss(z_):
+        return jnp.sum(j_vae.apply({"params": vp}, z_, method=j_vae.decode) * w)
+    return z, vp, w, jax.grad(loss)(jnp.asarray(z))
+
+
+@pytest.mark.parametrize("remat,skip", [(False, 0), (True, 0), (True, 1)])
+def test_decoder_remat_gradient_matches_jax(decoder_pair, remat, skip):
+    """remat_decoder_blocks on (every block replayed, or with the lowest
+    stage exempt) and off give one gradient, equal to jax.grad through the
+    JAX decoder (whose remat is on, its default)."""
+    z, vp, w, ref = decoder_pair
+    vae = AutoencoderKL(**VAE, remat_decoder_blocks=remat, remat_skip_lowres=skip)
+    vae.load_state_dict(params_from_jax("AutoencoderKL", vp))
+    replays = []
+    attn, forward = vae.decoder.mid.attn_1, vae.decoder.mid.attn_1.forward
+    attn.forward = lambda x: (replays.append(1), forward(x))[1]   # the replay skips hooks
+    zt = nchw(z).requires_grad_(True)
+    (vae.decode(zt) * nchw(w)).sum().backward()
+    assert len(replays) == (2 if remat else 1)         # the mid attention always replays
+    close(zt.grad.numpy().transpose(0, 2, 3, 1), ref)
+    with torch.no_grad():
+        vae.decode(zt)
+    assert len(replays) == (3 if remat else 2)         # no checkpoint without grad

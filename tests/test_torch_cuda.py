@@ -10,7 +10,12 @@ sets JAX up, out of the run:
 K2 (flash attention) is held against ``sdp_attention_reference`` at the
 diffusion serving path's shapes (``tests/torch_attention_cases.py``) with
 rtol 1e-4 and an atol of 1e-5 of the output's largest value: both sum in
-float32, in another order.
+float32, in another order.  K2's backward (dkv and dq) and the forward's
+lse are held at the training path's shapes against
+``flash_attn_bwd_reference`` with rtol 1e-3 and an atol of 1e-4 of each
+gradient's largest value, and a relative L2 of 1e-4: dS = P * (dP - di)
+subtracts nearly equal numbers where a logit barely matters, so single
+elements carry that cancellation's rounding on the gradient's own scale.
 
 Tolerances (K1): count exact; l1 rel 1e-4 and kl rel 1e-3, the contract of
 tests/test_ssg_pallas.py:30-31 (sums taken in another order); the (b, h, w)
@@ -20,11 +25,12 @@ maps ``MAP_RTOL`` with an atol of 1e-6 of the map's largest value; d_sr rtol
 import numpy as np
 import pytest
 import torch
-from torch_attention_cases import CUDA_CASES, attention_inputs
+from torch_attention_cases import CUDA_CASES, TRAIN_CASES, attention_inputs
 from torch_ssg_cases import CASES, MAP_RTOL, case_inputs, grad_atol
 
 from ssl_tpu_torch.ops import attention_cuda, ssg_cuda
-from ssl_tpu_torch.ops.attention import sdp_attention, sdp_attention_reference
+from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_reference,
+                                         sdp_attention, sdp_attention_reference)
 from ssl_tpu_torch.ops.ssg import SSGConfig, ssl_loss_dense_bwd, ssl_loss_sums_reference
 
 
@@ -95,18 +101,50 @@ def test_k2_kernel_matches_plain_on_card(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_k2_backward_matches_plain_on_card(card, case):
+    """A gradient through an eligible call: one forward launch with lse,
+    one backward call (dkv and dq), against the plain recompute formula."""
+    b, heads, n, m, d, scale, layout, logits = TRAIN_CASES[case]
+    q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda")
+    do = torch.randn((b, n, heads, d), generator=torch.Generator(device="cuda").manual_seed(11),
+                     device="cuda")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    before = (attention_cuda.launches, attention_cuda.bwd_launches)
+    sdp_attention(*leaves, scale, use_flash=True).backward(do)
+    assert (attention_cuda.launches, attention_cuda.bwd_launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    ref_lse = attention_lse_reference(q, k, scale)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    ref = flash_attn_bwd_reference(q, k, v, sdp_attention_reference(q, k, v, scale), ref_lse, do,
+                                   scale)
+    torch.cuda.synchronize()
+    for name, leaf, r in zip(("dq", "dk", "dv"), leaves, ref):
+        g = leaf.grad
+        assert float((g - r).norm() / r.norm()) <= 1e-4, name
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-3,
+                                   atol=1e-4 * float(r.abs().max()), err_msg=name)
+
+
+@pytest.mark.cuda
 def test_k2_raises_instead_of_falling_back(card):
-    """An eligible CUDA call never takes the plain path: a gradient raises,
-    and so does a shape the kernel does not take."""
+    """An eligible CUDA call never takes the plain path: a gradient goes
+    through the backward kernels, and a shape the kernels do not take
+    raises."""
     q, k, v = attention_inputs(1, 2, 512, 512, 64, 0.125, "proj", 8.0, device="cuda")
-    before = attention_cuda.launches
-    with pytest.raises(NotImplementedError, match="training slice"):
-        sdp_attention(q.requires_grad_(True), k, v, 0.125, use_flash=True)
+    before = (attention_cuda.launches, attention_cuda.bwd_launches)
+    sdp_attention(q.clone().requires_grad_(True), k, v, 0.125, use_flash=True).sum().backward()
+    assert (attention_cuda.launches, attention_cuda.bwd_launches) == (before[0] + 1,
+                                                                      before[1] + 1)
     q48, k48, v48 = (t[..., :48] for t in attention_inputs(1, 2, 512, 512, 64, 0.125, "proj",
                                                             8.0, device="cuda"))
     with pytest.raises(ValueError, match="head width 48"):
         sdp_attention(q48, k48, v48, 0.125, use_flash=True)
-    assert attention_cuda.launches == before
+    with pytest.raises(ValueError, match="head width 48"):
+        sdp_attention(q48.clone().requires_grad_(True), k48, v48, 0.125, use_flash=True)
+    assert attention_cuda.launches == before[0] + 1
     with torch.no_grad():
         sdp_attention(q, k, v, 0.125, use_flash=True)
-    assert attention_cuda.launches == before + 1
+    assert (attention_cuda.launches, attention_cuda.bwd_launches) == (before[0] + 2,
+                                                                      before[1] + 1)

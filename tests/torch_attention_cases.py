@@ -23,6 +23,19 @@ CUDA_CASES = {
     "large_logits": (2, 2, 512, 1024, 64, 64 ** -0.5, "proj", 50.0),
 }
 
+# the K2 shapes of the diffusion training path at 512^2, batch 2 (the same
+# attentions with the batch doubled), where the backward runs too; K2
+# launches of one training mini-step by case: forward with lse, and backward
+TRAIN_CASES = {
+    "unet_ds1": (2, 4, 4096, 4096, 64, 64 ** -0.5, "proj", 8.0),
+    "struct_ds1": (2, 4, 4096, 4096, 64, 1.0, "qkv", 8.0),
+    "unet_ds2": (2, 8, 1024, 1024, 64, 64 ** -0.5, "proj", 8.0),
+    "struct_ds2": (2, 4, 1024, 1024, 128, 1.0, "qkv", 8.0),
+    "vae_mid": (2, 1, 4096, 4096, 512, 512 ** -0.5, "proj", 8.0),
+    "large_logits": (2, 2, 512, 1024, 64, 64 ** -0.5, "proj", 50.0),
+}
+TRAIN_MIX_BWD = {"unet_ds1": 5, "struct_ds1": 2, "unet_ds2": 5, "struct_ds2": 2, "vae_mid": 1}
+
 
 def attention_inputs(b, heads, n, m, d, sm_scale, layout, logit_range, seed=0, device="cpu"):
     """(q, k, v) as float32 (b, seq, heads, d) tensors in the given layout."""
