@@ -20,11 +20,14 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            with logits up to 50; times the kernel, the plain version and
            torch's scaled_dot_product_attention (the yardstick, which the
            port never calls).  Then K2's backward
-           (ssl_tpu_torch/csrc/flash_attn_bwd.cu, dkv and dq) and the
+           (ssl_tpu_torch/csrc/flash_attn_bwd.cu: dkv and dq, the ordered sum
+           of split parts, and at d = 512 p_ds, dkv_mm and dq_mm) and the
            forward's lse at each shape of the training path: against
            flash_attn_bwd_reference and autograd through the plain
-           attention; times the kernels (each alone from the profiler), the
-           plain backward and SDPA's backward.  TF32 is off throughout.
+           attention, and a second launch bit for bit against the first;
+           times the kernels (each alone from the profiler), the plain
+           backward and SDPA's backward.  TF32 is off throughout for the
+           plain versions; the kernels' own products are 3xTF32.
 3. diffusion  the StableSR-SSL model of options/diffusion/ssl_base.yml at
            full width with model.use_flash_attention on, random weights from
            seeds; every layer the init leaves at 0 is drawn from a seeded
@@ -46,8 +49,9 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            GT/LQ with a mask of density 0.25: one full accumulation cycle of
            12 mini-steps through train_step; logs finite, weights unchanged
            after mini-steps 1-11 and moved after 12, the EMA moved, K1 once
-           and K2 17 forward and 15 backward per mini-step; times, peak
-           memory and K2's backward device time per mini-step
+           and K2 17 forward and 15 backward per mini-step, every backward
+           kernel launched; times, peak memory and K2's backward device
+           time per mini-step
 8. train   the ESRGAN-SSL train step at the shipped widths (RRDBNet 64/23/32,
            VGGStyleDiscriminator 64, VGG19 conv5_4, SSL 25/9/0.004), batch 16,
            gt 128: one warm-up step and 3 timed steps through build_model ->
@@ -66,6 +70,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -73,10 +78,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the bound of a kernel is
-# the larger of its bytes over the memory rate and its fp32 operations over
-# the fp32 (non-tensor-core) rate.
+# the larger of its bytes over the memory rate and its operations over the
+# rate of the units that do them: K1's fp32 window sums on the CUDA cores;
+# K2's matrix products as 3xTF32 on the tensor cores (three TF32 products
+# each, as the backward kernels and torch's fp32 SDPA compute them), its
+# softmax's elementwise work on the CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12
 
 MAIN_B, MAIN_GT, SCALE = 16, 128, 4
 
@@ -419,13 +428,20 @@ def phase_kernel():
     return dict(results["main_path"], max_abs_err=results["main_smooth"]["max_abs_err"])
 
 
+def k2_bound(products: float, elementwise: float, nbytes: float) -> dict:
+    """K2's least times (ms): ``ops_ms`` with the matrix products as 3xTF32
+    at the tensor cores' TF32 rate and the elementwise operations at the
+    fp32 rate; ``bytes_ms`` for the bytes; ``fp32_ops_ms`` with everything on
+    the CUDA cores (the bound PRs 1-3 reported)."""
+    return {"ops_ms": 1e3 * (3 * products / PEAK_TF32_PER_S + elementwise / PEAK_FP32_PER_S),
+            "bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+            "fp32_ops_ms": 1e3 * (products + elementwise) / PEAK_FP32_PER_S}
+
+
 def k2_times(b, h, n, m, d):
-    """The least times (ms) for K2's operations (4bhnmd for the two
-    products, 5bhnm for scale, max, exp, sum and the normalisation) and for
-    its bytes (q, k, v read once, o written once)."""
-    ops = 4 * b * h * n * m * d + 5 * b * h * n * m
-    nbytes = 4 * b * h * (2 * n * d + 2 * m * d)
-    return 1e3 * ops / PEAK_FP32_PER_S, 1e3 * nbytes / PEAK_BYTES_PER_S
+    """K2's forward: 4bhnmd for the two products, 5bhnm for scale, max, exp,
+    sum and the normalisation; q, k, v read once, o written once."""
+    return k2_bound(4 * b * h * n * m * d, 5 * b * h * n * m, 4 * b * h * (2 * n * d + 2 * m * d))
 
 
 def phase_k2():
@@ -455,37 +471,47 @@ def phase_k2():
         kernel_ms = time_ms(lambda: attention_cuda.flash_attn_fwd_cuda(q, k, v, scale), 20)
         plain_ms = time_ms(lambda: sdp_attention_reference(q, k, v, scale), 20)
         library_ms = time_ms(library, 20)
-        ops_ms, bytes_ms = k2_times(b, h, n, m, d)
-        bound_ms, bound_by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+        bound = k2_times(b, h, n, m, d)
+        bound_ms = max(bound["ops_ms"], bound["bytes_ms"])
+        bound_by = "operations" if bound["ops_ms"] >= bound["bytes_ms"] else "bytes"
         results[name] = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+                         "library_ms": library_ms, **bound}
         emit({"phase": "kernel", "kernel": "flash_attn_fwd", "case": name,
               "b_heads_n_m_d": [b, h, n, m, d], "layout": layout, "sm_scale": scale,
               "logit_range": logit_range, "max_abs_err": err, "atol": atol,
               "library_max_abs_err": library_err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "fraction_of_bound": bound_ms / kernel_ms})
+              "fraction_of_bound": bound_ms / kernel_ms,
+              "fraction_of_fp32_bound": bound["fp32_ops_ms"] / kernel_ms})
     return results
 
 
-def k2_bwd_times(b, h, n, m, d):
-    """The least times (ms) of K2's backward functions, (ops_ms, bytes_ms)
-    each: dkv needs q kᵀ, dO vᵀ, Pᵀ dO and dSᵀ q (8bhnmd) and 5bhnm for P and
-    dS; dq needs q kᵀ, dO vᵀ and dS k (6bhnmd) and the same 5bhnm; the whole
-    backward 10bhnmd + 8bhnm.  Bytes: q, k, v, dO, lse and di read once,
-    the function's outputs written once."""
-    inputs = 4 * b * h * (2 * n * d + 2 * m * d + 2 * n)
-    out = {"dkv": (8 * b * h * n * m * d + 5 * b * h * n * m, inputs + 4 * b * h * 2 * m * d),
-           "dq": (6 * b * h * n * m * d + 5 * b * h * n * m, inputs + 4 * b * h * n * d),
-           "bwd": (10 * b * h * n * m * d + 8 * b * h * n * m,
-                   inputs + 4 * b * h * (n * d + 2 * m * d))}
-    return {k: (1e3 * ops / PEAK_FP32_PER_S, 1e3 * nbytes / PEAK_BYTES_PER_S)
-            for k, (ops, nbytes) in out.items()}
+def k2_bwd_times(b, h, n, m, d, splits=(1, 1)):
+    """The least times of K2's backward kernels (``k2_bound`` each).  Per
+    kernel: the fused dkv needs q kᵀ, dO vᵀ, Pᵀ dO and dSᵀ q (8bhnmd) and
+    5bhnm for P and dS; the fused dq q kᵀ, dO vᵀ and dS k (6bhnmd) and the
+    same 5bhnm; at d = 512 p_ds needs the two logit products (4bhnmd) and
+    5bhnm and writes P and dS, dkv_mm Pᵀ dO and dSᵀ q (4bhnmd) and dq_mm dS k
+    (2bhnmd), reading P and dS; sum adds the split parts (``splits`` =
+    dkv's, dq's).  "bwd" is the function: 10bhnmd + 8bhnm, q, k, v, dO, lse
+    and di read once and dq, dk, dv written once."""
+    nm, nd, md = b * h * n * m, b * h * n * d, b * h * m * d
+    inputs = 4 * (2 * nd + 2 * md + 2 * b * h * n)
+    parts = 2 * md * splits[0] * (splits[0] > 1) + nd * splits[1] * (splits[1] > 1)
+    outs = 2 * md * (splits[0] > 1) + nd * (splits[1] > 1)
+    work = {"dkv": (8 * nm * d, 5 * nm, inputs + 4 * 2 * md),
+            "dq": (6 * nm * d, 5 * nm, inputs + 4 * nd),
+            "p_ds": (4 * nm * d, 5 * nm, inputs + 4 * 2 * nm),
+            "dkv_mm": (4 * nm * d, 0, 4 * (2 * nm + 2 * nd + 2 * md)),
+            "dq_mm": (2 * nm * d, 0, 4 * (nm + md + nd)),
+            "sum": (0, parts - outs, 4 * (parts + outs)),
+            "bwd": (10 * nm * d, 8 * nm, inputs + 4 * (nd + 2 * md))}
+    return {k: k2_bound(*w) for k, w in work.items()}
 
 
-def device_ms(fn, names, iters: int = 5) -> dict:
-    """Device time (ms per call) of the kernels whose names contain each of
-    ``names``, from torch.profiler over ``iters`` calls of ``fn``."""
+def kernel_device_ms(fn, prefix: str, iters: int = 5) -> dict:
+    """Device time (ms per call of ``fn``) of each kernel whose name contains
+    ``prefix``, by its short name, from torch.profiler over ``iters`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -494,18 +520,23 @@ def device_ms(fn, names, iters: int = 5) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    out = {n: sum(e.self_device_time_total for e in events if n in e.key) / 1e3 / iters
-           for n in names}
-    if not all(v > 0 for v in out.values()):
-        fail(f"the profiler shows no device time for {names}: {out}")
+    out = {}
+    for e in prof.key_averages():
+        short = re.search(re.escape(prefix) + r"\w*", e.key)
+        if e.device_type.name == "CUDA" and short:
+            out[short[0]] = out.get(short[0], 0.0) + e.self_device_time_total / 1e3 / iters
+    if not out or not all(v > 0 for v in out.values()):
+        fail(f"the profiler shows no device time for {prefix}: {out}")
     return out
 
 
 def phase_k2_bwd():
     """K2's backward (and the forward's lse) against the plain versions at
-    the training path's shapes and at large logits; then times.  The plain
-    and SDPA times are of the whole backward (dq, dk and dv)."""
+    the training path's shapes and at large logits, and a second launch
+    bit for bit against the first; then times.  The plain and SDPA times are
+    of the whole backward (dq, dk and dv); where the plan splits a loop, the
+    plain (an in-order loop) and library (torch.sum) times of one sum of
+    split parts."""
     import torch
     import torch.nn.functional as F
     from torch_attention_cases import TRAIN_CASES, attention_inputs
@@ -513,6 +544,7 @@ def phase_k2_bwd():
     from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_reference,
                                              sdp_attention_reference)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for name, (b, h, n, m, d, scale, layout, logit_range) in TRAIN_CASES.items():
         q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logit_range, device="cuda")
@@ -524,6 +556,13 @@ def phase_k2_bwd():
                                  1e-5 * float(ref_o.abs().max())),
                 "lse": check_close(f"K2 bwd {name} lse", lse, ref_lse, 1e-5, 1e-5)}
         got = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+        again = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        for g_name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+            if not torch.equal(g, g2):
+                fail(f"K2 bwd {name} {g_name}: a second launch differs from the first by up to "
+                     f"{float((g - g2).abs().max())}")
+        del again
         refs = {"reference": flash_attn_bwd_reference(q, k, v, ref_o, ref_lse, do, scale)}
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         sdp_attention_reference(*leaves, scale).backward(do)
@@ -537,36 +576,53 @@ def phase_k2_bwd():
                     BWD_ATOL * float(r.abs().max()))
         if max(rel.values()) > BWD_REL_L2:
             fail(f"K2 bwd {name}: relative L2 {rel} above {BWD_REL_L2}")
-        del refs, leaves
+        del refs, leaves, got
 
         def kernel():
             attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
 
-        split = device_ms(kernel, ("flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel"))
+        iters = 5 if d == 512 or n == 4096 else 20
+        split = kernel_device_ms(kernel, "flash_attn_bwd", iters)
+        dkv_split, dq_split, _, launches = attention_cuda.bwd_plan(b, h, n, m, d, sms)
+        if set(split) != {f"{k_}_kernel" for k_ in launches if launches[k_]}:
+            fail(f"K2 bwd {name}: the profiler shows kernels {sorted(split)}, the plan {launches}")
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
         do_t = do.transpose(1, 2)
-        iters = 5 if d == 512 or n == 4096 else 20
         kernel_ms = time_ms(kernel, iters)
         plain_ms = time_ms(lambda: flash_attn_bwd_reference(q, k, v, o, lse, do, scale), iters)
         library_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
                                                          retain_graph=True), iters)
-        bounds = k2_bwd_times(b, h, n, m, d)
+        bounds = k2_bwd_times(b, h, n, m, d, (dkv_split, dq_split))
+        sums = {}
+        if dkv_split > 1 or dq_split > 1:      # one output's parts, as the sum kernel adds them
+            nparts, size = ((dkv_split, b * m * h * d) if dkv_split > 1
+                            else (dq_split, b * n * h * d))
+            parts = torch.randn((nparts, size), device="cuda")
+
+            def ordered():
+                out = parts[0].clone()
+                for part in parts[1:]:
+                    out += part
+                return out
+
+            sums = {"sum_plain_ms": time_ms(ordered, iters),
+                    "sum_library_ms": time_ms(lambda: parts.sum(0), iters)}
+            del parts
         results[name] = {"max_abs_err": max(errs.values()), "ms": kernel_ms,
-                         "dkv_ms": split["flash_attn_bwd_dkv_kernel"],
-                         "dq_ms": split["flash_attn_bwd_dq_kernel"], "plain_ms": plain_ms,
-                         "library_ms": library_ms,
-                         **{f"{f}_{kind}": bounds[f][i] for f in ("dkv", "dq")
-                            for i, kind in enumerate(("ops_ms", "bytes_ms"))}}
+                         "kernel_ms": {k_.removesuffix("_kernel"): v_ for k_, v_ in split.items()},
+                         "launches": {k_: c for k_, c in launches.items() if c},
+                         "plain_ms": plain_ms, "library_ms": library_ms, "bounds": bounds, **sums}
         emit({"phase": "kernel", "kernel": "flash_attn_bwd", "case": name,
               "b_heads_n_m_d": [b, h, n, m, d], "layout": layout, "sm_scale": scale,
-              "logit_range": logit_range, "max_abs_err": errs, "rel_l2": rel,
-              "kernel_ms": kernel_ms, "dkv_ms": split["flash_attn_bwd_dkv_kernel"],
-              "dq_ms": split["flash_attn_bwd_dq_kernel"], "plain_ms": plain_ms,
-              "library_ms": library_ms,
-              "bound_ms": {k: max(v) for k, v in bounds.items()},
-              "fraction_of_bound": max(bounds["bwd"]) / kernel_ms})
-        del q, k, v, o, lse, do, got, qt, kt, vt, sdpa_out
+              "logit_range": logit_range, "splits": [dkv_split, dq_split],
+              "max_abs_err": errs, "rel_l2": rel, "repeat_bit_for_bit": True,
+              "kernel_ms": kernel_ms, "kernels_device_ms": split, "plain_ms": plain_ms,
+              "library_ms": library_ms, **sums,
+              "bound_ms": {k_: max(v_["ops_ms"], v_["bytes_ms"]) for k_, v_ in bounds.items()},
+              "fraction_of_bound": bounds["bwd"]["ops_ms"] / kernel_ms,
+              "fraction_of_fp32_bound": bounds["bwd"]["fp32_ops_ms"] / kernel_ms})
+        del q, k, v, o, lse, do, qt, kt, vt, sdpa_out
         torch.cuda.empty_cache()
     return results
 
@@ -815,6 +871,7 @@ def phase_diffusion_train(model, state):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ssg_cuda.launches = attention_cuda.launches = attention_cuda.bwd_launches = 0
+    attention_cuda.bwd_kernel_launches.update(dict.fromkeys(attention_cuda.bwd_kernel_launches, 0))
     ms, logs, k2_bwd_ms = [], [], None
     for i, batch in enumerate(batches):
         if i == TRAIN_MINI_STEPS - 1:
@@ -826,9 +883,14 @@ def phase_diffusion_train(model, state):
                 _, out = model.train_step(state, batch)
                 torch.cuda.synchronize()
             events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-            k2_bwd_ms = {n: sum(e.self_device_time_total for e in events if n in e.key) / 1e3
-                         for n in ("flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel",
-                                   "flash_attn_fwd_kernel")}
+            k2_bwd_ms = {}
+            for e in events:
+                short = re.search(r"flash_attn_(fwd|bwd)\w*", e.key)
+                if short:
+                    k2_bwd_ms[short[0]] = (k2_bwd_ms.get(short[0], 0.0)
+                                           + e.self_device_time_total / 1e3)
+            k2_bwd_ms["flash_attn_bwd_all"] = sum(v for k_, v in k2_bwd_ms.items()
+                                                  if k_.startswith("flash_attn_bwd"))
             k2_bwd_ms["device_busy"] = sum(e.self_device_time_total for e in events) / 1e3
         else:
             _, out = model.train_step(state, batch)
@@ -844,6 +906,7 @@ def phase_diffusion_train(model, state):
                  f"{'did not move' if same else 'moved'}")
     launches = {"k1": ssg_cuda.launches, "k2_fwd": attention_cuda.launches,
                 "k2_bwd": attention_cuda.bwd_launches}
+    bwd_kernels = dict(attention_cuda.bwd_kernel_launches)
     if any(torch.equal(a, e) for a, e in zip(ema_before, trainable(state.ema_params))):
         fail("diffusion_train: an EMA tensor did not move at the applying mini-step")
     n = TRAIN_MINI_STEPS
@@ -853,14 +916,17 @@ def phase_diffusion_train(model, state):
           "accumulate": model.accumulate, "lr": model.lr, "ms_first": ms[0],
           "ms_profiled": ms[1], "ms_warm_mean": sum(ms[2:-1]) / len(ms[2:-1]),
           "ms_warm": ms[2:-1], "ms_applying": ms[-1], "logs_first": logs[0], "logs_last": logs[-1],
-          "launches": launches, "expected": expected,
+          "launches": launches, "expected": expected, "k2_bwd_kernel_launches": bwd_kernels,
           "device_ms_profiled_mini_step": k2_bwd_ms,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
     if launches != expected:
         fail(f"diffusion_train: launches {launches}, expected {expected}")
-    return launches
+    idle = [k_ for k_, c in bwd_kernels.items() if c == 0]
+    if idle:
+        fail(f"diffusion_train: K2 backward kernels {idle} were never launched: {bwd_kernels}")
+    return dict(launches, **bwd_kernels)
 
 
 def phase_train():
@@ -916,6 +982,81 @@ def phase_train():
     return launches
 
 
+def kernels_line(k1, k2, k2_bwd, k2_launches, train, launches) -> dict:
+    """The {"kernels": [...]} line: one entry per kernel of the port, from the
+    phases' results (K1's, K2's forward's, K2's backward's by case, the
+    serving K2 launches, the diffusion_train launch counts and the ESRGAN
+    train step's K1 launches)."""
+    from torch_attention_cases import TRAIN_MIX_BWD
+
+    def mean(results, mix, key):
+        """A per-launch mean over a path's mix of shapes ({case: launches})."""
+        return sum(w * results[case][key] for case, w in mix.items()) / sum(mix.values())
+
+    both = f"{UPSTREAM_DKV}; {UPSTREAM_DQ}"
+    bwd_kernels = {"dkv": UPSTREAM_DKV, "dq": UPSTREAM_DQ, "sum": both, "p_ds": both,
+                   "dkv_mm": UPSTREAM_DKV, "dq_mm": UPSTREAM_DQ}
+
+    def bwd_entry(f, replaces):
+        """flash_attn_bwd_<f>: per-launch means over the launches one training
+        mini-step's mix of shapes gives it (TRAIN_MIX_BWD calls per case)."""
+        runs = {c: w * k2_bwd[c]["launches"][f"flash_attn_bwd_{f}"]
+                for c, w in TRAIN_MIX_BWD.items()
+                if f"flash_attn_bwd_{f}" in k2_bwd[c]["launches"]}
+        total = sum(runs.values())
+
+        def per_launch(value):
+            return sum(TRAIN_MIX_BWD[c] * value(k2_bwd[c]) for c in runs) / total
+
+        ops, nbytes, fp32 = (per_launch(lambda r, kind=kind: r["bounds"][f][kind])
+                             for kind in ("ops_ms", "bytes_ms", "fp32_ops_ms"))
+
+        def call_mean(key):
+            return sum(TRAIN_MIX_BWD[c] * k2_bwd[c][key] for c in runs) / sum(
+                TRAIN_MIX_BWD[c] for c in runs)
+        entry = {"name": f"flash_attn_bwd_{f}", "route": "cuda",
+                 "source": "ssl_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": replaces,
+                 "launches": train[f"flash_attn_bwd_{f}"],
+                 "launches_by_path": {"diffusion_train": train[f"flash_attn_bwd_{f}"]},
+                 "max_abs_err": max(k2_bwd[c]["max_abs_err"] for c in runs),
+                 "ms": per_launch(lambda r: r["kernel_ms"][f"flash_attn_bwd_{f}"]),
+                 "bound_ms": max(ops, nbytes),
+                 "bound_by": "operations" if ops >= nbytes else "bytes",
+                 "fp32_bound_ms": max(fp32, nbytes), "cases": sorted(runs)}
+        if f == "sum":
+            entry.update(plain_ms=call_mean("sum_plain_ms"), library_ms=call_mean("sum_library_ms"),
+                         times_are="mean per launch over one training mini-step's mix of shapes; "
+                                   "plain_ms (an in-order loop) and library_ms (torch.sum) add "
+                                   "one output's split parts; max_abs_err is the whole backward's")
+        else:
+            entry.update(plain_ms=call_mean("plain_ms"), library_ms=call_mean("library_ms"),
+                         times_are="mean per launch over one training mini-step's mix of shapes; "
+                                   "plain_ms and library_ms (SDPA) time the whole backward "
+                                   "(dq, dk, dv) per call at the shapes this kernel runs; "
+                                   "max_abs_err is the whole backward's")
+        return entry
+
+    return {"kernels": [{
+        "name": "ssg_loss_fwd", "route": "cuda", "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu",
+        "replaces": "ssl_tpu/ops/ssg_pallas.py:41", "launches": launches + train["k1"],
+        "launches_by_path": {"esrgan_train": launches, "diffusion_train": train["k1"]},
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None}, {
+        "name": "flash_attn_fwd", "route": "cuda",
+        "source": "ssl_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "ssl_tpu/ops/attention.py:28", "launches": k2_launches + train["k2_fwd"],
+        "launches_by_path": {"serve": k2_launches, "diffusion_train": train["k2_fwd"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+        "ms": mean(k2, SERVE_MIX, "ms"), "plain_ms": mean(k2, SERVE_MIX, "plain_ms"),
+        "bound_ms": max(mean(k2, SERVE_MIX, "ops_ms"), mean(k2, SERVE_MIX, "bytes_ms")),
+        "bound_by": ("operations" if mean(k2, SERVE_MIX, "ops_ms") >= mean(k2, SERVE_MIX, "bytes_ms")
+                     else "bytes"),
+        "fp32_bound_ms": max(mean(k2, SERVE_MIX, "fp32_ops_ms"), mean(k2, SERVE_MIX, "bytes_ms")),
+        "library_ms": mean(k2, SERVE_MIX, "library_ms"),
+        "times_are": "mean per launch over one serving request's mix of shapes"},
+        *(bwd_entry(f, replaces) for f, replaces in bwd_kernels.items())]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ssl_tpu_torch")):
         print("chip_smoke: ssl_tpu_torch/ is not beside this script; run it from the "
@@ -947,43 +1088,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = phase_train()
 
-    def mean(results, mix, key):
-        """A per-launch mean over a path's mix of shapes ({case: launches})."""
-        return sum(w * results[case][key] for case, w in mix.items()) / sum(mix.values())
-
-    from torch_attention_cases import TRAIN_MIX_BWD
-
-    def bwd_entry(f, replaces):
-        ops, nbytes = (mean(k2_bwd, TRAIN_MIX_BWD, f"{f}_{kind}") for kind in ("ops_ms", "bytes_ms"))
-        return {"name": f"flash_attn_bwd_{f}", "route": "cuda",
-                "source": "ssl_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": replaces,
-                "launches": train["k2_bwd"], "launches_by_path": {"diffusion_train": train["k2_bwd"]},
-                "max_abs_err": max(r["max_abs_err"] for r in k2_bwd.values()),
-                "ms": mean(k2_bwd, TRAIN_MIX_BWD, f"{f}_ms"),
-                "plain_ms": mean(k2_bwd, TRAIN_MIX_BWD, "plain_ms"), "bound_ms": max(ops, nbytes),
-                "bound_by": "operations" if ops >= nbytes else "bytes",
-                "library_ms": mean(k2_bwd, TRAIN_MIX_BWD, "library_ms"),
-                "times_are": "mean per launch over one training mini-step's mix of shapes; "
-                             "plain_ms and library_ms time the whole backward (dq, dk, dv)"}
-
-    emit({"kernels": [{
-        "name": "ssg_loss_fwd", "route": "cuda", "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu",
-        "replaces": "ssl_tpu/ops/ssg_pallas.py:41", "launches": launches + train["k1"],
-        "launches_by_path": {"esrgan_train": launches, "diffusion_train": train["k1"]},
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None}, {
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "ssl_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "ssl_tpu/ops/attention.py:28", "launches": k2_launches + train["k2_fwd"],
-        "launches_by_path": {"serve": k2_launches, "diffusion_train": train["k2_fwd"]},
-        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
-        "ms": mean(k2, SERVE_MIX, "ms"), "plain_ms": mean(k2, SERVE_MIX, "plain_ms"),
-        "bound_ms": max(mean(k2, SERVE_MIX, "ops_ms"), mean(k2, SERVE_MIX, "bytes_ms")),
-        "bound_by": ("operations" if mean(k2, SERVE_MIX, "ops_ms") >= mean(k2, SERVE_MIX, "bytes_ms")
-                     else "bytes"),
-        "library_ms": mean(k2, SERVE_MIX, "library_ms"),
-        "times_are": "mean per launch over one serving request's mix of shapes"},
-        bwd_entry("dkv", UPSTREAM_DKV), bwd_entry("dq", UPSTREAM_DQ)]})
+    emit(kernels_line(k1, k2, k2_bwd, k2_launches, train, launches))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,312 +11,753 @@
 //     P  = exp(sm_scale q kᵀ - lse)      dP = dO vᵀ      dS = P * (dP - di)
 //     dV = Pᵀ dO      dK = sm_scale dSᵀ q      dQ = sm_scale dS k
 // over float32 (b, seq, heads, d) inputs read through their strides (unit
-// stride along d), n and m multiples of 128; dq, dk and dv are written
-// contiguous (b, seq, heads, d).
+// stride along d, every stride and base 16-byte aligned), n and m multiples
+// of 128; dq, dk and dv are written contiguous (b, seq, heads, d).
 //
-// What bounds it on this card: operations.  The five products (q kᵀ, dO vᵀ,
-// Pᵀ dO, dSᵀ q, dS k) are 10·b·h·n·m·d fp32 operations against
-// 4·b·h·(3nd + 3md + 2n) bytes of input and output: at the training shapes
-// (n = m = 1024 or 4096, d = 64 to 512) hundreds of operations per byte, far
-// above the card's ~20 fp32 operations per byte.  So no n x m matrix goes to
-// device memory; each kernel recomputes P and dS for its own tiles, which
-// costs the two logit products twice over the pair (14 instead of 10 bhnmd):
-//   * flash_attn_bwd_dkv: one block of 256 threads per (b·head, tile of BN
-//     keys).  The K and V tiles stay in shared memory; the Q and dO tiles of
-//     every query tile, with their lse and di, stream through it.  Thread
-//     (ty, tx) of a 16 x 16 grid recomputes logits and dP for query rows
-//     ty·TM .. ty·TM+TM-1 and keys tx + 16j, writes P and dS to shared memory,
-//     then accumulates dV and dK for keys ty·TK .. and columns tx + 16c in
-//     registers;
-//   * flash_attn_bwd_dq: one block per (b·head, tile of BM queries).  The Q
-//     and dO tiles stay, K and V tiles stream; dS goes through shared memory
-//     once for dQ += dS k, and the dQ accumulator is in registers;
-//   * the tile shape is a template on d (64, 128 and 512, the widths of the
-//     training path): BM = BN = 64 for d <= 128; at d = 512 (the VAE's single
-//     head) BM = 32 and BN = 16, so that the four 512-wide tiles take ~200 KB
-//     of dynamic shared memory and a thread holds 32 or 64 accumulators;
-//   * fp32 FMA and expf, no fast-math, no atomics: each element of dQ, dK and
-//     dV is summed by one thread in a fixed order, so the result repeats bit
-//     for bit.
-// Rows in shared memory are padded by one float so that a half-warp reading
-// 16 rows at one column hits 16 banks.  Tensor cores (wgmma), TMA and a
-// pipelined ring of tiles are later work.
+// What bounds it on this card: tensor-core operations.  The five products are
+// 10·b·h·n·m·d operations against 4·b·h·(3nd + 3md + 2n) bytes, hundreds of
+// operations per byte.  They run as 3xTF32 on the tensor cores: x = big +
+// small with big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and
+// each product is small·big + big·small + big·big into fp32 accumulators
+// (what PyTorch's fp32 memory-efficient attention does through CUTLASS's
+// OpMultiplyAddFastF32), fp32-class accuracy at up to 495/3 TFLOP/s.  The
+// softmax recompute (exp, scale, subtract, multiply: ~8·bhnm) runs on the
+// CUDA cores in fp32.
+//
+// Instruction: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, not wgmma.
+// wgmma takes tf32 operands only K-major from shared memory, but dV = Pᵀ dO,
+// dK = dSᵀ q and dQ = dS k contract over the sequence, along which dO, q and
+// k are not contiguous: they would need transposed staging copies.  mma.sync
+// loads each thread's fragment itself, so one padded row-major tile serves
+// both the logit products (contracting over d) and the accumulations
+// (contracting over the sequence).  And the accumulator fragment of a 16x8
+// logit tile is, with the contraction index permuted as (t, t+4) -> (2t,
+// 2t+1), the A fragment of the next product: Pᵀ and dSᵀ (dS in dq) go from
+// the softmax straight into the accumulation without touching shared memory.
+// The permutation also makes the B fragments of the accumulations
+// conflict-free: rows are padded to D + 4 floats (≡ 4 mod 8), so both
+// g·(D+4) + t (contracting over d) and 2t·(D+4) + g (over the sequence) hit 32
+// banks.
+//
+// Kernels (d = 64 and 128):
+//   * flash_attn_bwd_dkv_kernel: one block per (b·head, tile of BN keys[,
+//     split]); warp w owns keys 16·RW·w .. 16·RW·(w+1)-1 (RW row tiles of 16):
+//     its K and V rows stay in shared memory, the Q, dO, lse and di tiles of
+//     BM queries stream through a two-stage cp.async ring (16-byte
+//     cp.async.cg copies, the next tile in flight while the current one is
+//     computed).  Per tile the warp computes Sᵀ and dPᵀ (16·RW x BM), Pᵀ and
+//     dSᵀ in registers, then dV += Pᵀ dO and dK += dSᵀ Q into 2·16·RW·D
+//     accumulators;
+//   * flash_attn_bwd_dq_kernel: one block per (b·head, tile of BQ queries[,
+//     split]), warp w owning 16·RW queries; Q, dO, lse, di stay, K and V
+//     tiles of BK keys stream; S, dP, dS in registers, dQ += dS K;
+//   * what limits them is issue, not the tensor pipe: each 3xTF32 product
+//     costs three mma.sync and, per operand element, two cvt.rna and a
+//     subtraction.  So every B fragment is split once and used by all RW row
+//     tiles of the warp, and the three passes of a product run over all of
+//     the warp's tiles before the next pass (mma3_grid), so that no mma waits
+//     on the one before it;
+//   * tiles (BN, BM, RW of dkv; BQ, BK, RW of dq): d = 64: (128, 32, 2) and
+//     (128, 32, 2), 4 warps and ~105 KB of shared memory each, two blocks per
+//     SM; d = 128: (128, 32, 1) and (128, 32, 1), 8 warps and ~203 KB, one
+//     block per SM.  227-255 registers a thread (ptxas);
+//   * where a grid would fill under 90% of the SMs' block slots (unet_ds2,
+//     struct_ds2: 1024 tokens), the wrapper splits the streamed loop into 2
+//     or 4 parts: each part writes its partial dK/dV (or dQ) to scratch and
+//     flash_attn_bwd_sum_kernel adds the parts in a fixed order.
+// d = 512 (the VAE's single head) takes its own path: 2·16·512 accumulators
+// do not fit a warp's registers beside the logits.  flash_attn_bwd_p_ds_kernel
+// writes P and dS once to scratch (b·h·n·m floats each, 268 MB together at
+// n = m = 4096, b = 2), tiles of 128 queries x 64 keys contracting d through a cp.async
+// ring; then flash_attn_bwd_dkv_mm_kernel (dV = Pᵀ dO and dK = sm_scale dSᵀ q,
+// one launch) and flash_attn_bwd_dq_mm_kernel (dQ = sm_scale dS k) are 128 x
+// 128 tensor-core tiles over a three-stage ring.  That is 10·bhnmd of work,
+// where recomputing the logits in both halves is 14, for ~0.8 GB of extra
+// traffic (~0.25 ms at 3.35 TB/s).
+// Accuracy: the gradients land ~3e-5 relative L2 from the plain fp32
+// backward at 4096 keys and ~1e-5 at 1024 (PERF.md), growing with the length
+// of the sums, inside the 1e-4 hold.
+// Determinism: no atomics; every element of dQ, dK and dV (and of each split
+// part) is summed by one thread in a fixed order, and the parts are added in
+// order, so two launches on the same inputs give bit-identical outputs.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
-
-constexpr int NTHREADS = 256;
 
 // element strides per (batch, seq, head) of q, k, v and dO
 struct Strides {
   long long qb, qn, qh, kb, kn, kh, vb, vn, vh, gb, gn, gh;
 };
 
-// ROWS x D floats of a (seq, d) slice with row stride rs into shared memory
-// rows of pitch D + 1; consecutive threads read consecutive columns.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long rs, int tid) {
-  for (int e = tid; e < ROWS * D; e += NTHREADS) {
-    const int r = e / D, c = e % D;
-    dst[r * (D + 1) + c] = src[(long long)r * rs + c];
+// ---- PTX helpers ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both tf32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An A fragment (16 x 8, row-major) as big and small tf32 halves.
+struct FragA {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, big[0], small[0]);
+    split_tf32(a1, big[1], small[1]);
+    split_tf32(a2, big[2], small[2]);
+    split_tf32(a3, big[3], small[3]);
+  }
+};
+
+// A B fragment (8 x 8, column-major) as big and small tf32 halves.
+struct FragB {
+  uint32_t big[2], small[2];
+  __device__ __forceinline__ void set(float b0, float b1) {
+    split_tf32(b0, big[0], small[0]);
+    split_tf32(b1, big[1], small[1]);
+  }
+};
+
+// c[j][i] += a[i] b[j] for NJ column tiles and NI row tiles in 3xTF32
+// (small·big + big·small + big·big), one pass over all tiles at a time so
+// that no product waits on the one before it.
+template <int NJ, int NI>
+__device__ __forceinline__ void mma3_grid(float (*c)[NI][4], const FragA (&a)[NI],
+                                          const FragB (&b)[NJ]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < NI; ++i) mma_tf32(c[j][i], a[i].small, b[j].big);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < NI; ++i) mma_tf32(c[j][i], a[i].big, b[j].small);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < NI; ++i) mma_tf32(c[j][i], a[i].big, b[j].big);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ROWS x COLS floats of a row-major global slice (row stride rs, 16-byte
+// aligned) into shared rows of pitch PITCH, in 16-byte copies.
+template <int ROWS, int COLS, int PITCH, int NTHREADS>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* src, long long rs,
+                                                int tid) {
+  constexpr int CHUNKS = COLS / 4;
+  for (int e = tid; e < ROWS * CHUNKS; e += NTHREADS) {
+    const int r = e / CHUNKS, c = (e % CHUNKS) * 4;
+    cp_async16(dst + r * PITCH + c, src + (long long)r * rs + c);
   }
 }
 
-// s[i][j] = q_r · k_j and dp[i][j] = dO_r · v_j for the query rows
-// r = ty·TM + i and the keys j = tx + 16·jj of the two tiles in shared memory.
-template <int D, int TM, int SJ>
-__device__ __forceinline__ void logits_and_dp(const float* s_q, const float* s_do,
-                                              const float* s_k, const float* s_v, int ty,
-                                              int tx, float (&s)[TM][SJ],
-                                              float (&dp)[TM][SJ]) {
-  constexpr int P = D + 1;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < SJ; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    float qv[TM], gv[TM], kv[SJ], vv[SJ];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      qv[i] = s_q[(ty * TM + i) * P + c];
-      gv[i] = s_do[(ty * TM + i) * P + c];
-    }
-#pragma unroll
-    for (int j = 0; j < SJ; ++j) {
-      kv[j] = s_k[(tx + 16 * j) * P + c];
-      vv[j] = s_v[(tx + 16 * j) * P + c];
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < SJ; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-      }
-  }
+// COUNT floats (a multiple of 4) of a contiguous slice.
+template <int COUNT, int NTHREADS>
+__device__ __forceinline__ void load_vec_async(float* dst, const float* src, int tid) {
+  for (int e = tid; e < COUNT / 4; e += NTHREADS) cp_async16(dst + 4 * e, src + 4 * e);
 }
 
-template <int D, int BM, int BN>
+// ---- d = 64 and 128: the fused kernels ----------------------------------
+
+template <int D, int BN, int BM>
 constexpr size_t dkv_smem_floats() {
-  return (size_t)(2 * BN + 2 * BM) * (D + 1) + (size_t)2 * BM * (BN + 1) + 2 * BM;
+  return (size_t)2 * BN * (D + 4) + (size_t)2 * (2 * BM * (D + 4) + 2 * BM);
 }
 
-template <int D, int BM, int BN>
+template <int D, int BQ, int BK>
 constexpr size_t dq_smem_floats() {
-  return (size_t)(2 * BN + 2 * BM) * (D + 1) + (size_t)BM * (BN + 1);
+  return (size_t)2 * BQ * (D + 4) + (size_t)2 * (2 * BK * (D + 4));
 }
 
-template <int D, int BM, int BN>
-__global__ void __launch_bounds__(NTHREADS)
+// Sᵀ or S (16·RW rows of the warp x NT·8 columns) and dPᵀ or dP over d:
+// s += a_rows · b_colsᵀ and dp += c_rows · e_colsᵀ, where the warp's rows are
+// rows 0 .. 16·RW-1 of a and c and the columns are rows of b and e (pitch
+// D + 4); s[j][i] is column tile j of row tile i.
+template <int D, int NT, int RW>
+__device__ __forceinline__ void logits_and_dp(const float* a, const float* b, const float* c,
+                                              const float* e, int g, int t,
+                                              float (&s)[NT][RW][4], float (&dp)[NT][RW][4]) {
+  constexpr int P = D + 4;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[j][i][r] = dp[j][i][r] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 8) {
+    FragA fa[RW], fc[RW];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const float* ar = a + (16 * i + g) * P + kk + t;
+      const float* cr = c + (16 * i + g) * P + kk + t;
+      fa[i].set(ar[0], ar[8 * P], ar[4], ar[8 * P + 4]);
+      fc[i].set(cr[0], cr[8 * P], cr[4], cr[8 * P + 4]);
+    }
+    FragB fb[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      fb[j].set(b[(8 * j + g) * P + kk + t], b[(8 * j + g) * P + kk + t + 4]);
+    mma3_grid<NT, RW>(s, fa, fb);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      fb[j].set(e[(8 * j + g) * P + kk + t], e[(8 * j + g) * P + kk + t + 4]);
+    mma3_grid<NT, RW>(dp, fc, fb);
+  }
+}
+
+// acc (16·RW x D) += x (16·RW x NT·8, accumulator fragments) · y (NT·8 rows
+// of pitch D + 4): the contraction index of k-step j is permuted so that x's
+// accumulator fragment is the A fragment as it stands.
+template <int D, int NT, int RW>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][RW][4],
+                                           const float (&x)[NT][RW][4], const float* y, int g,
+                                           int t) {
+  constexpr int P = D + 4, CHUNK = 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    FragA fa[RW];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) fa[i].set(x[j][i][0], x[j][i][2], x[j][i][1], x[j][i][3]);
+    const float* y0 = y + (8 * j + 2 * t) * P + g;
+#pragma unroll
+    for (int c0 = 0; c0 < D / 8; c0 += CHUNK) {
+      FragB fb[CHUNK];
+#pragma unroll
+      for (int c = 0; c < CHUNK; ++c) fb[c].set(y0[8 * (c0 + c)], y0[P + 8 * (c0 + c)]);
+      mma3_grid<CHUNK, RW>(acc + c0, fa, fb);
+    }
+  }
+}
+
+// Store a 16·RW x D accumulator times scale into contiguous (b, seq, heads,
+// D) rows: row tile i's rows are row0 + 16i + g and + 8 of the sequence, and
+// element (r, col) of the (b·seq·heads, D) output is at out + (r·heads + hi)·D.
+template <int D, int RW>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 8][RW][4],
+                                           long long row0, int heads, int hi, float scale,
+                                           int g, int t) {
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const long long r = row0 + 16 * i + g;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * t;
+      *reinterpret_cast<float2*>(out + (r * heads + hi) * D + col) =
+          make_float2(acc[c][i][0] * scale, acc[c][i][1] * scale);
+      *reinterpret_cast<float2*>(out + ((r + 8) * heads + hi) * D + col) =
+          make_float2(acc[c][i][2] * scale, acc[c][i][3] * scale);
+    }
+  }
+}
+
+template <int D, int BN, int BM, int RW>
+__global__ void __launch_bounds__(BN / RW * 2)
 flash_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ di,
-                          float* __restrict__ dk, float* __restrict__ dv, Strides st, int heads,
-                          int n, int m, float sm_scale) {
-  constexpr int TM = BM / 16;   // query rows per thread in the recompute
-  constexpr int SJ = BN / 16;   // keys per thread in the recompute
-  constexpr int TK = BN / 16;   // key rows per thread in the accumulators
-  constexpr int TN = D / 16;    // columns per thread in the accumulators
-  constexpr int P = D + 1, PS = BN + 1;
-  extern __shared__ float smem[];
-  float* s_k = smem;               // [BN][D + 1]
-  float* s_v = s_k + BN * P;       // [BN][D + 1]
-  float* s_q = s_v + BN * P;       // [BM][D + 1]
-  float* s_do = s_q + BM * P;      // [BM][D + 1]
-  float* s_p = s_do + BM * P;      // [BM][BN + 1]
-  float* s_ds = s_p + BM * PS;     // [BM][BN + 1]
-  float* s_lse = s_ds + BM * PS;   // [BM]
-  float* s_di = s_lse + BM;        // [BM]
+                          float* __restrict__ dk, float* __restrict__ dv, Strides st, int b,
+                          int heads, int n, int m, int tiles_per_split, float sm_scale) {
+  constexpr int NTHREADS = BN / RW * 2, P = D + 4, NT = BM / 8;
+  constexpr int STAGE = 2 * BM * P + 2 * BM;
+  extern __shared__ __align__(16) float smem[];
+  float* s_k = smem;               // [BN][D + 4]
+  float* s_v = s_k + BN * P;       // [BN][D + 4]
+  float* ring = s_v + BN * P;      // 2 x {q [BM][D + 4], dO [BM][D + 4], lse [BM], di [BM]}
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
-  const int k0 = blockIdx.x * BN;
+  const int k0 = blockIdx.x * BN, split = blockIdx.z;
+  const int tile0 = split * tiles_per_split;
   const float* qp = q + bi * st.qb + hi * st.qh;
   const float* gp = dout + bi * st.gb + hi * st.gh;
   const float* lp = lse + (long long)bh * n;
   const float* dip = di + (long long)bh * n;
 
-  load_tile<D, BN>(s_k, k + bi * st.kb + hi * st.kh + (long long)k0 * st.kn, st.kn, tid);
-  load_tile<D, BN>(s_v, v + bi * st.vb + hi * st.vh + (long long)k0 * st.vn, st.vn, tid);
+  auto load_stage = [&](int stage, int tile) {
+    float* s = ring + stage * STAGE;
+    const long long q0 = (long long)tile * BM;
+    load_tile_async<BM, D, P, NTHREADS>(s, qp + q0 * st.qn, st.qn, tid);
+    load_tile_async<BM, D, P, NTHREADS>(s + BM * P, gp + q0 * st.gn, st.gn, tid);
+    load_vec_async<BM, NTHREADS>(s + 2 * BM * P, lp + q0, tid);
+    load_vec_async<BM, NTHREADS>(s + 2 * BM * P + BM, dip + q0, tid);
+  };
 
-  float acc_k[TK][TN], acc_v[TK][TN];
-#pragma unroll
-  for (int a = 0; a < TK; ++a)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc_k[a][c] = acc_v[a][c] = 0.f;
+  load_tile_async<BN, D, P, NTHREADS>(s_k, k + bi * st.kb + hi * st.kh + (long long)k0 * st.kn,
+                                      st.kn, tid);
+  load_tile_async<BN, D, P, NTHREADS>(s_v, v + bi * st.vb + hi * st.vh + (long long)k0 * st.vn,
+                                      st.vn, tid);
+  load_stage(0, tile0);
+  cp_async_commit();
 
-  for (int q0 = 0; q0 < n; q0 += BM) {
-    __syncthreads();  // the previous tile's readers are done (and K, V are staged)
-    load_tile<D, BM>(s_q, qp + (long long)q0 * st.qn, st.qn, tid);
-    load_tile<D, BM>(s_do, gp + (long long)q0 * st.gn, st.gn, tid);
-    for (int e = tid; e < BM; e += NTHREADS) {
-      s_lse[e] = lp[q0 + e];
-      s_di[e] = dip[q0 + e];
-    }
+  float acc_k[D / 8][RW][4], acc_v[D / 8][RW][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc_k[c][i][r] = acc_v[c][i][r] = 0.f;
+
+  const float* my_k = s_k + 16 * RW * warp * P;     // the warp's keys: 16·RW rows
+  const float* my_v = s_v + 16 * RW * warp * P;
+  for (int it = 0; it < tiles_per_split; ++it) {
+    if (it + 1 < tiles_per_split) load_stage((it + 1) & 1, tile0 + it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();       // this tile (and K, V) have landed
     __syncthreads();
+    const float* s_q = ring + (it & 1) * STAGE;
+    const float* s_do = s_q + BM * P;
+    const float* s_lse = s_do + BM * P;
+    const float* s_di = s_lse + BM;
 
-    float s[TM][SJ], dp[TM][SJ];
-    logits_and_dp<D, TM, SJ>(s_q, s_do, s_k, s_v, ty, tx, s, dp);
+    float s[NT][RW][4], dp[NT][RW][4];   // Sᵀ, dPᵀ: rows = the warp's keys, columns = queries
+    logits_and_dp<D, NT, RW>(my_k, s_q, my_v, s_do, g, t, s, dp);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = ty * TM + i;
-      const float row_lse = s_lse[r], row_di = s_di[r];
+    for (int j = 0; j < NT; ++j) {
+      const int c = 8 * j + 2 * t;     // this thread's query columns c and c + 1
+      const float lse2[2] = {s_lse[c], s_lse[c + 1]}, di2[2] = {s_di[c], s_di[c + 1]};
 #pragma unroll
-      for (int j = 0; j < SJ; ++j) {
-        const float p = expf(s[i][j] * sm_scale - row_lse);
-        s_p[r * PS + tx + 16 * j] = p;
-        s_ds[r * PS + tx + 16 * j] = p * (dp[i][j] - row_di);
-      }
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          s[j][i][r] = expf(s[j][i][r] * sm_scale - lse2[r % 2]);
+          dp[j][i][r] = s[j][i][r] * (dp[j][i][r] - di2[r % 2]);
+        }
     }
-    __syncthreads();
-
-    // dV += Pᵀ dO, then dK += dSᵀ Q, over the tile's queries
-#pragma unroll 2
-    for (int i = 0; i < BM; ++i) {
-      float gv[TN];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) gv[c] = s_do[i * P + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < TK; ++a) {
-        const float p = s_p[i * PS + ty * TK + a];
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc_v[a][c] = fmaf(p, gv[c], acc_v[a][c]);
-      }
-    }
-#pragma unroll 2
-    for (int i = 0; i < BM; ++i) {
-      float qv[TN];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) qv[c] = s_q[i * P + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < TK; ++a) {
-        const float ds = s_ds[i * PS + ty * TK + a];
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc_k[a][c] = fmaf(ds, qv[c], acc_k[a][c]);
-      }
-    }
+    accumulate<D, NT, RW>(acc_v, s, s_do, g, t);    // dV += Pᵀ dO
+    accumulate<D, NT, RW>(acc_k, dp, s_q, g, t);    // dK += dSᵀ Q
+    __syncthreads();          // every warp is done with this stage before it is refilled
   }
 
-#pragma unroll
-  for (int a = 0; a < TK; ++a) {
-    const long long row = ((long long)bi * m + k0 + ty * TK + a) * heads + hi;
-    float* dkrow = dk + row * D;
-    float* dvrow = dv + row * D;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      dkrow[tx + 16 * c] = acc_k[a][c] * sm_scale;
-      dvrow[tx + 16 * c] = acc_v[a][c];
-    }
-  }
+  const long long part = (long long)split * b * m * heads * D;
+  const long long row0 = (long long)bi * m + k0 + 16 * RW * warp;
+  store_rows<D, RW>(dk + part, acc_k, row0, heads, hi, sm_scale, g, t);
+  store_rows<D, RW>(dv + part, acc_v, row0, heads, hi, 1.f, g, t);
 }
 
-template <int D, int BM, int BN>
-__global__ void __launch_bounds__(NTHREADS)
+template <int D, int BQ, int BK, int RW>
+__global__ void __launch_bounds__(BQ / RW * 2)
 flash_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         float* __restrict__ dq, Strides st, int heads, int n, int m,
-                         float sm_scale) {
-  constexpr int TM = BM / 16;   // query rows per thread
-  constexpr int SJ = BN / 16;   // keys per thread in the recompute
-  constexpr int TN = D / 16;    // columns per thread in the accumulator
-  constexpr int P = D + 1, PS = BN + 1;
-  extern __shared__ float smem[];
-  float* s_q = smem;               // [BM][D + 1]
-  float* s_do = s_q + BM * P;      // [BM][D + 1]
-  float* s_k = s_do + BM * P;      // [BN][D + 1]
-  float* s_v = s_k + BN * P;       // [BN][D + 1]
-  float* s_ds = s_v + BN * P;      // [BM][BN + 1]
+                         float* __restrict__ dq, Strides st, int b, int heads, int n, int m,
+                         int tiles_per_split, float sm_scale) {
+  constexpr int NTHREADS = BQ / RW * 2, P = D + 4, NT = BK / 8;
+  constexpr int STAGE = 2 * BK * P;
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;               // [BQ][D + 4]
+  float* s_do = s_q + BQ * P;      // [BQ][D + 4]
+  float* ring = s_do + BQ * P;     // 2 x {k [BK][D + 4], v [BK][D + 4]}
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = blockIdx.x * BQ, split = blockIdx.z;
+  const int tile0 = split * tiles_per_split;
   const float* kp = k + bi * st.kb + hi * st.kh;
   const float* vp = v + bi * st.vb + hi * st.vh;
 
-  load_tile<D, BM>(s_q, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn, st.qn, tid);
-  load_tile<D, BM>(s_do, dout + bi * st.gb + hi * st.gh + (long long)q0 * st.gn, st.gn, tid);
-  float row_lse[TM], row_di[TM], acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    row_lse[i] = lse[(long long)bh * n + q0 + ty * TM + i];
-    row_di[i] = di[(long long)bh * n + q0 + ty * TM + i];
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[i][c] = 0.f;
-  }
+  auto load_stage = [&](int stage, int tile) {
+    float* s = ring + stage * STAGE;
+    const long long k0 = (long long)tile * BK;
+    load_tile_async<BK, D, P, NTHREADS>(s, kp + k0 * st.kn, st.kn, tid);
+    load_tile_async<BK, D, P, NTHREADS>(s + BK * P, vp + k0 * st.vn, st.vn, tid);
+  };
 
-  for (int k0 = 0; k0 < m; k0 += BN) {
-    __syncthreads();  // the previous tile's readers are done (and Q, dO are staged)
-    load_tile<D, BN>(s_k, kp + (long long)k0 * st.kn, st.kn, tid);
-    load_tile<D, BN>(s_v, vp + (long long)k0 * st.vn, st.vn, tid);
-    __syncthreads();
+  load_tile_async<BQ, D, P, NTHREADS>(s_q, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn,
+                                      st.qn, tid);
+  load_tile_async<BQ, D, P, NTHREADS>(
+      s_do, dout + bi * st.gb + hi * st.gh + (long long)q0 * st.gn, st.gn, tid);
+  load_stage(0, tile0);
+  cp_async_commit();
 
-    float s[TM][SJ], dp[TM][SJ];
-    logits_and_dp<D, TM, SJ>(s_q, s_do, s_k, s_v, ty, tx, s, dp);
+  // the warp's rows: q0 + 16·RW·warp + 16i + g and + 8, row tile i < RW
+  const int r0 = q0 + 16 * RW * warp;
+  float row_lse[RW][2], row_di[RW][2], acc[D / 8][RW][4];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < RW; ++i)
 #pragma unroll
-      for (int j = 0; j < SJ; ++j) {
-        const float p = expf(s[i][j] * sm_scale - row_lse[i]);
-        s_ds[(ty * TM + i) * PS + tx + 16 * j] = p * (dp[i][j] - row_di[i]);
-      }
-    __syncthreads();
-
-    // dQ += dS K over the tile's keys
-#pragma unroll 2
-    for (int j = 0; j < BN; ++j) {
-      float kv[TN];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) kv[c] = s_k[j * P + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float ds = s_ds[(ty * TM + i) * PS + j];
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
-      }
+    for (int h8 = 0; h8 < 2; ++h8) {
+      row_lse[i][h8] = lse[(long long)bh * n + r0 + 16 * i + g + 8 * h8];
+      row_di[i][h8] = di[(long long)bh * n + r0 + 16 * i + g + 8 * h8];
     }
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[c][i][r] = 0.f;
+
+  const float* my_q = s_q + 16 * RW * warp * P;
+  const float* my_do = s_do + 16 * RW * warp * P;
+  for (int it = 0; it < tiles_per_split; ++it) {
+    if (it + 1 < tiles_per_split) load_stage((it + 1) & 1, tile0 + it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* s_k = ring + (it & 1) * STAGE;
+    const float* s_v = s_k + BK * P;
+
+    float s[NT][RW][4], dp[NT][RW][4];   // S and dP: rows = the warp's queries, columns = keys
+    logits_and_dp<D, NT, RW>(my_q, s_k, my_do, s_v, g, t, s, dp);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          dp[j][i][r] = expf(s[j][i][r] * sm_scale - row_lse[i][r / 2]) *
+                        (dp[j][i][r] - row_di[i][r / 2]);
+    accumulate<D, NT, RW>(acc, dp, s_k, g, t);      // dQ += dS K
+    __syncthreads();
   }
 
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float* dqrow = dq + (((long long)bi * n + q0 + ty * TM + i) * heads + hi) * D;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) dqrow[tx + 16 * c] = acc[i][c] * sm_scale;
+  const long long part = (long long)split * b * n * heads * D;
+  store_rows<D, RW>(dq + part, acc, (long long)bi * n + r0, heads, hi, sm_scale, g, t);
+}
+
+// out[i] = sum over s of parts[s·count + i], s = 0, 1, ... in order.
+__global__ void flash_attn_bwd_sum_kernel(const float4* __restrict__ parts,
+                                          float4* __restrict__ out, long long count4,
+                                          int nparts) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count4;
+       i += (long long)gridDim.x * blockDim.x) {
+    float4 a = parts[i];
+    for (int s = 1; s < nparts; ++s) {
+      const float4 x = parts[s * count4 + i];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    out[i] = a;
   }
 }
 
+// ---- d = 512: P and dS through scratch ----------------------------------
+
+constexpr int PDS_BM = 128, PDS_BN = 64, PDS_KC = 32, PDS_P = PDS_KC + 4;
+constexpr int PDS_STAGE = 2 * (PDS_BM + PDS_BN) * PDS_P;
+constexpr int MM_BM = 128, MM_BN = 128, MM_KC = 32, MM_STAGES = 3;
+constexpr int MM_PA = MM_KC + 4, MM_PT = MM_BM + 8;   // pitches: [i][k] and [k][i or j]
+constexpr int MM_STAGE = MM_BM * MM_PA + MM_KC * MM_PT;
+
+// P and dS of 128 queries x 64 keys: 8 warps, each 32 x 32 of S and dP,
+// contracting d in chunks of 32 through a two-stage ring; written to
+// p_out, ds_out as (b·heads, n, m).
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_attn_bwd_p_ds_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ di,
+                           float* __restrict__ p_out, float* __restrict__ ds_out, Strides st,
+                           int heads, int n, int m, float sm_scale) {
+  constexpr int P = PDS_P, NCHUNK = D / PDS_KC;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = warp / 2, wc = warp % 2;
+  const int bh = blockIdx.z, bi = bh / heads, hi = bh % heads;
+  const int q0 = blockIdx.y * PDS_BM, k0 = blockIdx.x * PDS_BN;
+  const float* qp = q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn;
+  const float* gp = dout + bi * st.gb + hi * st.gh + (long long)q0 * st.gn;
+  const float* kp = k + bi * st.kb + hi * st.kh + (long long)k0 * st.kn;
+  const float* vp = v + bi * st.vb + hi * st.vh + (long long)k0 * st.vn;
+
+  auto load_stage = [&](int stage, int chunk) {
+    float* s = smem + stage * PDS_STAGE;
+    const int c0 = chunk * PDS_KC;
+    load_tile_async<PDS_BM, PDS_KC, P, 256>(s, qp + c0, st.qn, tid);
+    load_tile_async<PDS_BM, PDS_KC, P, 256>(s + PDS_BM * P, gp + c0, st.gn, tid);
+    load_tile_async<PDS_BN, PDS_KC, P, 256>(s + 2 * PDS_BM * P, kp + c0, st.kn, tid);
+    load_tile_async<PDS_BN, PDS_KC, P, 256>(s + (2 * PDS_BM + PDS_BN) * P, vp + c0, st.vn, tid);
+  };
+
+  float s[4][2][4], dp[4][2][4];   // [column tile j][row tile i]
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[j][i][r] = dp[j][i][r] = 0.f;
+
+  load_stage(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < NCHUNK; ++it) {
+    if (it + 1 < NCHUNK) load_stage((it + 1) & 1, it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* s_q = smem + (it & 1) * PDS_STAGE + wr * 32 * P;
+    const float* s_do = s_q + PDS_BM * P;
+    const float* s_k = smem + (it & 1) * PDS_STAGE + 2 * PDS_BM * P + wc * 32 * P;
+    const float* s_v = s_k + PDS_BN * P;
+#pragma unroll
+    for (int kk = 0; kk < PDS_KC; kk += 8) {
+      FragA fq[2], fg[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* a = s_q + (16 * i + g) * P + kk + t;
+        const float* c = s_do + (16 * i + g) * P + kk + t;
+        fq[i].set(a[0], a[8 * P], a[4], a[8 * P + 4]);
+        fg[i].set(c[0], c[8 * P], c[4], c[8 * P + 4]);
+      }
+      FragB fb[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        fb[j].set(s_k[(8 * j + g) * P + kk + t], s_k[(8 * j + g) * P + kk + t + 4]);
+      mma3_grid<4, 2>(s, fq, fb);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        fb[j].set(s_v[(8 * j + g) * P + kk + t], s_v[(8 * j + g) * P + kk + t + 4]);
+      mma3_grid<4, 2>(dp, fg, fb);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const int row = q0 + wr * 32 + 16 * i + g + 8 * h8;
+      const float l = lse[(long long)bh * n + row], d = di[(long long)bh * n + row];
+      const long long base = ((long long)bh * n + row) * m + k0 + wc * 32 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p0 = expf(s[j][i][2 * h8] * sm_scale - l);
+        const float p1 = expf(s[j][i][2 * h8 + 1] * sm_scale - l);
+        *reinterpret_cast<float2*>(p_out + base + 8 * j) = make_float2(p0, p1);
+        *reinterpret_cast<float2*>(ds_out + base + 8 * j) =
+            make_float2(p0 * (dp[j][i][2 * h8] - d), p1 * (dp[j][i][2 * h8 + 1] - d));
+      }
+    }
+  }
+}
+
+// out (rows, D) = alpha A B over k < kdim, one 128 x 128 tile per block: 8
+// warps of 64 x 32, a three-stage ring of 32-deep chunks.  A(i, kk) is
+// a[i·lda + kk] when A_KCONTIG, else a[kk·lda + i]; B(kk, j) is b[kk·ldb + j];
+// out(i, j) is out[i·ostride + j].
+template <bool A_KCONTIG>
+__device__ __forceinline__ void mm_tile(const float* __restrict__ a, long long lda,
+                                        const float* __restrict__ b, long long ldb,
+                                        float* __restrict__ out, long long ostride, int kdim,
+                                        float alpha) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = warp / 4, wc = warp % 4;
+  const int i0 = blockIdx.y * MM_BM, j0 = blockIdx.x * MM_BN;
+  const int nchunk = kdim / MM_KC;
+
+  auto load_stage = [&](int stage, int chunk) {
+    float* s = smem + stage * MM_STAGE;
+    const long long c0 = (long long)chunk * MM_KC;
+    if (A_KCONTIG)
+      load_tile_async<MM_BM, MM_KC, MM_PA, 256>(s, a + i0 * lda + c0, lda, tid);
+    else
+      load_tile_async<MM_KC, MM_BM, MM_PT, 256>(s, a + c0 * lda + i0, lda, tid);
+    load_tile_async<MM_KC, MM_BN, MM_PT, 256>(s + MM_BM * MM_PA, b + c0 * ldb + j0, ldb, tid);
+  };
+
+  float acc[4][4][4];   // [column tile j][row tile i]
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[j][i][r] = 0.f;
+
+#pragma unroll
+  for (int c = 0; c < MM_STAGES - 1; ++c) {
+    if (c < nchunk) load_stage(c, c);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nchunk; ++it) {
+    if (it + MM_STAGES - 1 < nchunk) load_stage((it + MM_STAGES - 1) % MM_STAGES,
+                                                it + MM_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<MM_STAGES - 1>();
+    __syncthreads();
+    const float* s_a = smem + (it % MM_STAGES) * MM_STAGE;
+    const float* s_b = s_a + MM_BM * MM_PA + wc * 32;
+#pragma unroll
+    for (int kk = 0; kk < MM_KC; kk += 8) {
+      FragA fa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wr * 64 + 16 * i + g;
+        if (A_KCONTIG) {
+          const float* x = s_a + r * MM_PA + kk + t;
+          fa[i].set(x[0], x[8 * MM_PA], x[4], x[8 * MM_PA + 4]);
+        } else {
+          const float* x = s_a + (kk + t) * MM_PT + r;
+          fa[i].set(x[0], x[8], x[4 * MM_PT], x[4 * MM_PT + 8]);
+        }
+      }
+      FragB fb[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        fb[j].set(s_b[(kk + t) * MM_PT + 8 * j + g], s_b[(kk + t + 4) * MM_PT + 8 * j + g]);
+      mma3_grid<4, 4>(acc, fa, fb);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long r = i0 + wr * 64 + 16 * i + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = j0 + wc * 32 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(out + r * ostride + col) =
+          make_float2(acc[j][i][0] * alpha, acc[j][i][1] * alpha);
+      *reinterpret_cast<float2*>(out + (r + 8) * ostride + col) =
+          make_float2(acc[j][i][2] * alpha, acc[j][i][3] * alpha);
+    }
+  }
+}
+
+// dV = Pᵀ dO (blockIdx.z even) and dK = sm_scale dSᵀ q (odd) for b·head z / 2.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_attn_bwd_dkv_mm_kernel(const float* __restrict__ q, const float* __restrict__ dout,
+                             const float* __restrict__ p, const float* __restrict__ ds,
+                             float* __restrict__ dk, float* __restrict__ dv, Strides st,
+                             int heads, int n, int m, float sm_scale) {
+  const int bh = blockIdx.z / 2, bi = bh / heads, hi = bh % heads;
+  const long long out = ((long long)bi * m * heads + hi) * D;
+  if (blockIdx.z % 2 == 0)
+    mm_tile<false>(p + (long long)bh * n * m, m, dout + bi * st.gb + hi * st.gh, st.gn,
+                   dv + out, (long long)heads * D, n, 1.f);
+  else
+    mm_tile<false>(ds + (long long)bh * n * m, m, q + bi * st.qb + hi * st.qh, st.qn,
+                   dk + out, (long long)heads * D, n, sm_scale);
+}
+
+// dQ = sm_scale dS k for b·head blockIdx.z.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_attn_bwd_dq_mm_kernel(const float* __restrict__ k, const float* __restrict__ ds,
+                            float* __restrict__ dq, Strides st, int heads, int n, int m,
+                            float sm_scale) {
+  const int bh = blockIdx.z, bi = bh / heads, hi = bh % heads;
+  mm_tile<true>(ds + (long long)bh * n * m, m, k + bi * st.kb + hi * st.kh, st.kn,
+                dq + ((long long)bi * n * heads + hi) * D, (long long)heads * D, m, sm_scale);
+}
+
+// ---- launches ------------------------------------------------------------
+
 struct Args {
   const float *q, *k, *v, *dout, *lse, *di;
-  float *dq, *dk, *dv;
+  float *dq, *dk, *dv, *scratch;
   Strides st;
-  int b, heads, n, m;
+  int b, heads, n, m, dkv_split, dq_split;
   float sm_scale;
 };
 
-// flash_attn_bwd_dkv_kernel, then flash_attn_bwd_dq_kernel, on one stream;
-// returns the first error.
-template <int D, int BM, int BN>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem_dkv = sizeof(float) * dkv_smem_floats<D, BM, BN>();
-  const size_t smem_dq = sizeof(float) * dq_smem_floats<D, BM, BN>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dkv_kernel<D, BM, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_dkv);
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+cudaError_t launch_sum(const float* parts, float* out, long long count, int nparts,
+                       cudaStream_t stream) {
+  const long long count4 = count / 4;
+  const int blocks = (int)(count4 / 256 < 1056 ? (count4 + 255) / 256 : 1056);
+  flash_attn_bwd_sum_kernel<<<blocks, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(parts), reinterpret_cast<float4*>(out), count4, nparts);
+  return cudaGetLastError();
+}
+
+// flash_attn_bwd_dkv_kernel, then flash_attn_bwd_dq_kernel, then the sums of
+// split parts, on one stream; returns the first error.  Split parts go to
+// scratch as [dk parts | dv parts | dq parts].
+template <int D, int BN, int BM, int KRW, int BQ, int BK, int QRW>
+cudaError_t launch_fused(const Args& a, cudaStream_t stream) {
+  const long long kv_size = (long long)a.b * a.m * a.heads * D;
+  const long long q_size = (long long)a.b * a.n * a.heads * D;
+  if ((a.n / BM) % a.dkv_split || (a.m / BK) % a.dq_split || a.m % BN || a.n % BQ)
+    return cudaErrorInvalidValue;
+  if ((a.dkv_split > 1 || a.dq_split > 1) && a.scratch == nullptr) return cudaErrorInvalidValue;
+  float* dk = a.dkv_split > 1 ? a.scratch : a.dk;
+  float* dv = a.dkv_split > 1 ? a.scratch + a.dkv_split * kv_size : a.dv;
+  float* dq = a.dq_split > 1 ? a.scratch + (a.dkv_split > 1 ? 2 * a.dkv_split * kv_size : 0)
+                             : a.dq;
+  const size_t smem_dkv = sizeof(float) * dkv_smem_floats<D, BN, BM>();
+  const size_t smem_dq = sizeof(float) * dq_smem_floats<D, BQ, BK>();
+  cudaError_t err = set_smem(flash_attn_bwd_dkv_kernel<D, BN, BM, KRW>, smem_dkv);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_kernel<D, BQ, BK, QRW>, smem_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_attn_bwd_dq_kernel<D, BM, BN>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  flash_attn_bwd_dkv_kernel<D, BN, BM, KRW>
+      <<<dim3(a.m / BN, a.b * a.heads, a.dkv_split), BN / KRW * 2, smem_dkv, stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.di, dk, dv, a.st, a.b, a.heads, a.n, a.m,
+          a.n / BM / a.dkv_split, a.sm_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_attn_bwd_dq_kernel<D, BQ, BK, QRW>
+      <<<dim3(a.n / BQ, a.b * a.heads, a.dq_split), BQ / QRW * 2, smem_dq, stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.di, dq, a.st, a.b, a.heads, a.n, a.m,
+          a.m / BK / a.dq_split, a.sm_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (a.dkv_split > 1) {
+    if ((err = launch_sum(dk, a.dk, kv_size, a.dkv_split, stream)) != cudaSuccess) return err;
+    if ((err = launch_sum(dv, a.dv, kv_size, a.dkv_split, stream)) != cudaSuccess) return err;
+  }
+  if (a.dq_split > 1) return launch_sum(dq, a.dq, q_size, a.dq_split, stream);
+  return cudaSuccess;
+}
+
+// d = 512: flash_attn_bwd_p_ds_kernel into scratch as [P | dS], then
+// flash_attn_bwd_dkv_mm_kernel and flash_attn_bwd_dq_mm_kernel.
+template <int D>
+cudaError_t launch_d512(const Args& a, cudaStream_t stream) {
+  if (a.scratch == nullptr || a.dkv_split != 1 || a.dq_split != 1) return cudaErrorInvalidValue;
+  float* p = a.scratch;
+  float* ds = a.scratch + (long long)a.b * a.heads * a.n * a.m;
+  const size_t smem_pds = sizeof(float) * 2 * PDS_STAGE;
+  const size_t smem_mm = sizeof(float) * MM_STAGES * MM_STAGE;
+  cudaError_t err = set_smem(flash_attn_bwd_p_ds_kernel<D>, smem_pds);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dkv_mm_kernel<D>, smem_mm);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_mm_kernel<D>, smem_mm);
   if (err != cudaSuccess) return err;
-  flash_attn_bwd_dkv_kernel<D, BM, BN><<<dim3(a.m / BN, a.b * a.heads), NTHREADS, smem_dkv,
-                                         stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.di, a.dk,
-                                                   a.dv, a.st, a.heads, a.n, a.m, a.sm_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_attn_bwd_dq_kernel<D, BM, BN><<<dim3(a.n / BM, a.b * a.heads), NTHREADS, smem_dq,
-                                        stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.di, a.dq,
-                                                  a.st, a.heads, a.n, a.m, a.sm_scale);
+  flash_attn_bwd_p_ds_kernel<D>
+      <<<dim3(a.m / PDS_BN, a.n / PDS_BM, a.b * a.heads), 256, smem_pds, stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.di, p, ds, a.st, a.heads, a.n, a.m, a.sm_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_attn_bwd_dkv_mm_kernel<D>
+      <<<dim3(D / MM_BN, a.m / MM_BM, 2 * a.b * a.heads), 256, smem_mm, stream>>>(
+          a.q, a.dout, p, ds, a.dk, a.dv, a.st, a.heads, a.n, a.m, a.sm_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_attn_bwd_dq_mm_kernel<D>
+      <<<dim3(D / MM_BN, a.n / MM_BM, a.b * a.heads), 256, smem_mm, stream>>>(
+          a.k, ds, a.dq, a.st, a.heads, a.n, a.m, a.sm_scale);
   return cudaGetLastError();
 }
 
@@ -329,25 +770,32 @@ const char* flash_attn_bwd_error_string(int err) {
 }
 
 // q, dout: (b, n, heads, d); k, v: (b, m, heads, d); float32 on the current
-// device, element strides per (batch, seq, head), unit stride along d.  lse
-// and di: contiguous (b, heads, n).  dq: contiguous (b, n, heads, d); dk and
-// dv: contiguous (b, m, heads, d).  n and m multiples of 128.  Launches
-// flash_attn_bwd_dkv_kernel, then flash_attn_bwd_dq_kernel, on the stream and
+// device, element strides per (batch, seq, head), unit stride along d, every
+// stride a multiple of 4 and every base 16-byte aligned.  lse and di:
+// contiguous (b, heads, n).  dq: contiguous (b, n, heads, d); dk and dv:
+// contiguous (b, m, heads, d).  n and m multiples of 128.  scratch: float32,
+// d = 512: 2·b·heads·n·m (P and dS); d = 64 or 128: 2·dkv_split·b·m·heads·d
+// if dkv_split > 1 plus dq_split·b·n·heads·d if dq_split > 1, else may be
+// null.  dkv_split (dq_split) cuts the loop over query (key) tiles into that
+// many parts, each a divisor of the tile count (64-row tiles at d = 64,
+// 32-row at d = 128); 1 at d = 512.  Launches the kernels on the stream and
 // returns the first launch error (cudaSuccess = 0).
 int flash_attn_bwd(const float* q, const float* k, const float* v, const float* dout,
                    const float* lse, const float* di, float* dq, float* dk, float* dv,
-                   long long qb, long long qn, long long qh, long long kb, long long kn,
-                   long long kh, long long vb, long long vn, long long vh, long long gb,
-                   long long gn, long long gh, int b, int heads, int n, int m, int d,
-                   float sm_scale, void* stream) {
-  const Args a{q, k, v, dout, lse, di, dq, dk, dv,
-               Strides{qb, qn, qh, kb, kn, kh, vb, vn, vh, gb, gn, gh}, b, heads, n, m, sm_scale};
+                   float* scratch, long long qb, long long qn, long long qh, long long kb,
+                   long long kn, long long kh, long long vb, long long vn, long long vh,
+                   long long gb, long long gn, long long gh, int b, int heads, int n, int m,
+                   int d, int dkv_split, int dq_split, float sm_scale, void* stream) {
+  const Args a{q, k, v, dout, lse, di, dq, dk, dv, scratch,
+               Strides{qb, qn, qh, kb, kn, kh, vb, vn, vh, gb, gn, gh},
+               b, heads, n, m, dkv_split, dq_split, sm_scale};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (n % 128 != 0 || m % 128 != 0) return (int)cudaErrorInvalidValue;
+  if (n % 128 != 0 || m % 128 != 0 || dkv_split < 1 || dq_split < 1)
+    return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 64: return (int)launch<64, 64, 64>(a, s);
-    case 128: return (int)launch<128, 64, 64>(a, s);
-    case 512: return (int)launch<512, 32, 16>(a, s);
+    case 64: return (int)launch_fused<64, 128, 32, 2, 128, 32, 2>(a, s);
+    case 128: return (int)launch_fused<128, 128, 32, 1, 128, 32, 1>(a, s);
+    case 512: return (int)launch_d512<512>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

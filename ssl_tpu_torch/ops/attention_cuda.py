@@ -4,10 +4,12 @@ Replaces the Pallas TPU flash attention that ``ssl_tpu/ops/attention.py``
 (``sdp_attention``, flash branch :32-39) calls, and the two Pallas kernels of
 its custom VJP.  The kernel sources are ``ssl_tpu_torch/csrc/flash_attn_fwd.cu``
 and ``ssl_tpu_torch/csrc/flash_attn_bwd.cu`` (``flash_attn_bwd_dkv`` and
-``flash_attn_bwd_dq``).  They read q, k, v and dO through their (b, seq,
-heads, d) strides, so the UNet's (b, n, heads·d) projections and the
-head-major packed qkv of ``AttentionBlockQKV`` go in without a copy, and
-write contiguous (b, seq, heads, d) outputs.  Callers route through
+``flash_attn_bwd_dq`` at d = 64 and 128, with ``flash_attn_bwd_sum`` where
+the loop is split; ``flash_attn_bwd_p_ds``, ``flash_attn_bwd_dkv_mm`` and
+``flash_attn_bwd_dq_mm`` at d = 512).  They read q, k, v and dO through
+their (b, seq, heads, d) strides, so the UNet's (b, n, heads·d) projections
+and the head-major packed qkv of ``AttentionBlockQKV`` go in without a copy,
+and write contiguous (b, seq, heads, d) outputs.  Callers route through
 ``ops/attention.py::sdp_attention``, which checks eligibility and holds the
 autograd function."""
 
@@ -21,13 +23,25 @@ from ssl_tpu_torch.ops.cuda_build import load_library
 
 # Launches of the K2 forward kernel in this process (one per ``flash_attn_fwd_cuda`` call).
 launches = 0
-# Calls of ``flash_attn_bwd_cuda`` in this process; each launches both backward
-# kernels (dkv, then dq) once, so this is the launch count of each.
+# Calls of ``flash_attn_bwd_cuda`` in this process.
 bwd_launches = 0
+# Launches of each backward kernel in this process, counted where the C entry
+# that launches it returns without error.
+bwd_kernel_launches = dict.fromkeys(
+    ("flash_attn_bwd_dkv", "flash_attn_bwd_dq", "flash_attn_bwd_sum", "flash_attn_bwd_p_ds",
+     "flash_attn_bwd_dkv_mm", "flash_attn_bwd_dq_mm"), 0)
 
 # Head widths the kernels are instantiated for (a template on d in the
 # sources): the UNet's and struct-cond encoder's heads and the VAE's single head.
 HEAD_DIMS = (64, 128, 512)
+# The backward's fused kernels by head width (csrc/flash_attn_bwd.cu), each
+# as (dkv, dq): rows a block owns (keys, queries), rows streamed per tile
+# (queries, keys), and blocks that fit one SM.  d = 512 takes the scratch
+# path instead.
+BWD_BLOCK_ROWS = {64: (128, 128), 128: (128, 128)}
+BWD_STREAM_ROWS = {64: (32, 32), 128: (32, 32)}
+BWD_BLOCKS_PER_SM = {64: (2, 2), 128: (1, 1)}
+BWD_MAX_SPLIT = 4
 
 
 def _declare_fwd(lib) -> None:
@@ -40,7 +54,7 @@ def _declare_fwd(lib) -> None:
 
 def _declare_bwd(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attn_bwd.argtypes = [p] * 9 + [ll] * 12 + [i] * 5 + [ctypes.c_float, p]
+    lib.flash_attn_bwd.argtypes = [p] * 10 + [ll] * 12 + [i] * 7 + [ctypes.c_float, p]
     lib.flash_attn_bwd.restype = i
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
@@ -112,32 +126,81 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_sc
     return (out, lse) if return_lse else out
 
 
+def bwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int):
+    """How the backward runs: (dkv_split, dq_split, scratch floats, kernels).
+
+    At d = 64 and 128, a split cuts the dkv kernel's loop over query tiles
+    (dq's over key tiles) into parts when the grid would fill under 90% of
+    the ``sms`` SMs' block slots: powers of 2, at most ``BWD_MAX_SPLIT``,
+    each dividing the tile count.  Parts go to scratch and
+    ``flash_attn_bwd_sum`` adds them in order.  At d = 512 the scratch holds
+    P and dS (b·heads·n·m floats each).  ``kernels`` names each kernel with
+    its launches."""
+    if d == 512:
+        return 1, 1, 2 * b * heads * n * m, {"flash_attn_bwd_p_ds": 1, "flash_attn_bwd_dkv_mm": 1,
+                                             "flash_attn_bwd_dq_mm": 1}
+    block, rows, per_sm = BWD_BLOCK_ROWS[d], BWD_STREAM_ROWS[d], BWD_BLOCKS_PER_SM[d]
+
+    def split(blocks, tiles, slots):
+        s = 1
+        while blocks * s < 0.9 * slots and tiles % (2 * s) == 0 and s < BWD_MAX_SPLIT:
+            s *= 2
+        return s
+
+    dkv = split(m // block[0] * b * heads, n // rows[0], per_sm[0] * sms)
+    dq = split(n // block[1] * b * heads, m // rows[1], per_sm[1] * sms)
+    scratch = (2 * dkv * b * m * heads * d if dkv > 1 else 0) + (dq * b * n * heads * d
+                                                                if dq > 1 else 0)
+    kernels = {"flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1,
+               "flash_attn_bwd_sum": 2 * (dkv > 1) + (dq > 1)}
+    return dkv, dq, scratch, kernels
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where a stride or the base is not 16-byte
+    aligned (the kernels copy rows in 16-byte pieces)."""
+    if t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3]):
+        return t
+    return t.contiguous()
+
+
 def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, sm_scale: float):
     """Launch K2's backward on CUDA tensors: (dq, dk, dv), what
     ``flash_attn_bwd_reference`` returns.  di = rowsum(o * dO) is a plain
-    reduction here, as upstream leaves it to XLA; dO is taken through its
-    strides, or copied once if its last axis is not unit-stride."""
+    reduction here, as upstream leaves it to XLA; q, k, v and dO are taken
+    through their strides, or copied once if their last axis is not
+    unit-stride or a row is not 16-byte aligned.  Scratch (``bwd_plan``) is
+    allocated here."""
     global bwd_launches
     if not q.is_cuda:
         raise ValueError("flash_attn_bwd_cuda takes CUDA tensors")
     check_bwd_inputs(q, k, v, o, lse, do)
     if do.stride(3) != 1:
         do = do.contiguous()
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     lib = load_library("flash_attn_bwd", _declare_bwd)
     b, n, h, d = q.shape
+    m = k.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    dkv_split, dq_split, scratch_floats, kernels = bwd_plan(b, h, n, m, d, sms)
     di = (o * do).sum(-1).transpose(1, 2).contiguous()      # (b, heads, n)
     dq = torch.empty((b, n, h, d), device=q.device, dtype=torch.float32)
     dk = torch.empty(k.shape, device=q.device, dtype=torch.float32)
     dv = torch.empty(k.shape, device=q.device, dtype=torch.float32)
+    scratch = (torch.empty(scratch_floats, device=q.device, dtype=torch.float32)
+               if scratch_floats else None)
     strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         err = lib.flash_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                  lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                 dv.data_ptr(), *strides, b, h, n, k.shape[1], d,
-                                 float(sm_scale), torch.cuda.current_stream().cuda_stream)
+                                 dv.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                                 *strides, b, h, n, m, d, dkv_split, dq_split, float(sm_scale),
+                                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd launch failed: "
                            f"{lib.flash_attn_bwd_error_string(err).decode()}")
     bwd_launches += 1
+    for name, count in kernels.items():
+        bwd_kernel_launches[name] += count
     return dq, dk, dv

@@ -29,7 +29,8 @@ from ssl_tpu.ops import attention as jattn
 from ssl_tpu_torch.diffusion.vae import AutoencoderKL
 from ssl_tpu_torch.ops import attention, attention_cuda
 from ssl_tpu_torch.utils.weight_port import params_from_jax
-from torch_attention_cases import attention_inputs
+from torch_attention_cases import (BWD_ATOL, BWD_REL_L2, BWD_RTOL, TRAIN_CASES, attention_inputs,
+                                   flash_attn_bwd_tf32, tf32)
 from torch_diffusion_cases import VAE, close, nchw, seeded_params
 
 
@@ -63,6 +64,81 @@ def test_backward_reference_matches_jax_vjp(d, layout, logits):
     attention.sdp_attention(*leaves, scale, use_flash=True).backward(do)
     for leaf, ref in zip(leaves, grads):
         close(leaf.grad.numpy(), ref)
+
+
+def _hold(got, ref):
+    """chip_smoke.py's hold of K2's backward: relative L2 and elementwise."""
+    ref = np.asarray(ref, dtype=np.float64)
+    got = got.double().numpy()
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    ok = np.abs(got - ref) <= BWD_ATOL * np.abs(ref).max() + BWD_RTOL * np.abs(ref)
+    return rel, bool(ok.all())
+
+
+@pytest.mark.parametrize("d,layout,logits", [
+    (d, layout, logits) for d in (16, 64) for layout in ("proj", "qkv") for logits in (8.0, 50.0)])
+def test_3xtf32_backward_meets_the_hold(d, layout, logits):
+    """The kernels' arithmetic (five products in 3xTF32, fp32 softmax) against
+    jax.vjp of ssl_tpu's sdp_attention, within chip_smoke.py's BWD_* holds."""
+    b, h, n, scale = 2, 2, 256, d ** -0.5
+    q, k, v = attention_inputs(b, h, n, n, d, scale, layout, logits, seed=d + 1)
+    do = _do(b, n, h, d)
+    _, grads = _jax_vjp(q, k, v, do, scale)
+    o = attention.sdp_attention_reference(q, k, v, scale)
+    lse = attention.attention_lse_reference(q, k, scale)
+    for g, ref in zip(flash_attn_bwd_tf32(q, k, v, o, lse, do, scale), grads):
+        rel, elementwise = _hold(g, ref)
+        assert rel <= BWD_REL_L2 and elementwise, rel
+
+
+@pytest.mark.parametrize("d,layout", [(64, "proj"), (64, "qkv")])
+def test_single_pass_tf32_misses_the_hold(d, layout):
+    """At logits up to 50 single-pass TF32 (big·big alone) misses the
+    relative-L2 hold that 3xTF32 meets: the hold tells the two apart."""
+    b, h, n, scale = 2, 2, 256, d ** -0.5
+    q, k, v = attention_inputs(b, h, n, n, d, scale, layout, 50.0, seed=d + 1)
+    do = _do(b, n, h, d)
+    _, grads = _jax_vjp(q, k, v, do, scale)
+    o = attention.sdp_attention_reference(q, k, v, scale)
+    lse = attention.attention_lse_reference(q, k, scale)
+    rels = [_hold(g, ref)[0] for g, ref in
+            zip(flash_attn_bwd_tf32(q, k, v, o, lse, do, scale, passes=1), grads)]
+    assert min(rels) > BWD_REL_L2, rels
+
+
+def test_tf32_rounds_as_cvt_rna():
+    """Nearest of a 10-bit mantissa, ties away from zero, low 13 bits clear."""
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -11 + 2 ** -20, -(1.0 + 2 ** -11),
+                      1.0 + 2 ** -12, 3.0])
+    assert tf32(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10, -(1.0 + 2 ** -10), 1.0, 3.0]
+    assert int((tf32(torch.randn(1000)).view(torch.int32) & 0x1FFF).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_backward_plan_fills_the_card(case):
+    """bwd_plan on an H100's 132 SMs: at d = 64 and 128 the dkv and dq grids,
+    with their splits, fill at least 90% of the block slots or cannot split
+    further; at d = 512 the scratch holds P and dS."""
+    b, h, n, m, d = TRAIN_CASES[case][:5]
+    dkv, dq, scratch, kernels = attention_cuda.bwd_plan(b, h, n, m, d, 132)
+    if d == 512:
+        assert (dkv, dq, scratch) == (1, 1, 2 * b * h * n * m)
+        assert set(kernels) == {"flash_attn_bwd_p_ds", "flash_attn_bwd_dkv_mm",
+                                "flash_attn_bwd_dq_mm"}
+        return
+    block, rows = attention_cuda.BWD_BLOCK_ROWS[d], attention_cuda.BWD_STREAM_ROWS[d]
+    for f, (split, blocks, tiles) in enumerate(((dkv, m // block[0] * b * h, n // rows[0]),
+                                                (dq, n // block[1] * b * h, m // rows[1]))):
+        slots = attention_cuda.BWD_BLOCKS_PER_SM[d][f] * 132
+        assert tiles % split == 0
+        assert (blocks * split >= 0.9 * slots or split == attention_cuda.BWD_MAX_SPLIT
+                or tiles % (2 * split))
+        assert split == 1 or blocks * split // 2 < 0.9 * slots
+    assert scratch == ((2 * dkv * b * m * h * d if dkv > 1 else 0)
+                       + (dq * b * n * h * d if dq > 1 else 0))
+    assert kernels["flash_attn_bwd_sum"] == 2 * (dkv > 1) + (dq > 1)
+    assert (dkv, dq) == {"unet_ds1": (1, 1), "struct_ds1": (1, 1), "unet_ds2": (2, 2),
+                         "struct_ds2": (2, 2), "large_logits": (4, 4)}[case]
 
 
 @pytest.mark.parametrize("logits", [8.0, 50.0])

@@ -16,6 +16,8 @@ lse are held at the training path's shapes against
 gradient's largest value, and a relative L2 of 1e-4: dS = P * (dP - di)
 subtracts nearly equal numbers where a logit barely matters, so single
 elements carry that cancellation's rounding on the gradient's own scale.
+The backward's five products run as 3xTF32 on the tensor cores, under the
+same holds; two launches on the same inputs give bit-identical gradients.
 
 Tolerances (K1): count exact; l1 rel 1e-4 and kl rel 1e-3, the contract of
 tests/test_ssg_pallas.py:30-31 (sums taken in another order); the (b, h, w)
@@ -148,3 +150,49 @@ def test_k2_raises_instead_of_falling_back(card):
         sdp_attention(q, k, v, 0.125, use_flash=True)
     assert (attention_cuda.launches, attention_cuda.bwd_launches) == (before[0] + 2,
                                                                       before[1] + 1)
+
+
+def _bwd_inputs(case):
+    b, heads, n, m, d, scale, layout, logits = TRAIN_CASES[case]
+    q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda")
+    do = torch.randn((b, n, heads, d), generator=torch.Generator(device="cuda").manual_seed(11),
+                     device="cuda")
+    o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    return q, k, v, o, lse, do, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_k2_backward_repeats_bit_for_bit(card, case):
+    """No atomics, fixed summation orders (split parts added in order): two
+    launches on the same inputs give identical dq, dk and dv."""
+    args = _bwd_inputs(case)
+    first = attention_cuda.flash_attn_bwd_cuda(*args)
+    second = attention_cuda.flash_attn_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,kernels", [
+    ("vae_mid", {"flash_attn_bwd_p_ds": 1, "flash_attn_bwd_dkv_mm": 1, "flash_attn_bwd_dq_mm": 1}),
+    ("struct_ds2", {"flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1, "flash_attn_bwd_sum": 3}),
+])
+def test_k2_backward_paths_match_plain(card, case, kernels):
+    """d = 512 goes through P and dS in scratch and two tensor-core products;
+    struct_ds2's small grid through split loops and the ordered sum.  Each
+    launches the kernels its plan names and matches the plain recompute
+    formula."""
+    q, k, v, o, lse, do, scale = _bwd_inputs(case)
+    before = dict(attention_cuda.bwd_kernel_launches)
+    got = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+    launched = {n: c - before[n] for n, c in attention_cuda.bwd_kernel_launches.items()
+                if c != before[n]}
+    assert launched == kernels
+    ref = flash_attn_bwd_reference(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert float((g - r).norm() / r.norm()) <= 1e-4, name
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-3,
+                                   atol=1e-4 * float(r.abs().max()), err_msg=name)

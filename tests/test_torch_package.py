@@ -59,6 +59,7 @@ def test_importing_every_module_leaves_jax_and_ssl_tpu_out():
     os.path.join(REPO, f) for f in ("chip_smoke.py", "scripts/profile_torch_train_step.py",
                                     "scripts/profile_torch_serve_step.py",
                                     "scripts/profile_torch_diffusion_train_step.py",
+                                    "scripts/profile_torch_attention_bwd.py",
                                     "tests/test_torch_cuda.py", "tests/torch_ssg_cases.py",
                                     "tests/torch_attention_cases.py")] + [
     os.path.join(r, f) for r, _, fs in sorted(os.walk(PACKAGE)) for f in sorted(fs)

@@ -54,3 +54,43 @@ def attention_inputs(b, heads, n, m, d, sm_scale, layout, logit_range, seed=0, d
         t = torch.from_numpy(qkv).to(device)
         return t[..., 0, :], t[..., 1, :], t[..., 2, :]
     return tuple(torch.from_numpy(a).to(device) for a in (q * gain, k * gain, v))
+
+
+# K2 backward's holds on the card (chip_smoke.py BWD_REL_L2, BWD_RTOL,
+# BWD_ATOL): each of dq, dk, dv within this relative L2, and elementwise
+# within rtol with an atol of BWD_ATOL times the gradient's largest value.
+BWD_REL_L2, BWD_RTOL, BWD_ATOL = 1e-4, 1e-3, 1e-4
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as cvt.rna.tf32.f32 does: to the nearest of the
+    10-bit mantissa, ties away from zero; the low 13 bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def einsum_tf32(spec: str, a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """A product of float32 tensors as the tensor cores take it: with passes=3
+    (3xTF32) x = big + small, big = tf32(x), small = tf32(x - big), and the
+    product small·big + big·small + big·big; with passes=1 (single-pass
+    TF32) big·big alone.  The TF32 products are exact in float32; they are
+    summed here in float64 and rounded once."""
+    ab, bb = tf32(a), tf32(b)
+    terms = [(ab, bb)]
+    if passes == 3:
+        a_s, b_s = tf32(a - ab), tf32(b - bb)
+        terms += [(a_s, bb), (ab, b_s)]
+    return sum(torch.einsum(spec, x.double(), y.double()) for x, y in terms).float()
+
+
+def flash_attn_bwd_tf32(q, k, v, o, lse, do, sm_scale: float, passes: int = 3):
+    """flash_attn_bwd_reference with its five products in ``einsum_tf32``:
+    the arithmetic of the CUDA kernels (csrc/flash_attn_bwd.cu)."""
+    p = torch.exp(einsum_tf32("bnhd,bmhd->bhnm", q, k, passes) * sm_scale - lse[..., None])
+    dp = einsum_tf32("bnhd,bmhd->bhnm", do, v, passes)
+    di = (o * do).sum(-1).transpose(1, 2)
+    ds = p * (dp - di[..., None])
+    dv = einsum_tf32("bhnm,bnhd->bmhd", p, do, passes)
+    dk = einsum_tf32("bhnm,bnhd->bmhd", ds, q, passes) * sm_scale
+    dq = einsum_tf32("bhnm,bmhd->bnhd", ds, k, passes) * sm_scale
+    return dq, dk, dv
