@@ -10,16 +10,21 @@ Phases, each printing JSON lines; the first failure exits non-zero:
 2. kernel  hold K1 (ssl_tpu_torch/csrc/ssg_loss_fwd.cu) against its plain
            PyTorch version on the card: a small case (search 9, window 5),
            the shipped search 25 / window 9 / sigma 0.004 on smooth images
-           at 32^2 and at the main path's shape (b16, 3x128^2), and the main
-           path's own inputs (bench.py's uniform images, on which every
-           off-centre q is 0); forward outputs and d_sr through the autograd
-           function, with the L1 subgradient's ties accounted for; times the
-           kernel, the plain forward and the backward.  Then hold K2's
-           forward (ssl_tpu_torch/csrc/flash_attn_fwd.cu) against its plain
-           version at each shape the serving path gives it and at one case
-           with logits up to 50; times the kernel, the plain version and
-           torch's scaled_dot_product_attention (the yardstick, which the
-           port never calls).  Then K2's backward
+           at 32^2, at the ESRGAN step's shape (b16, 3x128^2) and at the
+           diffusion mini-step's (b2, 3x512^2), and the ESRGAN step's own
+           inputs (bench.py's uniform images, on which every off-centre q is
+           0); forward outputs and d_sr through the autograd function, with
+           the L1 subgradient's ties accounted for, and a second launch bit
+           for bit; times the kernel (CUDA events and the profiler), the
+           plain forward and the backward.  Then hold K2's forward
+           (ssl_tpu_torch/csrc/flash_attn_fwd.cu: flash_attn_fwd, at d = 512
+           flash_attn_fwd_d512, and flash_attn_fwd_combine where the key
+           loop is split) against its plain version at each shape the
+           serving path gives it and at one case with logits up to 50, and a
+           second launch bit for bit; times each kernel (profiler), the
+           wrapper, the plain version and torch's
+           scaled_dot_product_attention (the yardstick, which the port never
+           calls).  Then K2's backward
            (ssl_tpu_torch/csrc/flash_attn_bwd.cu: dkv and dq, the ordered sum
            of split parts, and at d = 512 p_ds, dkv_mm and dq_mm) and the
            forward's lse at each shape of the training path: against
@@ -39,7 +44,8 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            VAE encode -> 50 spaced-DDPM steps -> decode -> AdaIN color fix,
            through the inference CLI's own ``restore``; times per request,
            per denoising step, VAE encode and decode, peak memory, and the
-           K2 launch count, which must be 14 per step and 2 per request
+           K2 launch count, which must be 14 per step and 2 per request,
+           with every forward kernel launched
 6. train_e2e  one training mini-step at 256^2, batch 2, TF32 off, through
            the K2 route and the plain route from the same weights and draws:
            the logs within TRAIN_LOG_RTOL and every parameter's gradient
@@ -49,9 +55,9 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            GT/LQ with a mask of density 0.25: one full accumulation cycle of
            12 mini-steps through train_step; logs finite, weights unchanged
            after mini-steps 1-11 and moved after 12, the EMA moved, K1 once
-           and K2 17 forward and 15 backward per mini-step, every backward
-           kernel launched; times, peak memory and K2's backward device
-           time per mini-step
+           and K2 17 forward and 15 backward per mini-step, every K2
+           kernel launched; times, peak memory and K2's forward and
+           backward device time per mini-step
 8. train   the ESRGAN-SSL train step at the shipped widths (RRDBNet 64/23/32,
            VGGStyleDiscriminator 64, VGG19 conv5_4, SSL 25/9/0.004), batch 16,
            gt 128: one warm-up step and 3 timed steps through build_model ->
@@ -388,7 +394,11 @@ def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd):
 
 
 def phase_kernel():
-    """K1 against its plain version (``hold_k1``), then its times."""
+    """K1 against its plain version (``hold_k1``) and a second launch bit for
+    bit against the first, then its times (CUDA events, and the kernel alone
+    from the profiler).  Returns the results by case: ``main_path`` and
+    ``diffusion_smooth`` are the shapes the ESRGAN step and the diffusion
+    mini-step give it."""
     import torch
     from ssl_tpu_torch.ops import ssg_cuda
     from ssl_tpu_torch.ops.ssg import SSGConfig, ssl_loss_dense_bwd, ssl_loss_sums_reference
@@ -398,14 +408,21 @@ def phase_kernel():
               1e-5),
              ("shipped_32", smooth_case(1, 32, 2, 0.3), shipped, 1e-4),
              ("main_smooth", smooth_case(MAIN_B, MAIN_GT, 3, 0.25), shipped, 1e-4),
-             ("main_path", bench_case(MAIN_B, MAIN_GT, 0, 0.25), shipped, 1e-5)]
+             ("main_path", bench_case(MAIN_B, MAIN_GT, 0, 0.25), shipped, 1e-5),
+             ("diffusion_smooth", smooth_case(TRAIN_B, TRAIN_SIZE, 4, 0.25), shipped, 1e-4)]
     results = {}
     for name, arrays, cfg, map_rtol in cases:
         sr, gt, mask = (torch.from_numpy(a).cuda() for a in arrays)
         errs, ties = hold_k1(name, sr, gt, mask, cfg, map_rtol, ssg_cuda.ssg_loss_fwd_cuda)
+        first, again = (ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg) for _ in range(2))
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            fail(f"K1 {name}: a second launch differs from the first")
+        del first, again
         one = torch.ones((), device="cuda")
-        iters = 20 if sr.shape[0] == MAIN_B else 50
+        iters = 20 if sr.shape[0] == MAIN_B or sr.shape[-1] == TRAIN_SIZE else 50
         kernel_ms = time_ms(lambda: ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg), iters)
+        device_ms = sum(kernel_device_ms(lambda: ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg),
+                                         "ssg_loss_fwd", 5).values())
         plain_ms = time_ms(lambda: ssl_loss_sums_reference(sr, gt, mask, cfg), 2)
         maps = ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg)
         bwd_ms = time_ms(lambda: ssl_loss_dense_bwd(sr, gt, mask, maps[3], maps[4], one, one,
@@ -415,17 +432,19 @@ def phase_kernel():
         ops = k1_operations(b, c, h, w, cfg.search, cfg.generalization)
         bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S)
         results[name] = {"max_abs_err": max(errs.values()), "ms": kernel_ms,
-                         "plain_ms": plain_ms, "bwd_ms": bwd_ms, "bound_ms": bound_ms,
+                         "device_ms": device_ms, "plain_ms": plain_ms, "bwd_ms": bwd_ms,
+                         "bound_ms": bound_ms,
                          "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S
                          > ops / PEAK_FP32_PER_S else "operations"}
         emit({"phase": "kernel", "kernel": "ssg_loss_fwd", "case": name,
               "shape": [b, c, h, w], "search": cfg.search, "window": cfg.window,
-              "sigma": cfg.sigma, "max_abs_err": errs, "ties": ties, "kernel_ms": kernel_ms,
-              "plain_ms": plain_ms, "bwd_ms": bwd_ms, "bytes": nbytes, "operations": ops,
-              "bound_ms": bound_ms, "launches_so_far": ssg_cuda.launches})
-    # times and bound at the train step's own inputs; the error where they are
-    # not degenerate (bench.py's uniform images make every off-centre q 0)
-    return dict(results["main_path"], max_abs_err=results["main_smooth"]["max_abs_err"])
+              "sigma": cfg.sigma, "max_abs_err": errs, "ties": ties, "repeat_bit_for_bit": True,
+              "kernel_ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
+              "bwd_ms": bwd_ms, "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
+              "fraction_of_bound": bound_ms / device_ms, "launches_so_far": ssg_cuda.launches})
+        del sr, gt, mask
+        torch.cuda.empty_cache()
+    return results
 
 
 def k2_bound(products: float, elementwise: float, nbytes: float) -> dict:
@@ -444,45 +463,90 @@ def k2_times(b, h, n, m, d):
     return k2_bound(4 * b * h * n * m * d, 5 * b * h * n * m, 4 * b * h * (2 * n * d + 2 * m * d))
 
 
+def k2_combine_times(b, h, n, d, split):
+    """The least time of flash_attn_fwd_combine: it reads each part's output
+    and row max and sum once and writes o and lse once (bytes); per output
+    element and part one exp-weighted FMA, per row and part an exp."""
+    rows = b * h * n
+    nbytes = 4 * (split * rows * (d + 2) + rows * (d + 1))
+    return k2_bound(0, 2 * split * rows * d + 3 * split * rows, nbytes)
+
+
 def phase_k2():
-    """K2 against its plain version at the serving path's shapes and at
-    large logits; then the kernel's, the plain version's and torch SDPA's
-    times.  Tolerance: rtol 1e-4 with an atol of 1e-5 of the output's
-    largest value (both sum in float32, in another order)."""
+    """K2's forward against its plain version at the serving path's shapes and
+    at large logits, and a second launch bit for bit against the first; then
+    the kernels' device times (each alone from the profiler, checked against
+    ``fwd_plan``), the wrapper's, the plain version's and torch SDPA's times
+    (CUDA events).  Where the plan splits the key loop, the combine's plain
+    time (``combine_parts`` on parts of the same shapes).  Tolerance: rtol
+    1e-4 with an atol of 1e-5 of the output's largest value (both sum in
+    float32, in another order)."""
     import torch
     import torch.nn.functional as F
-    from torch_attention_cases import CUDA_CASES, attention_inputs
+    from torch_attention_cases import CUDA_CASES, attention_inputs, combine_parts
     from ssl_tpu_torch.ops import attention_cuda
     from ssl_tpu_torch.ops.attention import sdp_attention_reference
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for name, (b, h, n, m, d, scale, layout, logit_range) in CUDA_CASES.items():
         q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logit_range, device="cuda")
+        split, _, plan = attention_cuda.fwd_plan(b, h, n, m, d, sms)
+        before = dict(attention_cuda.fwd_kernel_launches)
         got = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale)
+        launched = {k_: c - before[k_] for k_, c in attention_cuda.fwd_kernel_launches.items()}
+        if launched != {k_: plan.get(k_, 0) for k_ in launched}:
+            fail(f"K2 {name}: kernels launched {launched}, the plan {plan}")
+        again = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale)
         ref = sdp_attention_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"K2 {name}: a second launch differs from the first by up to "
+                 f"{float((got - again).abs().max())}")
         atol = 1e-5 * float(ref.abs().max())
         err = check_close(f"K2 {name}", got, ref, 1e-4, atol)
+        del again
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
 
+        def kernel():
+            return attention_cuda.flash_attn_fwd_cuda(q, k, v, scale)
+
         library_err = float((library().transpose(1, 2) - ref).abs().max())
-        kernel_ms = time_ms(lambda: attention_cuda.flash_attn_fwd_cuda(q, k, v, scale), 20)
+        device = {k_.removesuffix("_kernel"): v_
+                  for k_, v_ in kernel_device_ms(kernel, "flash_attn_fwd", 10).items()}
+        if set(device) != {k_ for k_, c in plan.items() if c}:
+            fail(f"K2 {name}: the profiler shows kernels {sorted(device)}, the plan {plan}")
+        kernel_ms = time_ms(kernel, 20)
         plain_ms = time_ms(lambda: sdp_attention_reference(q, k, v, scale), 20)
         library_ms = time_ms(library, 20)
         bound = k2_times(b, h, n, m, d)
         bound_ms = max(bound["ops_ms"], bound["bytes_ms"])
         bound_by = "operations" if bound["ops_ms"] >= bound["bytes_ms"] else "bytes"
-        results[name] = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, **bound}
+        combine = {}
+        if split > 1:
+            parts = [(torch.randn((b, n, h, d), device="cuda"),
+                      torch.randn((b, h, n), device="cuda"), torch.rand((b, h, n), device="cuda"))
+                     for _ in range(split)]
+            combine = {"combine_plain_ms": time_ms(lambda: combine_parts(parts), 20),
+                       "combine_bounds": k2_combine_times(b, h, n, d, split)}
+            del parts
+        results[name] = {"max_abs_err": err, "ms": kernel_ms, "device_ms": device,
+                         "plain_ms": plain_ms, "library_ms": library_ms, "split": split,
+                         "launches": {k_: c for k_, c in plan.items() if c}, **bound, **combine}
         emit({"phase": "kernel", "kernel": "flash_attn_fwd", "case": name,
               "b_heads_n_m_d": [b, h, n, m, d], "layout": layout, "sm_scale": scale,
-              "logit_range": logit_range, "max_abs_err": err, "atol": atol,
-              "library_max_abs_err": library_err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "fraction_of_bound": bound_ms / kernel_ms,
-              "fraction_of_fp32_bound": bound["fp32_ops_ms"] / kernel_ms})
+              "logit_range": logit_range, "split": split, "max_abs_err": err, "atol": atol,
+              "repeat_bit_for_bit": True, "library_max_abs_err": library_err,
+              "kernel_ms": kernel_ms, "kernels_device_ms": device,
+              "device_ms": sum(device.values()), "plain_ms": plain_ms, "library_ms": library_ms,
+              **combine, "bound_ms": bound_ms, "bound_by": bound_by,
+              "fraction_of_bound": bound_ms / sum(device.values()),
+              "fraction_of_fp32_bound": bound["fp32_ops_ms"] / sum(device.values())})
+        del q, k, v, got, ref
+        torch.cuda.empty_cache()
     return results
 
 
@@ -749,6 +813,7 @@ def phase_serve(model, state):
     torch.cuda.reset_peak_memory_stats()
     requests = []
     attention_cuda.launches = 0
+    attention_cuda.fwd_kernel_launches.update(dict.fromkeys(attention_cuda.fwd_kernel_launches, 0))
     for lq_up in images:
         timings = {}
         t0 = time.perf_counter()
@@ -765,16 +830,20 @@ def phase_serve(model, state):
                          "colorfix_ms": 1e3 * timings["colorfix"],
                          "finite": True, "shape": list(img.shape), "std": float(img.std())})
     launches = attention_cuda.launches
+    fwd_kernels = dict(attention_cuda.fwd_kernel_launches)
     expected = SERVE_REQUESTS * (K2_PER_REQUEST + SERVE_STEPS * K2_PER_STEP)
     emit({"phase": "serve", "config": "options/diffusion/ssl_base.yml", "size": SERVE_SIZE,
           "sampler": "ddpm", "steps": SERVE_STEPS, "requests": requests,
-          "k2_launches": launches, "k2_expected": expected,
+          "k2_launches": launches, "k2_expected": expected, "k2_fwd_kernel_launches": fwd_kernels,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
     if launches != expected:
         fail(f"serve: K2 launched {launches} times, expected {expected}")
-    return launches
+    idle = [k_ for k_, c in fwd_kernels.items() if c == 0]
+    if idle:
+        fail(f"serve: K2 forward kernels {idle} were never launched: {fwd_kernels}")
+    return launches, fwd_kernels
 
 
 def train_batch(size: int, seed: int) -> dict:
@@ -872,6 +941,7 @@ def phase_diffusion_train(model, state):
     torch.cuda.reset_peak_memory_stats()
     ssg_cuda.launches = attention_cuda.launches = attention_cuda.bwd_launches = 0
     attention_cuda.bwd_kernel_launches.update(dict.fromkeys(attention_cuda.bwd_kernel_launches, 0))
+    attention_cuda.fwd_kernel_launches.update(dict.fromkeys(attention_cuda.fwd_kernel_launches, 0))
     ms, logs, k2_bwd_ms = [], [], None
     for i, batch in enumerate(batches):
         if i == TRAIN_MINI_STEPS - 1:
@@ -889,8 +959,9 @@ def phase_diffusion_train(model, state):
                 if short:
                     k2_bwd_ms[short[0]] = (k2_bwd_ms.get(short[0], 0.0)
                                            + e.self_device_time_total / 1e3)
-            k2_bwd_ms["flash_attn_bwd_all"] = sum(v for k_, v in k2_bwd_ms.items()
-                                                  if k_.startswith("flash_attn_bwd"))
+            for way in ("fwd", "bwd"):
+                k2_bwd_ms[f"flash_attn_{way}_all"] = sum(
+                    v for k_, v in k2_bwd_ms.items() if k_.startswith(f"flash_attn_{way}_"))
             k2_bwd_ms["device_busy"] = sum(e.self_device_time_total for e in events) / 1e3
         else:
             _, out = model.train_step(state, batch)
@@ -907,6 +978,7 @@ def phase_diffusion_train(model, state):
     launches = {"k1": ssg_cuda.launches, "k2_fwd": attention_cuda.launches,
                 "k2_bwd": attention_cuda.bwd_launches}
     bwd_kernels = dict(attention_cuda.bwd_kernel_launches)
+    fwd_kernels = dict(attention_cuda.fwd_kernel_launches)
     if any(torch.equal(a, e) for a, e in zip(ema_before, trainable(state.ema_params))):
         fail("diffusion_train: an EMA tensor did not move at the applying mini-step")
     n = TRAIN_MINI_STEPS
@@ -917,16 +989,18 @@ def phase_diffusion_train(model, state):
           "ms_profiled": ms[1], "ms_warm_mean": sum(ms[2:-1]) / len(ms[2:-1]),
           "ms_warm": ms[2:-1], "ms_applying": ms[-1], "logs_first": logs[0], "logs_last": logs[-1],
           "launches": launches, "expected": expected, "k2_bwd_kernel_launches": bwd_kernels,
+          "k2_fwd_kernel_launches": fwd_kernels,
           "device_ms_profiled_mini_step": k2_bwd_ms,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
     if launches != expected:
         fail(f"diffusion_train: launches {launches}, expected {expected}")
-    idle = [k_ for k_, c in bwd_kernels.items() if c == 0]
+    idle = [k_ for k_, c in {**bwd_kernels, **fwd_kernels}.items() if c == 0]
     if idle:
-        fail(f"diffusion_train: K2 backward kernels {idle} were never launched: {bwd_kernels}")
-    return dict(launches, **bwd_kernels)
+        fail(f"diffusion_train: K2 kernels {idle} were never launched: "
+             f"{bwd_kernels}, {fwd_kernels}")
+    return dict(launches, **bwd_kernels, **fwd_kernels)
 
 
 def phase_train():
@@ -982,17 +1056,14 @@ def phase_train():
     return launches
 
 
-def kernels_line(k1, k2, k2_bwd, k2_launches, train, launches) -> dict:
+def kernels_line(k1, k2, k2_bwd, serve, train, launches) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
-    phases' results (K1's, K2's forward's, K2's backward's by case, the
-    serving K2 launches, the diffusion_train launch counts and the ESRGAN
-    train step's K1 launches)."""
+    phases' results (K1's, K2's forward's and backward's by case, the serving
+    K2 launches and forward kernel launches, the diffusion_train launch
+    counts and the ESRGAN train step's K1 launches)."""
     from torch_attention_cases import TRAIN_MIX_BWD
 
-    def mean(results, mix, key):
-        """A per-launch mean over a path's mix of shapes ({case: launches})."""
-        return sum(w * results[case][key] for case, w in mix.items()) / sum(mix.values())
-
+    serve_calls, serve_fwd = serve
     both = f"{UPSTREAM_DKV}; {UPSTREAM_DQ}"
     bwd_kernels = {"dkv": UPSTREAM_DKV, "dq": UPSTREAM_DQ, "sum": both, "p_ds": both,
                    "dkv_mm": UPSTREAM_DKV, "dq_mm": UPSTREAM_DQ}
@@ -1036,24 +1107,58 @@ def kernels_line(k1, k2, k2_bwd, k2_launches, train, launches) -> dict:
                                    "max_abs_err is the whole backward's")
         return entry
 
+    def fwd_entry(f):
+        """flash_attn_<f>: per-launch means over the launches one serving
+        request's mix of shapes (SERVE_MIX) gives it; device times from the
+        profiler.  The main kernels' plain and library times are the whole
+        forward's; the combine's plain time is ``combine_parts``."""
+        name = f"flash_attn_{f}"
+        mix = {c: w for c, w in SERVE_MIX.items() if name in k2[c]["launches"]}
+        total = sum(mix.values())
+
+        def mean(value):
+            return sum(w * value(k2[c]) for c, w in mix.items()) / total
+
+        if f == "fwd_combine":
+            ops, nbytes = (mean(lambda r, kind=kind: r["combine_bounds"][kind])
+                           for kind in ("ops_ms", "bytes_ms"))
+            plain, library = mean(lambda r: r["combine_plain_ms"]), None
+        else:
+            ops, nbytes = mean(lambda r: r["ops_ms"]), mean(lambda r: r["bytes_ms"])
+            plain, library = mean(lambda r: r["plain_ms"]), mean(lambda r: r["library_ms"])
+        return {"name": name, "route": "cuda", "source": "ssl_tpu_torch/csrc/flash_attn_fwd.cu",
+                "replaces": "ssl_tpu/ops/attention.py:28",
+                "launches": serve_fwd[name] + train[name],
+                "launches_by_path": {"serve": serve_fwd[name], "diffusion_train": train[name]},
+                "max_abs_err": max(k2[c]["max_abs_err"] for c in mix),
+                "ms": mean(lambda r: r["device_ms"][name]),
+                "wrapper_ms": mean(lambda r: r["ms"]), "plain_ms": plain, "library_ms": library,
+                "bound_ms": max(ops, nbytes), "bound_by": "operations" if ops >= nbytes else "bytes",
+                "cases": sorted(mix),
+                "times_are": "mean per launch over one serving request's mix of shapes; ms is "
+                             "the kernel's device time (profiler), wrapper_ms the call's (CUDA "
+                             "events); max_abs_err is the whole forward's"}
+
+    k1_runs = {"main_path": launches, "diffusion_smooth": train["k1"]}
+
+    def k1_mean(key):
+        return sum(w * k1[c][key] for c, w in k1_runs.items()) / sum(k1_runs.values())
+
     return {"kernels": [{
         "name": "ssg_loss_fwd", "route": "cuda", "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu",
         "replaces": "ssl_tpu/ops/ssg_pallas.py:41", "launches": launches + train["k1"],
         "launches_by_path": {"esrgan_train": launches, "diffusion_train": train["k1"]},
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None}, {
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "ssl_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "ssl_tpu/ops/attention.py:28", "launches": k2_launches + train["k2_fwd"],
-        "launches_by_path": {"serve": k2_launches, "diffusion_train": train["k2_fwd"]},
-        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
-        "ms": mean(k2, SERVE_MIX, "ms"), "plain_ms": mean(k2, SERVE_MIX, "plain_ms"),
-        "bound_ms": max(mean(k2, SERVE_MIX, "ops_ms"), mean(k2, SERVE_MIX, "bytes_ms")),
-        "bound_by": ("operations" if mean(k2, SERVE_MIX, "ops_ms") >= mean(k2, SERVE_MIX, "bytes_ms")
-                     else "bytes"),
-        "fp32_bound_ms": max(mean(k2, SERVE_MIX, "fp32_ops_ms"), mean(k2, SERVE_MIX, "bytes_ms")),
-        "library_ms": mean(k2, SERVE_MIX, "library_ms"),
-        "times_are": "mean per launch over one serving request's mix of shapes"},
+        "max_abs_err": max(k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth")),
+        "ms": k1_mean("device_ms"), "wrapper_ms": k1_mean("ms"), "plain_ms": k1_mean("plain_ms"),
+        "bound_ms": k1_mean("bound_ms"), "bound_by": k1["main_path"]["bound_by"],
+        "library_ms": None,
+        "ms_by_shape": {"b16_3x128^2": k1["main_path"]["device_ms"],
+                        "b2_3x512^2": k1["diffusion_smooth"]["device_ms"]},
+        "times_are": "mean per launch over the run's launches (b16 3x128^2 in the ESRGAN "
+                     "step, b2 3x512^2 in the diffusion mini-step); ms is the kernel's device "
+                     "time (profiler), wrapper_ms the call's (CUDA events); max_abs_err on "
+                     "smooth images"},
+        *(fwd_entry(f) for f in ("fwd", "fwd_d512", "fwd_combine")),
         *(bwd_entry(f, replaces) for f, replaces in bwd_kernels.items())]}
 
 
@@ -1079,7 +1184,7 @@ def main() -> int:
     model, state = phase_diffusion()
     phase_e2e(model, state)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    k2_launches = phase_serve(model, state)
+    serve = phase_serve(model, state)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     phase_train_e2e(model, state)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -1088,7 +1193,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = phase_train()
 
-    emit(kernels_line(k1, k2, k2_bwd, k2_launches, train, launches))
+    emit(kernels_line(k1, k2, k2_bwd, serve, train, launches))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,85 @@
+"""K1 (the fused SSL-loss forward) at the main paths' shapes, on one CUDA device.
+
+    python3 scripts/profile_torch_k1.py [--root DIR] [--label NAME] [--iters 10]
+
+For the ESRGAN step's (16, 3, 128, 128) and the diffusion mini-step's
+(2, 3, 512, 512), both at search 25 / window 9 / sigma 0.004 on
+chip_smoke.py's smooth images with a mask of density 0.25, prints one JSON
+line: the kernel's device time (torch.profiler, ms per call), the wrapper's
+time by CUDA events (the reflect padding, the kernel and the sum of the
+per-block partials), the bound (chip_smoke.py::k1_operations at the fp32
+rate), the largest relative error of l1, kl and the inverse maps against
+the plain version, and whether a second launch repeats the first bit for
+bit.  ``--root`` imports ``ssl_tpu_torch`` from another checkout (for
+example an earlier commit unpacked with ``git archive``), so that two
+versions are timed in turns on one card.  Needs a CUDA device; imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPES = {"esrgan_train": (16, 128), "diffusion_train": (2, 512)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=ROOT, help="checkout whose ssl_tpu_torch is timed")
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--no-check", action="store_true", help="skip the plain version")
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import (PEAK_BYTES_PER_S, PEAK_FP32_PER_S, card, k1_operations,
+                            kernel_device_ms, smooth_case, time_ms)
+    sys.path.insert(0, os.path.abspath(args.root))      # this checkout's ssl_tpu_torch
+    from ssl_tpu_torch.ops import ssg_cuda
+    from ssl_tpu_torch.ops.ssg import SSGConfig, ssl_loss_sums_reference
+    if not ssg_cuda.__file__.startswith(os.path.abspath(args.root)):
+        print(f"ssl_tpu_torch came from {ssg_cuda.__file__}, not {args.root}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = card()
+    cfg = SSGConfig(search=25, window=9, sigma=0.004)
+    for shape, (b, h) in SHAPES.items():
+        sr, gt, mask = (torch.from_numpy(a).cuda() for a in smooth_case(b, h, 3, 0.25))
+
+        def kernel():
+            return ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg)
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        errs = None
+        if not args.no_check:
+            ref = ssl_loss_sums_reference(sr, gt, mask, cfg)
+            errs = {key: float(((got[i] - ref[i]).abs() / ref[i].abs().clamp_min(1e-30)).max())
+                    for i, key in ((0, "l1"), (1, "kl"), (2, "count"), (3, "inv_sr"),
+                                   (4, "inv_gt"), (6, "b_map"))}
+            del ref
+        device_ms = kernel_device_ms(kernel, "ssg_loss_fwd", max(2, args.iters // 2))
+        wrapper_ms = time_ms(kernel, args.iters)
+        ops = k1_operations(b, 3, h, h, cfg.search)
+        nbytes = 4 * (2 * b * 3 * h * h + b * h * h) + 4 * 4 * b * h * h
+        bound_ms = 1e3 * max(ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S)
+        print(json.dumps({"label": args.label, "shape": shape, "b_c_h_w": [b, 3, h, h],
+                          "kernel_device_ms": sum(device_ms.values()), "wrapper_ms": wrapper_ms,
+                          "bound_ms": bound_ms, "operations": ops, "max_rel_err": errs,
+                          "repeat_bit_for_bit": repeat, "card": name}), flush=True)
+        del sr, gt, mask, got, again
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

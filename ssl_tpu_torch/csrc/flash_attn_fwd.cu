@@ -2,201 +2,574 @@
 //
 // Replaces the Pallas TPU flash attention that ssl_tpu/ops/attention.py
 // (sdp_attention, flash branch :32-39) calls through
-// jax.experimental.pallas.ops.tpu.flash_attention.  Same contract as its
-// plain PyTorch version, ssl_tpu_torch/ops/attention.py::sdp_attention_reference:
+// jax.experimental.pallas.ops.tpu.flash_attention (upstream
+// _flash_attention_impl :589, pallas_call :758).  Same contract as its plain
+// PyTorch version, ssl_tpu_torch/ops/attention.py::sdp_attention_reference:
 //     o[b, i, h, :] = sum_j softmax_j(sm_scale * q[b, i, h, :] . k[b, j, h, :]) v[b, j, h, :]
-// over float32 (b, seq, heads, d) tensors read through their strides (unit
-// stride along d), with n and m multiples of 128 (the wrapper checks both).
-// For training it also writes each row's log-sum-exp of the scaled logits,
-// lse = m + log(l) from the running max and sum it holds anyway; the backward
-// (csrc/flash_attn_bwd.cu) recomputes the probabilities from it.  Upstream
-// saves m and l apart (save_residuals), which carry the same information.
+// over float32 (b, seq, heads, d) inputs read through their strides (unit
+// stride along d, every stride and base 16-byte aligned), n and m multiples
+// of 128; o is written contiguous (b, n, heads, d).  For training it also
+// writes each row's log-sum-exp of the scaled logits, lse = m + log(l), from
+// which the backward (flash_attn_bwd.cu) recomputes the probabilities.
 //
-// What bounds it on this card: operations.  At the diffusion tree's shapes
-// (n = m = 4096 with d = 64 for the UNet's 4 heads, d = 512 for the VAE's one
-// head) the logits alone are n·m per head, 4·n·m·d fp32 operations for the
-// two products against 16·n·d bytes of input and output: ~100 to ~1000
-// operations per byte, far above the card's ~20 fp32 operations per byte.
-// So the design keeps the n x m logits out of device memory altogether and
-// reads each input once per query tile:
-//   * one block of 256 threads per (b·head, tile of BM queries); the Q tile
-//     stays in shared memory, K and V tiles of BN keys stream through it;
-//   * thread (ty, tx) of a 16 x 16 grid owns query rows ty·TM .. ty·TM+TM-1
-//     and the output columns tx + 16c and logit columns tx + 16j, so the
-//     16 threads of a half-warp hold a whole row: the online softmax's row
-//     max and row sum are taken with shuffles inside the half-warp, and the
-//     running max and sum stay in registers;
-//   * the tile's probabilities go through shared memory once for the P·V
-//     product; the output accumulator (TM x d/16 per thread) is in registers;
-//   * the tile shape is a template on d (64, 128 and 512, the widths of the
-//     serving path): BM = BN = 64 for d <= 128, and 32 for d = 512, whose
-//     32 x 512 Q, K and V tiles take ~200 KB of dynamic shared memory
-//     (above 48 KB it needs cudaFuncSetAttribute);
-//   * fp32 FMA and expf, no fast-math, no atomics: deterministic, and each
-//     row's sums run in a fixed order.
-// Rows of Q and K in shared memory are padded by one float so that the reads
-// of a warp fall in distinct banks.  Tensor cores (wgmma), TMA and a
-// pipelined ring of K/V tiles are later work.
+// What bounds it on this card: tensor-core operations.  The two products are
+// 4·b·h·n·m·d operations against 4·b·h·(2nd + 2md) bytes, hundreds of
+// operations per byte.  Both run as 3xTF32 on mma.sync.m16n8k8 (tf32_mma.cuh):
+// the arithmetic of the backward's recompute, so the forward's lse and the
+// backward's P come from the same logits (the same splits, the same order of
+// products).  The online softmax (scale, max, exp, sum, rescale: ~5·bhnm)
+// runs on the CUDA cores in fp32 with expf.
+//
+// d = 64 and 128 (flash_attn_fwd_kernel):
+//   * one block per (query tile of BQ = 128, b·head[, key split]); warp w
+//     owns rows 16·RW·w .. 16·RW·(w+1)-1 (RW = 2 at d = 64: 4 warps, two
+//     blocks per SM in ~102 KB; RW = 1 at d = 128: 8 warps, one block in
+//     ~198 KB).  Q is split into its tf32 halves once, into shared memory;
+//     K and V tiles of BK = 32 keys stream through a two-stage cp.async ring;
+//   * per key tile the warp's logits (16·RW x 32) stay in accumulator
+//     registers: row max and row sum by quad shuffles, P in place, and P's
+//     accumulator fragments are the A fragments of P·V (``accumulate``), so P
+//     never touches shared memory;
+//   * each key tile's P·V goes into a fresh fragment and is folded into the
+//     output with fp32 FFMA, o = alpha·o + tile: the tensor cores sum at most
+//     32 keys, and the sums over the sequence are taken on the CUDA cores
+//     (the backward's longer tensor-core sums cost it ~3e-5 relative L2 at
+//     4096 keys, PERF.md; the forward's hold is elementwise).
+// d = 512 (the VAE's single head, flash_attn_fwd_d512_kernel): a warp's
+// 16 x 512 output does not fit its registers beside the logits, so the
+// output columns are cut across the warps instead of the rows.  One block of
+// 8 warps per (32 queries, b·head[, split]) holds Q (32 x 512) in shared
+// memory; the K and V tiles of 32 keys arrive in turn through a two-stage
+// ring (K of the next tile lands while P·V of this one runs).  Logits: warp
+// w contracts a quarter of d for 32 queries x 16 keys (more products per
+// fragment split than one warp contracting all of d for a thinner slice);
+// the four partial sums are added in order in shared memory, where all 256
+// threads take the softmax, 8 per row, and leave P and each row's rescale
+// there.  P·V: warp w owns output columns 64w .. 64w+63 of all 32 rows, its
+// accumulator and fresh tile 2 x 64 registers a thread; ~219 KB of shared
+// memory, one block per SM.  Two variants timed against it on an H100 were
+// slower (PERF.md): 64 queries a tile shared by two blocks that each take
+// half of the output columns (1.5x the products for ~2.7x less K and V
+// traffic), and each block starting its key loop at another tile.
+// Small grids: where the blocks would fill under 90% of the SMs' slots
+// (ops/attention_cuda.py::fwd_plan), the key loop is cut into 2-8 parts;
+// each writes its unnormalised output and row max and sum to scratch, and
+// flash_attn_fwd_combine_kernel merges the parts in order into o and lse.
+// Determinism: no atomics, every sum in a fixed order: two launches on the
+// same inputs give bit-identical outputs.  expf/logf, no fast-math.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"   // 3xTF32 mma.sync products, cp.async tile copies
 
 namespace {
 
-constexpr int NTHREADS = 256;
-
+// element strides per (batch, seq, head) of q, k and v
 struct Strides {
-  long long qb, qn, qh, kb, kn, kh, vb, vn, vh, ob, on, oh;
+  long long qb, qn, qh, kb, kn, kh, vb, vn, vh;
 };
 
-template <int D, int BM, int BN>
-constexpr size_t smem_floats() {
-  return (size_t)BM * (D + 1) + (size_t)BN * (D + 1) + (size_t)BN * D + (size_t)BM * (BN + 1);
-}
+// A split key loop's partial results in scratch, null without a split: part
+// s's unnormalised output rows o[s] (b, n, heads, D), its row max m[s] and
+// row sum l[s] (b·heads, n).
+struct Parts {
+  float *o, *m, *l;
+};
 
-// Reduce over the 16 lanes of a half-warp (xor offsets below 16 stay inside it).
-__device__ __forceinline__ float half_warp_max(float v) {
+// Rows row0 + 16i + g (+ 8) of the (b, n, heads, D) output, columns col0 +
+// 8c + 2t (+ 1), from unnormalised accumulators with each row's max and sum:
+// as o (divided by the sum) and lse, or, with a split, as part ``split``.
+// ``stats``: this thread's warp writes the row statistics.
+template <int D, int NC, int RW>
+__device__ __forceinline__ void write_rows(const float (&acc)[NC][RW][4],
+                                           const float (&row_m)[RW][2],
+                                           const float (&row_l)[RW][2], float* o, float* lse,
+                                           const Parts& parts, int split, int b, int heads,
+                                           int n, int bi, int hi, int row0, int col0, bool stats,
+                                           int g, int t) {
+  const long long bh_row = ((long long)bi * heads + hi) * n;
+  const long long stats_part = (long long)split * b * heads * n;
+  float* out = parts.o ? parts.o + (long long)split * b * n * heads * D : o;
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
+  for (int i = 0; i < RW; ++i)
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <int D, int BM, int BN>
-__global__ void __launch_bounds__(NTHREADS)
-flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, Strides st, int heads, int n, int m,
-                      float sm_scale) {
-  constexpr int TM = BM / 16;   // query rows per thread
-  constexpr int TN = D / 16;    // output columns per thread
-  constexpr int SJ = BN / 16;   // logit columns per thread and tile
-  constexpr int QS = D + 1, KS = D + 1, PS = BN + 1;
-  extern __shared__ float smem[];
-  float* s_q = smem;              // [BM][D + 1]
-  float* s_k = s_q + BM * QS;     // [BN][D + 1]
-  float* s_v = s_k + BN * KS;     // [BN][D]
-  float* s_p = s_v + BN * D;      // [BM][BN + 1]
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
-  const int q0 = blockIdx.x * BM;
-  const float* qp = q + bi * st.qb + hi * st.qh;
-  const float* kp = k + bi * st.kb + hi * st.kh;
-  const float* vp = v + bi * st.vb + hi * st.vh;
-  float* op = o + bi * st.ob + hi * st.oh;
-
-  for (int e = tid; e < BM * D; e += NTHREADS) {
-    const int r = e / D, c = e % D;
-    s_q[r * QS + c] = qp[(long long)(q0 + r) * st.qn + c];
-  }
-
-  float acc[TM][TN];
-  float row_m[TM], row_l[TM];
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const int row = row0 + 16 * i + g + 8 * h8;
+      const float l = parts.o ? 1.f : row_l[i][h8];
+      float* dst = out + (((long long)bi * n + row) * heads + hi) * D + col0 + 2 * t;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    row_m[i] = -INFINITY;
-    row_l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < m; k0 += BN) {
-    __syncthreads();  // the previous tile's readers are done (and Q is staged)
-    for (int e = tid; e < BN * D; e += NTHREADS) {
-      const int r = e / D, c = e % D;
-      s_k[r * KS + c] = kp[(long long)(k0 + r) * st.kn + c];
-      s_v[e] = vp[(long long)(k0 + r) * st.vn + c];
+      for (int c = 0; c < NC; ++c)
+        *reinterpret_cast<float2*>(dst + 8 * c) =
+            make_float2(acc[c][i][2 * h8] / l, acc[c][i][2 * h8 + 1] / l);
+      if (stats && t == 0) {
+        if (parts.o) {
+          parts.m[stats_part + bh_row + row] = row_m[i][h8];
+          parts.l[stats_part + bh_row + row] = row_l[i][h8];
+        } else if (lse != nullptr) {
+          lse[bh_row + row] = row_m[i][h8] + logf(row_l[i][h8]);
+        }
+      }
     }
-    __syncthreads();
+}
 
-    // logits of this thread's rows against keys tx + 16j of the tile
-    float s[TM][SJ];
+// ---- d = 64 and 128 -----------------------------------------------------
+
+template <int D, int BQ, int BK>
+constexpr size_t fwd_smem_floats() {
+  return (size_t)2 * BQ * (D + 4) + (size_t)2 * 2 * BK * (D + 4);
+}
+
+// s (16·RW rows x NT·8 keys) = the warp's rows of Q (pre-split halves qb and
+// qs, pitch D + 4) times the key tile kt (rows of pitch D + 4) over d.
+template <int D, int NT, int RW>
+__device__ __forceinline__ void logits(const uint32_t* qb, const uint32_t* qs, const float* kt,
+                                       int g, int t, float (&s)[NT][RW][4]) {
+  constexpr int P = D + 4;
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < SJ; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qv[TM], kv[SJ];
+    for (int i = 0; i < RW; ++i)
 #pragma unroll
-      for (int i = 0; i < TM; ++i) qv[i] = s_q[(ty * TM + i) * QS + c];
+      for (int r = 0; r < 4; ++r) s[j][i][r] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 8) {
+    FragA fa[RW];
 #pragma unroll
-      for (int j = 0; j < SJ; ++j) kv[j] = s_k[(tx + 16 * j) * KS + c];
+    for (int i = 0; i < RW; ++i) {
+      const int a = (16 * i + g) * P + kk + t;
+      const int idx[4] = {a, a + 8 * P, a + 4, a + 8 * P + 4};
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < SJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int r = 0; r < 4; ++r) {
+        fa[i].big[r] = qb[idx[r]];
+        fa[i].small[r] = qs[idx[r]];
+      }
     }
-
-    // online softmax: running max and sum per row, rescale the accumulator
+    FragB fb[NT];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
+    for (int j = 0; j < NT; ++j)
+      fb[j].set(kt[(8 * j + g) * P + kk + t], kt[(8 * j + g) * P + kk + t + 4]);
+    mma3_grid<NT, RW>(s, fa, fb);
+  }
+}
+
+// The online softmax over one key tile: s becomes P = exp(sm_scale·s - m)
+// with m each row's running max, alpha the rescale of what came before, and
+// row_l this thread's share of the running row sum (the quad's four shares
+// are added at the end).  Rows g and g + 8 of each row tile are spread over
+// the four threads of a quad.
+template <int NT, int RW>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][RW][4], float (&row_m)[RW][2],
+                                               float (&row_l)[RW][2], float (&alpha)[RW][2],
+                                               float sm_scale) {
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < SJ; ++j) {
-        s[i][j] *= sm_scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(row_m[i], half_warp_max(mx));
-      const float alpha = expf(row_m[i] - m_new);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][i][2 * h8 + e] *= sm_scale;
+          mx = fmaxf(mx, s[j][i][2 * h8 + e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(row_m[i][h8], mx);
+      alpha[i][h8] = expf(row_m[i][h8] - m_new);
+      row_m[i][h8] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < SJ; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        s_p[(ty * TM + i) * PS + tx + 16 * j] = p;
-        sum += p;
-      }
-      row_l[i] = row_l[i] * alpha + half_warp_sum(sum);
-      row_m[i] = m_new;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int c = 0; c < TN; ++c) acc[i][c] *= alpha;
+        for (int e = 0; e < 2; ++e) {
+          s[j][i][2 * h8 + e] = expf(s[j][i][2 * h8 + e] - m_new);
+          sum += s[j][i][2 * h8 + e];
+        }
+      row_l[i][h8] = row_l[i][h8] * alpha[i][h8] + sum;
     }
-    __syncthreads();
+}
 
-    // acc += P · V over the tile's keys
-#pragma unroll 2
-    for (int j = 0; j < BN; ++j) {
-      float vv[TN];
+// acc = alpha·acc + tile, alpha per row (rows g and g + 8 of each row tile).
+template <int NC, int RW>
+__device__ __forceinline__ void fold(float (&acc)[NC][RW][4], const float (&tile)[NC][RW][4],
+                                     const float (&alpha)[RW][2]) {
 #pragma unroll
-      for (int c = 0; c < TN; ++c) vv[c] = s_v[j * D + tx + 16 * c];
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float p = s_p[(ty * TM + i) * PS + j];
+    for (int i = 0; i < RW; ++i)
 #pragma unroll
-        for (int c = 0; c < TN; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
+      for (int r = 0; r < 4; ++r) acc[c][i][r] = fmaf(alpha[i][r / 2], acc[c][i][r], tile[c][i][r]);
+}
+
+template <int D, int BQ, int BK, int RW>
+__global__ void __launch_bounds__(BQ / RW * 2)
+flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, Parts parts, Strides st, int b, int heads, int n,
+                      int tiles_per_split, float sm_scale) {
+  constexpr int NTHREADS = BQ / RW * 2, P = D + 4, NT = BK / 8, NC = D / 8;
+  constexpr int STAGE = 2 * BK * P;
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* s_qb = reinterpret_cast<uint32_t*>(smem);   // [BQ][D + 4] big halves of Q
+  uint32_t* s_qs = s_qb + BQ * P;                        // [BQ][D + 4] small halves
+  float* ring = smem + 2 * BQ * P;                       // 2 x {k [BK][D + 4], v [BK][D + 4]}
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
+  const int q0 = blockIdx.x * BQ, split = blockIdx.z;
+  const int tile0 = split * tiles_per_split;
+  const float* kp = k + bi * st.kb + hi * st.kh;
+  const float* vp = v + bi * st.vb + hi * st.vh;
+
+  auto load_stage = [&](int stage, int tile) {
+    float* s = ring + stage * STAGE;
+    const long long k0 = (long long)tile * BK;
+    load_tile_async<BK, D, P, NTHREADS>(s, kp + k0 * st.kn, st.kn, tid);
+    load_tile_async<BK, D, P, NTHREADS>(s + BK * P, vp + k0 * st.vn, st.vn, tid);
+  };
+
+  // Q lands as floats where its big halves go; each thread splits the
+  // 16-byte pieces it copied itself, so no barrier is needed before that
+  float* q_raw = smem;
+  load_tile_async<BQ, D, P, NTHREADS>(q_raw, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn,
+                                      st.qn, tid);
+  cp_async_commit();
+  load_stage(0, tile0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  for (int e = tid; e < BQ * (D / 4); e += NTHREADS) {
+    const int at = (e / (D / 4)) * P + (e % (D / 4)) * 4;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float val = q_raw[at + x];
+      split_tf32(val, s_qb[at + x], s_qs[at + x]);
     }
   }
 
+  float acc[NC][RW][4], row_m[RW][2], row_l[RW][2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float* orow = op + (long long)(q0 + ty * TM + i) * st.on;
+  for (int i = 0; i < RW; ++i)
 #pragma unroll
-    for (int c = 0; c < TN; ++c) orow[tx + 16 * c] = acc[i][c] / row_l[i];
-    // the row's log-sum-exp of the scaled logits, for the backward's recompute
-    if (lse != nullptr && tx == 0)
-      lse[(long long)blockIdx.y * n + q0 + ty * TM + i] = row_m[i] + logf(row_l[i]);
+    for (int h8 = 0; h8 < 2; ++h8) {
+      row_m[i][h8] = -INFINITY;
+      row_l[i][h8] = 0.f;
+    }
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[c][i][r] = 0.f;
+
+  const int r0 = 16 * RW * warp;   // the warp's first row in the tile
+  for (int it = 0; it < tiles_per_split; ++it) {
+    if (it + 1 < tiles_per_split) load_stage((it + 1) & 1, tile0 + it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();       // this tile (and Q) have landed
+    __syncthreads();
+    const float* s_k = ring + (it & 1) * STAGE;
+    const float* s_v = s_k + BK * P;
+
+    float s[NT][RW][4], alpha[RW][2];
+    logits<D, NT, RW>(s_qb + r0 * P, s_qs + r0 * P, s_k, g, t, s);
+    online_softmax<NT, RW>(s, row_m, row_l, alpha, sm_scale);
+    float tile[NC][RW][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) tile[c][i][r] = 0.f;
+    accumulate<D, NT, RW>(tile, s, s_v, g, t);    // this tile's P·V
+    fold<NC, RW>(acc, tile, alpha);
+    __syncthreads();          // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {        // the quad's shares of the row sum
+      row_l[i][h8] += __shfl_xor_sync(0xffffffffu, row_l[i][h8], 1);
+      row_l[i][h8] += __shfl_xor_sync(0xffffffffu, row_l[i][h8], 2);
+    }
+  write_rows<D, NC, RW>(acc, row_m, row_l, o, lse, parts, split, b, heads, n, bi, hi, q0 + r0, 0,
+                        true, g, t);
+}
+
+// ---- d = 512 -------------------------------------------------------------
+
+constexpr int W_BQ = 32, W_BK = 32, W_THREADS = 256;
+constexpr int W_PS = W_BK + 8;   // pitch of the logit parts and P: float2 rows on 32 banks
+
+template <int D>
+constexpr size_t d512_smem_floats() {
+  return (size_t)W_BQ * (D + 4) + (size_t)2 * W_BK * (D + 4) + (size_t)5 * W_BQ * W_PS +
+         (size_t)3 * W_BQ;
+}
+
+template <int D>
+__global__ void __launch_bounds__(W_THREADS)
+flash_attn_fwd_d512_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, Parts parts, Strides st, int b, int heads,
+                           int n, int tiles_per_split, float sm_scale) {
+  constexpr int P = D + 4, DQ = D / 4, NC = D / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                      // [32][D + 4]
+  float* s_k = s_q + W_BQ * P;            // [32][D + 4] the key tile
+  float* s_v = s_k + W_BK * P;            // [32][D + 4] the value tile
+  float* s_part = s_v + W_BK * P;        // [4][32][W_PS] logits by quarter of d
+  float* s_p = s_part + 4 * W_BQ * W_PS;  // [32][W_PS] P
+  float* s_alpha = s_p + W_BQ * W_PS;     // [32] each row's rescale
+  float* s_m = s_alpha + W_BQ;            // [32] row max, at the end
+  float* s_l = s_m + W_BQ;                // [32] row sum, at the end
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
+  const int q0 = blockIdx.x * W_BQ, split = blockIdx.z;
+  const int tile0 = split * tiles_per_split;
+  const float* kp = k + bi * st.kb + hi * st.kh;
+  const float* vp = v + bi * st.vb + hi * st.vh;
+  const int dq = warp & 3, kh = warp >> 2;           // logits: quarter of d, half of the keys
+  const int sr = tid >> 3, sc = (tid & 7) * 4;       // softmax: row and 4 columns
+
+  load_tile_async<W_BQ, D, P, W_THREADS>(
+      s_q, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn, st.qn, tid);
+  load_tile_async<W_BK, D, P, W_THREADS>(s_k, kp + (long long)tile0 * W_BK * st.kn, st.kn, tid);
+  cp_async_commit();
+
+  float acc[NC][2][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[c][i][r] = 0.f;
+  float row_m = -INFINITY, row_l = 0.f;   // of softmax row sr, the same in its 8 threads
+
+  for (int it = 0; it < tiles_per_split; ++it) {
+    const long long k0 = (long long)(tile0 + it) * W_BK;
+    load_tile_async<W_BK, D, P, W_THREADS>(s_v, vp + k0 * st.vn, st.vn, tid);
+    cp_async_commit();
+    cp_async_wait<1>();       // the key tile (and Q) have landed
+    __syncthreads();
+
+    // this warp's quarter of d for 32 queries x 16 keys
+    float s[2][2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[j][i][r] = 0.f;
+    const float* qw = s_q + dq * DQ;
+    const float* kw = s_k + 16 * kh * P + dq * DQ;
+#pragma unroll 2
+    for (int kk = 0; kk < DQ; kk += 8) {
+      FragA fa[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* a = qw + (16 * i + g) * P + kk + t;
+        fa[i].set(a[0], a[8 * P], a[4], a[8 * P + 4]);
+      }
+      FragB fb[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        fb[j].set(kw[(8 * j + g) * P + kk + t], kw[(8 * j + g) * P + kk + t + 4]);
+      mma3_grid<2, 2>(s, fa, fb);
+    }
+    float* part = s_part + dq * W_BQ * W_PS;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 16 * kh + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(part + (16 * i + g) * W_PS + col) =
+            make_float2(s[j][i][0], s[j][i][1]);
+        *reinterpret_cast<float2*>(part + (16 * i + g + 8) * W_PS + col) =
+            make_float2(s[j][i][2], s[j][i][3]);
+      }
+    __syncthreads();          // the parts are complete and the key tile is free
+    if (it + 1 < tiles_per_split)
+      load_tile_async<W_BK, D, P, W_THREADS>(s_k, kp + (k0 + W_BK) * st.kn, st.kn, tid);
+    cp_async_commit();
+
+    // softmax: the four parts in order, 8 threads per row
+    float x[4];
+    {
+      const int at = sr * W_PS + sc;
+      const float4 p0 = *reinterpret_cast<const float4*>(s_part + at);
+      const float4 p1 = *reinterpret_cast<const float4*>(s_part + W_BQ * W_PS + at);
+      const float4 p2 = *reinterpret_cast<const float4*>(s_part + 2 * W_BQ * W_PS + at);
+      const float4 p3 = *reinterpret_cast<const float4*>(s_part + 3 * W_BQ * W_PS + at);
+      x[0] = (((p0.x + p1.x) + p2.x) + p3.x) * sm_scale;
+      x[1] = (((p0.y + p1.y) + p2.y) + p3.y) * sm_scale;
+      x[2] = (((p0.z + p1.z) + p2.z) + p3.z) * sm_scale;
+      x[3] = (((p0.w + p1.w) + p2.w) + p3.w) * sm_scale;
+    }
+    float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(row_m, mx);
+    const float alpha = expf(row_m - m_new);
+    row_m = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = expf(x[e] - m_new);
+      sum += x[e];
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    row_l = row_l * alpha + sum;
+    *reinterpret_cast<float4*>(s_p + sr * W_PS + sc) = make_float4(x[0], x[1], x[2], x[3]);
+    if ((tid & 7) == 0) s_alpha[sr] = alpha;
+    cp_async_wait<1>();       // the value tile has landed (the next key tile may not have)
+    __syncthreads();
+
+    // P·V into a fresh tile for columns 64·warp .. 64·warp + 63 of all 32
+    // rows, then the fold
+    float tile[NC][2][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) tile[c][i][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < W_BK; kk += 8) {
+      FragA fa[2];   // contraction index permuted: slot t is key kk + 2t, slot t + 4 key kk + 2t + 1
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 lo = *reinterpret_cast<const float2*>(s_p + (16 * i + g) * W_PS + kk + 2 * t);
+        const float2 hi8 =
+            *reinterpret_cast<const float2*>(s_p + (16 * i + g + 8) * W_PS + kk + 2 * t);
+        fa[i].set(lo.x, hi8.x, lo.y, hi8.y);
+      }
+      const float* y0 = s_v + (kk + 2 * t) * P + 64 * warp + g;
+      FragB fb[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fb[c].set(y0[8 * c], y0[P + 8 * c]);
+      mma3_grid<NC, 2>(tile, fa, fb);
+    }
+    float al[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      al[i][0] = s_alpha[16 * i + g];
+      al[i][1] = s_alpha[16 * i + g + 8];
+    }
+    fold<NC, 2>(acc, tile, al);
+    __syncthreads();          // the value tile, P and the rescales are free
+  }
+
+  if ((tid & 7) == 0) {
+    s_m[sr] = row_m;
+    s_l[sr] = row_l;
+  }
+  __syncthreads();
+  float ms[2][2], ls[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      ms[i][h8] = s_m[16 * i + g + 8 * h8];
+      ls[i][h8] = s_l[16 * i + g + 8 * h8];
+    }
+  write_rows<D, NC, 2>(acc, ms, ls, o, lse, parts, split, b, heads, n, bi, hi, q0,
+                       64 * warp, warp == 0, g, t);
+}
+
+// ---- the parts of a split key loop ---------------------------------------
+
+// o row r (of b·n·heads), columns c .. c + 3, and lse: the parts merged in
+// order, o = sum_s e^(m_s - M) o_s / L with M = max_s m_s and L = sum_s
+// e^(m_s - M) l_s; lse = M + log L.
+__global__ void flash_attn_fwd_combine_kernel(Parts parts, float* __restrict__ o,
+                                              float* __restrict__ lse, int b, int heads, int n,
+                                              int d, int nsplit) {
+  const long long rows = (long long)b * n * heads, chunks = d / 4;
+  const long long part = rows * d, stats = (long long)b * heads * n;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < rows * chunks;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long r = e / chunks;
+    const int c = (int)(e % chunks) * 4;
+    const int hi = (int)(r % heads), i = (int)((r / heads) % n), bi = (int)(r / heads / n);
+    const long long srow = ((long long)bi * heads + hi) * n + i;
+    float mx = -INFINITY;
+    for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, parts.m[s * stats + srow]);
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < nsplit; ++s) {
+      const float w = expf(parts.m[s * stats + srow] - mx);
+      l += w * parts.l[s * stats + srow];
+      const float4 x = *reinterpret_cast<const float4*>(parts.o + s * part + r * d + c);
+      acc.x = fmaf(w, x.x, acc.x);
+      acc.y = fmaf(w, x.y, acc.y);
+      acc.z = fmaf(w, x.z, acc.z);
+      acc.w = fmaf(w, x.w, acc.w);
+    }
+    *reinterpret_cast<float4*>(o + r * d + c) =
+        make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+    if (lse != nullptr && c == 0) lse[srow] = mx + logf(l);
   }
 }
 
-template <int D, int BM, int BN>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse,
-                   const Strides& st, int b, int heads, int n, int m, float sm_scale,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D, BM, BN>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_fwd_kernel<D, BM, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n / BM, b * heads);
-  flash_attn_fwd_kernel<D, BM, BN><<<grid, NTHREADS, smem, stream>>>(q, k, v, o, lse, st, heads,
-                                                                      n, m, sm_scale);
+// ---- launches ------------------------------------------------------------
+
+struct Args {
+  const float *q, *k, *v;
+  float *o, *lse, *scratch;
+  Strides st;
+  int b, heads, n, m, split;
+  float sm_scale;
+};
+
+// scratch as [o parts | row max parts | row sum parts], or no parts
+Parts parts_of(const Args& a, int d) {
+  if (a.split == 1) return Parts{nullptr, nullptr, nullptr};
+  const long long po = (long long)a.split * a.b * a.n * a.heads * d;
+  const long long ps = (long long)a.split * a.b * a.heads * a.n;
+  return Parts{a.scratch, a.scratch + po, a.scratch + po + ps};
+}
+
+cudaError_t launch_combine(const Args& a, const Parts& parts, int d, cudaStream_t stream) {
+  const long long work = (long long)a.b * a.n * a.heads * (d / 4);
+  const int blocks = (int)(work / 256 < 1056 ? (work + 255) / 256 : 1056);
+  flash_attn_fwd_combine_kernel<<<blocks, 256, 0, stream>>>(parts, a.o, a.lse, a.b, a.heads, a.n,
+                                                            d, a.split);
   return cudaGetLastError();
+}
+
+// the main kernel on its grid, then, with a split, the combine
+template <typename K>
+cudaError_t launch_split(K kernel, int bq, int bk, int threads, size_t smem, int d,
+                         const Args& a, cudaStream_t stream) {
+  const int tiles = a.m / bk;
+  if (a.n % bq || a.m % bk || tiles % a.split) return cudaErrorInvalidValue;
+  if (a.split > 1 && a.scratch == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const Parts parts = parts_of(a, d);
+  kernel<<<dim3(a.n / bq, a.b * a.heads, a.split), threads, smem, stream>>>(
+      a.q, a.k, a.v, a.o, a.lse, parts, a.st, a.b, a.heads, a.n, tiles / a.split, a.sm_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return a.split > 1 ? launch_combine(a, parts, d, stream) : cudaSuccess;
+}
+
+template <int D, int BQ, int BK, int RW>
+cudaError_t launch_fused(const Args& a, cudaStream_t stream) {
+  return launch_split(flash_attn_fwd_kernel<D, BQ, BK, RW>, BQ, BK, BQ / RW * 2,
+                      sizeof(float) * fwd_smem_floats<D, BQ, BK>(), D, a, stream);
+}
+
+template <int D>
+cudaError_t launch_d512(const Args& a, cudaStream_t stream) {
+  return launch_split(flash_attn_fwd_d512_kernel<D>, W_BQ, W_BK, W_THREADS,
+                      sizeof(float) * d512_smem_floats<D>(), D, a, stream);
 }
 
 }  // namespace
@@ -205,23 +578,27 @@ extern "C" {
 
 const char* flash_attn_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// q: (b, n, heads, d), k and v: (b, m, heads, d), o: (b, n, heads, d); float32
-// on the current device, element strides per (batch, seq, head), unit stride
-// along d; n and m multiples of 128.  lse: null, or a contiguous (b, heads, n)
-// output for each row's log-sum-exp of the scaled logits (what the backward
-// recomputes the probabilities from).  Returns cudaGetLastError() after the launch.
+// q: (b, n, heads, d), k and v: (b, m, heads, d); float32 on the current
+// device, element strides per (batch, seq, head), unit stride along d, every
+// stride a multiple of 4 and every base 16-byte aligned; n and m multiples
+// of 128.  o: contiguous (b, n, heads, d).  lse: null, or a contiguous (b,
+// heads, n) output for each row's log-sum-exp of the scaled logits.  split:
+// the number of parts the key loop is cut into (a power of 2 dividing m/32);
+// with split > 1, scratch holds split·b·heads·n·(d + 2) floats, else may be
+// null.  Launches the kernels on the stream and returns the first launch
+// error (cudaSuccess = 0).
 int flash_attn_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
-                   long long qb, long long qn, long long qh, long long kb, long long kn, long long kh,
-                   long long vb, long long vn, long long vh, long long ob, long long on,
-                   long long oh, int b, int heads, int n, int m, int d, float sm_scale,
-                   void* stream) {
-  const Strides st{qb, qn, qh, kb, kn, kh, vb, vn, vh, ob, on, oh};
+                   float* scratch, long long qb, long long qn, long long qh, long long kb,
+                   long long kn, long long kh, long long vb, long long vn, long long vh, int b,
+                   int heads, int n, int m, int d, int split, float sm_scale, void* stream) {
+  const Args a{q, k, v, o, lse, scratch, Strides{qb, qn, qh, kb, kn, kh, vb, vn, vh},
+               b, heads, n, m, split, sm_scale};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (n % 128 != 0 || m % 128 != 0) return (int)cudaErrorInvalidValue;
+  if (n % 128 != 0 || m % 128 != 0 || split < 1) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 64: return (int)launch<64, 64, 64>(q, k, v, o, lse, st, b, heads, n, m, sm_scale, s);
-    case 128: return (int)launch<128, 64, 64>(q, k, v, o, lse, st, b, heads, n, m, sm_scale, s);
-    case 512: return (int)launch<512, 32, 32>(q, k, v, o, lse, st, b, heads, n, m, sm_scale, s);
+    case 64: return (int)launch_fused<64, 128, 32, 2>(a, s);
+    case 128: return (int)launch_fused<128, 128, 32, 1>(a, s);
+    case 512: return (int)launch_d512<512>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,108 +6,218 @@
 // for every image pair (sr, gt), reflect-padded by p = search/2 outside this
 // kernel, and every search offset d in [-p, p]^2, the windowed SSD with the
 // out-of-patch rule
-//     S_d = box9(C2) + rect_d(D_d - C2),  D_d = sum_c (P - P_d)^2,  C2 = sum_c P^2,
-// where rect_d sums over the clipped window rectangle [a_y, b_y] x [a_x, b_x];
-// q_d = exp(-(S_d / (c window^2)) / sigma).  Sweep 1 sums q_d per pixel into
-// inv = 1 / (sum_d q_d + 1e-10); sweep 2 accumulates the masked sums
-// |x - y| and y (log y - log x) (clamp 1e-10) with x = q_sr inv_sr,
-// y = q_gt inv_gt, the mask count, and the backward helpers
-// a_map = sum_d sign(x - y) x and b_map = sum_d y [x > 1e-10].
+//     S_d = box(C2) + rect_d(D_d - C2),  D_d = sum_c (P - P_d)^2,  C2 = sum_c P^2,
+// where box sums the window x window cells around a pixel and rect_d the
+// clipped rectangle [a_y, b_y] x [a_x, b_x] of them; q_d = exp(-(S_d /
+// (c window^2)) / sigma).  Sweep 1 sums q_d per pixel into inv = 1 / (sum_d
+// q_d + 1e-10); sweep 2 accumulates the masked sums |x - y| and y (log y -
+// log x) (clamp 1e-10) with x = q_sr inv_sr, y = q_gt inv_gt, the mask count,
+// and the backward helpers a_map = sum_d sign(x - y) x and b_map = sum_d y
+// [x > 1e-10].
 //
 // What bounds it on this card: operations.  At the main path's shapes
-// (b16, 3x128^2, search 25, window 9) it reads and writes ~14 MB but does
-// ~1e10 fp32 operations and ~1e9 exp/log over 2 images x 2 sweeps x
-// b h w x 625 pixel-offsets.  Nothing it computes per offset needs to leave
-// the SM, so the design keeps every intermediate in shared memory and
-// registers and spends device memory traffic only on the inputs and outputs:
-//   * one block per (image, 16x16 output tile), 256 threads, one per pixel;
-//   * the tile plus a halo of p of both padded images is staged once in
-//     shared memory (the out-of-patch rule keeps every shifted read inside
-//     tile +- p), with C2 over tile +- k and each pixel's box9(C2) computed
-//     once;
-//   * per offset: E = D_d - C2 over the rectangle's rows and columns of
-//     tile +- k, a vertical then a horizontal box-sum in shared memory (the
-//     order of the banded products By E Bx^T of the plain version), then exp;
-//   * a pixel's inverse depends only on its own search^2 values of q, so both
-//     sweeps stay inside one block and the per-pixel sums live in registers;
-//   * per-block partial sums of l1, kl and count go to a buffer in a fixed
-//     reduction order and are summed afterwards: no float atomics, so the
-//     result is deterministic.
+// (b16, 3x128^2 and b2, 3x512^2; search 25, window 9) it reads and writes a
+// few MB but does ~1e10 fp32 operations and ~1e9 exp/log over 2 images x 2
+// sweeps x b h w x 625 pixel-offsets.  Nothing it computes per offset needs
+// to leave the SM: every intermediate stays in shared memory and registers.
+// The design brings the work per pixel-offset down to a constant number of
+// shared-memory passes:
+//   * one block of NWARPS warps per (image, tile of TH x 32 pixels), TH = 32
+//     - 2k (k = window/2), so that the tile's rows with their k-row halo are
+//     32 region rows, one per lane.  The tile plus a halo of p of both padded
+//     images is staged once; C2 over the region and its full-width window
+//     row sums H9 are computed once;
+//   * the offsets are owned by warps (warp w takes d = w, w + NWARPS, ...),
+//     each with private scratch: no block-wide barrier per offset, only
+//     __syncwarp between its two passes;
+//   * pass 1, lane = region row: D along the row, and a running window sum
+//     over the rect's columns (one add and one subtract per column, the
+//     leaving value read back from the lane's own row of scratch);
+//   * pass 2, lane = tile column: a running sum down the column over the
+//     rect's rows (one add and one subtract per row), then exp.  Both running
+//     sums restart at every tile and offset;
+//   * S_d is taken as rect_d(D_d) + (the window's cells outside the rect)(C2),
+//     the same sum of cells as the plain version's box(C2) + rect_d(D_d -
+//     C2) without its cancellation of two boxes of C2 (~70 at the test
+//     images): the window sums carry D's own magnitude.  The cells outside
+//     the rect (offsets with |d| > p - k along an axis) are added directly,
+//     at most k row sums H9 and k cells of C2 a row;
+//   * each warp sums q (sweep 1) or the a and b maps (sweep 2) per pixel in
+//     registers over its offsets; the warps' partial maps are added in warp
+//     order once per sweep, and l1, kl and the count go to per-block
+//     partials in a fixed order: no float atomics, so the result is
+//     deterministic.
+//   * q = expf(e) with e = -S / (c window^2 sigma) (one multiply by the
+//     rounded constant); sweep 2 takes log x as e + log inv_sr (log inv once
+//     per pixel) where x > 1e-10, else the clamp's log, instead of two logf
+//     per pixel-offset: the same value up to float rounding.
 // expf/logf (not the __expf intrinsics) and no fast-math keep it near the
-// CPU reference.  Making it fast (fewer shared-memory passes per offset,
-// running box-sums across offsets) is later work.
+// CPU reference.  The launch geometry (tile, grid, shared memory) is
+// mirrored by ssl_tpu_torch/ops/ssg_cuda.py::k1_launch, which the wrapper
+// checks against ssg_loss_fwd_blocks and ssg_loss_fwd_smem_bytes.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int NTHREADS = TILE * TILE;
+constexpr int TILE_W = 32;                  // tile columns: one per lane
+constexpr int REGION_ROWS = 32;             // tile rows + 2k: one per lane
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = 32 * NWARPS;
+const float kLogClamp = -23.02585093f;   // logf(1e-10f)
 
-struct Geom {
-  int c, search, p, k;
-  int T;   // staged tile edge: TILE + 2p
-  int R;   // D / C2 region edge: TILE + 2k
-  float norm, sigma;
+// Shared-memory layout, in floats, of a block (every pitch odd, so that a
+// warp whose lanes walk 32 rows in step hits 32 banks).
+struct Layout {
+  int c, p, k, th;          // channels, search and window halves, tile rows
+  int ip, irows;            // staged images: pitch and rows
+  int cp, hp, dp;           // pitches of C2, of H9, of the rows of D and H1
+  int img, c2, h9, maps, red, scratch, warp, total;   // offsets and sizes
+  __host__ __device__ Layout(int c_, int search, int window) {
+    c = c_;
+    p = search / 2;
+    k = window / 2;
+    th = REGION_ROWS - 2 * k;
+    ip = TILE_W + 2 * p + 1;
+    irows = th + 2 * p;
+    cp = TILE_W + 2 * k + 1;
+    hp = TILE_W + 1;
+    dp = cp;
+    img = 0;                                        // [2][c][irows][ip]: sr then gt
+    c2 = img + 2 * c * irows * ip;                  // [2][32][cp] C2 over the region
+    h9 = c2 + 2 * REGION_ROWS * cp;                 // [2][32][hp] full-window row sums of C2
+    maps = h9 + 2 * REGION_ROWS * hp;               // [5][th][32] inv_sr, inv_gt, mask, log invs
+    red = maps + 5 * th * TILE_W;                   // [3][NWARPS] block sums
+    scratch = red + 3 * NWARPS;                     // [NWARPS][warp]
+    warp = 2 * REGION_ROWS * dp;                    // a row of D, then H1, per image and lane
+    total = scratch + NWARPS * warp;
+  }
 };
 
-// q of sr and gt at this thread's pixel for offset index s.  Every thread of
-// the block must call it (it synchronises).
-__device__ __forceinline__ void offset_q(int s, const Geom& g, const float* s_img,
-                                         const float* s_c2, float* s_e, float* s_v,
-                                         int tid, int ty, int tx, float box_sr,
-                                         float box_gt, float& q_sr, float& q_gt) {
-  const int p = g.p, k = g.k, T = g.T, R = g.R, c = g.c;
-  const int TT = T * T, RR = R * R;
-  const int dy = s / g.search - p, dx = s % g.search - p;
-  const int a_y = max(-k, -p - dy), b_y = min(k, p - dy);
-  const int a_x = max(-k, -p - dx), b_x = min(k, p - dx);
-  const int r_lo = k + a_y, r_hi = TILE - 1 + k + b_y;
-  const int c_lo = k + a_x, c_hi = TILE - 1 + k + b_x;
+struct Offset {
+  int dy, dx, ay, by, ax, bx;   // shift and clipped rectangle
+};
 
-  // E = D_d - C2 on the rows and columns the clipped rectangles touch
-  for (int e = tid; e < RR; e += NTHREADS) {
-    const int r = e / R, col = e % R;
-    if (r < r_lo || r > r_hi || col < c_lo || col > c_hi) continue;
-    const int ic = (r + p - k) * T + (col + p - k);
-    const int is = ic + dy * T + dx;
-    float ds = 0.f, dg = 0.f;
-    for (int ch = 0; ch < c; ++ch) {
-      const float u = s_img[ch * TT + ic] - s_img[ch * TT + is];
-      ds += u * u;
-      const float v = s_img[(c + ch) * TT + ic] - s_img[(c + ch) * TT + is];
-      dg += v * v;
-    }
-    s_e[e] = ds - s_c2[e];
-    s_e[RR + e] = dg - s_c2[RR + e];
-  }
-  __syncthreads();
-
-  // vertical box-sum over [a_y, b_y] for each output row
-  for (int e = tid; e < TILE * R; e += NTHREADS) {
-    const int t = e / R, col = e % R;
-    if (col < c_lo || col > c_hi) continue;
-    float vs = 0.f, vg = 0.f;
-    for (int r = t + k + a_y; r <= t + k + b_y; ++r) {
-      vs += s_e[r * R + col];
-      vg += s_e[RR + r * R + col];
-    }
-    s_v[e] = vs;
-    s_v[TILE * R + e] = vg;
-  }
-  __syncthreads();
-
-  // horizontal box-sum over [a_x, b_x] at this thread's pixel
-  float rs = 0.f, rg = 0.f;
-  for (int col = tx + k + a_x; col <= tx + k + b_x; ++col) {
-    rs += s_v[ty * R + col];
-    rg += s_v[TILE * R + ty * R + col];
-  }
-  q_sr = expf(-((rs + box_sr) / g.norm) / g.sigma);
-  q_gt = expf(-((rg + box_gt) / g.norm) / g.sigma);
+__device__ __forceinline__ Offset offset_of(int s, int search, int p, int k) {
+  Offset o;
+  o.dy = s / search - p;
+  o.dx = s % search - p;
+  o.ay = max(-k, -p - o.dy);
+  o.by = min(k, p - o.dy);
+  o.ax = max(-k, -p - o.dx);
+  o.bx = min(k, p - o.dx);
+  return o;
 }
 
-// Deterministic block sum: warp shuffles, then warp 0 over the warp sums.
+// Pass 1 for one offset, lane = region row rho, both images at once: D
+// along the row into the lane's row buffer, and its running sum over the
+// rect's wx columns; output x (plus C2 at the window's columns outside the
+// rect) goes to position x of the same buffer, whose D there has been read
+// for the last time (x <= x + k + ax, the column leaving the window, and
+// every later output lies left of every later leaving column).  Rows
+// outside the rect's reach are skipped.  C: channels (0: L.c at run time).
+template <int C>
+__device__ __forceinline__ void pass_rows(const Layout& L, const float* smem, float* rows,
+                                          const Offset& o, int lane) {
+  const int rho = lane, k = L.k, nch = C ? C : L.c;
+  if (rho < k + o.ay || rho > L.th - 1 + k + o.by) return;
+  const int c_lo = k + o.ax, c_hi = TILE_W - 1 + k + o.bx, wx = o.bx - o.ax + 1;
+  const bool clipped = o.ax > -k || o.bx < k;
+  const int plane = L.irows * L.ip;
+  const float* p0 = smem + L.img + (rho + L.p - k) * L.ip + (L.p - k);   // sr at region (rho, 0)
+  const float* p1 = p0 + L.c * plane;                                    // gt
+  const int shift = o.dy * L.ip + o.dx;
+  float* r0 = rows + rho * L.dp;
+  float* r1 = r0 + REGION_ROWS * L.dp;
+  const float* c2r0 = smem + L.c2 + rho * L.cp;
+  const float* c2r1 = c2r0 + REGION_ROWS * L.cp;
+  float run0 = 0.f, run1 = 0.f;
+#pragma unroll 2
+  for (int col = c_lo; col <= c_hi; ++col) {
+    // the values that leave the window at this column, read before anything
+    // is stored here so that the loads overlap the D below (wx = 1: D itself)
+    const bool full = col >= c_lo + wx - 1;
+    const int leave = col - wx + 1;
+    const float l0 = full && wx > 1 ? r0[leave] : 0.f;
+    const float l1 = full && wx > 1 ? r1[leave] : 0.f;
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < nch; ++ch) {
+      const float u0 = p0[ch * plane + col] - p0[ch * plane + col + shift];
+      const float u1 = p1[ch * plane + col] - p1[ch * plane + col + shift];
+      d0 += u0 * u0;
+      d1 += u1 * u1;
+    }
+    r0[col] = d0;
+    r1[col] = d1;
+    run0 += d0;
+    run1 += d1;
+    if (full) {
+      const int x = col - k - o.bx;
+      float h0 = run0, h1v = run1;
+      run0 -= wx > 1 ? l0 : d0;
+      run1 -= wx > 1 ? l1 : d1;
+      if (clipped) {
+        for (int v = -k; v < o.ax; ++v) {
+          h0 += c2r0[x + k + v];
+          h1v += c2r1[x + k + v];
+        }
+        for (int v = o.bx + 1; v <= k; ++v) {
+          h0 += c2r0[x + k + v];
+          h1v += c2r1[x + k + v];
+        }
+      }
+      r0[x] = h0;
+      r1[x] = h1v;
+    }
+  }
+}
+
+// Pass 2 for one offset, lane = tile column x: the running sum over the
+// rect's rows of H1 (plus the window's rows outside the rect from H9) gives
+// S at each tile row y; visit(y, e_sr, e_gt) takes the exponents e = -S /
+// (c window^2 sigma) of q = exp(e) there.  The loop runs
+// over all 32 rows with the rows past the tile skipped, so that y is known
+// at compile time and the callers' per-row sums stay in registers.
+template <typename Visit>
+__device__ __forceinline__ void pass_columns(const Layout& L, const float* smem, const float* rows,
+                                             const Offset& o, int x, float neg_inv, Visit visit) {
+  const int k = L.k;
+  const bool clipped = o.ay > -k || o.by < k;
+  const float* col0 = rows + x;
+  const float* col1 = col0 + REGION_ROWS * L.dp;
+  const float* h90 = smem + L.h9 + x;
+  const float* h91 = h90 + REGION_ROWS * L.hp;
+  float run0 = 0.f, run1 = 0.f;
+  for (int r = k + o.ay; r < k + o.by; ++r) {
+    run0 += col0[r * L.dp];
+    run1 += col1[r * L.dp];
+  }
+#pragma unroll
+  for (int y = 0; y < REGION_ROWS; ++y) {
+    if (y < L.th) {
+      run0 += col0[(y + k + o.by) * L.dp];
+      run1 += col1[(y + k + o.by) * L.dp];
+      float s0 = run0, s1 = run1;
+      if (clipped) {
+        for (int u = -k; u < o.ay; ++u) {
+          s0 += h90[(y + k + u) * L.hp];
+          s1 += h91[(y + k + u) * L.hp];
+        }
+        for (int u = o.by + 1; u <= k; ++u) {
+          s0 += h90[(y + k + u) * L.hp];
+          s1 += h91[(y + k + u) * L.hp];
+        }
+      }
+      run0 -= col0[(y + k + o.ay) * L.dp];
+      run1 -= col1[(y + k + o.ay) * L.dp];
+      visit(y, s0 * neg_inv, s1 * neg_inv);
+    }
+  }
+}
+
+// Deterministic block sum of one value per thread: warp shuffles, then
+// thread 0 over the warp sums in order.  Every thread must call it.
 __device__ __forceinline__ float block_sum(float v, float* s_red) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -115,11 +225,12 @@ __device__ __forceinline__ float block_sum(float v, float* s_red) {
   __syncthreads();
   float total = 0.f;
   if (threadIdx.x == 0)
-    for (int i = 0; i < NTHREADS / 32; ++i) total += s_red[i];
+    for (int i = 0; i < NWARPS; ++i) total += s_red[i];
   __syncthreads();
   return total;
 }
 
+template <int C>
 __global__ void __launch_bounds__(NTHREADS)
 ssg_loss_fwd_kernel(const float* __restrict__ psr, const float* __restrict__ pgt,
                     const float* __restrict__ mask, float* __restrict__ partial,
@@ -127,112 +238,162 @@ ssg_loss_fwd_kernel(const float* __restrict__ psr, const float* __restrict__ pgt
                     float* __restrict__ a_out, float* __restrict__ b_out,
                     int c, int h, int w, int search, int window, float sigma,
                     int generalization) {
-  extern __shared__ float smem[];
-  __shared__ float s_red[NTHREADS / 32];
-
-  Geom g;
-  g.c = c;
-  g.search = search;
-  g.p = search / 2;
-  g.k = window / 2;
-  g.T = TILE + 2 * g.p;
-  g.R = TILE + 2 * g.k;
-  g.norm = (float)c * (float)window * (float)window;
-  g.sigma = sigma;
-  const int p = g.p, k = g.k, T = g.T, R = g.R;
-  const int TT = T * T, RR = R * R;
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(c, search, window);
+  const int p = L.p, k = L.k, th = L.th;
   const int hp = h + 2 * p, wp = w + 2 * p;
-
-  float* s_img = smem;               // [2][c][T][T]: sr then gt
-  float* s_c2 = s_img + 2 * c * TT;  // [2][R][R]
-  float* s_e = s_c2 + 2 * RR;        // [2][R][R]
-  float* s_v = s_e + 2 * RR;         // [2][TILE][R]
+  // q = exp(-S / (c window^2 sigma)), one multiply by the rounded constant
+  const float neg_inv = -1.f / ((float)c * (float)window * (float)window * sigma);
+  const int n2 = search * search;
 
   const int img = blockIdx.z;
-  const int y0 = blockIdx.y * TILE, x0 = blockIdx.x * TILE;
-  const int tid = threadIdx.x, ty = tid / TILE, tx = tid % TILE;
-  const int y = y0 + ty, x = x0 + tx;
-  const bool valid = y < h && x < w;
+  const int y0 = blockIdx.y * th, x0 = blockIdx.x * TILE_W;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* s_inv_sr = smem + L.maps;
+  float* s_inv_gt = s_inv_sr + th * TILE_W;
+  float* s_mask = s_inv_gt + th * TILE_W;
+  float* s_log_inv_sr = s_mask + th * TILE_W;
+  float* s_log_inv_gt = s_log_inv_sr + th * TILE_W;
+  float* rows = smem + L.scratch + warp * L.warp;
 
-  // stage s_img[.][ch][i][j] = P[img][ch][y0 + i][x0 + j], zero past the edge
+  // stage both padded images over tile +- p (zero past the edge) and the mask
   const size_t img_off = (size_t)img * c * hp * wp;
-  for (int e = tid; e < c * TT; e += NTHREADS) {
-    const int ch = e / TT, rem = e % TT, i = rem / T, j = rem % T;
+  const int plane = L.irows * L.ip;
+  for (int e = tid; e < c * L.irows * (TILE_W + 2 * p); e += NTHREADS) {
+    const int cols = TILE_W + 2 * p;
+    const int ch = e / (L.irows * cols), rem = e % (L.irows * cols);
+    const int i = rem / cols, j = rem % cols;
     const int u = y0 + i, v = x0 + j;
     const bool in = u < hp && v < wp;
     const size_t off = img_off + ((size_t)ch * hp + u) * wp + v;
-    s_img[e] = in ? psr[off] : 0.f;
-    s_img[c * TT + e] = in ? pgt[off] : 0.f;
+    smem[L.img + ch * plane + i * L.ip + j] = in ? psr[off] : 0.f;
+    smem[L.img + (c + ch) * plane + i * L.ip + j] = in ? pgt[off] : 0.f;
+  }
+  for (int e = tid; e < th * TILE_W; e += NTHREADS) {
+    const int y = y0 + e / TILE_W, x = x0 + e % TILE_W;
+    s_mask[e] = (y < h && x < w) ? mask[((size_t)img * h + y) * w + x] : 0.f;
   }
   __syncthreads();
 
-  // C2 = sum_c P^2 over tile +- k (region row r is padded row y0 + r + p - k)
-  for (int e = tid; e < RR; e += NTHREADS) {
-    const int r = e / R, col = e % R;
-    const int idx = (r + p - k) * T + (col + p - k);
-    float a = 0.f, b = 0.f;
-    for (int ch = 0; ch < c; ++ch) {
-      const float u = s_img[ch * TT + idx];
-      a += u * u;
-      const float v = s_img[(c + ch) * TT + idx];
-      b += v * v;
-    }
-    s_c2[e] = a;
-    s_c2[RR + e] = b;
+  // C2 over the region (rows tile +- k, columns tile +- k), then H9
+  const int rcols = TILE_W + 2 * k;
+  for (int e = tid; e < 2 * REGION_ROWS * rcols; e += NTHREADS) {
+    const int im = e / (REGION_ROWS * rcols), rem = e % (REGION_ROWS * rcols);
+    const int r = rem / rcols, col = rem % rcols;
+    const float* P = smem + L.img + im * c * plane + (r + p - k) * L.ip + (col + p - k);
+    float a = 0.f;
+    for (int ch = 0; ch < c; ++ch) a += P[ch * plane] * P[ch * plane];
+    smem[L.c2 + (im * REGION_ROWS + r) * L.cp + col] = a;
+  }
+  __syncthreads();
+  for (int e = tid; e < 2 * REGION_ROWS * TILE_W; e += NTHREADS) {
+    const int im = e / (REGION_ROWS * TILE_W), rem = e % (REGION_ROWS * TILE_W);
+    const int r = rem / TILE_W, x = rem % TILE_W;
+    const float* row = smem + L.c2 + (im * REGION_ROWS + r) * L.cp + x;
+    float a = 0.f;
+    for (int v = 0; v <= 2 * k; ++v) a += row[v];
+    smem[L.h9 + (im * REGION_ROWS + r) * L.hp + x] = a;
   }
   __syncthreads();
 
-  // full window x window box of C2 at this pixel: columns of row sums
-  float box_sr = 0.f, box_gt = 0.f;
-  for (int col = tx; col <= tx + 2 * k; ++col) {
-    float vs = 0.f, vg = 0.f;
-    for (int r = ty; r <= ty + 2 * k; ++r) {
-      vs += s_c2[r * R + col];
-      vg += s_c2[RR + r * R + col];
-    }
-    box_sr += vs;
-    box_gt += vg;
-  }
-
-  const int n2 = search * search;
-  float inv_sr = 1.f, inv_gt = 1.f;
+  // sweep 1: per-pixel sums of q over this warp's offsets, then over warps
+  float* red = smem + L.scratch;   // [NWARPS][2][th][32], over the warps' scratch
   if (generalization) {
-    float r_sr = 0.f, r_gt = 0.f;
-    for (int s = 0; s < n2; ++s) {
-      float q_sr, q_gt;
-      offset_q(s, g, s_img, s_c2, s_e, s_v, tid, ty, tx, box_sr, box_gt, q_sr, q_gt);
-      r_sr += q_sr;
-      r_gt += q_gt;
+    float rs[REGION_ROWS], rg[REGION_ROWS];
+#pragma unroll
+    for (int y = 0; y < REGION_ROWS; ++y) rs[y] = rg[y] = 0.f;
+    for (int s = warp; s < n2; s += NWARPS) {
+      const Offset o = offset_of(s, search, p, k);
+      pass_rows<C>(L, smem, rows, o, lane);
+      __syncwarp();
+      pass_columns(L, smem, rows, o, lane, neg_inv, [&](int y, float e_sr, float e_gt) {
+        rs[y] += expf(e_sr);
+        rg[y] += expf(e_gt);
+      });
+      __syncwarp();
     }
-    inv_sr = 1.f / (r_sr + 1e-10f);
-    inv_gt = 1.f / (r_gt + 1e-10f);
+    __syncthreads();   // every warp is done with its scratch
+#pragma unroll
+    for (int y = 0; y < REGION_ROWS; ++y)
+      if (y < th) {
+        red[((warp * 2 + 0) * th + y) * TILE_W + lane] = rs[y];
+        red[((warp * 2 + 1) * th + y) * TILE_W + lane] = rg[y];
+      }
+    __syncthreads();
+    for (int e = tid; e < th * TILE_W; e += NTHREADS) {
+      float a = 0.f, b = 0.f;
+      for (int v = 0; v < NWARPS; ++v) {
+        a += red[(v * 2 + 0) * th * TILE_W + e];
+        b += red[(v * 2 + 1) * th * TILE_W + e];
+      }
+      s_inv_sr[e] = 1.f / (a + 1e-10f);
+      s_inv_gt[e] = 1.f / (b + 1e-10f);
+    }
+  } else {
+    for (int e = tid; e < th * TILE_W; e += NTHREADS) s_inv_sr[e] = s_inv_gt[e] = 1.f;
+  }
+  __syncthreads();
+  for (int e = tid; e < th * TILE_W; e += NTHREADS) {
+    s_log_inv_sr[e] = logf(s_inv_sr[e]);
+    s_log_inv_gt[e] = logf(s_inv_gt[e]);
+  }
+  __syncthreads();
+
+  // sweep 2: the masked loss sums per lane, the a and b maps per pixel
+  float l1 = 0.f, kl = 0.f;
+  {
+    float am[REGION_ROWS], bm[REGION_ROWS];
+#pragma unroll
+    for (int y = 0; y < REGION_ROWS; ++y) am[y] = bm[y] = 0.f;
+    for (int s = warp; s < n2; s += NWARPS) {
+      const Offset o = offset_of(s, search, p, k);
+      pass_rows<C>(L, smem, rows, o, lane);
+      __syncwarp();
+      pass_columns(L, smem, rows, o, lane, neg_inv, [&](int y, float e_sr, float e_gt) {
+        const int e = y * TILE_W + lane;
+        const float m = s_mask[e];
+        const float xv = expf(e_sr) * s_inv_sr[e], yv = expf(e_gt) * s_inv_gt[e];
+        const float d = xv - yv;
+        l1 += m * fabsf(d);
+        // log x = e_sr + log inv_sr where x > 1e-10, else the clamp's log
+        const float lx = xv > 1e-10f ? e_sr + s_log_inv_sr[e] : kLogClamp;
+        const float ly = yv > 1e-10f ? e_gt + s_log_inv_gt[e] : kLogClamp;
+        kl += m * (fmaxf(yv, 1e-10f) * (ly - lx));
+        am[y] += d > 0.f ? xv : (d < 0.f ? -xv : 0.f);
+        bm[y] += xv > 1e-10f ? yv : 0.f;
+      });
+      __syncwarp();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int y = 0; y < REGION_ROWS; ++y)
+      if (y < th) {
+        red[((warp * 2 + 0) * th + y) * TILE_W + lane] = am[y];
+        red[((warp * 2 + 1) * th + y) * TILE_W + lane] = bm[y];
+      }
+    __syncthreads();
   }
 
-  const size_t pix = ((size_t)img * h + y) * w + x;
-  const float m = valid ? mask[pix] : 0.f;
-  float l1 = 0.f, kl = 0.f, a_acc = 0.f, b_acc = 0.f;
-  for (int s = 0; s < n2; ++s) {
-    float q_sr, q_gt;
-    offset_q(s, g, s_img, s_c2, s_e, s_v, tid, ty, tx, box_sr, box_gt, q_sr, q_gt);
-    if (!valid) continue;
-    const float xv = q_sr * inv_sr, yv = q_gt * inv_gt;
-    const float d = xv - yv;
-    l1 += m * fabsf(d);
-    const float xs = fmaxf(xv, 1e-10f), ys = fmaxf(yv, 1e-10f);
-    kl += m * (ys * (logf(ys) - logf(xs)));
-    a_acc += d > 0.f ? xv : (d < 0.f ? -xv : 0.f);
-    b_acc += xv > 1e-10f ? yv : 0.f;
+  float cnt = 0.f;
+  for (int e = tid; e < th * TILE_W; e += NTHREADS) {
+    const int y = y0 + e / TILE_W, x = x0 + e % TILE_W;
+    cnt += s_mask[e];
+    if (y >= h || x >= w) continue;
+    float a = 0.f, b = 0.f;
+    for (int v = 0; v < NWARPS; ++v) {
+      a += red[(v * 2 + 0) * th * TILE_W + e];
+      b += red[(v * 2 + 1) * th * TILE_W + e];
+    }
+    const size_t pix = ((size_t)img * h + y) * w + x;
+    inv_sr_out[pix] = s_inv_sr[e];
+    inv_gt_out[pix] = s_inv_gt[e];
+    a_out[pix] = a;
+    b_out[pix] = b;
   }
-
-  if (valid) {
-    inv_sr_out[pix] = inv_sr;
-    inv_gt_out[pix] = inv_gt;
-    a_out[pix] = a_acc;
-    b_out[pix] = b_acc;
-  }
+  float* s_red = smem + L.red;
   const float l1_blk = block_sum(l1, s_red);
-  const float kl_blk = block_sum(kl, s_red);
-  const float cnt_blk = block_sum(m, s_red);
+  const float kl_blk = block_sum(kl, s_red + NWARPS);
+  const float cnt_blk = block_sum(cnt, s_red + 2 * NWARPS);
   if (tid == 0) {
     const size_t blk = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
     partial[3 * blk + 0] = l1_blk;
@@ -241,37 +402,47 @@ ssg_loss_fwd_kernel(const float* __restrict__ psr, const float* __restrict__ pgt
   }
 }
 
-size_t smem_bytes(int c, int search, int window) {
-  const int T = TILE + 2 * (search / 2), R = TILE + 2 * (window / 2);
-  return sizeof(float) * ((size_t)2 * c * T * T + 4 * R * R + 2 * TILE * R);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Number of blocks the launch uses, i.e. rows of `partial` (each holds l1, kl, count).
-int ssg_loss_fwd_blocks(int b, int h, int w) {
-  return b * ((h + TILE - 1) / TILE) * ((w + TILE - 1) / TILE);
+// Blocks of a launch, i.e. rows of `partial` (each holds l1, kl, count).
+int ssg_loss_fwd_blocks(int b, int h, int w, int window) {
+  const int th = REGION_ROWS - 2 * (window / 2);
+  return b * ((h + th - 1) / th) * ((w + TILE_W - 1) / TILE_W);
+}
+
+// Dynamic shared memory of a launch, in bytes.
+int ssg_loss_fwd_smem_bytes(int c, int search, int window) {
+  return (int)sizeof(float) * Layout(c, search, window).total;
 }
 
 const char* ssg_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // psr, pgt: (b, c, h + 2p, w + 2p) reflect-padded; mask: (b, h, w);
 // partial: (blocks, 3); inv_sr, inv_gt, a_map, b_map: (b, h, w).  All float32,
-// contiguous, on the current device.  Returns cudaGetLastError() after the launch.
+// contiguous, on the current device.  window <= 31.  Returns
+// cudaGetLastError() after the launch.
 int ssg_loss_fwd(const float* psr, const float* pgt, const float* mask, float* partial,
                  float* inv_sr, float* inv_gt, float* a_map, float* b_map, int b, int c,
                  int h, int w, int search, int window, float sigma, int generalization,
                  void* stream) {
-  const size_t smem = smem_bytes(c, search, window);
+  if (REGION_ROWS - 2 * (window / 2) < 1) return (int)cudaErrorInvalidValue;
+  const int smem = ssg_loss_fwd_smem_bytes(c, search, window);
   cudaError_t err = cudaFuncSetAttribute(
-      ssg_loss_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      c == 3 ? ssg_loss_fwd_kernel<3> : ssg_loss_fwd_kernel<0>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + TILE - 1) / TILE, (h + TILE - 1) / TILE, b);
-  ssg_loss_fwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      psr, pgt, mask, partial, inv_sr, inv_gt, a_map, b_map, c, h, w, search, window,
-      sigma, generalization);
+  const int th = REGION_ROWS - 2 * (window / 2);
+  const dim3 grid((w + TILE_W - 1) / TILE_W, (h + th - 1) / th, b);
+  if (c == 3)   // the images' channels, unrolled
+    ssg_loss_fwd_kernel<3><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+        psr, pgt, mask, partial, inv_sr, inv_gt, a_map, b_map, c, h, w, search, window,
+        sigma, generalization);
+  else
+    ssg_loss_fwd_kernel<0><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+        psr, pgt, mask, partial, inv_sr, inv_gt, a_map, b_map, c, h, w, search, window,
+        sigma, generalization);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,9 @@
 Replaces the Pallas TPU flash attention that ``ssl_tpu/ops/attention.py``
 (``sdp_attention``, flash branch :32-39) calls, and the two Pallas kernels of
 its custom VJP.  The kernel sources are ``ssl_tpu_torch/csrc/flash_attn_fwd.cu``
-and ``ssl_tpu_torch/csrc/flash_attn_bwd.cu`` (``flash_attn_bwd_dkv`` and
+(``flash_attn_fwd`` at d = 64 and 128, ``flash_attn_fwd_d512`` at d = 512,
+with ``flash_attn_fwd_combine`` where the key loop is split) and
+``ssl_tpu_torch/csrc/flash_attn_bwd.cu`` (``flash_attn_bwd_dkv`` and
 ``flash_attn_bwd_dq`` at d = 64 and 128, with ``flash_attn_bwd_sum`` where
 the loop is split; ``flash_attn_bwd_p_ds``, ``flash_attn_bwd_dkv_mm`` and
 ``flash_attn_bwd_dq_mm`` at d = 512).  They read q, k, v and dO through
@@ -21,8 +23,12 @@ import torch
 
 from ssl_tpu_torch.ops.cuda_build import load_library
 
-# Launches of the K2 forward kernel in this process (one per ``flash_attn_fwd_cuda`` call).
+# Calls of ``flash_attn_fwd_cuda`` in this process.
 launches = 0
+# Launches of each forward kernel in this process, counted where the C entry
+# that launches it returns without error.
+fwd_kernel_launches = dict.fromkeys(
+    ("flash_attn_fwd", "flash_attn_fwd_d512", "flash_attn_fwd_combine"), 0)
 # Calls of ``flash_attn_bwd_cuda`` in this process.
 bwd_launches = 0
 # Launches of each backward kernel in this process, counted where the C entry
@@ -42,11 +48,15 @@ BWD_BLOCK_ROWS = {64: (128, 128), 128: (128, 128)}
 BWD_STREAM_ROWS = {64: (32, 32), 128: (32, 32)}
 BWD_BLOCKS_PER_SM = {64: (2, 2), 128: (1, 1)}
 BWD_MAX_SPLIT = 4
+# The forward's kernels by head width (csrc/flash_attn_fwd.cu): query rows a
+# block owns, keys streamed per tile, and blocks that fit one SM.
+FWD_TILES = {64: (128, 32, 2), 128: (128, 32, 1), 512: (32, 32, 1)}
+FWD_MAX_SPLIT = 8
 
 
 def _declare_fwd(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attn_fwd.argtypes = [p] * 5 + [ll] * 12 + [i] * 5 + [ctypes.c_float, p]
+    lib.flash_attn_fwd.argtypes = [p] * 6 + [ll] * 9 + [i] * 6 + [ctypes.c_float, p]
     lib.flash_attn_fwd.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
@@ -99,30 +109,69 @@ def check_bwd_inputs(q, k, v, o, lse, do) -> None:
         raise ValueError("lse must be contiguous (b, heads, n)")
 
 
+def fwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int):
+    """How the forward runs: (split, scratch floats, kernels).
+
+    The key loop is cut into ``split`` parts when the grid of (query tile,
+    b·head) blocks would fill under 90% of the ``sms`` SMs' block slots:
+    powers of 2, at most ``FWD_MAX_SPLIT``, each dividing the key tiles.
+    Each part writes its unnormalised output and row max and sum to scratch
+    (b·heads·n·(d + 2) floats a part) and ``flash_attn_fwd_combine`` merges
+    them in order.  ``kernels`` names each kernel with its launches."""
+    rows, keys, per_sm = FWD_TILES[d]
+    blocks, tiles = n // rows * b * heads, m // keys
+    split = 1
+    while (blocks * split < 0.9 * per_sm * sms and tiles % (2 * split) == 0
+           and split < FWD_MAX_SPLIT):
+        split *= 2
+    scratch = split * b * heads * n * (d + 2) if split > 1 else 0
+    main = "flash_attn_fwd_d512" if d == 512 else "flash_attn_fwd"
+    return split, scratch, {main: 1, "flash_attn_fwd_combine": int(split > 1)}
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where a stride or the base is not 16-byte
+    aligned (the kernels copy rows in 16-byte pieces)."""
+    if t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3]):
+        return t
+    return t.contiguous()
+
+
 def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
                         return_lse: bool = False):
     """Launch K2's forward on CUDA tensors; returns what
     ``sdp_attention_reference`` does, and with ``return_lse`` also each row's
     log-sum-exp of the scaled logits as a contiguous (b, heads, n) tensor
-    (``attention_lse_reference``)."""
+    (``attention_lse_reference``).  q, k and v are taken through their
+    strides, or copied once if a row is not 16-byte aligned; the key split
+    and its scratch come from ``fwd_plan``."""
     global launches
     if not q.is_cuda:
         raise ValueError("flash_attn_fwd_cuda takes CUDA tensors")
     check_inputs(q, k, v)
+    q, k, v = (_aligned(t) for t in (q, k, v))
     lib = load_library("flash_attn_fwd", _declare_fwd)
     b, n, h, d = q.shape
+    m = k.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    split, scratch_floats, kernels = fwd_plan(b, h, n, m, d, sms)
     out = torch.empty((b, n, h, d), device=q.device, dtype=torch.float32)
     lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32) if return_lse else None
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    scratch = (torch.empty(scratch_floats, device=q.device, dtype=torch.float32)
+               if scratch_floats else None)
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):     # the C entry launches on the current device
         err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 lse.data_ptr() if return_lse else None, *strides, b, h, n,
-                                 k.shape[1], d, float(sm_scale),
+                                 lse.data_ptr() if return_lse else None,
+                                 None if scratch is None else scratch.data_ptr(), *strides, b, h,
+                                 n, m, d, split, float(sm_scale),
                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: "
                            f"{lib.flash_attn_error_string(err).decode()}")
     launches += 1
+    for name, count in kernels.items():
+        fwd_kernel_launches[name] += count
     return (out, lse) if return_lse else out
 
 
@@ -154,14 +203,6 @@ def bwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int):
     kernels = {"flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1,
                "flash_attn_bwd_sum": 2 * (dkv > 1) + (dq > 1)}
     return dkv, dq, scratch, kernels
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a contiguous copy where a stride or the base is not 16-byte
-    aligned (the kernels copy rows in 16-byte pieces)."""
-    if t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3]):
-        return t
-    return t.contiguous()
 
 
 def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one ``ssl_tpu_torch/csrc/<name>.cu`` with a plain C entry
-point.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library under ``ssl_tpu_torch/_build/`` (named by a hash of its source and
-flags, so an edited source is rebuilt) and loaded with ``ctypes``.  Nothing
+point; shared device code is in ``csrc/*.cuh`` headers.  At first use it is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+``ssl_tpu_torch/_build/`` (named by a hash of its source, the headers and the
+flags, so an edited source or header is rebuilt) and loaded with ``ctypes``.  Nothing
 here runs at import time: a CPU-only machine imports the package without a
 CUDA toolkit."""
 
@@ -40,9 +41,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu``'s library goes: named by a hash of the source,
+    every shared header ``csrc/*.cuh`` (any of them may be included) and the
+    flags, so that an edit to any of them builds a new library."""
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:

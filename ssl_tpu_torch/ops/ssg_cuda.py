@@ -11,6 +11,7 @@ plain version ``ssl_loss_sums_reference``.  Either way the backward is
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -21,13 +22,52 @@ from ssl_tpu_torch.ops.ssg import (SSGConfig, check_config, reflect_pad_2d,
 # Launches of the K1 kernel in this process (one per ``ssg_loss_fwd_cuda`` call).
 launches = 0
 
+# The kernel's block (csrc/ssg_loss_fwd.cu): 8 warps over a tile 32 pixels
+# wide and 32 - 2k rows high (k = window // 2), so that the tile's rows with
+# their k-row halo are one per lane.
+K1_TILE_W, K1_REGION_ROWS, K1_WARPS = 32, 32, 8
+# Shared memory a block may take on an H100 (227 KB).
+MAX_SMEM_BYTES = 232448
+
+
+class K1Launch(NamedTuple):
+    """K1's launch geometry: tile (rows, columns), grid (x, y, z), blocks
+    (= rows of ``partial``), threads a block and dynamic shared memory."""
+    tile: tuple
+    grid: tuple
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+def k1_launch(b: int, c: int, h: int, w: int, search: int, window: int) -> K1Launch:
+    """The geometry ``ssg_loss_fwd`` launches with; its layout of shared
+    memory, in floats: both staged images (2c planes of (th + 2p) rows of
+    pitch 32 + 2p + 1), C2 over the region (2 x 32 rows of 32 + 2k + 1), its
+    window row sums H9 (2 x 32 x 33), the inverse maps, the mask and the
+    inverse maps' logs (5 x th x 32), the block sums (3 x 8) and each warp's
+    scratch (a row of D, then H1, per image and lane: 2 x 32 rows of
+    32 + 2k + 1)."""
+    p, k = search // 2, window // 2
+    th = K1_REGION_ROWS - 2 * k
+    if th < 1:
+        raise ValueError(f"K1 takes windows up to {K1_REGION_ROWS - 1}, got {window}")
+    ip, cp, hp = K1_TILE_W + 2 * p + 1, K1_TILE_W + 2 * k + 1, K1_TILE_W + 1
+    floats = (2 * c * (th + 2 * p) * ip + 2 * K1_REGION_ROWS * cp + 2 * K1_REGION_ROWS * hp
+              + 5 * th * K1_TILE_W + 3 * K1_WARPS
+              + K1_WARPS * 2 * K1_REGION_ROWS * cp)
+    grid = (-(-w // K1_TILE_W), -(-h // th), b)
+    return K1Launch((th, K1_TILE_W), grid, grid[0] * grid[1] * grid[2], 32 * K1_WARPS, 4 * floats)
+
 
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ssg_loss_fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, p]
     lib.ssg_loss_fwd.restype = i
-    lib.ssg_loss_fwd_blocks.argtypes = [i, i, i]
+    lib.ssg_loss_fwd_blocks.argtypes = [i, i, i, i]
     lib.ssg_loss_fwd_blocks.restype = i
+    lib.ssg_loss_fwd_smem_bytes.argtypes = [i, i, i]
+    lib.ssg_loss_fwd_smem_bytes.restype = i
     lib.ssg_cuda_error_string.argtypes = [i]
     lib.ssg_cuda_error_string.restype = ctypes.c_char_p
 
@@ -64,8 +104,15 @@ def ssg_loss_fwd_cuda(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
     p = cfg.search // 2
     psr = reflect_pad_2d(sr.detach(), p).contiguous()
     pgt = reflect_pad_2d(gt.detach(), p).contiguous()
-    partial = torch.empty((lib.ssg_loss_fwd_blocks(b, h, w), 3), device=sr.device,
-                          dtype=torch.float32)
+    geom = k1_launch(b, c, h, w, cfg.search, cfg.window)
+    if geom.smem_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"search {cfg.search} and window {cfg.window} need {geom.smem_bytes} "
+                         f"bytes of shared memory a block, more than the {MAX_SMEM_BYTES} K1 "
+                         "may take")
+    if (lib.ssg_loss_fwd_blocks(b, h, w, cfg.window), lib.ssg_loss_fwd_smem_bytes(
+            c, cfg.search, cfg.window)) != (geom.blocks, geom.smem_bytes):
+        raise RuntimeError("csrc/ssg_loss_fwd.cu and ssg_cuda.k1_launch disagree on the launch")
+    partial = torch.empty((geom.blocks, 3), device=sr.device, dtype=torch.float32)
     maps = [torch.empty((b, h, w), device=sr.device, dtype=torch.float32) for _ in range(4)]
     with torch.cuda.device(sr.device):     # the C entry launches on the current device
         err = lib.ssg_loss_fwd(psr.data_ptr(), pgt.data_ptr(), mask.data_ptr(),

@@ -16,8 +16,9 @@ lse are held at the training path's shapes against
 gradient's largest value, and a relative L2 of 1e-4: dS = P * (dP - di)
 subtracts nearly equal numbers where a logit barely matters, so single
 elements carry that cancellation's rounding on the gradient's own scale.
-The backward's five products run as 3xTF32 on the tensor cores, under the
-same holds; two launches on the same inputs give bit-identical gradients.
+The forward's two products and the backward's five run as 3xTF32 on the
+tensor cores, under the same holds; two launches on the same inputs give
+bit-identical outputs (K1 too), with and without a split key loop.
 
 Tolerances (K1): count exact; l1 rel 1e-4 and kl rel 1e-3, the contract of
 tests/test_ssg_pallas.py:30-31 (sums taken in another order); the (b, h, w)
@@ -196,3 +197,51 @@ def test_k2_backward_paths_match_plain(card, case, kernels):
         assert float((g - r).norm() / r.norm()) <= 1e-4, name
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-3,
                                    atol=1e-4 * float(r.abs().max()), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_k2_forward_repeats_bit_for_bit(card, case):
+    """No atomics, fixed summation orders (split parts merged in order): two
+    launches on the same inputs give identical o and lse."""
+    b, heads, n, m, d, scale, layout, logits = CUDA_CASES[case]
+    q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda")
+    first = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    second = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("o", "lse"), first, second):
+        assert torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unet_ds2", "struct_ds2", "vae_mid", "large_logits"])
+def test_k2_forward_paths_match_plain(card, case):
+    """The key split with its ordered combine (unet_ds2, struct_ds2,
+    large_logits) and the d = 512 kernel (vae_mid) each launch the kernels
+    ``fwd_plan`` names and match the plain version, o and lse."""
+    b, heads, n, m, d, scale, layout, logits = CUDA_CASES[case]
+    q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split, _, plan = attention_cuda.fwd_plan(b, heads, n, m, d, sms)
+    before = dict(attention_cuda.fwd_kernel_launches)
+    o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    launched = {n_: c - before[n_] for n_, c in attention_cuda.fwd_kernel_launches.items()
+                if c != before[n_]}
+    assert launched == {n_: c for n_, c in plan.items() if c}
+    assert (split > 1) == (case != "vae_mid")
+    ref = sdp_attention_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+    np.testing.assert_allclose(lse.cpu().numpy(), attention_lse_reference(q, k, scale).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cuda_case", sorted(CASES), indirect=True)
+def test_k1_repeats_bit_for_bit(cuda_case):
+    args, cfg, _ = cuda_case
+    first = ssg_cuda.ssg_loss_fwd_cuda(*args, cfg)
+    second = ssg_cuda.ssg_loss_fwd_cuda(*args, cfg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))

@@ -60,6 +60,7 @@ def test_importing_every_module_leaves_jax_and_ssl_tpu_out():
                                     "scripts/profile_torch_serve_step.py",
                                     "scripts/profile_torch_diffusion_train_step.py",
                                     "scripts/profile_torch_attention_bwd.py",
+                                    "scripts/profile_torch_k1.py",
                                     "tests/test_torch_cuda.py", "tests/torch_ssg_cases.py",
                                     "tests/torch_attention_cases.py")] + [
     os.path.join(r, f) for r, _, fs in sorted(os.walk(PACKAGE)) for f in sorted(fs)

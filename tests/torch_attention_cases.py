@@ -94,3 +94,55 @@ def flash_attn_bwd_tf32(q, k, v, o, lse, do, sm_scale: float, passes: int = 3):
     dk = einsum_tf32("bhnm,bnhd->bmhd", ds, q, passes) * sm_scale
     dq = einsum_tf32("bhnm,bmhd->bnhd", ds, k, passes) * sm_scale
     return dq, dk, dv
+
+
+# K2 forward's hold on the card (chip_smoke.py phase_k2): rtol with an atol of
+# FWD_ATOL times the output's largest value.
+FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
+
+
+def flash_attn_fwd_tf32(q, k, v, sm_scale: float, block_k: int = 32, split: int = 1):
+    """The forward's arithmetic (csrc/flash_attn_fwd.cu): key tiles of
+    ``block_k``, each tile's logits and P·V in ``einsum_tf32``, the online
+    softmax in float32, and each tile's P·V folded into the output as
+    o = alpha·o + tile.  With ``split`` the key loop runs in that many parts
+    that ``combine_parts`` merges.  Returns (o, lse (b, heads, n))."""
+    m = k.shape[1]
+    bounds = [(s * m // split, (s + 1) * m // split) for s in range(split)]
+    parts = [_fwd_part(q, k[:, a:e], v[:, a:e], sm_scale, block_k) for a, e in bounds]
+    if split == 1:
+        acc, row_m, row_l = parts[0]
+        return acc / row_l.transpose(1, 2)[..., None], row_m + torch.log(row_l)
+    return combine_parts(parts)
+
+
+def _fwd_part(q, k, v, sm_scale, block_k):
+    """One part of the key loop: the unnormalised output (b, n, heads, d) and
+    each row's max and sum (b, heads, n)."""
+    b, n, h, d = q.shape
+    acc = torch.zeros((b, n, h, d))
+    row_m = torch.full((b, h, n), float("-inf"))
+    row_l = torch.zeros((b, h, n))
+    for k0 in range(0, k.shape[1], block_k):
+        s = einsum_tf32("bnhd,bmhd->bhnm", q, k[:, k0:k0 + block_k]) * sm_scale
+        m_new = torch.maximum(row_m, s.amax(-1))
+        alpha = torch.exp(row_m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        row_l = row_l * alpha + p.sum(-1)
+        row_m = m_new
+        tile = einsum_tf32("bhnm,bmhd->bnhd", p, v[:, k0:k0 + block_k])
+        acc = alpha.transpose(1, 2)[..., None] * acc + tile
+    return acc, row_m, row_l
+
+
+def combine_parts(parts):
+    """What flash_attn_fwd_combine_kernel does with the parts [(acc, m, l)],
+    in order: o = sum_s e^(m_s - M) acc_s / L, lse = M + log L, with M the
+    largest m_s and L = sum_s e^(m_s - M) l_s."""
+    top = torch.stack([m_ for _, m_, _ in parts]).amax(0)
+    o, total = 0.0, 0.0
+    for acc, m_, l_ in parts:
+        w = torch.exp(m_ - top)
+        total = total + w * l_
+        o = o + w.transpose(1, 2)[..., None] * acc
+    return o / total.transpose(1, 2)[..., None], top + torch.log(total)
