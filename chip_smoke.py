@@ -63,7 +63,18 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            gt 128: one warm-up step and 3 timed steps through build_model ->
            init_state -> train_step, with the K1 launch count read around
            them
-9. kernels one line per ported kernel: launches on its main paths, error
+9. cli     the ESRGAN-SSL train and test CLIs (ssl_tpu_torch.train /
+           ssl_tpu_torch.test) at the same widths on files: 24 GT PNGs of
+           192^2 written through utils/png.py, their LQ and .mat edge masks
+           made on the card, read by 4 loader processes; a .json option file
+           with the shipped YAML's values; 4 iterations (K1 once each) with
+           validation (PSNR/SSIM) and checkpoints, with cv2 hidden so that
+           PNG decodes through utils/png.py; the training state reloaded into
+           a fresh model bit for bit; --auto_resume to 6 (K1 twice more,
+           decoding with cv2 where it imports); the test CLI on net_g_6.pth
+           whole and tiled; times per iteration and the loader's data wait
+           from the logger's timers, and the loader alone with each decoder
+10. kernels one line per ported kernel: launches on its main paths, error
            against the plain version, times and the bound
 
 then the card's name and power limit as nvidia-smi reports them, and last
@@ -149,6 +160,19 @@ TRAIN_K2_FWD, TRAIN_K2_BWD = 17, 15
 # its replay 1), TF32 off.  Bounds stated before the first run (PERF.md).
 TRAIN_E2E_SIZE, TRAIN_E2E_K2 = 256, {"fwd": 10, "bwd": 8}
 TRAIN_LOG_RTOL, TRAIN_GRAD_REL_L2 = 1e-4, 1e-3
+# The train and test CLIs on files: CLI_TRAIN GT images of CLI_GT^2 with their
+# LQ and masks, read by CLI_WORKERS loader processes, each image CLI_ENLARGE
+# times an epoch (dataset_enlarge_ratio) so that the run stays in one epoch, as
+# a real set's would (with 1, each iteration would open an epoch and wait for
+# its first batch); CLI_ITERS iterations at batch MAIN_B, then --auto_resume to
+# CLI_RESUME_ITERS; val pairs of these GT sizes (LQ 48 x 48 and 44 x 36: the
+# second is no multiple of 16); the tiled test run's tile and halo.
+CLI_TRAIN, CLI_GT, CLI_WORKERS, CLI_ENLARGE = 24, 192, 4, 4
+CLI_ITERS, CLI_RESUME_ITERS = 4, 6
+CLI_VAL = ((192, 192), (176, 144))
+CLI_TILE = (24, 8)
+CLI_METRICS = {"psnr": {"type": "calculate_psnr", "crop_border": 4, "test_y_channel": True},
+               "ssim": {"type": "calculate_ssim", "crop_border": 4, "test_y_channel": True}}
 
 
 def emit(obj) -> None:
@@ -1056,11 +1080,345 @@ def phase_train():
     return launches
 
 
-def kernels_line(k1, k2, k2_bwd, serve, train, launches) -> dict:
+def cli_fixtures(root: str, device: str) -> tuple[dict, list]:
+    """The CLI's data, written under ``root``: CLI_TRAIN seeded GT images of
+    CLI_GT^2 (smooth fields with sharp-edged blocks) as PNG through
+    ``utils/png.py``; their LQ made on the card (antialiased bicubic down by
+    SCALE, rounded to uint8); ``.mat`` masks from ``edge_mask_torch`` on the
+    card (threshold 20); and CLI_VAL pairs, one of whose LQ sides is not a
+    multiple of 16.  Returns the folders by name and the count of the GT
+    files' rows by PNG filter type (Average and Paeth rows decode pixel by
+    pixel without cv2)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from scipy.io import savemat
+    from ssl_tpu_torch.ops.edge_mask import edge_mask_torch
+    from ssl_tpu_torch.utils.png import encode_png, row_filters
+
+    d = {k: os.path.join(root, k) for k in ("gt", "lq", "mask", "vgt", "vlq")}
+    for path in d.values():
+        os.makedirs(path)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def picture(h, w):
+        yy = torch.linspace(0, 1, h, device=device)[:, None]
+        xx = torch.linspace(0, 1, w, device=device)[None]
+        f = torch.rand(3, 4, generator=gen, device=device) * 6 + 1
+        img = torch.stack([0.5 + 0.25 * torch.sin(f[c, 0] * yy + f[c, 1] * xx + f[c, 2])
+                           * torch.cos(f[c, 3] * xx) for c in range(3)])
+        for _ in range(3):                                # sharp-edged blocks
+            y0, x0 = (torch.rand(2, generator=gen, device=device) * 0.7).tolist()
+            img[:, int(y0 * h):int((y0 + 0.25) * h), int(x0 * w):int((x0 + 0.25) * w)] = \
+                torch.rand(3, 1, 1, generator=gen, device=device)
+        img = img + 0.02 * torch.randn(img.shape, generator=gen, device=device)
+        return torch.round(img.clamp(0, 1) * 255)                       # (3, h, w), uint8 values
+
+    def save(img_u8, path):                               # (3, h, w) RGB -> BGR PNG
+        data = encode_png(img_u8.byte().cpu().numpy().transpose(1, 2, 0)[..., ::-1])
+        with open(path, "wb") as f:
+            f.write(data)
+        return data
+
+    def down(gt_u8):
+        lq = F.interpolate(gt_u8[None] / 255, scale_factor=1 / SCALE, mode="bicubic",
+                           antialias=True, align_corners=False)[0]
+        return torch.round(lq.clamp(0, 1) * 255)
+
+    filters = np.zeros(5, np.int64)
+    for i in range(CLI_TRAIN):
+        gt = picture(CLI_GT, CLI_GT)
+        filters += np.bincount(row_filters(save(gt, os.path.join(d["gt"], f"{i:04d}.png"))),
+                               minlength=5)
+        save(down(gt), os.path.join(d["lq"], f"{i:04d}.png"))
+        mask = edge_mask_torch(gt[None] / 255, 20.0)[0, 0]
+        savemat(os.path.join(d["mask"], f"{i:04d}.mat"),
+                {"mat": mask.cpu().numpy().astype(np.float64)})
+    for i, (h, w) in enumerate(CLI_VAL):
+        gt = picture(h, w)
+        save(gt, os.path.join(d["vgt"], f"val{i}.png"))
+        save(down(gt), os.path.join(d["vlq"], f"val{i}.png"))
+    return d, filters.tolist()
+
+
+def cli_opt(d: dict, batch: int) -> dict:
+    """options/train/ESRGANSSL/train_ESRGANSSL_bicubic_x4.yml's values
+    (``shipped_opt``) with the data of ``cli_fixtures`` and this phase's
+    counts: CLI_ITERS iterations, a log line at each, validation and a
+    checkpoint at the last, no tensorboard."""
+    opt = shipped_opt(batch)
+    opt.update({"tile_process": False, "tile_size": 800, "tile_pad": 32})
+    opt["datasets"] = {
+        "train": {"name": "DF2K_OST", "type": "PairedImageMaskDataset",
+                  "dataroot_gt": d["gt"], "dataroot_lq": d["lq"], "dataroot_gt_mask": d["mask"],
+                  "filename_tmpl": "{}", "io_backend": {"type": "disk"}, "gt_size": MAIN_GT,
+                  "use_hflip": True, "use_rot": True, "num_worker_per_gpu": CLI_WORKERS,
+                  "batch_size_per_gpu": batch, "dataset_enlarge_ratio": CLI_ENLARGE},
+        "val": {"name": "DIV2K100", "type": "PairedImageDataset", "dataroot_gt": d["vgt"],
+                "dataroot_lq": d["vlq"], "io_backend": {"type": "disk"}}}
+    opt["path"]["resume_state"] = None
+    opt["train"]["total_iter"] = CLI_ITERS
+    opt["val"] = {"val_freq": CLI_ITERS, "save_img": None, "metrics": CLI_METRICS}
+    opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": CLI_ITERS, "use_tb_logger": False}
+    return opt
+
+
+class Spy:
+    """Wraps methods of a class to record their results and their time (each
+    call ends in a synchronise on the card); ``restore`` puts them back."""
+
+    def __init__(self, cls, names, device):
+        import torch
+        self.cls, self.calls, self.saved = cls, {n: [] for n in names}, {}
+        for name in names:
+            orig = getattr(cls, name)
+            self.saved[name] = orig
+
+            def wrapped(*args, _orig=orig, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _orig(*args, **kw)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                self.calls[_name].append((time.perf_counter() - t0, out))
+                return out
+            setattr(cls, name, wrapped)
+
+    def restore(self):
+        for name, orig in self.saved.items():
+            setattr(self.cls, name, orig)
+
+
+def per_iter_ms(logged, key):
+    """Mean ms per iteration of a logger timer over iterations 2.. of a run:
+    the AvgTimer's running means at the first and last log line, unfolded."""
+    first, last = logged[0], logged[-1]
+    n = last["iter"] - first["iter"]
+    k0, k1 = first["iter"] - first["start"], last["iter"] - first["start"]
+    return 1e3 * (k1 * last[key] - k0 * first[key]) / n
+
+
+class without_cv2:
+    """Hide ``cv2`` while the block runs (the loader's worker processes, forked
+    inside it, inherit that): images then decode through
+    ``ssl_tpu_torch/utils/png.py``, as on a machine without ``cv2``."""
+
+    def __enter__(self):
+        self.saved = sys.modules.get("cv2", False)
+        sys.modules["cv2"] = None
+
+    def __exit__(self, *exc):
+        if self.saved is False:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = self.saved
+
+
+def decoder() -> str:
+    """What ``utils/img_util.py`` decodes with here."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return "ssl_tpu_torch/utils/png.py"
+    return "cv2"
+
+
+def loader_alone_ms(opt: dict, device: str) -> float:
+    """ms per batch of the train loader alone (CLI_WORKERS processes, pinned
+    batches, no step), over the batches after the first of one epoch."""
+    import gc
+    from ssl_tpu_torch.data import EnlargedSampler, build_dataloader, build_dataset
+    dopt = dict(opt["datasets"]["train"], phase="train", scale=SCALE)
+    dataset = build_dataset(dopt)
+    loader = build_dataloader(dataset, dopt, EnlargedSampler(len(dataset), 1, 0, CLI_ENLARGE),
+                              seed=opt["manual_seed"], device=device)
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in it)
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    del it, loader
+    gc.collect()
+    return ms
+
+
+def phase_cli(device: str = "cuda"):
+    """The ESRGAN-SSL train and test CLIs (``ssl_tpu_torch.train`` /
+    ``ssl_tpu_torch.test``) at full width on the ``cli_fixtures`` data, through
+    their pipelines in this process: CLI_ITERS iterations with validation and
+    checkpoints; the training state reloaded into a fresh model and held bit for
+    bit; ``--auto_resume`` to CLI_RESUME_ITERS; then the test CLI on the last
+    ``net_g`` (``params_ema``), whole and with ``tile_process``.  K1 must launch
+    once per iteration."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+    import ssl_tpu_torch.test as test_cli
+    import ssl_tpu_torch.train as train_cli
+    from ssl_tpu_torch.models import build_model
+    from ssl_tpu_torch.models.base_model import BaseModel
+    from ssl_tpu_torch.models.sr_model import SRModel
+    from ssl_tpu_torch.ops import ssg_cuda
+    from ssl_tpu_torch.utils import logger as logger_mod
+
+    with tempfile.TemporaryDirectory(prefix="cli_smoke_") as root:
+        t0 = time.perf_counter()
+        d, gt_filters = cli_fixtures(os.path.join(root, "data"), device)
+        fixtures_s = time.perf_counter() - t0
+        opt = cli_opt(d, MAIN_B)
+        opt_path = os.path.join(root, "train_cli.json")
+        with open(opt_path, "w") as f:
+            json.dump(opt, f)
+        dev = ["--device", device] if device != "cuda" else []
+
+        def run(args):
+            """One train CLI run; returns its state, logged lines, K1 launches,
+            validation and checkpoint calls and wall seconds."""
+            logged = []
+            log_call = logger_mod.MessageLogger.__call__
+
+            def record(self, log_vars):
+                logged.append(dict(log_vars, start=self.start_iter))
+                return log_call(self, log_vars)
+            logger_mod.MessageLogger.__call__ = record
+            spies = (Spy(SRModel, ["validation"], device),
+                     Spy(BaseModel, ["save_networks", "save_training_state"], device))
+            try:
+                ssg_cuda.launches = 0
+                t0 = time.perf_counter()
+                state = train_cli.train_pipeline(root, ["-opt", opt_path] + dev + args)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = ssg_cuda.launches
+            finally:
+                logger_mod.MessageLogger.__call__ = log_call
+                for spy in spies:
+                    spy.restore()
+            gc.collect()                                  # the loader's workers end here
+            return state, logged, launches, {**spies[0].calls, **spies[1].calls}, wall
+
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with without_cv2():                               # the PNG path a cv2-less card takes
+            decoders = {"train": decoder()}
+            state, logged, launches, calls, wall = run([])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+        exp = os.path.join(root, "experiments", opt["name"])
+        if launches != CLI_ITERS:
+            fail(f"cli: K1 launched {launches} times in {CLI_ITERS} iterations")
+        if [x["iter"] for x in logged] != list(range(1, CLI_ITERS + 1)):
+            fail(f"cli: logged iterations {[x['iter'] for x in logged]}")
+        loss_keys = ("l_pix", "l_percep", "l_g_gan", "l_selfsim", "l_selfsim_kl", "l_d_real",
+                     "l_d_fake")
+        for x in logged:
+            bad = {k: x.get(k) for k in loss_keys if not np.isfinite(x.get(k, np.nan))}
+            if bad:
+                fail(f"cli: iteration {x['iter']}: losses missing or not finite: {bad}")
+        val = [out for _, out in calls["validation"]]
+        if len(val) != 1 or set(val[0]) != set(CLI_METRICS) or \
+                not all(np.isfinite(v) for v in val[0].values()):
+            fail(f"cli: validation results {val}")
+        for f in (f"models/net_g_{CLI_ITERS}.pth", f"models/net_d_{CLI_ITERS}.pth",
+                  f"training_states/{CLI_ITERS}.state"):
+            if not os.path.isfile(os.path.join(exp, f)):
+                fail(f"cli: {f} was not written")
+
+        # the training state, reloaded into a fresh model, bit for bit
+        fresh = build_model(dict(opt, is_train=True), device=device)
+        reloaded, it = fresh.load_training_state(fresh.init_state(seed=1),
+                                                 os.path.join(exp, "training_states"), CLI_ITERS)
+        n_tensors = 0
+        for name in ("net_g", "net_g_ema", "net_d"):
+            want = getattr(state, name).state_dict()
+            for k, v in getattr(reloaded, name).state_dict().items():
+                n_tensors += 1
+                if not torch.equal(v, want[k]):
+                    fail(f"cli: reloaded {name}.{k} differs from the saved state")
+        for name in ("opt_g", "opt_d"):
+            want = getattr(state, name).state_dict()["state"]
+            for pid, st in getattr(reloaded, name).state_dict()["state"].items():
+                for k, v in st.items():
+                    n_tensors += 1
+                    if not torch.equal(v, want[pid][k]):
+                        fail(f"cli: reloaded {name} state {pid}.{k} differs")
+        if it != CLI_ITERS or reloaded.step != state.step:
+            fail(f"cli: reloaded iteration {it}, step {reloaded.step} vs {state.step}")
+        del fresh, reloaded, state
+        gc.collect()
+
+        decoders["resumed"] = decoder()
+        resumed, logged_r, launches_r, _, wall_r = run(
+            ["--auto_resume", "--force_yml", f"train:total_iter={CLI_RESUME_ITERS}"])
+        if [x["iter"] for x in logged_r] != list(range(CLI_ITERS + 1, CLI_RESUME_ITERS + 1)):
+            fail(f"cli: the resumed run logged iterations {[x['iter'] for x in logged_r]}")
+        if launches_r != CLI_RESUME_ITERS - CLI_ITERS or resumed.step != CLI_RESUME_ITERS:
+            fail(f"cli: the resumed run launched K1 {launches_r} times, ended at step "
+                 f"{resumed.step}")
+        del resumed
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        loader_ms = {decoders["resumed"]: loader_alone_ms(opt, device)}
+        with without_cv2():
+            loader_ms[decoder()] = loader_alone_ms(opt, device)
+
+        test_opt = {"name": "test_ESRGANSSL_bicubic_x4", "model_type": "ESRGANSSLModel",
+                    "scale": SCALE, "num_devices": 1, "manual_seed": 0,
+                    "datasets": {"test_1": dict(opt["datasets"]["val"], name="val_pairs")},
+                    "network_g": opt["network_g"],
+                    "path": {"pretrain_network_g": os.path.join(
+                        exp, "models", f"net_g_{CLI_RESUME_ITERS}.pth"),
+                        "param_key_g": "params_ema"},
+                    "val": {"save_img": True, "metrics": CLI_METRICS}}
+        test_path = os.path.join(root, "test_cli.json")
+        with open(test_path, "w") as f:
+            json.dump(test_opt, f)
+        tests = {}
+        for label, extra in (("whole", []), ("tiled", [
+                "--force_yml", "name=test_tiled", "tile_process=true",
+                f"tile_size={CLI_TILE[0]}", f"tile_pad={CLI_TILE[1]}"])):
+            t0 = time.perf_counter()
+            out = test_cli.test_pipeline(root, ["-opt", test_path] + dev + extra)["val_pairs"]
+            if device == "cuda":
+                torch.cuda.synchronize()
+            tests[label] = dict(out, seconds=time.perf_counter() - t0)
+            if set(out) != set(CLI_METRICS) or not all(np.isfinite(v) for v in out.values()):
+                fail(f"cli: test CLI ({label}) metrics {out}")
+        saved_imgs = sorted(os.listdir(os.path.join(root, "results", "test_tiled",
+                                                    "visualization", "val_pairs")))
+        if len(saved_imgs) != len(CLI_VAL):
+            fail(f"cli: the tiled test run saved {saved_imgs}")
+
+    result = {
+        "phase": "cli", "train_images": CLI_TRAIN, "gt_image": CLI_GT, "batch": MAIN_B,
+        "gt_size": MAIN_GT, "workers": CLI_WORKERS, "fixtures_s": fixtures_s,
+        "decoders": decoders, "gt_png_rows_by_filter": gt_filters,
+        "iterations": CLI_ITERS, "iterations_timed": CLI_ITERS - 1,
+        "ms_per_iter": per_iter_ms(logged, "time"),
+        "data_wait_ms_per_iter": per_iter_ms(logged, "data_time"),
+        "first_iter_ms": 1e3 * logged[0]["time"], "first_data_wait_ms": 1e3 * logged[0]["data_time"],
+        "resumed_ms_per_iter": per_iter_ms(logged_r, "time"),
+        "resumed_data_wait_ms_per_iter": per_iter_ms(logged_r, "data_time"),
+        "loader_alone_ms_per_batch": loader_ms,
+        "wall_s": wall, "resumed_wall_s": wall_r, "peak_mem_gb": peak_gb,
+        "k1_launches": {"train": launches, "resumed": launches_r},
+        "losses_last_iter": {k: logged[-1][k] for k in loss_keys},
+        "validation": val[0], "validation_ms": 1e3 * calls["validation"][0][0],
+        "save_networks_ms": [1e3 * t for t, _ in calls["save_networks"]],
+        "save_training_state_ms": [1e3 * t for t, _ in calls["save_training_state"]],
+        "reloaded_tensors_bit_for_bit": n_tensors, "resumed_from": CLI_ITERS,
+        "test": tests, "tile": list(CLI_TILE), "card": card() if device == "cuda" else None}
+    emit(result)
+    return launches + launches_r
+
+
+def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
     phases' results (K1's, K2's forward's and backward's by case, the serving
     K2 launches and forward kernel launches, the diffusion_train launch
-    counts and the ESRGAN train step's K1 launches)."""
+    counts, and the K1 launches of the ESRGAN train step and of the CLIs)."""
     from torch_attention_cases import TRAIN_MIX_BWD
 
     serve_calls, serve_fwd = serve
@@ -1139,15 +1497,16 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches) -> dict:
                              "the kernel's device time (profiler), wrapper_ms the call's (CUDA "
                              "events); max_abs_err is the whole forward's"}
 
-    k1_runs = {"main_path": launches, "diffusion_smooth": train["k1"]}
+    k1_runs = {"main_path": launches + cli, "diffusion_smooth": train["k1"]}
 
     def k1_mean(key):
         return sum(w * k1[c][key] for c, w in k1_runs.items()) / sum(k1_runs.values())
 
     return {"kernels": [{
         "name": "ssg_loss_fwd", "route": "cuda", "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu",
-        "replaces": "ssl_tpu/ops/ssg_pallas.py:41", "launches": launches + train["k1"],
-        "launches_by_path": {"esrgan_train": launches, "diffusion_train": train["k1"]},
+        "replaces": "ssl_tpu/ops/ssg_pallas.py:41", "launches": launches + cli + train["k1"],
+        "launches_by_path": {"esrgan_train": launches, "esrgan_cli": cli,
+                             "diffusion_train": train["k1"]},
         "max_abs_err": max(k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth")),
         "ms": k1_mean("device_ms"), "wrapper_ms": k1_mean("ms"), "plain_ms": k1_mean("plain_ms"),
         "bound_ms": k1_mean("bound_ms"), "bound_by": k1["main_path"]["bound_by"],
@@ -1155,7 +1514,7 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches) -> dict:
         "ms_by_shape": {"b16_3x128^2": k1["main_path"]["device_ms"],
                         "b2_3x512^2": k1["diffusion_smooth"]["device_ms"]},
         "times_are": "mean per launch over the run's launches (b16 3x128^2 in the ESRGAN "
-                     "step, b2 3x512^2 in the diffusion mini-step); ms is the kernel's device "
+                     "step and CLI, b2 3x512^2 in the diffusion mini-step); ms is the kernel's device "
                      "time (profiler), wrapper_ms the call's (CUDA events); max_abs_err on "
                      "smooth images"},
         *(fwd_entry(f) for f in ("fwd", "fwd_d512", "fwd_combine")),
@@ -1192,8 +1551,10 @@ def main() -> int:
     del model, state
     torch.cuda.empty_cache()
     launches = phase_train()
+    torch.cuda.empty_cache()
+    cli = phase_cli()
 
-    emit(kernels_line(k1, k2, k2_bwd, serve, train, launches))
+    emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

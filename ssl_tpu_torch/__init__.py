@@ -11,7 +11,13 @@ Layout
                             attention and the K2 forward and backward kernels
 - ``ssl_tpu_torch.losses``  pixel / KL / GAN / perceptual / SSL losses
 - ``ssl_tpu_torch.archs``   RRDBNet, VGGStyleDiscriminator, VGG19 feature taps
-- ``ssl_tpu_torch.models``  the ESRGAN-SSL training recipe
+- ``ssl_tpu_torch.models``  the ESRGAN-SSL training recipe: step, inference,
+                            validation, checkpoints
+- ``ssl_tpu_torch.data``    paired (mask) datasets, the sampler and loader
+- ``ssl_tpu_torch.metrics`` PSNR / SSIM
+- ``ssl_tpu_torch.train``, ``ssl_tpu_torch.test``  the ``-opt`` CLIs
+- ``ssl_tpu_torch.utils``   registries, options, logger, image IO (PNG
+                            without ``cv2``: ``utils/png.py``)
 - ``ssl_tpu_torch.diffusion`` StableSR-SSL: train step, samplers, inference CLI
 - ``ssl_tpu_torch.csrc``    CUDA C++ sources, compiled with nvcc at first use
 

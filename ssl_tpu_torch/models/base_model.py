@@ -13,25 +13,42 @@ place (returning it, so the call reads like the JAX one).  Field mapping:
     opt_state_d               opt_d
 
 The JAX ``rng`` has no counterpart: nothing on this recipe's path draws
-random numbers during a step."""
+random numbers during a step.  Without training (``is_train: false``) the
+state holds only ``net_g`` (and its EMA when ``ema_decay`` is set).
+
+Checkpoints: ``save_networks`` writes ``net_g_{iter}.pth`` ({"params",
+"params_ema"}) and ``net_d_{iter}.pth`` ({"params"}) in the reference's
+layout; ``save_training_state`` writes ``training_states/{iter}.state``
+(``torch.save`` of every net, the EMA, both optimizers, the step and the
+torch / CUDA / numpy / ``random`` generator states; the schedules are
+functions of the step) and the ``latest`` file."""
 
 from __future__ import annotations
 
+import os
+import pickle
+import random
 from copy import deepcopy
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
 from ssl_tpu_torch.utils.registry import build_model, build_network  # noqa: F401
+from ssl_tpu_torch.utils.weight_port import FAMILIES, params_from_jax
+
+# TrainState fields saved in a training state, with their kinds
+_NETS = ("net_g", "net_g_ema", "net_d")
+_OPTIMIZERS = ("opt_g", "opt_d")
 
 
 @dataclass
 class TrainState:
     step: int
     net_g: nn.Module
-    opt_g: torch.optim.Optimizer
+    opt_g: torch.optim.Optimizer | None = None
     net_g_ema: nn.Module | None = None
     net_d: nn.Module | None = None
     opt_d: torch.optim.Optimizer | None = None
@@ -89,12 +106,51 @@ def ema_update(ema: nn.Module, net: nn.Module, decay: float) -> None:
 
 
 def load_network(net: nn.Module, path: str, param_key: str = "params", strict: bool = True):
-    """Load a reference-layout ``.pth`` (``{param_key: state_dict}`` or a bare
-    state dict) into ``net``."""
-    state = torch.load(path, map_location="cpu")
-    if isinstance(state, dict) and param_key in state:
-        state = state[param_key]
-    net.load_state_dict(state, strict=strict)
+    """Load weights into ``net``: a reference-layout ``.pth``
+    (``{param_key: state_dict}`` or a bare state dict), or the JAX package's
+    ``net_*_{iter}.pkl`` (``{param_key: flax params}``), carried across by
+    ``params_from_jax`` for the net's class.  A ``.pkl`` holds no batch-norm
+    statistics, so those buffers keep their values; every parameter must
+    load."""
+    if not path.endswith((".pkl", ".pickle")):
+        state = torch.load(path, map_location="cpu")
+        if isinstance(state, dict) and param_key in state:
+            state = state[param_key]
+        net.load_state_dict(state, strict=strict)
+        return
+    family = type(net).__name__
+    if family not in FAMILIES:
+        raise ValueError(f"{path}: no weight carry from the JAX package for {family}")
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    tree = payload.get(param_key, payload) if isinstance(payload, dict) else payload
+    missing, unexpected = net.load_state_dict(params_from_jax(family, tree), strict=False)
+    params = dict(net.named_parameters())
+    if unexpected or any(k in params for k in missing):
+        raise ValueError(f"{path}: {family} weights do not match: missing "
+                         f"{[k for k in missing if k in params]}, unexpected {unexpected}")
+
+
+def _rng_state() -> dict:
+    name, keys, pos, has_gauss, gauss = np.random.get_state()
+    return {"torch": torch.get_rng_state(),
+            "cuda": torch.cuda.get_rng_state_all() if torch.cuda.is_available() else [],
+            "numpy": (name, torch.from_numpy(keys.astype(np.int64)), pos, has_gauss, gauss),
+            "random": random.getstate()}
+
+
+def _set_rng_state(rng: dict) -> None:
+    torch.set_rng_state(rng["torch"])
+    if rng["cuda"]:
+        torch.cuda.set_rng_state_all(rng["cuda"])
+    name, keys, pos, has_gauss, gauss = rng["numpy"]
+    np.random.set_state((name, keys.numpy().astype(np.uint32), pos, has_gauss, gauss))
+    version, internal, gauss_next = rng["random"]
+    random.setstate((version, tuple(internal), gauss_next))
+
+
+def _host_state_dict(net: nn.Module) -> dict:
+    return {k: v.detach().cpu() for k, v in net.state_dict().items()}
 
 
 class BaseModel:
@@ -102,6 +158,7 @@ class BaseModel:
 
     def __init__(self, opt: dict, device=None):
         self.opt = opt
+        self.is_train = opt.get("is_train", True)
         self.scale = opt.get("scale", 4)
         self.device = resolve_device(device)
 
@@ -109,4 +166,62 @@ class BaseModel:
         net_opt = deepcopy(self.opt["network_g"])
         net_opt.setdefault("scale", self.scale)
         return build_network(net_opt)
+
+    # ------------------------------------------------------------ persistence
+    def save_networks(self, state: TrainState, save_dir: str, current_iter: int) -> None:
+        """``net_g_{iter}.pth`` ({"params", "params_ema"}) and, with a D,
+        ``net_d_{iter}.pth`` ({"params"}), as the reference saves them."""
+        os.makedirs(save_dir, exist_ok=True)
+        payload = {"params": _host_state_dict(state.net_g)}
+        if state.net_g_ema is not None:
+            payload["params_ema"] = _host_state_dict(state.net_g_ema)
+        torch.save(payload, os.path.join(save_dir, f"net_g_{current_iter}.pth"))
+        if state.net_d is not None:
+            torch.save({"params": _host_state_dict(state.net_d)},
+                       os.path.join(save_dir, f"net_d_{current_iter}.pth"))
+
+    def save_training_state(self, state: TrainState, state_dir: str, epoch: int,
+                            current_iter: int) -> None:
+        os.makedirs(state_dir, exist_ok=True)
+        payload = {"iter": current_iter, "epoch": epoch, "step": state.step,
+                   "rng": _rng_state()}
+        for name in _NETS:
+            net = getattr(state, name)
+            payload[name] = None if net is None else _host_state_dict(net)
+        for name in _OPTIMIZERS:
+            optim = getattr(state, name)
+            payload[name] = None if optim is None else optim.state_dict()
+        torch.save(payload, os.path.join(state_dir, f"{current_iter}.state"))
+        with open(os.path.join(state_dir, "latest"), "w") as f:
+            f.write(str(current_iter))
+
+    def load_training_state(self, state: TrainState, state_dir: str,
+                            current_iter: int | str = "latest"):
+        """Load ``{current_iter}.state`` into ``state`` (in place) and restore
+        the generators; returns ``(state, iter)``."""
+        if current_iter == "latest":
+            with open(os.path.join(state_dir, "latest")) as f:
+                current_iter = int(f.read().strip())
+        payload = torch.load(os.path.join(state_dir, f"{current_iter}.state"),
+                             map_location="cpu", weights_only=True)
+        for name in _NETS + _OPTIMIZERS:
+            have, saved = getattr(state, name), payload[name]
+            if (have is None) != (saved is None):
+                raise ValueError(f"training state {current_iter}: {name} is "
+                                 f"{'absent' if saved is None else 'present'} in the file "
+                                 "but not in the model")
+            if have is not None:
+                have.load_state_dict(saved)
+        state.step = int(payload["step"])
+        _set_rng_state(payload["rng"])
+        return state, int(payload["iter"])
+
+    @staticmethod
+    def find_latest_state(state_dir: str) -> int | None:
+        """auto_resume: the largest saved iteration (reference train.py:68-88)."""
+        if not os.path.isdir(state_dir):
+            return None
+        iters = [int(f[:-len(".state")]) for f in os.listdir(state_dir)
+                 if f.endswith(".state") and f[:-len(".state")].isdigit()]
+        return max(iters) if iters else None
 

@@ -46,7 +46,7 @@ class SRGANModel(SRModel):
 
     def __init__(self, opt: dict, device=None):
         super().__init__(opt, device=device)
-        self.has_d = bool(opt.get("network_d"))
+        self.has_d = bool(opt.get("network_d")) and self.is_train
         train_opt = opt.get("train") or {}
         if self.has_d:
             self.schedule_d = build_schedule(train_opt, train_opt["optim_d"].get("lr", 1e-4))

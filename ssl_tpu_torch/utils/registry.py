@@ -1,7 +1,8 @@
 """Minimal name->class registries (reference: basicsr/utils/registry.py:84-88).
 
-Same surface as ``ssl_tpu/utils/registry.py``: ARCH / MODEL / LOSS registries
-plus the ``build_*`` lookups by the option dict's ``type`` key."""
+Same surface as ``ssl_tpu/utils/registry.py``: DATASET / ARCH / MODEL / LOSS /
+METRIC registries plus the ``build_*`` lookups by the option dict's ``type``
+key."""
 
 from __future__ import annotations
 
@@ -30,9 +31,11 @@ class Registry:
         return self._obj_map[name]
 
 
+DATASET_REGISTRY = Registry("dataset")
 ARCH_REGISTRY = Registry("arch")
 MODEL_REGISTRY = Registry("model")
 LOSS_REGISTRY = Registry("loss")
+METRIC_REGISTRY = Registry("metric")
 
 
 def build_network(opt: dict):

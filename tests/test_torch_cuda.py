@@ -245,3 +245,24 @@ def test_k1_repeats_bit_for_bit(cuda_case):
     second = ssg_cuda.ssg_loss_fwd_cuda(*args, cfg)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cli_tensor_helpers_on_card(card):
+    """The CLI's tensor paths on the card equal their CPU results: the edge
+    mask (integer arithmetic in float32, exact), reflect padding, and the
+    prefetcher's copies (side stream, pinned memory)."""
+    from ssl_tpu_torch.data.loader import device_prefetch
+    from ssl_tpu_torch.models.sr_model import pad_reflect
+    from ssl_tpu_torch.ops.edge_mask import edge_mask_torch
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.rand(2, 3, 37, 41).astype(np.float32))
+    img[:, :, 5:20, 8:30] = 0.9
+    assert torch.equal(edge_mask_torch(img.cuda(), 20.0).cpu(), edge_mask_torch(img, 20.0))
+    assert torch.equal(pad_reflect(img.cuda(), 11, 7).cpu(), pad_reflect(img, 11, 7))
+    batches = [{"lq": torch.rand(2, 3, 8, 8).pin_memory(), "lq_path": ["a", "b"]}
+               for _ in range(3)]
+    got = list(device_prefetch(batches, "cuda"))
+    assert [b["lq_path"] for b in got] == [b["lq_path"] for b in batches]
+    for g, b in zip(got, batches):
+        assert g["lq"].is_cuda and torch.equal(g["lq"].cpu(), b["lq"])

@@ -55,6 +55,23 @@ def test_importing_every_module_leaves_jax_and_ssl_tpu_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_every_module_imports_without_cv2_yaml_lmdb_tensorboardx():
+    """The card's machine has none of them: each is imported only inside the
+    function that needs it."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('cv2', 'yaml', 'lmdb', 'tensorboardX'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout + proc.stderr
+    assert "ssl_tpu_torch.train" in _modules() and "ssl_tpu_torch.utils.png" in _modules()
+
+
 @pytest.mark.parametrize("path", [
     os.path.join(REPO, f) for f in ("chip_smoke.py", "scripts/profile_torch_train_step.py",
                                     "scripts/profile_torch_serve_step.py",
@@ -62,6 +79,7 @@ def test_importing_every_module_leaves_jax_and_ssl_tpu_out():
                                     "scripts/profile_torch_attention_bwd.py",
                                     "scripts/profile_torch_k1.py",
                                     "tests/test_torch_cuda.py", "tests/torch_ssg_cases.py",
+                                    "tests/torch_cli_cases.py",
                                     "tests/torch_attention_cases.py")] + [
     os.path.join(r, f) for r, _, fs in sorted(os.walk(PACKAGE)) for f in sorted(fs)
     if f.endswith(".py")])
