@@ -10,9 +10,10 @@ Phases, each printing JSON lines; the first failure exits non-zero:
 2. kernel  hold K1 (ssl_tpu_torch/csrc/ssg_loss_fwd.cu) against its plain
            PyTorch version on the card: a small case (search 9, window 5),
            the shipped search 25 / window 9 / sigma 0.004 on smooth images
-           at 32^2, at the ESRGAN step's shape (b16, 3x128^2) and at the
-           diffusion mini-step's (b2, 3x512^2), and the ESRGAN step's own
-           inputs (bench.py's uniform images, on which every off-centre q is
+           at 32^2, at the ESRGAN step's shape (b16, 3x128^2), at the
+           diffusion mini-step's (b2, 3x512^2) and at the RealESRGAN-SSL
+           step's (b12, 3x400^2, with real edge masks), and the ESRGAN
+           step's own inputs (bench.py's uniform images, on which every off-centre q is
            0); forward outputs and d_sr through the autograd function, with
            the L1 subgradient's ties accounted for, and a second launch bit
            for bit; times the kernel (CUDA events and the profiler), the
@@ -74,7 +75,21 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            decoding with cv2 where it imports); the test CLI on net_g_6.pth
            whole and tiled; times per iteration and the loader's data wait
            from the logger's timers, and the loader alone with each decoder
-10. kernels one line per ported kernel: launches on its main paths, error
+10. realesrgan  the RealESRGAN-SSL train and test CLIs at the shipped widths
+           (RRDBNet 64/23/32, UNetDiscriminatorSN 64, VGG19 at five layers,
+           SSL 25/9/0.004) on files: 24 GT PNGs of 512^2 made on the card,
+           their .mat masks from the generate_mask entry point, a .json
+           option file with the shipped YAML's values (batch 12, crop_pre
+           400, 6 loader processes; the pool cut to 24 slots); 4 iterations
+           (each degrades the batch on the card, makes the USM target and
+           passes the pool; K1 once each; the pool pointer 24 after 2), the
+           training state reloaded bit for bit with the pool and the
+           generators, --auto_resume to 6, the test CLI on a BlindLR-style
+           set (PSNR/SSIM); the degradation + USM + pool timed alone, and
+           the degradation held card against CPU with TF32 off.  K1 is also
+           held at its shape (b12, 3x400^2) in the kernel phase, on
+           pictures with real edge masks
+11. kernels one line per ported kernel: launches on its main paths, error
            against the plain version, times and the bound
 
 then the card's name and power limit as nvidia-smi reports them, and last
@@ -175,6 +190,25 @@ CLI_METRICS = {"psnr": {"type": "calculate_psnr", "crop_border": 4, "test_y_chan
                "ssim": {"type": "calculate_ssim", "crop_border": 4, "test_y_channel": True}}
 
 
+# RealESRGAN-SSL (options/train/RealESRGANSSL/train_RealESRGANSSL_x4.yml):
+# RE_TRAIN GT sub-images of RE_GT_IMG^2 (the YAML's multiscale_HR_sub_512),
+# cropped to RE_CROP (crop_pre), batch RE_B, RE_WORKERS loader processes;
+# the training-pair pool cut from the YAML's 180 slots to RE_QUEUE so that
+# iterations 3-4 take its full branch (180 would fill for 15 iterations);
+# each image RE_ENLARGE times an epoch so that the 6 iterations stay in one
+# epoch, as a real set's would; RE_ITERS iterations, then --auto_resume to
+# RE_RESUME_ITERS; a BlindLR-style test set of RE_TEST_GT GT images of
+# RE_TEST_SIZE, each with the LQ variants of RE_VARIANTS.
+RE_TRAIN, RE_GT_IMG, RE_CROP, RE_B, RE_WORKERS = 24, 512, 400, 12, 6
+RE_QUEUE, RE_ENLARGE, RE_ITERS, RE_RESUME_ITERS = 24, 3, 4, 6
+RE_TEST_GT, RE_TEST_SIZE, RE_VARIANTS = 2, (256, 192), ("bicubic", "area_noise")
+# The degradation hold, card against CPU, TF32 off: each stage is float32
+# convolutions, resizes and 8x8 DCTs summed in other orders, so the output
+# may move by one uint8 level where a value, or a JPEG coefficient, lies
+# within rounding of a half-integer; at most RE_TIE_SHARE of the values may.
+RE_TIE_SHARE = 1e-3
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -237,6 +271,20 @@ def smooth_case(b, h, seed, density):
     sr = (gt + rng.randn(b, 3, h, h) * 0.1).astype(np.float32)
     mask = (rng.rand(b, h, h) < density).astype(np.float32)
     return sr, gt, mask
+
+
+def edge_case(b, h, seed):
+    """The RealESRGAN-SSL step's K1 inputs: GT pictures made on the card
+    (``smooth_picture``: smooth fields, sharp-edged blocks, light noise), their
+    real edge masks (``edge_mask_torch``, threshold 20, as generate_mask
+    writes them) and SR = GT + N(0, 0.1^2)."""
+    import torch
+    from ssl_tpu_torch.ops.edge_mask import edge_mask_torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gt = torch.stack([smooth_picture(h, h, gen, "cuda") for _ in range(b)]) / 255
+    mask = edge_mask_torch(gt, 20.0)[:, 0]
+    sr = gt + 0.1 * torch.randn(gt.shape, generator=gen, device="cuda")
+    return tuple(t.contiguous().cpu().numpy() for t in (sr, gt, mask))
 
 
 def bench_case(b, h, seed, density):
@@ -433,7 +481,8 @@ def phase_kernel():
              ("shipped_32", smooth_case(1, 32, 2, 0.3), shipped, 1e-4),
              ("main_smooth", smooth_case(MAIN_B, MAIN_GT, 3, 0.25), shipped, 1e-4),
              ("main_path", bench_case(MAIN_B, MAIN_GT, 0, 0.25), shipped, 1e-5),
-             ("diffusion_smooth", smooth_case(TRAIN_B, TRAIN_SIZE, 4, 0.25), shipped, 1e-4)]
+             ("diffusion_smooth", smooth_case(TRAIN_B, TRAIN_SIZE, 4, 0.25), shipped, 1e-4),
+             ("realesrgan_edges", edge_case(RE_B, RE_CROP, 6), shipped, 1e-4)]
     results = {}
     for name, arrays, cfg, map_rtol in cases:
         sr, gt, mask = (torch.from_numpy(a).cuda() for a in arrays)
@@ -443,7 +492,7 @@ def phase_kernel():
             fail(f"K1 {name}: a second launch differs from the first")
         del first, again
         one = torch.ones((), device="cuda")
-        iters = 20 if sr.shape[0] == MAIN_B or sr.shape[-1] == TRAIN_SIZE else 50
+        iters = 20 if sr.shape[0] == MAIN_B or sr.shape[-1] in (TRAIN_SIZE, RE_CROP) else 50
         kernel_ms = time_ms(lambda: ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg), iters)
         device_ms = sum(kernel_device_ms(lambda: ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg),
                                          "ssg_loss_fwd", 5).values())
@@ -1080,6 +1129,23 @@ def phase_train():
     return launches
 
 
+def smooth_picture(h: int, w: int, gen, device: str):
+    """A seeded (3, h, w) RGB image on uint8 levels, made on ``device``:
+    smooth colour fields with three sharp-edged blocks and light noise."""
+    import torch
+    yy = torch.linspace(0, 1, h, device=device)[:, None]
+    xx = torch.linspace(0, 1, w, device=device)[None]
+    f = torch.rand(3, 4, generator=gen, device=device) * 6 + 1
+    img = torch.stack([0.5 + 0.25 * torch.sin(f[c, 0] * yy + f[c, 1] * xx + f[c, 2])
+                       * torch.cos(f[c, 3] * xx) for c in range(3)])
+    for _ in range(3):                                    # sharp-edged blocks
+        y0, x0 = (torch.rand(2, generator=gen, device=device) * 0.7).tolist()
+        img[:, int(y0 * h):int((y0 + 0.25) * h), int(x0 * w):int((x0 + 0.25) * w)] = \
+            torch.rand(3, 1, 1, generator=gen, device=device)
+    img = img + 0.02 * torch.randn(img.shape, generator=gen, device=device)
+    return torch.round(img.clamp(0, 1) * 255)                           # (3, h, w), uint8 values
+
+
 def cli_fixtures(root: str, device: str) -> tuple[dict, list]:
     """The CLI's data, written under ``root``: CLI_TRAIN seeded GT images of
     CLI_GT^2 (smooth fields with sharp-edged blocks) as PNG through
@@ -1102,17 +1168,7 @@ def cli_fixtures(root: str, device: str) -> tuple[dict, list]:
     gen = torch.Generator(device=device).manual_seed(0)
 
     def picture(h, w):
-        yy = torch.linspace(0, 1, h, device=device)[:, None]
-        xx = torch.linspace(0, 1, w, device=device)[None]
-        f = torch.rand(3, 4, generator=gen, device=device) * 6 + 1
-        img = torch.stack([0.5 + 0.25 * torch.sin(f[c, 0] * yy + f[c, 1] * xx + f[c, 2])
-                           * torch.cos(f[c, 3] * xx) for c in range(3)])
-        for _ in range(3):                                # sharp-edged blocks
-            y0, x0 = (torch.rand(2, generator=gen, device=device) * 0.7).tolist()
-            img[:, int(y0 * h):int((y0 + 0.25) * h), int(x0 * w):int((x0 + 0.25) * w)] = \
-                torch.rand(3, 1, 1, generator=gen, device=device)
-        img = img + 0.02 * torch.randn(img.shape, generator=gen, device=device)
-        return torch.round(img.clamp(0, 1) * 255)                       # (3, h, w), uint8 values
+        return smooth_picture(h, w, gen, device)
 
     def save(img_u8, path):                               # (3, h, w) RGB -> BGR PNG
         data = encode_png(img_u8.byte().cpu().numpy().transpose(1, 2, 0)[..., ::-1])
@@ -1414,7 +1470,399 @@ def phase_cli(device: str = "cuda"):
     return launches + launches_r
 
 
-def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli) -> dict:
+def realesrgan_opt(d: dict) -> dict:
+    """options/train/RealESRGANSSL/train_RealESRGANSSL_x4.yml's values (a
+    dict: the card's machine may lack yaml) with the data of
+    ``realesrgan_fixtures`` and this phase's cuts (``queue_size`` RE_QUEUE,
+    ``dataset_enlarge_ratio`` RE_ENLARGE, RE_ITERS iterations, a log line at
+    each, no tensorboard)."""
+    kernels = ["iso", "aniso", "generalized_iso", "generalized_aniso", "plateau_iso",
+               "plateau_aniso"]
+    probs = [0.45, 0.25, 0.12, 0.03, 0.12, 0.03]
+    return {
+        "name": "RealESRGANSSL_x4", "model_type": "RealESRGANSSLModel", "scale": SCALE,
+        "num_devices": 1, "manual_seed": 0, "degradation_order": "two", "queue_size": RE_QUEUE,
+        "degradation_device": True,
+        "resize_prob": [0.2, 0.7, 0.1], "resize_range": [0.15, 1.5], "gaussian_noise_prob": 0.5,
+        "noise_range": [1, 30], "poisson_scale_range": [0.05, 3], "gray_noise_prob": 0.4,
+        "jpeg_range": [30, 95], "second_blur_prob": 0.8, "resize_prob2": [0.3, 0.4, 0.3],
+        "resize_range2": [0.3, 1.2], "gaussian_noise_prob2": 0.5, "noise_range2": [1, 25],
+        "poisson_scale_range2": [0.05, 2.5], "gray_noise_prob2": 0.4, "jpeg_range2": [30, 95],
+        "datasets": {"train": {
+            "name": "DF2K_OST_mask", "type": "MyRealESRGANImageMaskDataset",
+            "dataroot_gt": d["gt"], "dataroot_gt_mask": d["mask"], "crop_pre": RE_CROP,
+            "blur_kernel_size": 21, "kernel_list": kernels, "kernel_prob": probs,
+            "sinc_prob": 0.1, "blur_sigma": [0.2, 3], "betag_range": [0.5, 4],
+            "betap_range": [1, 2], "blur_kernel_size2": 21, "kernel_list2": kernels,
+            "kernel_prob2": probs, "sinc_prob2": 0.1, "blur_sigma2": [0.2, 1.5],
+            "betag_range2": [0.5, 4], "betap_range2": [1, 2], "final_sinc_prob": 0.8,
+            "gt_size": 256, "use_hflip": True, "use_rot": True,
+            "num_worker_per_gpu": RE_WORKERS, "batch_size_per_gpu": RE_B,
+            "dataset_enlarge_ratio": RE_ENLARGE}},
+        "network_g": {"type": "RRDBNet", "num_in_ch": 3, "num_out_ch": 3, "num_feat": 64,
+                      "num_block": 23, "num_grow_ch": 32},
+        "network_d": {"type": "UNetDiscriminatorSN", "num_in_ch": 3, "num_feat": 64,
+                      "skip_connection": True},
+        "path": {"pretrain_network_g": None, "param_key_g": "params_ema", "resume_state": None},
+        "ssl_setting": {"mask_stride": 3, "impl": "dense", "kernel_size_search": 25,
+                        "sigma": 0.004, "kernel_size_window": 9, "generalization": True},
+        "train": {
+            "ema_decay": 0.999,
+            "optim_g": {"type": "Adam", "lr": 1e-4, "weight_decay": 0, "betas": [0.9, 0.99]},
+            "optim_d": {"type": "Adam", "lr": 1e-4, "weight_decay": 0, "betas": [0.9, 0.99]},
+            "scheduler": {"type": "MultiStepLR", "milestones": [400000], "gamma": 0.5},
+            "total_iter": RE_ITERS, "warmup_iter": -1,
+            "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0, "reduction": "mean"},
+            "selfsim_opt": {"type": "L1Loss", "loss_weight": 1e3, "reduction": "mean"},
+            "selfsim1_opt": {"type": "KLDistanceLoss", "loss_weight": 1e3, "reduction": "mean",
+                             "softmax": False},
+            "perceptual_opt": {"type": "PerceptualLoss",
+                               "layer_weights": {"conv1_2": 0.1, "conv2_2": 0.1, "conv3_4": 1,
+                                                 "conv4_4": 1, "conv5_4": 1},
+                               "vgg_type": "vgg19", "use_input_norm": True,
+                               "perceptual_weight": 1.0, "style_weight": 0, "range_norm": False,
+                               "criterion": "l1"},
+            "gan_opt": {"type": "GANLoss", "gan_type": "vanilla", "real_label_val": 1.0,
+                        "fake_label_val": 0.0, "loss_weight": 1e-1},
+            "net_d_iters": 1, "net_d_init_iters": 0},
+        "logger": {"print_freq": 1, "save_checkpoint_freq": 5000, "use_tb_logger": False},
+    }
+
+
+def realesrgan_fixtures(root: str, device: str) -> tuple[dict, float]:
+    """RE_TRAIN GT PNGs of RE_GT_IMG^2 made on the card (``smooth_picture``)
+    and written with cv2 where it imports (else ``utils/png.py``); their
+    ``.mat`` masks from the port's ``generate_mask`` entry point at threshold
+    20; and a BlindLR-style test set: RE_TEST_GT GT images, each with one LQ
+    per variant of RE_VARIANTS made on the card (antialiased bicubic down by
+    SCALE; area down by SCALE plus Gaussian noise of sigma 5 levels), rounded
+    to uint8.  Returns the folders and the masks' share of edge pixels."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from ssl_tpu_torch.scripts import generate_mask
+    from ssl_tpu_torch.utils.img_util import imwrite
+
+    d = {k: os.path.join(root, k) for k in ("gt", "test_gt", "test_lq")}
+    for path in d.values():
+        os.makedirs(path)
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def save(img_u8, path):                               # (3, h, w) RGB -> BGR file
+        imwrite(np.ascontiguousarray(img_u8.byte().cpu().numpy().transpose(1, 2, 0)[..., ::-1]),
+                path)
+
+    for i in range(RE_TRAIN):
+        save(smooth_picture(RE_GT_IMG, RE_GT_IMG, gen, device),
+             os.path.join(d["gt"], f"{i:04d}.png"))
+    d["mask"] = generate_mask.main(["--input", d["gt"], "--output", os.path.join(root, "masks"),
+                                    "--threshold", "20"])
+    stats = os.path.join(os.path.dirname(d["mask"]), "edge_pixel_stats.txt")
+    with open(stats) as f:
+        shares = [float(line.split()[2]) for line in f if line.strip()]
+    h, w = RE_TEST_SIZE
+    for i in range(RE_TEST_GT):
+        gt = smooth_picture(h, w, gen, device)
+        save(gt, os.path.join(d["test_gt"], f"t{i}.png"))
+        x = gt[None] / 255
+        lqs = {"bicubic": F.interpolate(x, scale_factor=1 / SCALE, mode="bicubic",
+                                        antialias=True, align_corners=False),
+               "area_noise": F.interpolate(x, scale_factor=1 / SCALE, mode="area")
+               + 5 / 255 * torch.randn((1, 3, h // SCALE, w // SCALE), generator=gen,
+                                       device=device)}
+        for variant in RE_VARIANTS:
+            os.makedirs(os.path.join(d["test_lq"], variant), exist_ok=True)
+            save(torch.round(lqs[variant][0].clamp(0, 1) * 255),
+                 os.path.join(d["test_lq"], variant, f"t{i}.png"))
+    return d, float(np.mean(shares))
+
+
+def draws_to(draws, device):
+    """A ``DegradeDraws`` with its tensors on ``device``."""
+    import torch
+
+    def move(stage):
+        return stage._replace(**{k: v.to(device) for k, v in stage._asdict().items()
+                                 if torch.is_tensor(v)})
+    return draws._replace(stage1=move(draws.stage1), stage2=move(draws.stage2),
+                          jpeg1=draws.jpeg1.to(device), jpeg2=draws.jpeg2.to(device))
+
+
+def poisson_icdf(rate, u):
+    """Poisson(rate) samples by inversion of given uniforms ``u`` (float64):
+    the least k with P(X <= k) = Q(k + 1, rate) >= u, by bisection.  Each
+    element depends on its own rate and uniform only, so two devices give
+    the same samples from the same uniforms (a sampler that consumes a
+    generator element by element would shift every later sample where one
+    rate differs in its last bit)."""
+    import torch
+    lam = rate.double()
+    lo = torch.zeros_like(lam)
+    hi = torch.ceil(lam + 12 * lam.sqrt() + 12)
+    while bool((lo < hi).any()):
+        mid = torch.floor((lo + hi) / 2)
+        below = torch.special.gammaincc(mid + 1, lam) < u
+        lo, hi = torch.where(below, mid + 1, lo), torch.where(below, hi, mid)
+    return lo.to(rate.dtype)
+
+
+def degradation_hold(batch: dict, cfg) -> dict:
+    """One fixed ``DegradeDraws`` through ``degrade_two_stage`` on the card
+    and on the CPU with TF32 off: at most one uint8 level apart, on at most
+    RE_TIE_SHARE of the values, equal elsewhere.  The Poisson samples invert
+    uniforms drawn on the CPU from generators seeded by stage and kind
+    (``poisson_icdf``), so both sides draw them alike from their own rates.
+    Both noise families are held: the draws are made twice, with Gaussian
+    and with Poisson noise forced in both stages."""
+    import torch
+    from ssl_tpu_torch.ops.degrade import degrade_two_stage, draw_degradation
+
+    def poisson(rate, stage, which):
+        g = torch.Generator().manual_seed(10 * stage + (which == "gray"))
+        u = torch.rand(rate.shape, generator=g, dtype=torch.float64)
+        return poisson_icdf(rate, u.to(rate.device))
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = {k: batch[k].cpu() for k in ("gt", "kernel1", "kernel2", "sinc_kernel")}
+    out = {}
+    try:
+        for family, p in (("gaussian", 1.0), ("poisson", 0.0)):
+            fcfg = cfg._replace(gaussian_noise_prob=p, gaussian_noise_prob2=p)
+            draws = draw_degradation(fcfg, RE_B, RE_CROP, torch.Generator().manual_seed(7),
+                                     torch.Generator().manual_seed(8))._replace(poisson=poisson)
+            on_cpu = degrade_two_stage(cpu["gt"], cpu["kernel1"], cpu["kernel2"],
+                                       cpu["sinc_kernel"], fcfg, draws)
+            on_card = degrade_two_stage(batch["gt"], batch["kernel1"], batch["kernel2"],
+                                        batch["sinc_kernel"], fcfg,
+                                        draws_to(draws, batch["gt"].device))
+            levels = (torch.round(on_card.cpu() * 255) - torch.round(on_cpu * 255)).abs()
+            share = float((levels > 0).float().mean())
+            if float(levels.max()) > 1 or share > RE_TIE_SHARE:
+                fail(f"realesrgan: the {family} degradation on the card is {float(levels.max())} "
+                     f"levels from the CPU's on {share} of the values (hold: 1 level on at most "
+                     f"{RE_TIE_SHARE})")
+            out[family] = {"values_one_level_off": int((levels > 0).sum()), "share": share,
+                           "lq_shape": list(on_card.shape),
+                           "stage_buckets": [draws.stage1.bucket, draws.stage2.bucket],
+                           "modes": [draws.stage1.mode, draws.stage2.mode]}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def phase_realesrgan(device: str = "cuda"):
+    """The RealESRGAN-SSL train and test CLIs at full width on the
+    ``realesrgan_fixtures`` data: RE_ITERS iterations (each degrades the GT
+    batch on the card, makes the USM target, passes the pool, then trains G,
+    D and the EMA with K1 in the SSL loss), the training state reloaded into
+    a fresh model bit for bit (pool and generators included),
+    ``--auto_resume`` to RE_RESUME_ITERS, then the test CLI on the last
+    ``net_g`` over the BlindLR-style set with PSNR/SSIM (LPIPS and DISTS are
+    left out of the option file: they raise until ROADMAP queue 1 item 9).
+    Then the degradation + USM + pool alone (CUDA events) and the degradation
+    hold card against CPU.  K1 must launch once per iteration."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+    import ssl_tpu_torch.test as test_cli
+    import ssl_tpu_torch.train as train_cli
+    from ssl_tpu_torch.data import build_dataloader, build_dataset
+    from ssl_tpu_torch.models import build_model
+    from ssl_tpu_torch.models.realesrganssl_model import RealESRGANSSLModel
+    from ssl_tpu_torch.ops import ssg_cuda
+    from ssl_tpu_torch.ops.degrade import degrade_two_stage
+    from ssl_tpu_torch.ops.img_process import usm_sharp
+    from ssl_tpu_torch.utils import logger as logger_mod
+
+    with tempfile.TemporaryDirectory(prefix="realesrgan_smoke_") as root:
+        t0 = time.perf_counter()
+        d, edge_share = realesrgan_fixtures(os.path.join(root, "data"), device)
+        fixtures_s = time.perf_counter() - t0
+        opt = realesrgan_opt(d)
+        opt_path = os.path.join(root, "train_realesrgan.json")
+        with open(opt_path, "w") as f:
+            json.dump(opt, f)
+        dev = ["--device", device] if device != "cuda" else []
+
+        def run(args):
+            """One train CLI run: its state, logged lines, K1 launches, the
+            pool pointer after each step and wall seconds."""
+            logged, ptrs = [], []
+            log_call = logger_mod.MessageLogger.__call__
+            step_call = RealESRGANSSLModel.train_step
+
+            def record(self, log_vars):
+                logged.append(dict(log_vars, start=self.start_iter))
+                return log_call(self, log_vars)
+
+            def step(self, state, batch, draws=None):
+                out = step_call(self, state, batch, draws)
+                ptrs.append(state.extra["queue_ptr"])
+                return out
+            logger_mod.MessageLogger.__call__ = record
+            RealESRGANSSLModel.train_step = step
+            try:
+                ssg_cuda.launches = 0
+                t0 = time.perf_counter()
+                state = train_cli.train_pipeline(root, ["-opt", opt_path] + dev + args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = ssg_cuda.launches
+            finally:
+                logger_mod.MessageLogger.__call__ = log_call
+                del RealESRGANSSLModel.train_step             # the mixin's again
+            gc.collect()                                  # the loader's workers end here
+            return state, logged, launches, ptrs, wall
+
+        torch.cuda.reset_peak_memory_stats()
+        state, logged, launches, ptrs, wall = run([])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        exp = os.path.join(root, "experiments", opt["name"])
+        if launches != RE_ITERS:
+            fail(f"realesrgan: K1 launched {launches} times in {RE_ITERS} iterations")
+        if [x["iter"] for x in logged] != list(range(1, RE_ITERS + 1)):
+            fail(f"realesrgan: logged iterations {[x['iter'] for x in logged]}")
+        if ptrs != [min(RE_B * (i + 1), RE_QUEUE) for i in range(RE_ITERS)] or ptrs[1] != RE_QUEUE:
+            fail(f"realesrgan: the pool pointer read {ptrs} after iterations 1-{RE_ITERS}")
+        loss_keys = ("l_pix", "l_percep", "l_g_gan", "l_selfsim", "l_selfsim_kl", "l_d_real",
+                     "l_d_fake")
+        for x in logged:
+            bad = {k: x.get(k) for k in loss_keys if not np.isfinite(x.get(k, np.nan))}
+            if bad:
+                fail(f"realesrgan: iteration {x['iter']}: losses missing or not finite: {bad}")
+        for f in (f"models/net_g_{RE_ITERS}.pth", f"models/net_d_{RE_ITERS}.pth",
+                  f"training_states/{RE_ITERS}.state"):
+            if not os.path.isfile(os.path.join(exp, f)):
+                fail(f"realesrgan: {f} was not written")
+
+        # the training state, reloaded into a fresh model, bit for bit
+        fresh = build_model(dict(opt, is_train=True), device=device)
+        reloaded, it = fresh.load_training_state(fresh.init_state(seed=1),
+                                                 os.path.join(exp, "training_states"), RE_ITERS)
+        n_tensors = 0
+        for name in ("net_g", "net_g_ema", "net_d"):
+            want = getattr(state, name).state_dict()
+            for k, v in getattr(reloaded, name).state_dict().items():
+                n_tensors += 1
+                if not torch.equal(v, want[k]):
+                    fail(f"realesrgan: reloaded {name}.{k} differs from the saved state")
+        for name in ("opt_g", "opt_d"):
+            want = getattr(state, name).state_dict()["state"]
+            for pid, st in getattr(reloaded, name).state_dict()["state"].items():
+                for k, v in st.items():
+                    n_tensors += 1
+                    if not torch.equal(v, want[pid][k]):
+                        fail(f"realesrgan: reloaded {name} state {pid}.{k} differs")
+        for k, v in state.extra.items():
+            got = reloaded.extra[k]
+            n_tensors += 1
+            same = (torch.equal(got.get_state(), v.get_state())
+                    if isinstance(v, torch.Generator) else
+                    torch.equal(got, v) if torch.is_tensor(v) else got == v)
+            if not same:
+                fail(f"realesrgan: reloaded extra[{k!r}] differs from the saved state")
+        if it != RE_ITERS or reloaded.step != state.step:
+            fail(f"realesrgan: reloaded iteration {it}, step {reloaded.step} vs {state.step}")
+        del fresh, reloaded, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        resumed, logged_r, launches_r, ptrs_r, wall_r = run(
+            ["--auto_resume", "--force_yml", f"train:total_iter={RE_RESUME_ITERS}"])
+        if [x["iter"] for x in logged_r] != list(range(RE_ITERS + 1, RE_RESUME_ITERS + 1)):
+            fail(f"realesrgan: the resumed run logged iterations {[x['iter'] for x in logged_r]}")
+        if launches_r != RE_RESUME_ITERS - RE_ITERS or resumed.step != RE_RESUME_ITERS or \
+                set(ptrs_r) != {RE_QUEUE}:
+            fail(f"realesrgan: the resumed run launched K1 {launches_r} times, ended at step "
+                 f"{resumed.step}, pool pointer {ptrs_r}")
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        test_opt = {"name": "test_RealESRGANSSL_x4", "model_type": "RealESRGANSSLModel",
+                    "scale": SCALE, "num_devices": 1, "manual_seed": 0, "tile_process": False,
+                    "tile_size": 800, "tile_pad": 32,
+                    "datasets": {"test_1": {"name": "BlindLR", "type": "MultiLROneGTDataset",
+                                            "dataroot_gt": d["test_gt"],
+                                            "dataroot_lq": d["test_lq"],
+                                            "io_backend": {"type": "disk"}}},
+                    "network_g": opt["network_g"],
+                    "path": {"pretrain_network_g": os.path.join(
+                        exp, "models", f"net_g_{RE_RESUME_ITERS}.pth"),
+                        "param_key_g": "params_ema"},
+                    "val": {"save_img": True, "metrics": CLI_METRICS}}
+        test_path = os.path.join(root, "test_realesrgan.json")
+        with open(test_path, "w") as f:
+            json.dump(test_opt, f)
+        t0 = time.perf_counter()
+        test_out = test_cli.test_pipeline(root, ["-opt", test_path] + dev)["BlindLR"]
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        if set(test_out) != set(CLI_METRICS) or not all(np.isfinite(v) for v in test_out.values()):
+            fail(f"realesrgan: test CLI metrics {test_out}")
+
+        # the degradation, USM and pool alone, on one loader batch
+        dopt = dict(opt["datasets"]["train"], phase="train", scale=SCALE, num_worker_per_gpu=0)
+        batch = next(iter(build_dataloader(build_dataset(dopt), dopt)))
+        batch = {k: v.to(device) for k, v in batch.items() if torch.is_tensor(v)}
+        model = build_model(dict(opt, is_train=True), device=device)
+        state = model.init_state(seed=0)
+        state.net_g = state.net_g_ema = state.net_d = None    # only extra is used here
+        torch.cuda.empty_cache()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        front_ms = []
+        for _ in range(RE_QUEUE // RE_B + 3):                 # fill, then full
+            torch.cuda.synchronize()
+            e0.record()
+            model.degrade_batch(state, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            front_ms.append(e0.elapsed_time(e1))
+        draws = model.draws(state, batch)["degrade"]
+        degrade_ms = time_ms(lambda: degrade_two_stage(batch["gt"], batch["kernel1"],
+                                                       batch["kernel2"], batch["sinc_kernel"],
+                                                       model.degrade_cfg, draws), 5)
+        usm_ms = time_ms(lambda: usm_sharp(batch["gt"]), 5)
+        hold = degradation_hold(batch, model.degrade_cfg)
+        del model, state, batch
+        torch.cuda.empty_cache()
+
+    fill = RE_QUEUE // RE_B
+    result = {
+        "phase": "realesrgan", "model": "RealESRGANSSLModel", "config":
+            "options/train/RealESRGANSSL/train_RealESRGANSSL_x4.yml",
+        "train_images": RE_TRAIN, "gt_image": RE_GT_IMG, "crop_pre": RE_CROP, "batch": RE_B,
+        "lq_size": RE_CROP // SCALE, "workers": RE_WORKERS, "fixtures_s": fixtures_s,
+        "mask_edge_share": edge_share, "decoder": decoder(),
+        "reduced": {"queue_size": [180, RE_QUEUE], "dataset_enlarge_ratio": [1, RE_ENLARGE],
+                    "total_iter": [150000, RE_RESUME_ITERS],
+                    "test_metrics_left_out": ["lpips", "dists"],
+                    "test_sets": ["7 sets of options/test/RealESRGANSSL", "BlindLR of "
+                                  f"{RE_TEST_GT} GT x {len(RE_VARIANTS)} variants"]},
+        "iterations": RE_ITERS, "iterations_timed": RE_ITERS - 1,
+        "ms_per_iter": per_iter_ms(logged, "time"),
+        "data_wait_ms_per_iter": per_iter_ms(logged, "data_time"),
+        "first_iter_ms": 1e3 * logged[0]["time"], "first_data_wait_ms": 1e3 * logged[0]["data_time"],
+        "resumed_ms_per_iter": per_iter_ms(logged_r, "time"),
+        "resumed_data_wait_ms_per_iter": per_iter_ms(logged_r, "data_time"),
+        "wall_s": wall, "resumed_wall_s": wall_r, "peak_mem_gb": peak_gb,
+        "k1_launches": {"train": launches, "resumed": launches_r},
+        "pool_ptr_by_iter": ptrs + ptrs_r,
+        "losses_last_iter": {k: logged[-1][k] for k in loss_keys},
+        "reloaded_tensors_bit_for_bit": n_tensors, "resumed_from": RE_ITERS,
+        "test": dict(test_out, seconds=test_s),
+        "degradation_usm_pool_ms": {"fill": front_ms[:fill], "full": front_ms[fill:]},
+        "degradation_alone_ms": degrade_ms, "usm_alone_ms": usm_ms,
+        "degradation_hold_card_vs_cpu": hold,
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "card": card()}
+    emit(result)
+    return launches + launches_r
+
+
+def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
     phases' results (K1's, K2's forward's and backward's by case, the serving
     K2 launches and forward kernel launches, the diffusion_train launch
@@ -1497,26 +1945,34 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli) -> dict:
                              "the kernel's device time (profiler), wrapper_ms the call's (CUDA "
                              "events); max_abs_err is the whole forward's"}
 
-    k1_runs = {"main_path": launches + cli, "diffusion_smooth": train["k1"]}
+    k1_runs = {"main_path": launches + cli, "diffusion_smooth": train["k1"],
+               "realesrgan_edges": realesrgan}
 
     def k1_mean(key):
         return sum(w * k1[c][key] for c, w in k1_runs.items()) / sum(k1_runs.values())
 
     return {"kernels": [{
         "name": "ssg_loss_fwd", "route": "cuda", "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu",
-        "replaces": "ssl_tpu/ops/ssg_pallas.py:41", "launches": launches + cli + train["k1"],
+        "replaces": "ssl_tpu/ops/ssg_pallas.py:41",
+        "launches": launches + cli + train["k1"] + realesrgan,
         "launches_by_path": {"esrgan_train": launches, "esrgan_cli": cli,
-                             "diffusion_train": train["k1"]},
-        "max_abs_err": max(k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth")),
+                             "diffusion_train": train["k1"], "realesrgan_cli": realesrgan},
+        "max_abs_err": max(k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth",
+                                                          "realesrgan_edges")),
         "ms": k1_mean("device_ms"), "wrapper_ms": k1_mean("ms"), "plain_ms": k1_mean("plain_ms"),
         "bound_ms": k1_mean("bound_ms"), "bound_by": k1["main_path"]["bound_by"],
         "library_ms": None,
         "ms_by_shape": {"b16_3x128^2": k1["main_path"]["device_ms"],
-                        "b2_3x512^2": k1["diffusion_smooth"]["device_ms"]},
+                        "b2_3x512^2": k1["diffusion_smooth"]["device_ms"],
+                        "b12_3x400^2": k1["realesrgan_edges"]["device_ms"]},
+        "bound_ms_by_shape": {"b16_3x128^2": k1["main_path"]["bound_ms"],
+                              "b2_3x512^2": k1["diffusion_smooth"]["bound_ms"],
+                              "b12_3x400^2": k1["realesrgan_edges"]["bound_ms"]},
         "times_are": "mean per launch over the run's launches (b16 3x128^2 in the ESRGAN "
-                     "step and CLI, b2 3x512^2 in the diffusion mini-step); ms is the kernel's device "
-                     "time (profiler), wrapper_ms the call's (CUDA events); max_abs_err on "
-                     "smooth images"},
+                     "step and CLI, b2 3x512^2 in the diffusion mini-step, b12 3x400^2 in the "
+                     "RealESRGAN-SSL CLI); ms is the kernel's device time (profiler), wrapper_ms "
+                     "the call's (CUDA events); max_abs_err on smooth images and, at b12 "
+                     "3x400^2, on pictures with real edge masks"},
         *(fwd_entry(f) for f in ("fwd", "fwd_d512", "fwd_combine")),
         *(bwd_entry(f, replaces) for f, replaces in bwd_kernels.items())]}
 
@@ -1553,8 +2009,10 @@ def main() -> int:
     launches = phase_train()
     torch.cuda.empty_cache()
     cli = phase_cli()
+    torch.cuda.empty_cache()
+    realesrgan = phase_realesrgan()
 
-    emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli))
+    emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,15 @@
 """Paired LQ/GT datasets, with and without edge masks.
 
-Counterpart of ``ssl_tpu/data/paired_image_dataset.py:19-138`` (reference
+Counterpart of ``ssl_tpu/data/paired_image_dataset.py:19-162`` (reference
 parity: data/paired_image_dataset.py, paired_image_mask_dataset.py,
-single_image_dataset.py).  The pipeline is the JAX one (same decode, crops
-and draws on HWC numpy arrays); each item's images then become CHW float32
-tensors, as BasicSR gives them: ``lq`` and ``gt`` (3, h, w) RGB in [0, 1],
-``gt_mask`` (1, h, w)."""
+single_image_dataset.py, multiLR_oneGT_dataset.py).  The pipeline is the JAX
+one (same decode, crops and draws on HWC numpy arrays); each item's images
+then become CHW float32 tensors, as BasicSR gives them: ``lq`` and ``gt``
+(3, h, w) RGB in [0, 1], ``gt_mask`` (1, h, w)."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -141,3 +143,31 @@ class SingleImageDataset(BaseDataset):
     def __getitem__(self, index):
         path = self.paths[index]
         return _tensors({"lq": img2array(imread(path)), "lq_path": path})
+
+
+@DATASET_REGISTRY.register()
+class MultiLROneGTDataset(BaseDataset):
+    """Several LR variants per GT (reference multiLR_oneGT_dataset.py:1-52),
+    the test sets of RealESRGAN-SSL: ``dataroot_lq`` holds one subfolder per
+    degradation, each with LQ files named as their GT; GT is cropped to LQ x
+    scale.  Items also carry the ``variant`` (the subfolder's name)."""
+
+    def __init__(self, opt: dict):
+        self.opt = opt
+        self.scale = opt.get("scale", 4)
+        lq_root = opt["dataroot_lq"]
+        subdirs = sorted(d for d in os.listdir(lq_root) if os.path.isdir(os.path.join(lq_root, d)))
+        self.paths = []
+        for gt in paths_from_folder(opt["dataroot_gt"]):
+            base = os.path.basename(gt)
+            for sub in subdirs:
+                lq = os.path.join(lq_root, sub, base)
+                if os.path.exists(lq):
+                    self.paths.append({"gt_path": gt, "lq_path": lq, "variant": sub})
+
+    def __getitem__(self, index):
+        d = self.paths[index]
+        img_gt = img2array(imread(d["gt_path"]))
+        img_lq = img2array(imread(d["lq_path"]))
+        h, w = img_lq.shape[:2]
+        return _tensors({"lq": img_lq, "gt": img_gt[: h * self.scale, : w * self.scale, :], **d})

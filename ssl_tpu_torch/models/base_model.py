@@ -11,17 +11,19 @@ place (returning it, so the call reads like the JAX one).  Field mapping:
     ema_params_g              net_g_ema
     params_d, stats_d         net_d (its batch-norm buffers are the stats)
     opt_state_d               opt_d
+    extra                     extra (recipe state: RealESRGAN's pool and generators)
 
-The JAX ``rng`` has no counterpart: nothing on this recipe's path draws
-random numbers during a step.  Without training (``is_train: false``) the
+The JAX ``rng`` has no counterpart: ESRGAN-SSL draws no random numbers
+during a step, and RealESRGAN's draws come from the generators in
+``extra``.  Without training (``is_train: false``) the
 state holds only ``net_g`` (and its EMA when ``ema_decay`` is set).
 
 Checkpoints: ``save_networks`` writes ``net_g_{iter}.pth`` ({"params",
 "params_ema"}) and ``net_d_{iter}.pth`` ({"params"}) in the reference's
 layout; ``save_training_state`` writes ``training_states/{iter}.state``
-(``torch.save`` of every net, the EMA, both optimizers, the step and the
-torch / CUDA / numpy / ``random`` generator states; the schedules are
-functions of the step) and the ``latest`` file."""
+(``torch.save`` of every net, the EMA, both optimizers, the step, ``extra``
+and the torch / CUDA / numpy / ``random`` generator states; the schedules
+are functions of the step) and the ``latest`` file."""
 
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ class TrainState:
     net_g_ema: nn.Module | None = None
     net_d: nn.Module | None = None
     opt_d: torch.optim.Optimizer | None = None
+    extra: dict | None = None       # tensors, ints and torch.Generators
 
 
 def resolve_device(device=None) -> torch.device:
@@ -153,6 +156,25 @@ def _host_state_dict(net: nn.Module) -> dict:
     return {k: v.detach().cpu() for k, v in net.state_dict().items()}
 
 
+def _host_extra(extra: dict | None) -> dict | None:
+    """``TrainState.extra`` as ``torch.load(weights_only=True)`` reads it: a
+    generator as its state, a tensor on the host, an int as it is."""
+    if extra is None:
+        return None
+    return {k: v.get_state() if isinstance(v, torch.Generator) else
+            v.detach().cpu() if torch.is_tensor(v) else v for k, v in extra.items()}
+
+
+def _load_extra(extra: dict, saved: dict, device) -> None:
+    """Restore ``_host_extra``'s output into ``extra`` in place: generators
+    take their saved state, tensors go to ``device``."""
+    for k, v in saved.items():
+        if isinstance(extra.get(k), torch.Generator):
+            extra[k].set_state(v)
+        else:
+            extra[k] = v.to(device) if torch.is_tensor(v) else v
+
+
 class BaseModel:
     """Holds the static config, the device and the step function."""
 
@@ -184,7 +206,7 @@ class BaseModel:
                             current_iter: int) -> None:
         os.makedirs(state_dir, exist_ok=True)
         payload = {"iter": current_iter, "epoch": epoch, "step": state.step,
-                   "rng": _rng_state()}
+                   "rng": _rng_state(), "extra": _host_extra(state.extra)}
         for name in _NETS:
             net = getattr(state, name)
             payload[name] = None if net is None else _host_state_dict(net)
@@ -212,6 +234,11 @@ class BaseModel:
                                  "but not in the model")
             if have is not None:
                 have.load_state_dict(saved)
+        saved_extra = payload.get("extra")         # absent from states of earlier versions
+        if (state.extra is None) != (saved_extra is None):
+            raise ValueError(f"training state {current_iter}: extra does not match the model's")
+        if state.extra is not None:
+            _load_extra(state.extra, saved_extra, self.device)
         state.step = int(payload["step"])
         _set_rng_state(payload["rng"])
         return state, int(payload["iter"])

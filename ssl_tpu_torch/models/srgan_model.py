@@ -4,8 +4,9 @@ Counterpart of ``ssl_tpu/models/srgan_model.py``.  One step = a G phase and
 a D phase, as the JAX step does them:
 
 * G phase: the D runs in train mode (batch statistics) but its parameters get
-  no gradient and its running-stat updates are discarded: the D phase owns
-  the stats.  The G update is gated by ``net_d_iters``/``net_d_init_iters``;
+  no gradient and its buffer updates (running stats, spectral norms' u and
+  sigma) are discarded: the D phase owns them.  The fake and the real pass
+  both start from the step's incoming buffers.  The G update is gated by ``net_d_iters``/``net_d_init_iters``;
   when the gate is off Adam's moments still advance with zero gradients.
 * D phase: real then fake, serially, threading the running stats, on the SR
   of the G phase (computed with the pre-update G) detached.
@@ -97,8 +98,11 @@ class SRGANModel(SRModel):
         """Pixel (+ recipe extras) + perceptual + GAN."""
         total, logs, sr = self.g_losses(state, batch)
         if self.cri_gan is not None:
+            # each pass from the pre-step buffers, as the JAX step applies D
+            # to both with the incoming stats (spectral norms' u moves D)
             with frozen_discriminator(state.net_d):
                 fake_pred = state.net_d(sr)
+            with frozen_discriminator(state.net_d):
                 real_pred = state.net_d(batch["gt"])
             l_g_gan = self.gan_g_loss(fake_pred, real_pred.detach())
             total = total + l_g_gan

@@ -70,9 +70,13 @@ def reflect_pad_2d(img: torch.Tensor, pad: int) -> torch.Tensor:
     return out.reshape(tuple(lead) + tuple(out.shape[-2:]))
 
 
-def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
-    """Source index in [0, n) of each of the n + 2*pad reflect-padded positions."""
-    u = torch.arange(-pad, n + pad, device=device).abs()
+def reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """Source index in [0, n) of each of the n + 2*pad reflect-padded
+    positions, as ``np.pad(mode="reflect")`` pads, also where pad >= n."""
+    u = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(u)
+    u = u.remainder(2 * (n - 1))
     return torch.where(u > n - 1, 2 * (n - 1) - u, u)
 
 
@@ -82,9 +86,9 @@ def reflect_pad_2d_adjoint(d_pad: torch.Tensor, pad: int) -> torch.Tensor:
     h, w = hp - 2 * pad, wp - 2 * pad
     nd = d_pad.dim()
     rows = d_pad.new_zeros(d_pad.shape[:-2] + (h, wp))
-    rows.index_add_(nd - 2, _reflect_index(h, pad, d_pad.device), d_pad)
+    rows.index_add_(nd - 2, reflect_index(h, pad, d_pad.device), d_pad)
     out = d_pad.new_zeros(d_pad.shape[:-2] + (h, w))
-    return out.index_add_(nd - 1, _reflect_index(w, pad, d_pad.device), rows)
+    return out.index_add_(nd - 1, reflect_index(w, pad, d_pad.device), rows)
 
 
 def apply_mask_stride(mask: torch.Tensor, stride: int) -> torch.Tensor:

@@ -113,6 +113,8 @@ def train_pipeline(root_path: str, args=None):
             if current_iter >= total_iters:
                 break
             current_iter += 1
+            if hasattr(model, "prepare_batch") and "lq" not in batch:
+                batch = model.prepare_batch(batch)     # degradation recipes (ssl_tpu/train.py:165)
             state, logs = model.train_step(state, batch)
             host_logs = {k: float(v) for k, v in logs.items()}
             iter_timer.record()

@@ -1,12 +1,13 @@
 """Carry weights from the JAX package's flax trees into the port's modules.
 
 ``params_from_jax(family, params, batch_stats=None)`` takes a flax ``params``
-tree as nested dicts of numpy arrays (and, for the discriminator, its
+tree as nested dicts of numpy arrays (and, for the discriminators, their
 ``batch_stats``) and returns a state dict for the port's module of that
 family, so both compute the same function from the same weights.  It reads
 numpy only.  Conventions: conv kernels HWIO -> OIHW, Dense (in, out) ->
 Linear (out, in) (or Conv1d (out, in, 1) where the torch module is a
-kernel-1 Conv1d), norm scale -> weight, BatchNorm mean/var -> running_*.
+kernel-1 Conv1d), norm scale -> weight, BatchNorm mean/var -> running_*,
+a spectral norm's ``u`` and ``sigma`` -> the buffers of the same names.
 Load the result with ``load_state_dict(sd, strict=False)``: batch norms'
 ``num_batches_tracked`` counters have no flax counterpart (the diffusion
 families load strictly).
@@ -23,7 +24,8 @@ import re
 import numpy as np
 import torch
 
-FAMILIES = ("RRDBNet", "VGGStyleDiscriminator", "VGGFeatureExtractor", "UNetModelDualcondV2",
+FAMILIES = ("RRDBNet", "VGGStyleDiscriminator", "UNetDiscriminatorSN", "VGGFeatureExtractor",
+            "UNetModelDualcondV2",
             "EncoderUNetModelWT", "AutoencoderKL", "StableSRSSL")
 
 
@@ -83,6 +85,20 @@ def _vgg_disc(params: dict, batch_stats: dict | None) -> dict:
     sd["linear1.weight"], sd["linear1.bias"] = _t(k), _t(params["Dense_0"]["bias"])
     sd["linear2.weight"] = _t(np.asarray(params["Dense_1"]["kernel"]).T)
     sd["linear2.bias"] = _t(params["Dense_1"]["bias"])
+    return sd
+
+
+def _unet_disc(params: dict, batch_stats: dict | None) -> dict:
+    """UNetDiscriminatorSN: conv0 and conv9 plain; conv1-8 spectrally
+    normalized, their raw kernel under ``Conv_0`` and, in ``batch_stats``,
+    ``SpectralNorm_0``'s ``Conv_0/kernel/u`` (1, out) and ``.../sigma``."""
+    sd: dict = {}
+    for name, node in params.items():
+        _conv(sd, name, node.get("Conv_0", node))
+        if batch_stats is not None and name in batch_stats:
+            sn = batch_stats[name]["SpectralNorm_0"]
+            sd[f"{name}.u"] = _t(sn["Conv_0/kernel/u"])
+            sd[f"{name}.sigma"] = _t(sn["Conv_0/kernel/sigma"])
     return sd
 
 
@@ -191,6 +207,8 @@ def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
         return _rrdbnet(params)
     if family == "VGGStyleDiscriminator":
         return _vgg_disc(params, batch_stats)
+    if family == "UNetDiscriminatorSN":
+        return _unet_disc(params, batch_stats)
     if family == "VGGFeatureExtractor":
         return _vgg_features(params)
     raise KeyError(f"no weight carry for {family!r}; known: {FAMILIES}")

@@ -124,7 +124,7 @@ def test_unported_options_raise():
         build_network({"type": "RRDBNet", "num_feat": 8, "num_block": 1,
                        "compute_dtype": "bfloat16"})
     with pytest.raises(KeyError):
-        build_network({"type": "UNetDiscriminatorSN"})
+        build_network({"type": "UNetDiscriminatorSNv1"})
 
 
 def test_schedules_match_jax():

@@ -2,8 +2,9 @@
 
 The kernel cannot run here, but the tiling that its grid and shared memory
 follow is plain Python: the shipped search 25 / window 9 and the small 9 / 5
-at the main paths' shapes (the ESRGAN step's b16, 3x128^2 and the diffusion
-mini-step's b2, 3x512^2) and at ragged ones.  The card checks that the
+at the main paths' shapes (the ESRGAN step's b16, 3x128^2, the diffusion
+mini-step's b2, 3x512^2 and the RealESRGAN-SSL step's b12, 3x400^2) and at
+ragged ones.  The card checks that the
 library agrees (the wrapper compares ``ssg_loss_fwd_blocks`` and
 ``ssg_loss_fwd_smem_bytes`` with it at every launch)."""
 
@@ -14,7 +15,8 @@ from ssl_tpu_torch.ops.ssg_cuda import K1_WARPS, MAX_SMEM_BYTES, k1_launch
 
 
 @pytest.mark.parametrize("search,window", [(25, 9), (9, 5)])
-@pytest.mark.parametrize("b,h,w", [(16, 128, 128), (2, 512, 512), (2, 20, 20), (1, 50, 45)])
+@pytest.mark.parametrize("b,h,w", [(16, 128, 128), (2, 512, 512), (12, 400, 400), (2, 20, 20),
+                                   (1, 50, 45)])
 def test_k1_launch_covers_every_pixel_once(b, h, w, search, window):
     geom = k1_launch(b, 3, h, w, search, window)
     th, tw = geom.tile
