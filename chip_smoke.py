@@ -12,7 +12,8 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            the shipped search 25 / window 9 / sigma 0.004 on smooth images
            at 32^2, at the ESRGAN step's shape (b16, 3x128^2), at the
            diffusion mini-step's (b2, 3x512^2) and at the RealESRGAN-SSL
-           step's (b12, 3x400^2, with real edge masks), and the ESRGAN
+           step's (b12, 3x400^2, with real edge masks; b12, 3x256^2 in its
+           host mode), and the ESRGAN
            step's own inputs (bench.py's uniform images, on which every off-centre q is
            0); forward outputs and d_sr through the autograd function, with
            the L1 subgradient's ties accounted for, and a second launch bit
@@ -59,12 +60,27 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            and K2 17 forward and 15 backward per mini-step, every K2
            kernel launched; times, peak memory and K2's forward and
            backward device time per mini-step
-8. train   the ESRGAN-SSL train step at the shipped widths (RRDBNet 64/23/32,
+8. diffusion_cli  StableSR-SSL training through its CLI
+           (ssl_tpu_torch.diffusion.main --train) at the same width with
+           model.use_flash_attention=true as a dotlist override, on files:
+           24 GT PNGs of 512^2 made on the card, .mat masks from the
+           generate_mask entry point, a .json base file with ssl_base.yml's
+           values (crop 512, batch 2, 4 loader processes, the shipped
+           degradation block on the host degrader); 24 mini-steps (two
+           updates: losses finite, K1 1, K2 17 forward and 15 backward per
+           mini-step, the weights moved at mini-steps 12 and 24 only),
+           ckpt_12.pkl in the JAX layout, train_state_24.pkl reloaded bit
+           for bit, --resume auto to 36, the test CLI on ckpt_12.pkl and
+           ckpt_24.pkl (one 512^2 request of 50 steps each: two different
+           images); the host C++ filter2d and JPEG held against their numpy
+           versions on 2 x 512^2; ms per mini-step, data wait and the host
+           degrader's share from the CLI's timers
+9. train   the ESRGAN-SSL train step at the shipped widths (RRDBNet 64/23/32,
            VGGStyleDiscriminator 64, VGG19 conv5_4, SSL 25/9/0.004), batch 16,
            gt 128: one warm-up step and 3 timed steps through build_model ->
            init_state -> train_step, with the K1 launch count read around
            them
-9. cli     the ESRGAN-SSL train and test CLIs (ssl_tpu_torch.train /
+10. cli    the ESRGAN-SSL train and test CLIs (ssl_tpu_torch.train /
            ssl_tpu_torch.test) at the same widths on files: 24 GT PNGs of
            192^2 written through utils/png.py, their LQ and .mat edge masks
            made on the card, read by 4 loader processes; a .json option file
@@ -75,7 +91,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            decoding with cv2 where it imports); the test CLI on net_g_6.pth
            whole and tiled; times per iteration and the loader's data wait
            from the logger's timers, and the loader alone with each decoder
-10. realesrgan  the RealESRGAN-SSL train and test CLIs at the shipped widths
+11. realesrgan  the RealESRGAN-SSL train and test CLIs at the shipped widths
            (RRDBNet 64/23/32, UNetDiscriminatorSN 64, VGG19 at five layers,
            SSL 25/9/0.004) on files: 24 GT PNGs of 512^2 made on the card,
            their .mat masks from the generate_mask entry point, a .json
@@ -86,10 +102,13 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            training state reloaded bit for bit with the pool and the
            generators, --auto_resume to 6, the test CLI on a BlindLR-style
            set (PSNR/SSIM); the degradation + USM + pool timed alone, and
-           the degradation held card against CPU with TF32 off.  K1 is also
-           held at its shape (b12, 3x400^2) in the kernel phase, on
+           the degradation held card against CPU with TF32 off; then 3
+           iterations with degradation_device: false (the host degrader:
+           crop to gt_size 256, the host pool full at the third, its
+           streams and pool reloaded bit for bit).  K1 is also held at its
+           shapes (b12, 3x400^2 and 3x256^2) in the kernel phase, on
            pictures with real edge masks
-11. kernels one line per ported kernel: launches on its main paths, error
+12. kernels one line per ported kernel: launches on its main paths, error
            against the plain version, times and the bound
 
 then the card's name and power limit as nvidia-smi reports them, and last
@@ -202,6 +221,20 @@ CLI_METRICS = {"psnr": {"type": "calculate_psnr", "crop_border": 4, "test_y_chan
 RE_TRAIN, RE_GT_IMG, RE_CROP, RE_B, RE_WORKERS = 24, 512, 400, 12, 6
 RE_QUEUE, RE_ENLARGE, RE_ITERS, RE_RESUME_ITERS = 24, 3, 4, 6
 RE_TEST_GT, RE_TEST_SIZE, RE_VARIANTS = 2, (256, 192), ("bicubic", "area_noise")
+# RealESRGAN-SSL's host mode (degradation_device: false) after the device
+# runs: RE_HOST_ITERS iterations at batch RE_B with the pool of RE_QUEUE pairs.
+RE_HOST_ITERS = 3
+# ... which crops the degraded pairs to the train set's gt_size (the YAML's).
+RE_HOST_GT = 256
+# StableSR-SSL training through its CLI (ssl_tpu_torch.diffusion.main --train):
+# DC_TRAIN GT PNGs of TRAIN_SIZE^2 (the size of the shipped
+# multiscale_HR_sub_512), crop TRAIN_SIZE, batch TRAIN_B, DC_WORKERS loader
+# processes, 12 mini-steps an update; DC_STEPS mini-steps (two updates) with a
+# log line every DC_LOG and checkpoints and previews every DC_SAVE, then
+# --resume auto to DC_RESUME_STEPS; the test CLI on the two checkpoints, one
+# (4 SERVE_LQ)^2 request of SERVE_STEPS steps each.
+DC_TRAIN, DC_WORKERS = 24, 4
+DC_STEPS, DC_LOG, DC_SAVE, DC_RESUME_STEPS = 24, 4, 12, 36
 # The degradation hold, card against CPU, TF32 off: each stage is float32
 # convolutions, resizes and 8x8 DCTs summed in other orders, so the output
 # may move by one uint8 level where a value, or a JPEG coefficient, lies
@@ -482,7 +515,8 @@ def phase_kernel():
              ("main_smooth", smooth_case(MAIN_B, MAIN_GT, 3, 0.25), shipped, 1e-4),
              ("main_path", bench_case(MAIN_B, MAIN_GT, 0, 0.25), shipped, 1e-5),
              ("diffusion_smooth", smooth_case(TRAIN_B, TRAIN_SIZE, 4, 0.25), shipped, 1e-4),
-             ("realesrgan_edges", edge_case(RE_B, RE_CROP, 6), shipped, 1e-4)]
+             ("realesrgan_edges", edge_case(RE_B, RE_CROP, 6), shipped, 1e-4),
+             ("realesrgan_host_edges", edge_case(RE_B, RE_HOST_GT, 7), shipped, 1e-4)]
     results = {}
     for name, arrays, cfg, map_rtol in cases:
         sr, gt, mask = (torch.from_numpy(a).cuda() for a in arrays)
@@ -492,7 +526,7 @@ def phase_kernel():
             fail(f"K1 {name}: a second launch differs from the first")
         del first, again
         one = torch.ones((), device="cuda")
-        iters = 20 if sr.shape[0] == MAIN_B or sr.shape[-1] in (TRAIN_SIZE, RE_CROP) else 50
+        iters = 20 if sr.shape[0] in (MAIN_B, RE_B) or sr.shape[-1] == TRAIN_SIZE else 50
         kernel_ms = time_ms(lambda: ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg), iters)
         device_ms = sum(kernel_device_ms(lambda: ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg),
                                          "ssg_loss_fwd", 5).values())
@@ -648,23 +682,27 @@ def k2_bwd_times(b, h, n, m, d, splits=(1, 1)):
 
 def kernel_device_ms(fn, prefix: str, iters: int = 5) -> dict:
     """Device time (ms per call of ``fn``) of each kernel whose name contains
-    ``prefix``, by its short name, from torch.profiler over ``iters`` calls."""
+    ``prefix``, by its short name, from torch.profiler over ``iters`` calls.
+    A trace that holds none of those kernels is taken again, up to three
+    times in all: the profiler has now and then handed back a trace without
+    the CUDA events of a run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        short = re.search(re.escape(prefix) + r"\w*", e.key)
-        if e.device_type.name == "CUDA" and short:
-            out[short[0]] = out.get(short[0], 0.0) + e.self_device_time_total / 1e3 / iters
-    if not out or not all(v > 0 for v in out.values()):
-        fail(f"the profiler shows no device time for {prefix}: {out}")
-    return out
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            short = re.search(re.escape(prefix) + r"\w*", e.key)
+            if e.device_type.name == "CUDA" and short:
+                out[short[0]] = out.get(short[0], 0.0) + e.self_device_time_total / 1e3 / iters
+        if out and all(v > 0 for v in out.values()):
+            return out
+    fail(f"the profiler shows no device time for {prefix}: {out}")
 
 
 def phase_k2_bwd():
@@ -1829,6 +1867,7 @@ def phase_realesrgan(device: str = "cuda"):
         hold = degradation_hold(batch, model.degrade_cfg)
         del model, state, batch
         torch.cuda.empty_cache()
+        host, launches_h = realesrgan_host_run(root, opt, device)
 
     fill = RE_QUEUE // RE_B
     result = {
@@ -1856,17 +1895,441 @@ def phase_realesrgan(device: str = "cuda"):
         "test": dict(test_out, seconds=test_s),
         "degradation_usm_pool_ms": {"fill": front_ms[:fill], "full": front_ms[fill:]},
         "degradation_alone_ms": degrade_ms, "usm_alone_ms": usm_ms,
-        "degradation_hold_card_vs_cpu": hold,
+        "degradation_hold_card_vs_cpu": hold, "host_mode": host,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "card": card()}
     emit(result)
-    return launches + launches_r
+    return launches + launches_r, launches_h
 
 
-def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan) -> dict:
+def ssl_base_train_cfg(d: dict) -> dict:
+    """options/diffusion/ssl_base.yml as a dict (the card's machine may lack
+    yaml): ``ssl_base_cfg``'s model, sslopt and train blocks without the
+    flash switch (the CLI gets it as an override), the shipped degradation
+    block, the data block on ``diffusion_cli_fixtures``'s folders, and this
+    phase's cuts (DC_STEPS mini-steps, a log line every DC_LOG, checkpoints
+    and previews every DC_SAVE)."""
+    cfg = ssl_base_cfg()
+    del cfg["model"]["use_flash_attention"]
+    cfg["degradation"] = {
+        "resize_prob": [0.2, 0.7, 0.1], "resize_range": [0.3, 1.5], "gaussian_noise_prob": 0.5,
+        "noise_range": [1, 15], "poisson_scale_range": [0.05, 2.0], "gray_noise_prob": 0.4,
+        "jpeg_range": [60, 95], "second_blur_prob": 0.5, "resize_prob2": [0.3, 0.4, 0.3],
+        "resize_range2": [0.6, 1.2], "gaussian_noise_prob2": 0.5, "noise_range2": [1, 12],
+        "poisson_scale_range2": [0.05, 1.0], "gray_noise_prob2": 0.4, "jpeg_range2": [60, 100],
+        "no_degradation_prob": 0.01, "queue_size": 0}
+    cfg["data"] = {"crop_size": TRAIN_SIZE, "batch_size": TRAIN_B, "num_workers": DC_WORKERS,
+                   "train": {"type": "TwoStageDegradationImgMaskDataset",
+                             "dataroot_gt": [d["gt"]], "dataroot_gt_mask": [d["mask"]]}}
+    cfg["train"].update(max_steps=DC_STEPS, log_every=DC_LOG, save_every=DC_SAVE,
+                        image_every=DC_SAVE)
+    return cfg
+
+
+def diffusion_cli_fixtures(root: str, device: str) -> tuple[dict, float]:
+    """DC_TRAIN GT PNGs of TRAIN_SIZE^2 made on the card (``smooth_picture``,
+    written through ``utils/img_util.py``), their ``.mat`` masks from the
+    ``generate_mask`` entry point at threshold 20, and one SERVE_LQ^2 LQ PNG
+    for the test CLI.  Returns the folders and the masks' share of edge
+    pixels."""
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.scripts import generate_mask
+    from ssl_tpu_torch.utils.img_util import imwrite
+
+    d = {k: os.path.join(root, k) for k in ("gt", "lq")}
+    for path in d.values():
+        os.makedirs(path)
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def save(img_u8, path):                               # (3, h, w) RGB -> BGR file
+        imwrite(np.ascontiguousarray(img_u8.byte().cpu().numpy().transpose(1, 2, 0)[..., ::-1]),
+                path)
+
+    for i in range(DC_TRAIN):
+        save(smooth_picture(TRAIN_SIZE, TRAIN_SIZE, gen, device),
+             os.path.join(d["gt"], f"{i:04d}.png"))
+    save(smooth_picture(SERVE_LQ, SERVE_LQ, gen, device), os.path.join(d["lq"], "lq0.png"))
+    d["mask"] = generate_mask.main(["--input", d["gt"], "--output", os.path.join(root, "masks"),
+                                    "--threshold", "20"])
+    with open(os.path.join(os.path.dirname(d["mask"]), "edge_pixel_stats.txt")) as f:
+        shares = [float(line.split()[2]) for line in f if line.strip()]
+    return d, float(np.mean(shares))
+
+
+def host_degrader_hold(seed: int = 3) -> dict:
+    """The host C++ (``ssl_tpu_torch/native``) against its numpy plain
+    versions on a 2 x 512^2 batch of seeded pictures: ``filter2d`` with two
+    of the loader's 21 x 21 blur kernels and the JPEG round trip at two
+    qualities, each within one uint8 level after rounding on at most
+    RE_TIE_SHARE of the values."""
+    import numpy as np
+    import torch
+    from ssl_tpu_torch import native
+    from ssl_tpu_torch.data.realesr_degradation import filter2d_np, jpeg_np
+    from ssl_tpu_torch.data.realesrgan_dataset import _KernelSynth
+
+    gen = torch.Generator().manual_seed(seed)
+    imgs = torch.stack([smooth_picture(TRAIN_SIZE, TRAIN_SIZE, gen, "cpu") / 255
+                        for _ in range(TRAIN_B)]).permute(0, 2, 3, 1).numpy()
+    np.random.seed(seed)
+    kernels = np.stack([_KernelSynth({}).sample()[0] for _ in range(TRAIN_B)])
+    quality = [60.0, 95.0]
+    t0 = time.perf_counter()
+    native.library()                      # g++ builds it here in a fresh checkout
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    filtered = native.filter2d_batch(imgs, kernels)
+    t1 = time.perf_counter()
+    jpeg = native.jpeg_roundtrip_batch(imgs, quality)
+    t2 = time.perf_counter()
+    plain = {"filter2d": np.stack([filter2d_np(x, k) for x, k in zip(imgs, kernels)]),
+             "jpeg": np.stack([jpeg_np(x, q) for x, q in zip(imgs, quality)])}
+    out = {"shape": list(imgs.shape), "kernel_sizes": [int((k.sum(0) != 0).sum()) for k in kernels],
+           "library_build_s": build_s, "ms": {"filter2d": 1e3 * (t1 - t0), "jpeg": 1e3 * (t2 - t1)}}
+    for name, got in (("filter2d", filtered), ("jpeg", jpeg)):
+        levels = np.abs(np.round(got * 255) - np.round(plain[name] * 255))
+        share = float((levels > 0).mean())
+        out[name] = {"max_abs": float(np.abs(got - plain[name]).max()),
+                     "values_one_level_off": int((levels > 0).sum()), "share": share}
+        if levels.max() > 1 or share > RE_TIE_SHARE:
+            fail(f"diffusion_cli: the host C++ {name} is {levels.max()} levels from its plain "
+                 f"version on {share} of the values (hold: 1 level on at most {RE_TIE_SHARE})")
+    return out
+
+
+def phase_diffusion_cli(device: str = "cuda"):
+    """StableSR-SSL training through its CLI (``ssl_tpu_torch.diffusion.main
+    --train``) at the full width of options/diffusion/ssl_base.yml, with
+    ``model.use_flash_attention=true`` as a dotlist override, on the
+    ``diffusion_cli_fixtures`` data: DC_STEPS mini-steps (two updates of 12),
+    the training state reloaded into a fresh state bit for bit,
+    ``--resume auto`` to DC_RESUME_STEPS, then the test CLI on the two
+    checkpoints.  K1 once, K2's forward 17 and its backward 15 times per
+    mini-step; the weights move at every 12th mini-step only.  Returns the
+    launches of the CLI's training runs by kernel."""
+    import gc
+    import pickle
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.data.realesr_degradation import RealESRGANDegrader
+    from ssl_tpu_torch.diffusion import main as dmain
+    from ssl_tpu_torch.diffusion import test_cli
+    from ssl_tpu_torch.diffusion.ddpm_ssl import StableSRSSL, trainable
+    from ssl_tpu_torch.ops import attention_cuda, ssg_cuda
+    from ssl_tpu_torch.utils.img_util import imread
+    from ssl_tpu_torch.utils.weight_port import params_to_jax
+
+    per_step_expected = {"k1": 1, "k2_fwd": TRAIN_K2_FWD, "k2_bwd": TRAIN_K2_BWD}
+    with tempfile.TemporaryDirectory(prefix="diffusion_cli_smoke_") as root:
+        t0 = time.perf_counter()
+        d, edge_share = diffusion_cli_fixtures(os.path.join(root, "data"), device)
+        fixtures_s = time.perf_counter() - t0
+        cfg = ssl_base_train_cfg(d)
+        cfg_path = os.path.join(root, "ssl_base.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        logdir = os.path.join(root, "logs")
+        hold = host_degrader_hold()
+        counters = (ssg_cuda, "launches"), (attention_cuda, "launches"), \
+            (attention_cuda, "bwd_launches")
+
+        def counts():
+            return dict(zip(per_step_expected, (getattr(m, a) for m, a in counters)))
+
+        def run(extra):
+            """One CLI run: its records, the live state and degrader, the K1 and
+            K2 launches by mini-step and by kernel, and wall seconds."""
+            records, steps, live = [], [], {}
+            call = StableSRSSL.train_step
+
+            def step(self, state, batch, draws=None):
+                if "start" not in live:
+                    live["start"] = [p.detach().clone() for p in trainable(state.params)]
+                before = counts()
+                out = call(self, state, batch, draws)
+                steps.append({k: v - before[k] for k, v in counts().items()})
+                return out
+
+            def on_iteration(record, state, degrader):
+                moved = not all(torch.equal(a, p)
+                                for a, p in zip(live["start"], trainable(state.params)))
+                if moved:
+                    live["start"] = [p.detach().clone() for p in trainable(state.params)]
+                records.append(dict(record, moved=moved))
+                live.update(state=state, degrader=degrader)
+
+            for m, a in counters:
+                setattr(m, a, 0)
+            for kl in (attention_cuda.fwd_kernel_launches, attention_cuda.bwd_kernel_launches):
+                kl.update(dict.fromkeys(kl, 0))
+            StableSRSSL.train_step = step
+            args = types.SimpleNamespace(base=cfg_path, logdir=logdir, device=device,
+                                         overrides=["model.use_flash_attention=true"] + extra,
+                                         resume="auto" if extra else None)
+            try:
+                t0 = time.perf_counter()
+                state = dmain.train(args, on_iteration)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                StableSRSSL.train_step = call
+            kernels = {**attention_cuda.fwd_kernel_launches, **attention_cuda.bwd_kernel_launches,
+                       **counts()}
+            return records, state, live["degrader"], steps, kernels, wall
+
+        def check(records, steps, first, last):
+            label = f"mini-steps {first}-{last}"
+            if [r["step"] for r in records] != list(range(first, last + 1)):
+                fail(f"diffusion_cli: {label}: the CLI ran steps {[r['step'] for r in records]}")
+            for r in records:
+                if not all(np.isfinite(v) for v in r["logs"].values()):
+                    fail(f"diffusion_cli: mini-step {r['step']} logged {r['logs']}")
+                if r["moved"] != (r["step"] % TRAIN_MINI_STEPS == 0):
+                    fail(f"diffusion_cli: after mini-step {r['step']} the weights "
+                         f"{'moved' if r['moved'] else 'did not move'}")
+            if any(s != per_step_expected for s in steps):
+                fail(f"diffusion_cli: {label}: launches per mini-step {steps}, expected "
+                     f"{per_step_expected}")
+
+        torch.cuda.reset_peak_memory_stats()
+        records, state, degrader, steps, kernels, wall = run([])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(records, steps, 1, DC_STEPS)
+        idle = [k_ for k_, c in kernels.items() if c == 0]
+        if idle:
+            fail(f"diffusion_cli: kernels {idle} were never launched: {kernels}")
+        for f in [f"ckpt_{s}.pkl" for s in (DC_SAVE, DC_STEPS)] + \
+                 [f"train_state_{s}.pkl" for s in (DC_SAVE, DC_STEPS)] + \
+                 [f"images/train/{k}_gs-{DC_SAVE:06d}.png"
+                  for k in ("inputs", "gt", "reconstruction", "pred_x0")]:
+            if not os.path.isfile(os.path.join(logdir, f)):
+                fail(f"diffusion_cli: {f} was not written")
+
+        # ckpt_12.pkl in the JAX layout; train_state_24.pkl reloaded bit for bit
+        model = dmain.build_from_config(cfg)
+        fresh = model.init_state(seed=1, device=device)
+        fresh_degrader = RealESRGANDegrader(cfg["degradation"], scale=1, seed=1,
+                                            queue_size=cfg["degradation"]["queue_size"])
+        want = params_to_jax("StableSRSSL", fresh.params)
+        with open(os.path.join(logdir, f"ckpt_{DC_SAVE}.pkl"), "rb") as f:
+            got = pickle.load(f)
+
+        def layout(tree, path=""):
+            if isinstance(tree, dict):
+                return {k_: v for key in sorted(tree) for k_, v in
+                        layout(tree[key], f"{path}/{key}").items()}
+            return {path: (tuple(tree.shape), str(tree.dtype), type(tree).__name__)}
+        if layout(got) != layout(want):
+            diff = set(layout(got).items()) ^ set(layout(want).items())
+            fail(f"diffusion_cli: ckpt_{DC_SAVE}.pkl is not in the JAX layout: "
+                 f"{sorted(diff)[:6]}")
+        n_leaves = len(layout(want))
+        dmain.load_train_state(os.path.join(logdir, f"train_state_{DC_STEPS}.pkl"), fresh,
+                               fresh_degrader)
+        n_tensors = 0
+        for name in ("params", "ema_params"):
+            for a, b in zip(trainable(getattr(state, name)), trainable(getattr(fresh, name))):
+                n_tensors += 1
+                if not torch.equal(a, b):
+                    fail(f"diffusion_cli: a reloaded {name} tensor differs from the saved state")
+        want_opt, got_opt = state.opt.state_dict()["state"], fresh.opt.state_dict()["state"]
+        if sorted(want_opt) != sorted(got_opt):
+            fail("diffusion_cli: the reloaded AdamW state has other parameters")
+        for pid, st in want_opt.items():
+            for k_, v in st.items():
+                n_tensors += 1
+                if not torch.equal(v, got_opt[pid][k_]):
+                    fail(f"diffusion_cli: reloaded AdamW state {pid}.{k_} differs")
+        same_deg = degrader.get_state(), fresh_degrader.get_state()
+        if not (torch.equal(state.generator.get_state(), fresh.generator.get_state())
+                and (state.step, state.mini_step) == (fresh.step, fresh.mini_step) == (DC_STEPS, 0)
+                and torch.equal(same_deg[0]["np_rng"][1], same_deg[1]["np_rng"][1])
+                and same_deg[0]["np_rng"][2:] == same_deg[1]["np_rng"][2:]
+                and same_deg[0]["py_rng"] == same_deg[1]["py_rng"]):
+            fail("diffusion_cli: the reloaded generator, step or degrader streams differ")
+        del model, fresh, state, degrader
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        records_r, resumed, _, steps_r, kernels_r, wall_r = run(
+            [f"train.max_steps={DC_RESUME_STEPS}"])
+        check(records_r, steps_r, DC_STEPS + 1, DC_RESUME_STEPS)
+        if resumed.step != DC_RESUME_STEPS:
+            fail(f"diffusion_cli: the resumed run ended at step {resumed.step}")
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the test CLI on both checkpoints: one request each
+        test_cfg = os.path.join(root, "ssl_base_flash.json")
+        with open(test_cfg, "w") as f:
+            json.dump(dmain.apply_dotlist(cfg, ["model.use_flash_attention=true"]), f)
+        request_ms, outs = {}, {}
+        restore = test_cli.restore
+
+        def timed_restore(model, state, lq_up, *a, **kw):
+            t0 = time.perf_counter()
+            img = restore(model, state, lq_up, *a, **kw)
+            torch.cuda.synchronize()
+            request_ms[ckpt] = 1e3 * (time.perf_counter() - t0)
+            return img
+        test_cli.restore = timed_restore
+        try:
+            for ckpt in (DC_SAVE, DC_STEPS):
+                out_dir = os.path.join(root, f"restored_{ckpt}")
+                t0 = time.perf_counter()
+                test_cli.main(["--config", test_cfg, "--ckpt",
+                               os.path.join(logdir, f"ckpt_{ckpt}.pkl"), "--init-img", d["lq"],
+                               "--outdir", out_dir, "--ddpm_steps", str(SERVE_STEPS)]
+                              + (["--device", device] if device != "cuda" else []))
+                outs[ckpt] = imread(os.path.join(out_dir, "lq0.png"), float32=False)
+                request_ms[f"cli_{ckpt}_s"] = time.perf_counter() - t0
+        finally:
+            test_cli.restore = restore
+        if outs[DC_SAVE].shape != (4 * SERVE_LQ, 4 * SERVE_LQ, 3) or \
+                np.array_equal(outs[DC_SAVE], outs[DC_STEPS]):
+            fail(f"diffusion_cli: the two checkpoints restored {outs[DC_SAVE].shape} images "
+                 "that are the same")
+        image_diff = float(np.abs(outs[DC_SAVE].astype(int) - outs[DC_STEPS].astype(int)).mean())
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    def stats(recs):
+        warm = [r for r in recs[1:] if r["step"] % TRAIN_MINI_STEPS]
+        applying = [r for r in recs if r["step"] % TRAIN_MINI_STEPS == 0]
+        it = mean([r["iter_s"] for r in warm])
+        degrade = mean([r["degrade_s"] for r in recs])
+        parts = {k: mean([r["degrade_parts"].get(k, 0.0) for r in recs])
+                 for k in recs[0]["degrade_parts"]}
+        return {"ms_per_mini_step_warm": 1e3 * it,
+                "ms_per_mini_step_applying": 1e3 * mean([r["iter_s"] for r in applying]),
+                "data_wait_ms_per_mini_step": 1e3 * mean([r["data_s"] for r in warm]),
+                "data_wait_share": mean([r["data_s"] for r in warm]) / it,
+                "degrader_ms_per_batch": 1e3 * degrade,
+                "degrader_parts_ms": {k: 1e3 * v for k, v in parts.items()},
+                "jpeg_share_of_degrader": parts.get("jpeg", 0.0) / degrade,
+                "degrader_share_of_iteration": mean([r["degrade_s"] for r in warm]) / it,
+                "step_ms_warm": 1e3 * mean([r["iter_s"] - r["data_s"] - r["degrade_s"]
+                                            for r in warm]),
+                "first_iteration_extra_ms": 1e3 * (recs[0]["iter_s"] - it),
+                "first_data_wait_ms": 1e3 * recs[0]["data_s"]}
+
+    launches = {k: kernels[k] + kernels_r[k] for k in kernels}
+    emit({"phase": "diffusion_cli", "config": "options/diffusion/ssl_base.yml",
+          "override": "model.use_flash_attention=true", "train_images": DC_TRAIN,
+          "size": TRAIN_SIZE, "batch": TRAIN_B, "workers": DC_WORKERS, "accumulate": 12,
+          "fixtures_s": fixtures_s, "mask_edge_share": edge_share, "decoder": decoder(),
+          "reduced": {"max_steps": [800000, DC_STEPS], "log_every": [100, DC_LOG],
+                      "save_every": [1000, DC_SAVE], "image_every": [1000, DC_SAVE],
+                      "resumed_to": DC_RESUME_STEPS,
+                      "test_cli": f"ckpt_{DC_SAVE}.pkl and ckpt_{DC_STEPS}.pkl, one "
+                                  f"{4 * SERVE_LQ}^2 request each, {SERVE_STEPS} steps"},
+          "run": stats(records), "resumed": stats(records_r), "wall_s": wall,
+          "resumed_wall_s": wall_r, "peak_mem_gb": peak_gb,
+          "launches_per_mini_step": per_step_expected, "launches": launches,
+          "losses_last": records[-1]["logs"], "ckpt_leaves": n_leaves,
+          "reloaded_tensors_bit_for_bit": n_tensors,
+          "test_cli_request_ms": {k: v for k, v in request_ms.items() if isinstance(k, int)},
+          "test_cli_wall_s": {k: v for k, v in request_ms.items() if isinstance(k, str)},
+          "restored_images_mean_abs_diff": image_diff, "host_cpp_hold": hold,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
+    return launches
+
+
+def realesrgan_host_run(root: str, opt: dict, device: str) -> tuple[dict, int]:
+    """RE_HOST_ITERS iterations of the RealESRGAN-SSL train CLI with
+    ``degradation_device: false`` on the ``realesrgan`` phase's data: each
+    batch of RE_B is degraded on the host (``prepare_batch``: the host C++
+    and numpy), cropped to ``gt_size`` (device mode never crops: ROADMAP.md
+    section 3) and passed through the host pool of RE_QUEUE pairs (pointer
+    RE_B, RE_QUEUE, RE_QUEUE: the third iteration takes the full branch);
+    then the training state reloaded into a fresh model, its host state (the
+    degrader's two streams and the pool, ``save_degradation_pool``) bit for
+    bit.  Returns the result and the K1 launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    import ssl_tpu_torch.train as train_cli
+    from ssl_tpu_torch.models import build_model
+    from ssl_tpu_torch.models.realesrganssl_model import RealESRGANSSLModel
+    from ssl_tpu_torch.ops import ssg_cuda
+
+    hopt = dict(opt, name="RealESRGANSSL_x4_host", degradation_device=False,
+                save_degradation_pool=True)
+    hopt["train"] = dict(opt["train"], total_iter=RE_HOST_ITERS)
+    path = os.path.join(root, "train_realesrgan_host.json")
+    with open(path, "w") as f:
+        json.dump(hopt, f)
+    gt_size = hopt["datasets"]["train"]["gt_size"]
+    ptrs, logs, live = [], [], {}
+    step_call = RealESRGANSSLModel.train_step
+
+    def step(self, state, batch, draws=None):
+        out = step_call(self, state, batch, draws)
+        ptrs.append(self.degrader.pool.ptr)
+        logs.append({k: float(v) for k, v in out[1].items()})
+        live["model"] = self
+        return out
+    spy = Spy(RealESRGANSSLModel, ["prepare_batch"], device)
+    RealESRGANSSLModel.train_step = step
+    try:
+        ssg_cuda.launches = 0
+        t0 = time.perf_counter()
+        state = train_cli.train_pipeline(root, ["-opt", path]
+                                         + (["--device", device] if device != "cuda" else []))
+        wall = time.perf_counter() - t0
+        launches = ssg_cuda.launches
+    finally:
+        spy.restore()
+        del RealESRGANSSLModel.train_step                 # the mixin's again
+    gc.collect()
+    prepared = spy.calls["prepare_batch"]
+    if launches != RE_HOST_ITERS or len(prepared) != RE_HOST_ITERS:
+        fail(f"realesrgan host mode: K1 launched {launches} times, {len(prepared)} batches "
+             f"prepared in {RE_HOST_ITERS} iterations")
+    if ptrs != [min(RE_B * (i + 1), RE_QUEUE) for i in range(RE_HOST_ITERS)]:
+        fail(f"realesrgan host mode: the host pool's pointer read {ptrs}")
+    shapes = {k: tuple(v.shape) for k, v in prepared[-1][1].items()}
+    if shapes != {"gt": (RE_B, 3, gt_size, gt_size), "gt_mask": (RE_B, 1, gt_size, gt_size),
+                  "lq": (RE_B, 3, gt_size // SCALE, gt_size // SCALE)}:
+        fail(f"realesrgan host mode: prepared batch {shapes}")
+    for x in logs:
+        if not all(np.isfinite(v) for v in x.values()):
+            fail(f"realesrgan host mode: losses {x}")
+    exp = os.path.join(root, "experiments", hopt["name"], "training_states")
+    fresh = build_model(dict(hopt, is_train=True), device=device)
+    fresh.load_training_state(fresh.init_state(seed=1), exp, RE_HOST_ITERS)
+    want, got = live["model"].host_state(), fresh.host_state()
+    same = (torch.equal(want["np_rng"][1], got["np_rng"][1])
+            and want["np_rng"][2:] == got["np_rng"][2:] and want["py_rng"] == got["py_rng"]
+            and want["pool_ptr"] == got["pool_ptr"] == RE_QUEUE
+            and sorted(want["pool_buffers"]) == sorted(got["pool_buffers"])
+            and all(torch.equal(v, got["pool_buffers"][k])
+                    for k, v in want["pool_buffers"].items()))
+    if not same:
+        fail("realesrgan host mode: the reloaded host state (streams, pool) differs")
+    del fresh, state, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"iterations": RE_HOST_ITERS, "batch": RE_B, "gt_size": gt_size,
+            "queue_size": RE_QUEUE, "pool_ptr_by_iter": ptrs, "prepared_shapes": shapes,
+            "host_degrader_ms_per_iter": [1e3 * t for t, _ in prepared],
+            "losses_last_iter": logs[-1], "wall_s": wall, "k1_launches": launches,
+            "pool_pairs_bit_for_bit": len(want["pool_buffers"])}, launches
+
+
+def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
     phases' results (K1's, K2's forward's and backward's by case, the serving
-    K2 launches and forward kernel launches, the diffusion_train launch
-    counts, and the K1 launches of the ESRGAN train step and of the CLIs)."""
+    K2 launches and forward kernel launches, the diffusion_train and
+    diffusion_cli launch counts, and the K1 launches of the ESRGAN train step
+    and of the CLIs)."""
     from torch_attention_cases import TRAIN_MIX_BWD
 
     serve_calls, serve_fwd = serve
@@ -1893,8 +2356,9 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan) -> dic
                 TRAIN_MIX_BWD[c] for c in runs)
         entry = {"name": f"flash_attn_bwd_{f}", "route": "cuda",
                  "source": "ssl_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": replaces,
-                 "launches": train[f"flash_attn_bwd_{f}"],
-                 "launches_by_path": {"diffusion_train": train[f"flash_attn_bwd_{f}"]},
+                 "launches": train[f"flash_attn_bwd_{f}"] + dcli[f"flash_attn_bwd_{f}"],
+                 "launches_by_path": {"diffusion_train": train[f"flash_attn_bwd_{f}"],
+                                      "diffusion_cli": dcli[f"flash_attn_bwd_{f}"]},
                  "max_abs_err": max(k2_bwd[c]["max_abs_err"] for c in runs),
                  "ms": per_launch(lambda r: r["kernel_ms"][f"flash_attn_bwd_{f}"]),
                  "bound_ms": max(ops, nbytes),
@@ -1934,8 +2398,9 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan) -> dic
             plain, library = mean(lambda r: r["plain_ms"]), mean(lambda r: r["library_ms"])
         return {"name": name, "route": "cuda", "source": "ssl_tpu_torch/csrc/flash_attn_fwd.cu",
                 "replaces": "ssl_tpu/ops/attention.py:28",
-                "launches": serve_fwd[name] + train[name],
-                "launches_by_path": {"serve": serve_fwd[name], "diffusion_train": train[name]},
+                "launches": serve_fwd[name] + train[name] + dcli[name],
+                "launches_by_path": {"serve": serve_fwd[name], "diffusion_train": train[name],
+                                     "diffusion_cli": dcli[name]},
                 "max_abs_err": max(k2[c]["max_abs_err"] for c in mix),
                 "ms": mean(lambda r: r["device_ms"][name]),
                 "wrapper_ms": mean(lambda r: r["ms"]), "plain_ms": plain, "library_ms": library,
@@ -1945,8 +2410,9 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan) -> dic
                              "the kernel's device time (profiler), wrapper_ms the call's (CUDA "
                              "events); max_abs_err is the whole forward's"}
 
-    k1_runs = {"main_path": launches + cli, "diffusion_smooth": train["k1"],
-               "realesrgan_edges": realesrgan}
+    realesrgan, realesrgan_host = realesrgan
+    k1_runs = {"main_path": launches + cli, "diffusion_smooth": train["k1"] + dcli["k1"],
+               "realesrgan_edges": realesrgan, "realesrgan_host_edges": realesrgan_host}
 
     def k1_mean(key):
         return sum(w * k1[c][key] for c, w in k1_runs.items()) / sum(k1_runs.values())
@@ -1954,25 +2420,30 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan) -> dic
     return {"kernels": [{
         "name": "ssg_loss_fwd", "route": "cuda", "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu",
         "replaces": "ssl_tpu/ops/ssg_pallas.py:41",
-        "launches": launches + cli + train["k1"] + realesrgan,
+        "launches": launches + cli + train["k1"] + realesrgan + realesrgan_host + dcli["k1"],
         "launches_by_path": {"esrgan_train": launches, "esrgan_cli": cli,
-                             "diffusion_train": train["k1"], "realesrgan_cli": realesrgan},
+                             "diffusion_train": train["k1"], "realesrgan_cli": realesrgan,
+                             "realesrgan_host_cli": realesrgan_host, "diffusion_cli": dcli["k1"]},
         "max_abs_err": max(k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth",
-                                                          "realesrgan_edges")),
+                                                          "realesrgan_edges",
+                                                          "realesrgan_host_edges")),
         "ms": k1_mean("device_ms"), "wrapper_ms": k1_mean("ms"), "plain_ms": k1_mean("plain_ms"),
         "bound_ms": k1_mean("bound_ms"), "bound_by": k1["main_path"]["bound_by"],
         "library_ms": None,
         "ms_by_shape": {"b16_3x128^2": k1["main_path"]["device_ms"],
                         "b2_3x512^2": k1["diffusion_smooth"]["device_ms"],
-                        "b12_3x400^2": k1["realesrgan_edges"]["device_ms"]},
+                        "b12_3x400^2": k1["realesrgan_edges"]["device_ms"],
+                        "b12_3x256^2": k1["realesrgan_host_edges"]["device_ms"]},
         "bound_ms_by_shape": {"b16_3x128^2": k1["main_path"]["bound_ms"],
                               "b2_3x512^2": k1["diffusion_smooth"]["bound_ms"],
-                              "b12_3x400^2": k1["realesrgan_edges"]["bound_ms"]},
+                              "b12_3x400^2": k1["realesrgan_edges"]["bound_ms"],
+                              "b12_3x256^2": k1["realesrgan_host_edges"]["bound_ms"]},
         "times_are": "mean per launch over the run's launches (b16 3x128^2 in the ESRGAN "
-                     "step and CLI, b2 3x512^2 in the diffusion mini-step, b12 3x400^2 in the "
-                     "RealESRGAN-SSL CLI); ms is the kernel's device time (profiler), wrapper_ms "
-                     "the call's (CUDA events); max_abs_err on smooth images and, at b12 "
-                     "3x400^2, on pictures with real edge masks"},
+                     "step and CLI, b2 3x512^2 in the diffusion mini-step and its CLI, b12 "
+                     "3x400^2 in the RealESRGAN-SSL CLI, b12 3x256^2 in its host mode); ms "
+                     "is the kernel's device time (profiler), wrapper_ms the call's (CUDA "
+                     "events); max_abs_err on smooth images and, at b12 3x400^2 and "
+                     "3x256^2, on pictures with real edge masks"},
         *(fwd_entry(f) for f in ("fwd", "fwd_d512", "fwd_combine")),
         *(bwd_entry(f, replaces) for f, replaces in bwd_kernels.items())]}
 
@@ -2006,13 +2477,15 @@ def main() -> int:
     train = phase_diffusion_train(model, state)
     del model, state
     torch.cuda.empty_cache()
+    dcli = phase_diffusion_cli()
+    torch.cuda.empty_cache()
     launches = phase_train()
     torch.cuda.empty_cache()
     cli = phase_cli()
     torch.cuda.empty_cache()
     realesrgan = phase_realesrgan()
 
-    emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan))
+    emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,12 +1,17 @@
 """Dataset builders (reference surface: basicsr/data/__init__.py).
 
 Counterpart of ``ssl_tpu/data/__init__.py`` for the paired datasets of the
-ESRGAN-SSL recipe and the GT + kernel datasets of RealESRGAN-SSL; the
-blind-SR, video and CFW datasets are later slices (ROADMAP.md)."""
+ESRGAN-SSL recipe, the GT + kernel datasets of RealESRGAN-SSL and the
+two-stage-degradation datasets of the diffusion tree; the blind-SR, video
+and CFW datasets are later slices (ROADMAP.md)."""
 from copy import deepcopy
 
+from ssl_tpu_torch.data import extra_datasets as _e  # noqa: F401
 from ssl_tpu_torch.data import paired_image_dataset as _p  # noqa: F401
 from ssl_tpu_torch.data import realesrgan_dataset as _r  # noqa: F401
+from ssl_tpu_torch.data.extra_datasets import (  # noqa: F401
+    TwoStageDegradationDF2KDataset, TwoStageDegradationImgMaskDataset,
+)
 from ssl_tpu_torch.data.loader import EnlargedSampler, build_dataloader, device_prefetch  # noqa: F401
 from ssl_tpu_torch.data.paired_image_dataset import (  # noqa: F401
     MultiLROneGTDataset, MyPairedImageDataset, PairedImageDataset, PairedImageMaskDataset,

@@ -13,7 +13,9 @@ the file handling).  ``--ckpt`` is the JAX package's params
 pickle (``{'unet', 'structcond', 'null_context'}`` with numpy leaves, as
 ``ssl_tpu.diffusion.main`` saves it), carried over with ``params_from_jax``;
 sampling uses those weights.  Runs on ``cuda`` unless ``--device`` names
-another device.  ``yaml`` and ``cv2`` are imported inside ``main``.
+another device.  Images are read and written through ``utils/img_util.py``
+(``cv2`` where it imports, else ``utils/png.py``), and a ``.json`` config
+needs no ``yaml``.
 ``--vqgan_ckpt`` (CFW), ``--tp``, ``--tile_parallel`` and ``--prompt`` are not
 ported yet and raise."""
 
@@ -24,14 +26,16 @@ import os
 import pickle
 import time
 
-import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ssl_tpu_torch.diffusion.color_fix import adain_color_fix, wavelet_color_fix
 from ssl_tpu_torch.diffusion.ddpm_ssl import DiffusionState
 from ssl_tpu_torch.diffusion.main import build_from_config
 from ssl_tpu_torch.diffusion.sampler import (ddim_sample, plms_sample, spaced_ddpm_sample,
                                              tiled_sample)
+from ssl_tpu_torch.utils.img_util import img2array, img2tensor, imread, imwrite, tensor2img
+from ssl_tpu_torch.utils.options import ordered_yaml_load
 from ssl_tpu_torch.utils.weight_port import params_from_jax
 
 SAMPLERS = {"ddpm": spaced_ddpm_sample, "ddim": ddim_sample, "plms": plms_sample}
@@ -123,12 +127,7 @@ def main(argv=None):
                         (args.prompt is not None, "--prompt")):
         if given:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, queue 1)")
-    import cv2
-    import yaml
-
-    with open(args.config) as f:
-        cfg = yaml.safe_load(f)
-    model = build_from_config(cfg)
+    model = build_from_config(ordered_yaml_load(args.config))
     state = model.init_state(seed=0, device=args.device)
     with open(args.ckpt, "rb") as f:
         load_jax_params(state, pickle.load(f))
@@ -137,17 +136,16 @@ def main(argv=None):
     os.makedirs(args.outdir, exist_ok=True)
     for name in sorted(os.listdir(args.init_img)):
         path = os.path.join(args.init_img, name)
-        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
-        lq = np.ascontiguousarray(bgr[..., ::-1]).astype(np.float32) / 255.0
-        h, w = lq.shape[:2]
+        lq = img2tensor(img2array(imread(path)))[None]
+        h, w = lq.shape[-2:]
         up_h, up_w = int(h * args.upscale) // 64 * 64, int(w * args.upscale) // 64 * 64
-        lq_up = cv2.resize(lq, (up_w, up_h), interpolation=cv2.INTER_CUBIC)
-        lq_up_t = torch.from_numpy(lq_up.transpose(2, 0, 1)[None].copy()).to(device)
-        img = restore(model, state, lq_up_t, gen, args.sampler, args.ddpm_steps,
+        # cv2.resize's INTER_CUBIC (A = -0.75, pixel centres, clamped border),
+        # which the JAX CLI calls, is this interpolation
+        lq_up = F.interpolate(lq, size=(up_h, up_w), mode="bicubic", align_corners=False)
+        img = restore(model, state, lq_up.to(device), gen, args.sampler, args.ddpm_steps,
                       args.tile_latent, args.colorfix_type)
-        out = (img[0].permute(1, 2, 0).cpu().numpy() * 255.0).round().astype(np.uint8)
         out_path = os.path.join(args.outdir, name)
-        cv2.imwrite(out_path, np.ascontiguousarray(out[..., ::-1]))
+        imwrite(tensor2img(img), out_path)
         print(f"{path} -> {out_path}")
 
 

@@ -21,9 +21,10 @@ state holds only ``net_g`` (and its EMA when ``ema_decay`` is set).
 Checkpoints: ``save_networks`` writes ``net_g_{iter}.pth`` ({"params",
 "params_ema"}) and ``net_d_{iter}.pth`` ({"params"}) in the reference's
 layout; ``save_training_state`` writes ``training_states/{iter}.state``
-(``torch.save`` of every net, the EMA, both optimizers, the step, ``extra``
-and the torch / CUDA / numpy / ``random`` generator states; the schedules
-are functions of the step) and the ``latest`` file."""
+(``torch.save`` of every net, the EMA, both optimizers, the step, ``extra``,
+the recipe's ``host_state`` and the torch / CUDA / numpy / ``random``
+generator states; the schedules are functions of the step) and the
+``latest`` file."""
 
 from __future__ import annotations
 
@@ -190,6 +191,14 @@ class BaseModel:
         return build_network(net_opt)
 
     # ------------------------------------------------------------ persistence
+    def host_state(self) -> dict:
+        """State on the host that the training state carries besides the
+        nets (RealESRGAN's host degrader); none by default."""
+        return {}
+
+    def set_host_state(self, hs: dict) -> None:
+        """Restore what ``host_state`` gave."""
+
     def save_networks(self, state: TrainState, save_dir: str, current_iter: int) -> None:
         """``net_g_{iter}.pth`` ({"params", "params_ema"}) and, with a D,
         ``net_d_{iter}.pth`` ({"params"}), as the reference saves them."""
@@ -206,7 +215,8 @@ class BaseModel:
                             current_iter: int) -> None:
         os.makedirs(state_dir, exist_ok=True)
         payload = {"iter": current_iter, "epoch": epoch, "step": state.step,
-                   "rng": _rng_state(), "extra": _host_extra(state.extra)}
+                   "rng": _rng_state(), "extra": _host_extra(state.extra),
+                   "host": self.host_state()}
         for name in _NETS:
             net = getattr(state, name)
             payload[name] = None if net is None else _host_state_dict(net)
@@ -239,6 +249,8 @@ class BaseModel:
             raise ValueError(f"training state {current_iter}: extra does not match the model's")
         if state.extra is not None:
             _load_extra(state.extra, saved_extra, self.device)
+        if payload.get("host"):                    # absent from states of earlier versions
+            self.set_host_state(payload["host"])
         state.step = int(payload["step"])
         _set_rng_state(payload["rng"])
         return state, int(payload["iter"])

@@ -14,13 +14,20 @@ int, so the fill test needs no device read) and ``queue_<key>`` buffers,
 made at the first step.  The training state saves and restores them, so a
 resumed run continues the pool and the draws.
 
-The host-side numpy degrader of ``degradation_device: false``
-(``ssl_tpu/data/realesr_degradation.py``) is not ported (ROADMAP.md)."""
+With ``degradation_device: false`` (the JAX package's default) the host
+degrader does that work instead, in ``prepare_batch`` before the step
+(``data/realesr_degradation.py``, as ``ssl_tpu``'s ``prepare_batch``):
+the degradation of the GT batch, a random crop of each pair to the train
+set's ``gt_size``, the host pool and, with ``Use_sharpen``, USM.  Its two
+streams (seeded from ``manual_seed``) and, with ``save_degradation_pool``,
+the pool go into the training state (``host_state``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ssl_tpu_torch.data.realesr_degradation import RealESRGANDegrader
 from ssl_tpu_torch.losses.ssl_loss import ssl_loss
 from ssl_tpu_torch.models.base_model import TrainState
 from ssl_tpu_torch.models.esrganssl_model import ESRGANSSLModel
@@ -77,26 +84,61 @@ class _DegradationMixin:
         self.l1_gt_usm = opt.get("l1_gt_usm", True)
         self.percep_gt_usm = opt.get("percep_gt_usm", True)
         self.gan_gt_usm = opt.get("gan_gt_usm", False)
-        if self.is_train and not opt.get("degradation_device", False):
-            raise NotImplementedError(
-                "degradation_device: false (the host-side numpy degrader, "
-                "ssl_tpu/data/realesr_degradation.py) is not ported yet (ROADMAP.md, queue 1); "
-                "set degradation_device: true")
+        self.device_degrade = bool(opt.get("degradation_device", False))
+        self.degrader = None
+        if not self.device_degrade:
+            # ssl_tpu/models/realesrganssl_model.py:87-109
+            self.gt_size = ((opt.get("datasets") or {}).get("train") or {}).get("gt_size", 256)
+            self.degrader = RealESRGANDegrader(
+                opt, scale=opt.get("scale", 4), queue_size=opt.get("queue_size", 180),
+                use_sharpen=opt.get("Use_sharpen") is not None,
+                degradation_order=opt.get("degradation_order", "two"),
+                seed=opt.get("manual_seed"))
+
+    @property
+    def degrades_on_host(self) -> bool:
+        """The train CLI hands this model host batches (no card prefetch)."""
+        return not self.device_degrade
 
     def init_state(self, seed: int = 0) -> TrainState:
-        """The recipe's state, with the draws' generators seeded from
-        ``manual_seed`` (host) and ``manual_seed + 1`` (device) in ``extra``."""
+        """The recipe's state, in device mode with the draws' generators
+        seeded from ``manual_seed`` (host) and ``manual_seed + 1`` (device)
+        in ``extra``."""
         state = super().init_state(seed)
-        if self.is_train:
+        if self.is_train and self.device_degrade:
             base = int(self.opt.get("manual_seed", 0) or 0)
             state.extra = {"host_gen": torch.Generator().manual_seed(base),
                            "dev_gen": torch.Generator(self.device).manual_seed(base + 1)}
         return state
 
+    def host_state(self) -> dict:
+        """The host degrader's streams and, with ``save_degradation_pool``,
+        its pool (ssl_tpu/models/realesrganssl_model.py:111-132)."""
+        if self.degrader is None:
+            return {}
+        return self.degrader.get_state(with_pool=bool(self.opt.get("save_degradation_pool")))
+
+    def set_host_state(self, hs: dict) -> None:
+        if self.degrader is not None:
+            self.degrader.set_state(hs)
+
     def prepare_batch(self, batch: dict) -> dict:
-        """The train CLI's hook before each step (``ssl_tpu/train.py``): the
-        host degrader's place.  In device mode the batch passes through."""
-        return batch
+        """The train CLI's hook before each step (``ssl_tpu/train.py``).  In
+        host mode, the JAX package's host ``feed_data``: the loader batch
+        (GT, mask and kernels) degraded, cropped to ``gt_size``, passed
+        through the pool (and sharpened with ``Use_sharpen``) on the host;
+        returns CHW tensors ``gt``, ``lq``, ``gt_mask`` (and ``gt_usm``) on the
+        host.  In device mode, and for a batch that has its LQ, the batch
+        passes through."""
+        if "lq" in batch or self.device_degrade:
+            return batch
+        host = {k: batch[k].cpu().numpy() for k in KERNELS}
+        for k in ("gt", "gt_mask"):
+            if k in batch:
+                host[k] = batch[k].cpu().permute(0, 2, 3, 1).numpy()
+        out = self.degrader(host | {"gt_size": self.gt_size})
+        return {k: torch.from_numpy(np.ascontiguousarray(v.transpose(0, 3, 1, 2)))
+                for k, v in out.items()}
 
     def draws(self, state: TrainState, batch: dict) -> dict:
         """The step's draws: the degradation's and, once the pool is full, its
@@ -137,6 +179,8 @@ class _DegradationMixin:
     def train_step(self, state: TrainState, batch: dict, draws: dict | None = None):
         """One step on a GT + kernels batch (or an already paired one);
         ``draws`` (``draws()``'s layout) replaces the generators' draws."""
+        if not self.device_degrade and "lq" not in batch:
+            batch = self.prepare_batch(batch)
         return self.make_train_step()(state, self.to_device(batch), draws)
 
 

@@ -108,7 +108,10 @@ def train_pipeline(root_path: str, args=None):
     epoch = start_epoch
     while current_iter < total_iters:
         train_loader.sampler.set_epoch(epoch)
-        for batch in device_prefetch(train_loader, device):
+        # a recipe that degrades on the host takes the loader's batches as they come
+        batches = (train_loader if getattr(model, "degrades_on_host", False) else
+                   device_prefetch(train_loader, device))
+        for batch in batches:
             data_timer.record()
             if current_iter >= total_iters:
                 break

@@ -39,7 +39,9 @@ def parse_json_options(path: str) -> dict:
     return json.loads(txt)
 
 
-def _parse_value(val: str):
+def parse_value(val: str):
+    """An override's value: read as YAML (as JSON without ``yaml``), else
+    kept as the string."""
     try:
         import yaml
     except ImportError:
@@ -60,7 +62,7 @@ def set_by_dotted(opt: dict, dotted: str):
     parts = keys.split(":")
     for k in parts[:-1]:
         node = node.setdefault(k, {})
-    node[parts[-1]] = _parse_value(val)
+    node[parts[-1]] = parse_value(val)
 
 
 def visible_devices(opt: dict, device: str) -> int:

@@ -10,7 +10,9 @@ kernel-1 Conv1d), norm scale -> weight, BatchNorm mean/var -> running_*,
 a spectral norm's ``u`` and ``sigma`` -> the buffers of the same names.
 Load the result with ``load_state_dict(sd, strict=False)``: batch norms'
 ``num_batches_tracked`` counters have no flax counterpart (the diffusion
-families load strictly).
+families load strictly).  ``params_to_jax`` goes the other way for the
+diffusion training checkpoint (the UNet, the struct-cond encoder and the
+null context), so the port writes the pickle the JAX CLI writes.
 
 The diffusion families name their torch modules as StableSR and ldm do; the
 flax names encode those paths (``input_blocks_1_0`` / ``in_layers_2`` is
@@ -212,3 +214,59 @@ def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
     if family == "VGGFeatureExtractor":
         return _vgg_features(params)
     raise KeyError(f"no weight carry for {family!r}; known: {FAMILIES}")
+
+
+def _openai_unet_to_jax(sd: dict) -> dict:
+    """The inverse of ``_openai_unet``: ``input_blocks.1.0.in_layers.2.weight``
+    -> ``input_blocks_1_0`` / ``in_layers_2`` / ``kernel``; a 4-d weight is an
+    OIHW conv (-> HWIO), a 3-d one a kernel-1 Conv1d and a 2-d one a Linear
+    (-> (in, out)), a 1-d one a norm's scale."""
+    tree: dict = {}
+    for key, value in sd.items():
+        a = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+        m = re.fullmatch(r"(input_blocks|output_blocks)\.(\d+)\.(\d+)\.(.+)", key) or \
+            re.fullmatch(r"(middle_block|time_embed|out|fea_tran)\.(\d+)\.(.+)", key)
+        if m is None:
+            raise KeyError(f"unexpected torch parameter {key}")
+        *head, rest = m.groups()
+        path, leaf = rest.rsplit(".", 1) if "." in rest else ("", rest)
+        node = tree.setdefault("_".join(head), {})
+        if path:
+            node = node.setdefault(path.replace(".", "_"), {})
+        if leaf == "bias":
+            node["bias"] = a
+        elif leaf != "weight":
+            raise KeyError(f"unexpected torch leaf {key}")
+        elif a.ndim == 1:
+            node["scale"] = a
+        else:
+            node["kernel"] = (a.transpose(2, 3, 1, 0) if a.ndim == 4 else
+                              a[..., 0].T if a.ndim == 3 else a.T)
+    return _np_leaves(tree)
+
+
+def _np_leaves(tree):
+    """Every leaf a C-contiguous float32 numpy array, as ``jax.device_get``
+    gives a float32 params tree."""
+    if isinstance(tree, dict):
+        return {k: _np_leaves(v) for k, v in tree.items()}
+    return np.ascontiguousarray(tree, dtype=np.float32)
+
+
+def params_to_jax(family: str, params) -> dict:
+    """The flax params tree of the port's ``family`` weights, numpy leaves in
+    flax's layout; the inverse of ``params_from_jax`` for the diffusion
+    families.  ``StableSRSSL`` takes {'unet', 'structcond', 'null_context'}
+    (modules or state dicts, and a tensor) and returns the JAX CLI's
+    ``ckpt_{step}.pkl`` payload."""
+    def sd(x):
+        return x.state_dict() if isinstance(x, torch.nn.Module) else x
+
+    if family in ("UNetModelDualcondV2", "EncoderUNetModelWT"):
+        return _openai_unet_to_jax(sd(params))
+    if family == "StableSRSSL":
+        return {"unet": _openai_unet_to_jax(sd(params["unet"])),
+                "structcond": _openai_unet_to_jax(sd(params["structcond"])),
+                "null_context": _np_leaves(params["null_context"].detach().cpu().numpy())}
+    raise KeyError(f"no carry to the JAX package for {family!r}; known: UNetModelDualcondV2, "
+                   "EncoderUNetModelWT, StableSRSSL")

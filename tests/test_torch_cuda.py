@@ -266,3 +266,43 @@ def test_cli_tensor_helpers_on_card(card):
     assert [b["lq_path"] for b in got] == [b["lq_path"] for b in batches]
     for g, b in zip(got, batches):
         assert g["lq"].is_cuda and torch.equal(g["lq"].cpu(), b["lq"])
+
+
+@pytest.mark.cuda
+def test_diffusion_cli_mini_step_on_card(card, tmp_path, capsys):
+    """One mini-step of the StableSR-SSL training CLI on the card: the loader,
+    the host degrader at scale 1 and the train step, with K1 launched once
+    and the losses finite."""
+    import json
+
+    from scipy.io import savemat
+
+    from ssl_tpu_torch.diffusion import main as dmain
+    from ssl_tpu_torch.utils.png import encode_png
+    rng = np.random.RandomState(0)
+    for d in ("gt", "mask"):
+        (tmp_path / d).mkdir()
+    for i in range(2):
+        (tmp_path / "gt" / f"{i}.png").write_bytes(
+            encode_png((rng.rand(48, 48, 3) * 255).astype(np.uint8)))
+        savemat(str(tmp_path / "mask" / f"{i}.mat"),
+                {"mat": (rng.rand(48, 48) < 0.2).astype(np.float64)})
+    cfg = {"model": {"timesteps": 50, "context_dim": 32,
+                     "unet": {"model_channels": 32, "num_res_blocks": 1, "channel_mult": [1, 2],
+                              "attention_resolutions": [2], "num_head_channels": 8},
+                     "first_stage": {"embed_dim": 4, "ch": 16, "ch_mult": [1, 2, 2, 2],
+                                     "num_res_blocks": 1}},
+           "sslopt": {"kernel_size_search": 9, "kernel_size_window": 5, "sigma": 0.1},
+           "data": {"crop_size": 32, "batch_size": 2, "num_workers": 0,
+                    "train": {"type": "TwoStageDegradationImgMaskDataset",
+                              "dataroot_gt": str(tmp_path / "gt"),
+                              "dataroot_gt_mask": str(tmp_path / "mask")}},
+           "train": {"max_steps": 1, "log_every": 1, "save_every": 0, "image_every": 0}}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    before = ssg_cuda.launches
+    state = dmain.main(["--train", "--base", str(tmp_path / "cfg.json"),
+                        "--logdir", str(tmp_path / "logs")])
+    assert ssg_cuda.launches == before + 1 and state.step == 1
+    assert state.params["null_context"].is_cuda
+    logged = capsys.readouterr().out
+    assert "step 1 (" in logged and "nan" not in logged

@@ -72,12 +72,16 @@ def test_realesrgan_ssl_three_steps_match_jax_through_the_pool():
 
 
 def test_host_degradation_raises_and_inference_builds():
+    """Host mode (``degradation_device: false``, or absent as in the JAX
+    package's default) builds a host degrader and no device generators;
+    tests/test_torch_realesr_degradation.py holds it against ssl_tpu."""
     opt = train_opt(degradation_device=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(opt, device="cpu")
-    opt.pop("degradation_device")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(opt, device="cpu")
+    opt["train"].pop("perceptual_opt")
+    for o in (opt, {k: v for k, v in opt.items() if k != "degradation_device"}):
+        model = build_model(o, device="cpu")
+        assert model.degrades_on_host and model.degrader.scale == 4
+        assert model.degrader.pool.queue_size == QSIZE
+        assert model.init_state().extra is None
     test_opt = {"model_type": "RealESRGANSSLModel", "scale": 4, "is_train": False,
                 "network_g": dict(G_OPT), "path": {}}
     state = build_model(test_opt, device="cpu").init_state()
