@@ -108,7 +108,19 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            streams and pool reloaded bit for bit).  K1 is also held at its
            shapes (b12, 3x400^2 and 3x256^2) in the kernel phase, on
            pictures with real edge masks
-12. kernels one line per ported kernel: launches on its main paths, error
+12. recipes the six bicubic GAN-SSL recipes (LDL, BebyGAN, SPSR,
+           RankSRGAN-PI, SwinIR-GAN, ELAN-GAN) through the train and test
+           CLIs at their shipped widths on the cli phase's files: the
+           options/train/<recipe> YAML's values in a .json file, batch 16, 4
+           loader processes, 3 iterations with a checkpoint (losses finite
+           with the recipe's own keys logged, K1 once per iteration and the
+           plain SSL forward never on the card), the training state reloaded
+           bit for bit (SPSR's gradient D and RankSRGAN's Ranker included),
+           --auto_resume to 4, the test CLI whole and tiled; K1 held against
+           its plain version on SwinIR's and ELAN's SR of 16 training pairs;
+           ms per iteration, data wait, the first iteration's extra time,
+           peak memory and the test CLI's ms per image
+13. kernels one line per ported kernel: launches on its main paths, error
            against the plain version, times and the bound
 
 then the card's name and power limit as nvidia-smi reports them, and last
@@ -152,6 +164,16 @@ UPSTREAM_DQ = ("jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
 # tied: q carries up to ~1e-5 of relative rounding at sigma 0.004 and the
 # kernel's inverse maps ~2e-5, so another summation order moves x - y by less.
 TIE_RTOL = 1e-4
+# On a generator's SR (``hold_k1(map_error_ties=True)``) two more kinds of
+# tie: [x > 1e-10] in b_map = sum_d y [x > 1e-10] counts as tied where
+# |x / 1e-10 - 1| <= THRESHOLD_RTOL (there x = exp(-e) inv with e near 23 at
+# sigma 0.004, so a relative rounding r of the window sum behind e moves x by
+# about 23 r, and r reaches 1e-4 between summation orders; 1e-2 leaves a
+# margin); and each pixel's tie band widens by the relative difference of
+# K1's inv_sr and inv_gt from the plain ones there, since the backward forms
+# x = q inv from the maps it is given (the maps' atol, 1e-6 of their largest
+# value, is a large relative error where inv is small).
+THRESHOLD_RTOL = 1e-2
 # Largest relative L2 error of d_sr with the full mask, where tied signs that
 # flip move g_d by 2 g_l1 at their pixel-offsets (2.05e-5 on an H100 at b16,
 # 3x128^2, search 25, window 9, sigma 0.004 on smooth images: PERF.md).
@@ -235,6 +257,49 @@ RE_HOST_GT = 256
 # (4 SERVE_LQ)^2 request of SERVE_STEPS steps each.
 DC_TRAIN, DC_WORKERS = 24, 4
 DC_STEPS, DC_LOG, DC_SAVE, DC_RESUME_STEPS = 24, 4, 12, 36
+# The six bicubic GAN-SSL recipes (options/train/<recipe>/train_<recipe>_bicubic_x4.yml):
+# the ESRGAN-SSL YAML's values (``shipped_opt``) but for each recipe's model,
+# its G at the shipped widths, its D, its own losses (``train``) and nets
+# (``opt``); ``losses`` are the logged keys it adds; ``hold_k1`` marks the
+# transformer G's whose SR holds K1 against its plain version.  Each runs
+# RC_ITERS iterations at batch MAIN_B on the cli_fixtures data with
+# RC_WORKERS loader processes (the YAMLs ship 32 and 8), then --auto_resume
+# to RC_RESUME_ITERS.
+RC_D = {"type": "UNetDiscriminatorSN", "num_feat": 64}
+RECIPES = {
+    "LDLSSL": {"model": "LDLSSLModel", "opt": {
+        "network_g": {"type": "RRDBNet", "num_feat": 64, "num_block": 23, "num_grow_ch": 32},
+        "network_d": RC_D}, "train": {"artifacts_opt": {"type": "L1Loss", "loss_weight": 1.0}},
+        "losses": ("l_g_artifacts",), "hold_k1": False},
+    "BebyGANSSL": {"model": "BebyGANSSLModel", "opt": {
+        "network_g": {"type": "RRDBBebyGANNet", "nf": 64, "nb": 23, "gc": 32},
+        "network_d": RC_D}, "train": {
+        "bbl_opt": {"loss_weight": 1.0, "alpha": 1.0, "beta": 1.0, "ksize": 3, "stride": 3},
+        "back_projection_opt": {"loss_weight": 1.0}},
+        "losses": ("l_g_bbl", "l_g_bp"), "hold_k1": False},
+    "SPSRSSL": {"model": "SPSRSSLModel", "opt": {
+        "network_g": {"type": "SPSRNet", "nf": 64, "nb": 23, "gc": 32, "upscale": 4},
+        "network_d": RC_D, "network_d_grad": RC_D}, "train": {
+        "gradient_pixel_opt": {"loss_weight": 1.0}, "gradient_branch_opt": {"loss_weight": 0.5}},
+        "losses": ("l_g_grad_pix", "l_g_grad_branch", "l_g_gan_grad", "l_d_real_grad",
+                   "l_d_fake_grad"), "hold_k1": False},
+    "RankSRGANPISSL": {"model": "RankSRGANSSLModel", "opt": {
+        "network_g": {"type": "RankSRGANSRResNet", "nf": 64, "nb": 16, "upscale": 4},
+        "network_d": {"type": "Discriminator_VGG_296", "nf": 64},
+        "network_r": {"type": "Ranker_VGG12_296", "nf": 64}},
+        "train": {"rank_opt": {"loss_weight": 0.03, "R_bias": 0.0}},
+        "losses": ("l_g_rank",), "hold_k1": False},
+    "SwinIRGANSSL": {"model": "SwinIRGANSSLModel", "opt": {
+        "network_g": {"type": "SwinIR", "upscale": 4, "window_size": 8, "depths": [6, 6, 6, 6],
+                      "embed_dim": 180, "num_heads": [6, 6, 6, 6], "upsampler": "pixelshuffle"},
+        "network_d": RC_D}, "train": {}, "losses": (), "hold_k1": True},
+    "ELANGANSSL": {"model": "ELANGANSSLModel", "opt": {
+        "network_g": {"type": "ELAN", "scale": 4, "m_elan": 36, "c_elan": 180,
+                      "window_sizes": [4, 8, 16]},
+        "network_d": RC_D}, "train": {}, "losses": (), "hold_k1": True},
+}
+RC_LOSSES = ("l_pix", "l_percep", "l_g_gan", "l_selfsim", "l_selfsim_kl", "l_d_real", "l_d_fake")
+RC_WORKERS, RC_ITERS, RC_RESUME_ITERS = 4, 3, 4
 # The degradation hold, card against CPU, TF32 off: each stage is float32
 # convolutions, resizes and 8x8 DCTs summed in other orders, so the output
 # may move by one uint8 level where a value, or a JPEG coefficient, lies
@@ -388,15 +453,17 @@ def phase_build():
                     for n, log in logs.items()}})
 
 
-def near_ties(sr, gt, ref, cfg):
+def near_ties(sr, gt, ref, cfg, band=0.0):
     """The plain forward's pixel-offsets at which sign(x - y), or [x > 1e-10],
     lies within rounding of the other side: |x - y| <= TIE_RTOL max(x, y), or
-    x within TIE_RTOL of 1e-10.  Another summation order (the kernel's) may
-    take either side there, which moves a_map by up to 2x and d_sr through
-    the backward's g_d.  ``ref`` is the plain forward's output.  Returns the
-    (b, h, w) pixels with any such offset, the number of tied pixel-offsets,
-    a_map's lower and upper bounds with every tied sign free in [-1, 1], and
-    sum_d x."""
+    x within TIE_RTOL of 1e-10 (TIE_RTOL + ``band``, a (b, h, w) map, where
+    given).  Another summation order (the kernel's) may take either side
+    there, which moves a_map by up to 2x and d_sr through the backward's g_d.
+    ``ref`` is the plain forward's output.  Returns the (b, h, w) pixels with
+    any such offset, the number of tied pixel-offsets, a_map's lower and
+    upper bounds with every tied sign free in [-1, 1], sum_d x, and sum_d y
+    over the offsets whose x lies within THRESHOLD_RTOL (or the band) of
+    1e-10 (what b_map may move by)."""
     import torch
     from ssl_tpu_torch.ops.ssg import _context, _q_maps
     b, c = sr.shape[:2]
@@ -405,21 +472,24 @@ def near_ties(sr, gt, ref, cfg):
     norm = c * float(cfg.window) ** 2
     tied_px = torch.zeros(inv_sr.shape, dtype=torch.bool, device=sr.device)
     n_tied = torch.zeros((), device=sr.device)
-    a_fixed, a_free, x_sum = (torch.zeros_like(inv_sr) for _ in range(3))
+    a_fixed, a_free, x_sum, b_free = (torch.zeros_like(inv_sr) for _ in range(4))
+    rtol = TIE_RTOL + band
     for s in range(cfg.search ** 2):
         q_sr, q_gt = _q_maps(ctx, s, cfg, norm, b)
         x, y = q_sr * inv_sr, q_gt * inv_gt
         top = torch.maximum(x, y)
-        tie = ((x - y).abs() <= TIE_RTOL * top) & (top > 0)
-        tied_px |= tie | ((x - 1e-10).abs() <= TIE_RTOL * 1e-10)
+        tie = ((x - y).abs() <= rtol * top) & (top > 0)
+        tied_px |= tie | ((x - 1e-10).abs() <= rtol * 1e-10)
         n_tied += tie.sum()
         a_fixed += torch.sign(x - y) * x * ~tie
         a_free += x * tie
         x_sum += x
-    return tied_px, int(n_tied), a_fixed - a_free, a_fixed + a_free, x_sum
+        b_free += y * ((x - 1e-10).abs() <= torch.clamp(torch.as_tensor(rtol), min=THRESHOLD_RTOL)
+                       * 1e-10)
+    return tied_px, int(n_tied), a_fixed - a_free, a_fixed + a_free, x_sum, b_free
 
 
-def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd):
+def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd, map_error_ties=False):
     """Hold the forward ``fwd`` (K1's wrapper) and d_sr through the autograd
     function against the plain version; fail() at the first disagreement.
 
@@ -436,6 +506,11 @@ def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd):
     of the gradient's largest value, whichever is larger (the backward's terms
     inv g_d - inv^2 T cancel, so d_sr carries the maps' rounding on its own
     scale); with the full mask, a relative L2 error of at most D_SR_REL_L2.
+    With ``map_error_ties`` (a generator's SR) the ties are those of
+    THRESHOLD_RTOL's comment: each pixel's band widens by the inv maps'
+    measured relative error there, b_map may also move by sum_d y over the
+    offsets whose x lies within THRESHOLD_RTOL of 1e-10, and the pixels where
+    it does leave the mask of the strict d_sr check too.
 
     Returns the largest absolute differences and what the ties did."""
     import torch
@@ -448,11 +523,25 @@ def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd):
         fail(f"{name}: count {float(got[2])} vs {float(ref[2])}")
     errs = {"l1": check_close(f"{name} l1", got[0], ref[0], 1e-4),
             "kl": check_close(f"{name} kl", got[1], ref[1], 1e-3), "count": 0.0}
-    for i, key in ((3, "inv_sr"), (4, "inv_gt"), (6, "b_map")):
+    maps = ((3, "inv_sr"), (4, "inv_gt")) + (() if map_error_ties else ((6, "b_map"),))
+    for i, key in maps:
         errs[key] = check_close(f"{name} {key}", got[i], ref[i], map_rtol,
                                 1e-6 * float(ref[i].abs().max()))
 
-    tied, n_tied, a_lo, a_hi, x_sum = near_ties(sr, gt, ref, cfg)
+    band = ((got[3] / ref[3] - 1).abs() + (got[4] / ref[4] - 1).abs()) if map_error_ties \
+        else 0.0
+    tied, n_tied, a_lo, a_hi, x_sum, b_free = near_ties(sr, gt, ref, cfg, band)
+    if map_error_ties:
+        b_diff = (got[6] - ref[6]).abs()
+        strict = map_rtol * ref[6].abs() + 1e-6 * float(ref[6].abs().max())
+        b_out = b_diff > strict + b_free
+        if bool(b_out.any()):
+            i = int(b_out.flatten().nonzero()[0])
+            fail(f"{name} b_map: {int(b_out.sum())} elements off beyond the threshold ties' "
+                 f"sum_d y; first at {i}: {float(got[6].flatten()[i])} vs "
+                 f"{float(ref[6].flatten()[i])} (allowance {float(b_free.flatten()[i])})")
+        errs["b_map"] = float(b_diff.max())
+        tied = tied | (b_diff > strict)
     slack = map_rtol * x_sum
     outside = (got[5] < a_lo - slack) | (got[5] > a_hi + slack)
     if bool(outside.any()):
@@ -495,6 +584,11 @@ def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd):
             "a_map_max_abs_over_sum_x_at_untied_pixels": float((a_diff * ~tied / x_sum).max()),
             "d_sr_rel_l2": rel_l2, "d_sr_off_elementwise_share": float(d_off.float().mean()),
             "d_sr_max_abs": float(ref_d.abs().max())}
+    if map_error_ties:
+        ties.update(b_map_off_strict=int((b_diff > strict).sum()),
+                    pixels_with_a_threshold_tie=int((b_free > 0).sum()),
+                    inv_rel_err_max=float(band.max()),
+                    pixels_band_over_tie_rtol=int((band > TIE_RTOL).sum()))
     return errs, ties
 
 
@@ -1335,6 +1429,55 @@ def loader_alone_ms(opt: dict, device: str) -> float:
     return ms
 
 
+def state_tensors(state) -> dict:
+    """Every tensor of a training state by name: the nets (a recipe's
+    further nets and the modules of ``extra`` too) and both optimizers'
+    moments."""
+    import torch
+    nets = {"net_g": state.net_g, "net_g_ema": state.net_g_ema, "net_d": state.net_d,
+            **state.nets, **{f"extra.{k}": v for k, v in (state.extra or {}).items()
+                             if isinstance(v, torch.nn.Module)}}
+    out = {f"{n}.{k}": v for n, net in nets.items() if net is not None
+           for k, v in net.state_dict().items()}
+    for name in ("opt_g", "opt_d"):
+        for pid, st in getattr(state, name).state_dict()["state"].items():
+            out.update({f"{name}.{pid}.{k}": v for k, v in st.items() if torch.is_tensor(v)})
+    return out
+
+
+def run_train_cli(root: str, args: list, device: str, spies=()):
+    """One run of the train CLI's pipeline in this process; returns its
+    state, the logged lines (each with the logger's start iteration), the K1
+    launches and the wall seconds.  ``spies`` are restored after it."""
+    import gc
+    import torch
+    import ssl_tpu_torch.train as train_cli
+    from ssl_tpu_torch.ops import ssg_cuda
+    from ssl_tpu_torch.utils import logger as logger_mod
+
+    logged = []
+    log_call = logger_mod.MessageLogger.__call__
+
+    def record(self, log_vars):
+        logged.append(dict(log_vars, start=self.start_iter))
+        return log_call(self, log_vars)
+    logger_mod.MessageLogger.__call__ = record
+    try:
+        ssg_cuda.launches = 0
+        t0 = time.perf_counter()
+        state = train_cli.train_pipeline(root, args)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ssg_cuda.launches
+    finally:
+        logger_mod.MessageLogger.__call__ = log_call
+        for spy in spies:
+            spy.restore()
+    gc.collect()                                          # the loader's workers end here
+    return state, logged, launches, wall
+
+
 def phase_cli(device: str = "cuda"):
     """The ESRGAN-SSL train and test CLIs (``ssl_tpu_torch.train`` /
     ``ssl_tpu_torch.test``) at full width on the ``cli_fixtures`` data, through
@@ -1349,12 +1492,9 @@ def phase_cli(device: str = "cuda"):
     import numpy as np
     import torch
     import ssl_tpu_torch.test as test_cli
-    import ssl_tpu_torch.train as train_cli
     from ssl_tpu_torch.models import build_model
     from ssl_tpu_torch.models.base_model import BaseModel
     from ssl_tpu_torch.models.sr_model import SRModel
-    from ssl_tpu_torch.ops import ssg_cuda
-    from ssl_tpu_torch.utils import logger as logger_mod
 
     with tempfile.TemporaryDirectory(prefix="cli_smoke_") as root:
         t0 = time.perf_counter()
@@ -1369,28 +1509,10 @@ def phase_cli(device: str = "cuda"):
         def run(args):
             """One train CLI run; returns its state, logged lines, K1 launches,
             validation and checkpoint calls and wall seconds."""
-            logged = []
-            log_call = logger_mod.MessageLogger.__call__
-
-            def record(self, log_vars):
-                logged.append(dict(log_vars, start=self.start_iter))
-                return log_call(self, log_vars)
-            logger_mod.MessageLogger.__call__ = record
             spies = (Spy(SRModel, ["validation"], device),
                      Spy(BaseModel, ["save_networks", "save_training_state"], device))
-            try:
-                ssg_cuda.launches = 0
-                t0 = time.perf_counter()
-                state = train_cli.train_pipeline(root, ["-opt", opt_path] + dev + args)
-                if device == "cuda":
-                    torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                launches = ssg_cuda.launches
-            finally:
-                logger_mod.MessageLogger.__call__ = log_call
-                for spy in spies:
-                    spy.restore()
-            gc.collect()                                  # the loader's workers end here
+            state, logged, launches, wall = run_train_cli(root, ["-opt", opt_path] + dev + args,
+                                                          device, spies)
             return state, logged, launches, {**spies[0].calls, **spies[1].calls}, wall
 
         if device == "cuda":
@@ -1423,20 +1545,11 @@ def phase_cli(device: str = "cuda"):
         fresh = build_model(dict(opt, is_train=True), device=device)
         reloaded, it = fresh.load_training_state(fresh.init_state(seed=1),
                                                  os.path.join(exp, "training_states"), CLI_ITERS)
-        n_tensors = 0
-        for name in ("net_g", "net_g_ema", "net_d"):
-            want = getattr(state, name).state_dict()
-            for k, v in getattr(reloaded, name).state_dict().items():
-                n_tensors += 1
-                if not torch.equal(v, want[k]):
-                    fail(f"cli: reloaded {name}.{k} differs from the saved state")
-        for name in ("opt_g", "opt_d"):
-            want = getattr(state, name).state_dict()["state"]
-            for pid, st in getattr(reloaded, name).state_dict()["state"].items():
-                for k, v in st.items():
-                    n_tensors += 1
-                    if not torch.equal(v, want[pid][k]):
-                        fail(f"cli: reloaded {name} state {pid}.{k} differs")
+        want, got = state_tensors(state), state_tensors(reloaded)
+        n_tensors = len(want)
+        for k, v in want.items():
+            if k not in got or not torch.equal(got[k], v):
+                fail(f"cli: reloaded {k} differs from the saved state")
         if it != CLI_ITERS or reloaded.step != state.step:
             fail(f"cli: reloaded iteration {it}, step {reloaded.step} vs {state.step}")
         del fresh, reloaded, state
@@ -1901,6 +2014,196 @@ def phase_realesrgan(device: str = "cuda"):
     return launches + launches_r, launches_h
 
 
+def recipe_opt(recipe: str, d: dict) -> dict:
+    """options/train/<recipe>/train_<recipe>_bicubic_x4.yml's values (the
+    ESRGAN-SSL YAML's, ``shipped_opt``, with the recipe's own G, D and
+    losses) on the ``cli_fixtures`` data, with this phase's cuts: batch
+    MAIN_B, RC_WORKERS loader processes, RC_ITERS iterations with a log line
+    at each and a checkpoint at the last, no validation, no tensorboard."""
+    r = RECIPES[recipe]
+    opt = cli_opt(d, MAIN_B)
+    opt.update(json.loads(json.dumps(r["opt"])), name=f"{recipe}_x4", model_type=r["model"])
+    opt["datasets"] = {"train": dict(opt["datasets"]["train"], num_worker_per_gpu=RC_WORKERS)}
+    opt["train"].update(json.loads(json.dumps(r["train"])), total_iter=RC_ITERS)
+    opt["val"] = {"val_freq": None, "save_img": None, "metrics": CLI_METRICS}
+    opt["logger"]["save_checkpoint_freq"] = RC_ITERS
+    return opt
+
+
+def recipe_sr_batch(opt: dict, device: str):
+    """MAIN_B training pairs of the recipe's train set (random 128^2 crops,
+    flips and rotations, as the loader makes them, from a fixed seed), on
+    ``device``."""
+    import random
+
+    import torch
+    from ssl_tpu_torch.data import build_dataset
+    random.seed(0)
+    dataset = build_dataset(dict(opt["datasets"]["train"], phase="train", scale=SCALE))
+    items = [dataset[i % len(dataset)] for i in range(MAIN_B)]
+    return {k: torch.stack([it[k] for it in items]).to(device) for k in ("lq", "gt", "gt_mask")}
+
+
+def phase_recipes(device: str = "cuda"):
+    """The six bicubic GAN-SSL recipes (RECIPES) through the train and test
+    CLIs at their shipped widths on the ``cli_fixtures`` data.  For each:
+    RC_ITERS iterations with a checkpoint (every loss finite, the recipe's
+    own losses logged, K1 once per iteration and the plain SSL forward never
+    on the card), the training state reloaded into a fresh model bit for bit
+    (SPSR's gradient D and RankSRGAN's Ranker included), ``--auto_resume``
+    to RC_RESUME_ITERS, then the test CLI on the last ``net_g``
+    (``params_ema``) whole and in tiles.  After the SwinIR and ELAN runs K1
+    is held against its plain version on their G's SR of MAIN_B training
+    pairs (new generator statistics for the kernel).  Returns the K1
+    launches of the runs and the holds' largest errors."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+    import ssl_tpu_torch.test as test_cli
+    from ssl_tpu_torch.models import build_model
+    from ssl_tpu_torch.ops import ssg_cuda
+    from ssl_tpu_torch.ops.ssg import SSGConfig
+
+    plain_on_card = []
+    plain = ssg_cuda.ssl_loss_sums_reference
+
+    def counted_plain(sr, *args, **kw):
+        if sr.is_cuda:
+            plain_on_card.append(tuple(sr.shape))
+        return plain(sr, *args, **kw)
+
+    results, holds, launches_all = {}, {}, 0
+    with tempfile.TemporaryDirectory(prefix="recipes_smoke_") as root:
+        t0 = time.perf_counter()
+        d, _ = cli_fixtures(os.path.join(root, "data"), device)
+        fixtures_s = time.perf_counter() - t0
+        dev = ["--device", device] if device != "cuda" else []
+        for recipe in RECIPES:
+            opt = recipe_opt(recipe, d)
+            opt_path = os.path.join(root, f"{recipe}.json")
+            with open(opt_path, "w") as f:
+                json.dump(opt, f)
+            exp = os.path.join(root, "experiments", opt["name"])
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ssg_cuda.ssl_loss_sums_reference = counted_plain
+            try:
+                state, logged, launches, wall = run_train_cli(root, ["-opt", opt_path] + dev,
+                                                              device)
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+                files = [f"models/net_g_{RC_ITERS}.pth", f"models/net_d_{RC_ITERS}.pth",
+                         f"training_states/{RC_ITERS}.state"] + \
+                    [f"models/{n}_{RC_ITERS}.pth" for n in state.nets]
+                missing = [f for f in files if not os.path.isfile(os.path.join(exp, f))]
+                fresh = build_model(dict(opt, is_train=True), device=device)
+                reloaded, it = fresh.load_training_state(
+                    fresh.init_state(seed=1), os.path.join(exp, "training_states"), RC_ITERS)
+                want, got = state_tensors(state), state_tensors(reloaded)
+                differ = sorted(k for k in want if k not in got or not torch.equal(got[k], want[k]))
+                step = (state.step, reloaded.step, it)
+                del fresh, reloaded, state
+                gc.collect()
+                resumed, logged_r, launches_r, wall_r = run_train_cli(
+                    root, ["-opt", opt_path] + dev +
+                    ["--auto_resume", "--force_yml", f"train:total_iter={RC_RESUME_ITERS}"],
+                    device)
+            finally:
+                ssg_cuda.ssl_loss_sums_reference = plain
+            keys = RC_LOSSES + RECIPES[recipe]["losses"]
+            if launches != RC_ITERS or launches_r != RC_RESUME_ITERS - RC_ITERS:
+                fail(f"recipes {recipe}: K1 launched {launches} and {launches_r} times in "
+                     f"{RC_ITERS} and {RC_RESUME_ITERS - RC_ITERS} iterations")
+            if plain_on_card:
+                fail(f"recipes {recipe}: the plain SSL forward ran on the card at "
+                     f"{plain_on_card}")
+            if [x["iter"] for x in logged + logged_r] != list(range(1, RC_RESUME_ITERS + 1)):
+                fail(f"recipes {recipe}: logged iterations "
+                     f"{[x['iter'] for x in logged + logged_r]}")
+            for x in logged + logged_r:
+                bad = {k: x.get(k) for k in keys if not np.isfinite(x.get(k, np.nan))}
+                if bad:
+                    fail(f"recipes {recipe}: iteration {x['iter']}: losses missing or not "
+                         f"finite: {bad}")
+            if missing or differ or step != (RC_ITERS, RC_ITERS, RC_ITERS) or \
+                    resumed.step != RC_RESUME_ITERS:
+                fail(f"recipes {recipe}: files missing {missing}; reloaded tensors differing "
+                     f"{differ[:5]}; steps {step}, resumed to {resumed.step}")
+            launches_all += launches + launches_r
+
+            if RECIPES[recipe]["hold_k1"]:
+                batch = recipe_sr_batch(opt, device)
+                with torch.no_grad():
+                    sr = resumed.net_g(batch["lq"])
+                errs, ties = hold_k1(f"recipes {recipe} SR", sr.contiguous(), batch["gt"],
+                                     batch["gt_mask"][:, 0].contiguous(),
+                                     SSGConfig(search=25, window=9, sigma=0.004), 1e-4,
+                                     ssg_cuda.ssg_loss_fwd_cuda, map_error_ties=True)
+                if not ties["d_sr_max_abs"] > 0:
+                    fail(f"recipes {recipe}: the SSL gradient of the SR K1 was held on is 0 "
+                         f"(SR in [{float(sr.min())}, {float(sr.max())}])")
+                holds[recipe] = {"max_abs_err": errs, "ties": ties,
+                                 "sr_range": [float(sr.min()), float(sr.max())]}
+                del batch, sr
+            del resumed
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+
+            test_opt = {"name": f"test_{recipe}", "model_type": opt["model_type"],
+                        "scale": SCALE, "num_devices": 1, "manual_seed": 0,
+                        "datasets": {"test_1": dict(cli_opt(d, MAIN_B)["datasets"]["val"],
+                                                    name="val_pairs")},
+                        "network_g": opt["network_g"],
+                        "path": {"pretrain_network_g": os.path.join(
+                            exp, "models", f"net_g_{RC_RESUME_ITERS}.pth"),
+                            "param_key_g": "params_ema"},
+                        "val": {"save_img": True, "metrics": CLI_METRICS}}
+            test_path = os.path.join(root, f"test_{recipe}.json")
+            with open(test_path, "w") as f:
+                json.dump(test_opt, f)
+            tests = {}
+            for label, extra in (("whole", []), ("tiled", [
+                    "--force_yml", f"name=test_{recipe}_tiled", "tile_process=true",
+                    f"tile_size={CLI_TILE[0]}", f"tile_pad={CLI_TILE[1]}"])):
+                t0 = time.perf_counter()
+                out = test_cli.test_pipeline(root, ["-opt", test_path] + dev + extra)["val_pairs"]
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                if set(out) != set(CLI_METRICS) or not all(np.isfinite(v) for v in out.values()):
+                    fail(f"recipes {recipe}: test CLI ({label}) metrics {out}")
+                tests[label] = dict(out, ms_per_image=1e3 * seconds / len(CLI_VAL))
+            ms = per_iter_ms(logged, "time")
+            results[recipe] = {
+                "model": opt["model_type"], "network_g": opt["network_g"],
+                "network_d": opt["network_d"]["type"],
+                "ms_per_iter": ms, "data_wait_ms_per_iter": per_iter_ms(logged, "data_time"),
+                "first_iter_extra_ms": 1e3 * logged[0]["time"] - ms,
+                "resumed_first_iter_ms": 1e3 * logged_r[-1]["time"], "peak_mem_gb": peak_gb,
+                "wall_s": wall, "resumed_wall_s": wall_r,
+                "k1_launches": {"train": launches, "resumed": launches_r},
+                "losses_last_iter": {k: logged[-1][k] for k in keys},
+                "reloaded_tensors_bit_for_bit": len(want), "test": tests}
+            emit({"phase": "recipes", "recipe": recipe, **results[recipe]})
+    emit({"phase": "recipes", "config": {r: f"options/train/{r}/train_{r}_bicubic_x4.yml"
+                                         for r in RECIPES},
+          "train_images": CLI_TRAIN, "gt_image": CLI_GT, "batch": MAIN_B, "gt_size": MAIN_GT,
+          "workers": RC_WORKERS, "fixtures_s": fixtures_s,
+          "reduced": {"batch_size_per_gpu": [32, MAIN_B], "num_worker_per_gpu": [8, RC_WORKERS],
+                      "total_iter": [400000, f"{RC_ITERS}, a save, --auto_resume to "
+                                              f"{RC_RESUME_ITERS}"],
+                      "dataset_enlarge_ratio": [1, CLI_ENLARGE], "validation": "none",
+                      "test_sets": ["7 sets of options/test/<recipe>",
+                                    f"{len(CLI_VAL)} val pairs, whole and tiled"]},
+          "k1_launches": launches_all, "k1_holds": holds,
+          "ms_per_iter": {r: v["ms_per_iter"] for r, v in results.items()},
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "card": card() if device == "cuda" else None})
+    return launches_all, holds
+
+
 def ssl_base_train_cfg(d: dict) -> dict:
     """options/diffusion/ssl_base.yml as a dict (the card's machine may lack
     yaml): ``ssl_base_cfg``'s model, sslopt and train blocks without the
@@ -2324,12 +2627,13 @@ def realesrgan_host_run(root: str, opt: dict, device: str) -> tuple[dict, int]:
             "pool_pairs_bit_for_bit": len(want["pool_buffers"])}, launches
 
 
-def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli) -> dict:
+def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
+                 recipes) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
     phases' results (K1's, K2's forward's and backward's by case, the serving
     K2 launches and forward kernel launches, the diffusion_train and
-    diffusion_cli launch counts, and the K1 launches of the ESRGAN train step
-    and of the CLIs)."""
+    diffusion_cli launch counts, the K1 launches of the ESRGAN train step
+    and of the CLIs, and the recipes phase's K1 launches and holds)."""
     from torch_attention_cases import TRAIN_MIX_BWD
 
     serve_calls, serve_fwd = serve
@@ -2411,7 +2715,9 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli) 
                              "events); max_abs_err is the whole forward's"}
 
     realesrgan, realesrgan_host = realesrgan
-    k1_runs = {"main_path": launches + cli, "diffusion_smooth": train["k1"] + dcli["k1"],
+    recipes, recipe_holds = recipes
+    k1_runs = {"main_path": launches + cli + recipes,
+               "diffusion_smooth": train["k1"] + dcli["k1"],
                "realesrgan_edges": realesrgan, "realesrgan_host_edges": realesrgan_host}
 
     def k1_mean(key):
@@ -2420,13 +2726,18 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli) 
     return {"kernels": [{
         "name": "ssg_loss_fwd", "route": "cuda", "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu",
         "replaces": "ssl_tpu/ops/ssg_pallas.py:41",
-        "launches": launches + cli + train["k1"] + realesrgan + realesrgan_host + dcli["k1"],
+        "launches": launches + cli + train["k1"] + realesrgan + realesrgan_host + dcli["k1"]
+        + recipes,
         "launches_by_path": {"esrgan_train": launches, "esrgan_cli": cli,
                              "diffusion_train": train["k1"], "realesrgan_cli": realesrgan,
-                             "realesrgan_host_cli": realesrgan_host, "diffusion_cli": dcli["k1"]},
-        "max_abs_err": max(k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth",
-                                                          "realesrgan_edges",
-                                                          "realesrgan_host_edges")),
+                             "realesrgan_host_cli": realesrgan_host, "diffusion_cli": dcli["k1"],
+                             "recipes_cli": recipes},
+        "max_abs_err": max([k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth",
+                                                           "realesrgan_edges",
+                                                           "realesrgan_host_edges")]
+                           + [max(h["max_abs_err"].values()) for h in recipe_holds.values()]),
+        "max_abs_err_on_recipe_sr": {r: max(h["max_abs_err"].values())
+                                     for r, h in recipe_holds.items()},
         "ms": k1_mean("device_ms"), "wrapper_ms": k1_mean("ms"), "plain_ms": k1_mean("plain_ms"),
         "bound_ms": k1_mean("bound_ms"), "bound_by": k1["main_path"]["bound_by"],
         "library_ms": None,
@@ -2439,11 +2750,13 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli) 
                               "b12_3x400^2": k1["realesrgan_edges"]["bound_ms"],
                               "b12_3x256^2": k1["realesrgan_host_edges"]["bound_ms"]},
         "times_are": "mean per launch over the run's launches (b16 3x128^2 in the ESRGAN "
-                     "step and CLI, b2 3x512^2 in the diffusion mini-step and its CLI, b12 "
-                     "3x400^2 in the RealESRGAN-SSL CLI, b12 3x256^2 in its host mode); ms "
+                     "step and CLI and the six recipes' CLIs, b2 3x512^2 in the diffusion "
+                     "mini-step and its CLI, b12 3x400^2 in the RealESRGAN-SSL CLI, b12 "
+                     "3x256^2 in its host mode); ms "
                      "is the kernel's device time (profiler), wrapper_ms the call's (CUDA "
-                     "events); max_abs_err on smooth images and, at b12 3x400^2 and "
-                     "3x256^2, on pictures with real edge masks"},
+                     "events); max_abs_err on smooth images, at b12 3x400^2 and "
+                     "3x256^2 on pictures with real edge masks, and at b16 3x128^2 on "
+                     "SwinIR's and ELAN's SR of training pairs"},
         *(fwd_entry(f) for f in ("fwd", "fwd_d512", "fwd_combine")),
         *(bwd_entry(f, replaces) for f, replaces in bwd_kernels.items())]}
 
@@ -2484,8 +2797,10 @@ def main() -> int:
     cli = phase_cli()
     torch.cuda.empty_cache()
     realesrgan = phase_realesrgan()
+    torch.cuda.empty_cache()
+    recipes = phase_recipes()
 
-    emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli))
+    emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli, recipes))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,9 @@
 """Architecture building blocks (reference: basicsr/archs/arch_util.py).
 
-Counterpart of the parts of ``ssl_tpu/archs/arch_util.py`` that RRDBNet and
-the VGG-style discriminator need.  Weights are drawn from an explicit
-``torch.Generator`` so a seed fixes them on every device."""
+Counterpart of the parts of ``ssl_tpu/archs/arch_util.py`` that the ported
+archs need, and the bottom-right pads of inference (reflect) and of SwinIR
+and ELAN (``np.pad``'s "symmetric" and "reflect").  Weights are drawn from
+an explicit ``torch.Generator`` so a seed fixes them on every device."""
 
 from __future__ import annotations
 
@@ -31,6 +32,39 @@ def normal_init_(module: nn.Module, generator: torch.Generator, gain: float = 1.
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+
+
+def _reflect_index(n: int, total: int, device) -> torch.Tensor:
+    """Source rows of an axis of n reflect-padded at its end to ``total``,
+    as ``np.pad(mode="reflect")`` pads (also past n - 1)."""
+    i = torch.arange(total, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    i = i % (2 * (n - 1))
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
+
+
+def pad_reflect(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Reflect-pad an NCHW tensor by ``ph`` rows at the bottom and ``pw``
+    columns at the right."""
+    h, w = x.shape[-2:]
+    return (x.index_select(-2, _reflect_index(h, h + ph, x.device))
+             .index_select(-1, _reflect_index(w, w + pw, x.device)))
+
+
+def _symmetric_index(n: int, total: int, device) -> torch.Tensor:
+    """Source rows of an axis of n padded at its end to ``total`` by
+    ``np.pad(mode="symmetric")``: the edge repeated, then mirrored, with
+    period 2n (a pad as long as the axis itself reads it backwards)."""
+    i = torch.arange(total, device=device) % (2 * n)
+    return torch.where(i >= n, 2 * n - 1 - i, i)
+
+
+def pad_symmetric(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """``pad_reflect`` with the edge repeated (``np.pad(mode="symmetric")``)."""
+    h, w = x.shape[-2:]
+    return (x.index_select(-2, _symmetric_index(h, h + ph, x.device))
+             .index_select(-1, _symmetric_index(w, w + pw, x.device)))
 
 
 def make_layer(block_cls, num_blocks: int, **kwargs) -> nn.Sequential:

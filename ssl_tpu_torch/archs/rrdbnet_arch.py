@@ -37,6 +37,15 @@ class ResidualDenseBlock(nn.Module):
         return x5 * 0.2 + x
 
 
+def init_rrdb_net(net: nn.Module, generator: torch.Generator) -> None:
+    """N(0, 1 / fan_in) everywhere, then the residual dense blocks' convs
+    scaled as the reference's ``default_init_weights`` (gain 2, x0.1)."""
+    normal_init_(net, generator)
+    for m in net.modules():
+        if isinstance(m, ResidualDenseBlock):
+            normal_init_(m, generator, gain=2.0, scale=0.1)
+
+
 class RRDB(nn.Module):
     """Residual-in-residual dense block (reference rrdbnet_arch.py:50-64)."""
 
@@ -75,10 +84,7 @@ class RRDBNet(nn.Module):
         self.conv_last = nn.Conv2d(num_feat, num_out_ch, 3, 1, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        normal_init_(self, generator)
-        for m in self.body.modules():
-            if isinstance(m, ResidualDenseBlock):
-                normal_init_(m, generator, gain=2.0, scale=0.1)
+        init_rrdb_net(self, generator)
 
     def forward(self, x):
         lrelu = lambda v: F.leaky_relu(v, 0.2)  # noqa: E731

@@ -11,7 +11,9 @@ place (returning it, so the call reads like the JAX one).  Field mapping:
     ema_params_g              net_g_ema
     params_d, stats_d         net_d (its batch-norm buffers are the stats)
     opt_state_d               opt_d
-    extra                     extra (recipe state: RealESRGAN's pool and generators)
+    extra                     extra (recipe state: RealESRGAN's pool and generators,
+                              RankSRGAN's frozen Ranker)
+    params_d['grad'] (SPSR)   nets['net_d_grad'] (a recipe's further trained nets)
 
 The JAX ``rng`` has no counterpart: ESRGAN-SSL draws no random numbers
 during a step, and RealESRGAN's draws come from the generators in
@@ -19,8 +21,9 @@ during a step, and RealESRGAN's draws come from the generators in
 state holds only ``net_g`` (and its EMA when ``ema_decay`` is set).
 
 Checkpoints: ``save_networks`` writes ``net_g_{iter}.pth`` ({"params",
-"params_ema"}) and ``net_d_{iter}.pth`` ({"params"}) in the reference's
-layout; ``save_training_state`` writes ``training_states/{iter}.state``
+"params_ema"}), ``net_d_{iter}.pth`` ({"params"}) and one such file for each
+of ``nets`` (SPSR's ``net_d_grad_{iter}.pth``) in the reference's layout;
+``save_training_state`` writes ``training_states/{iter}.state``
 (``torch.save`` of every net, the EMA, both optimizers, the step, ``extra``,
 the recipe's ``host_state`` and the torch / CUDA / numpy / ``random``
 generator states; the schedules are functions of the step) and the
@@ -32,7 +35,7 @@ import os
 import pickle
 import random
 from copy import deepcopy
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -55,7 +58,8 @@ class TrainState:
     net_g_ema: nn.Module | None = None
     net_d: nn.Module | None = None
     opt_d: torch.optim.Optimizer | None = None
-    extra: dict | None = None       # tensors, ints and torch.Generators
+    extra: dict | None = None       # tensors, ints, torch.Generators and frozen modules
+    nets: dict = field(default_factory=dict)    # further trained nets by name, opt_d's too
 
 
 def resolve_device(device=None) -> torch.device:
@@ -159,19 +163,24 @@ def _host_state_dict(net: nn.Module) -> dict:
 
 def _host_extra(extra: dict | None) -> dict | None:
     """``TrainState.extra`` as ``torch.load(weights_only=True)`` reads it: a
-    generator as its state, a tensor on the host, an int as it is."""
+    generator as its state, a module as its state dict on the host, a tensor
+    on the host, an int as it is."""
     if extra is None:
         return None
     return {k: v.get_state() if isinstance(v, torch.Generator) else
+            _host_state_dict(v) if isinstance(v, nn.Module) else
             v.detach().cpu() if torch.is_tensor(v) else v for k, v in extra.items()}
 
 
 def _load_extra(extra: dict, saved: dict, device) -> None:
     """Restore ``_host_extra``'s output into ``extra`` in place: generators
-    take their saved state, tensors go to ``device``."""
+    take their saved state, modules their state dict, tensors go to
+    ``device``."""
     for k, v in saved.items():
         if isinstance(extra.get(k), torch.Generator):
             extra[k].set_state(v)
+        elif isinstance(extra.get(k), nn.Module):
+            extra[k].load_state_dict(v)
         else:
             extra[k] = v.to(device) if torch.is_tensor(v) else v
 
@@ -201,15 +210,17 @@ class BaseModel:
 
     def save_networks(self, state: TrainState, save_dir: str, current_iter: int) -> None:
         """``net_g_{iter}.pth`` ({"params", "params_ema"}) and, with a D,
-        ``net_d_{iter}.pth`` ({"params"}), as the reference saves them."""
+        ``net_d_{iter}.pth`` ({"params"}) and ``{name}_{iter}.pth`` for each
+        of ``state.nets``, as the reference saves them."""
         os.makedirs(save_dir, exist_ok=True)
         payload = {"params": _host_state_dict(state.net_g)}
         if state.net_g_ema is not None:
             payload["params_ema"] = _host_state_dict(state.net_g_ema)
         torch.save(payload, os.path.join(save_dir, f"net_g_{current_iter}.pth"))
-        if state.net_d is not None:
-            torch.save({"params": _host_state_dict(state.net_d)},
-                       os.path.join(save_dir, f"net_d_{current_iter}.pth"))
+        for name, net in (("net_d", state.net_d), *state.nets.items()):
+            if net is not None:
+                torch.save({"params": _host_state_dict(net)},
+                           os.path.join(save_dir, f"{name}_{current_iter}.pth"))
 
     def save_training_state(self, state: TrainState, state_dir: str, epoch: int,
                             current_iter: int) -> None:
@@ -220,6 +231,8 @@ class BaseModel:
         for name in _NETS:
             net = getattr(state, name)
             payload[name] = None if net is None else _host_state_dict(net)
+        for name, net in state.nets.items():
+            payload[name] = _host_state_dict(net)
         for name in _OPTIMIZERS:
             optim = getattr(state, name)
             payload[name] = None if optim is None else optim.state_dict()
@@ -244,6 +257,10 @@ class BaseModel:
                                  "but not in the model")
             if have is not None:
                 have.load_state_dict(saved)
+        for name, net in state.nets.items():
+            if payload.get(name) is None:
+                raise ValueError(f"training state {current_iter}: {name} is absent from the file")
+            net.load_state_dict(payload[name])
         saved_extra = payload.get("extra")         # absent from states of earlier versions
         if (state.extra is None) != (saved_extra is None):
             raise ValueError(f"training state {current_iter}: extra does not match the model's")

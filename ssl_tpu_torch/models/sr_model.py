@@ -13,30 +13,13 @@ from copy import deepcopy
 import numpy as np
 import torch
 
+from ssl_tpu_torch.archs.arch_util import pad_reflect
 from ssl_tpu_torch.metrics import calculate_metric
 from ssl_tpu_torch.models.base_model import (BaseModel, TrainState, build_optimizer,
                                              ema_update, load_network, optimizer_step)
 from ssl_tpu_torch.models.lr_scheduler import build_schedule
 from ssl_tpu_torch.utils.img_util import imwrite, tensor2img
 from ssl_tpu_torch.utils.registry import MODEL_REGISTRY, build_loss
-
-
-def _reflect_index(n: int, total: int, device) -> torch.Tensor:
-    """Source rows of an axis of n reflect-padded at its end to ``total``,
-    as ``np.pad(mode="reflect")`` pads (also past n - 1)."""
-    i = torch.arange(total, device=device)
-    if n == 1:
-        return torch.zeros_like(i)
-    i = i % (2 * (n - 1))
-    return torch.where(i >= n, 2 * (n - 1) - i, i)
-
-
-def pad_reflect(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
-    """Reflect-pad an NCHW tensor by ``ph`` rows at the bottom and ``pw``
-    columns at the right."""
-    h, w = x.shape[-2:]
-    return (x.index_select(-2, _reflect_index(h, h + ph, x.device))
-             .index_select(-1, _reflect_index(w, w + pw, x.device)))
 
 
 @MODEL_REGISTRY.register()
@@ -118,6 +101,10 @@ class SRModel(BaseModel):
         there is one."""
         return state.net_g_ema if state.net_g_ema is not None else state.net_g
 
+    def infer(self, net, lq: torch.Tensor) -> torch.Tensor:
+        """The SR image of ``net`` on ``lq`` (SPSR takes one of its outputs)."""
+        return net(lq)
+
     @torch.no_grad()
     def test(self, state: TrainState, lq: torch.Tensor) -> torch.Tensor:
         """SR of an (n, c, h, w) or (c, h, w) batch on the model's device:
@@ -135,7 +122,7 @@ class SRModel(BaseModel):
             return self.tile_process(net, lq)
         mult = 16
         h, w = lq.shape[-2:]
-        sr = net(pad_reflect(lq, (mult - h % mult) % mult, (mult - w % mult) % mult))
+        sr = self.infer(net, pad_reflect(lq, (mult - h % mult) % mult, (mult - w % mult) % mult))
         return sr[:, :, : h * self.scale, : w * self.scale]
 
     def tile_process(self, net, lq: torch.Tensor) -> torch.Tensor:
@@ -155,7 +142,7 @@ class SRModel(BaseModel):
                 yp1, xp1 = min(y1 + tile_pad, h), min(x1 + tile_pad, w)
                 tile = lq[:, :, yp0:yp1, xp0:xp1]
                 th, tw = tile.shape[-2:]
-                sr_tile = net(pad_reflect(tile, target - th, target - tw))
+                sr_tile = self.infer(net, pad_reflect(tile, target - th, target - tw))
                 oy0, ox0 = (y0 - yp0) * scale, (x0 - xp0) * scale
                 out[:, :, y0 * scale:y1 * scale, x0 * scale:x1 * scale] = \
                     sr_tile[:, :, oy0:oy0 + (y1 - y0) * scale, ox0:ox0 + (x1 - x0) * scale]

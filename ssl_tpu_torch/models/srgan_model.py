@@ -62,8 +62,7 @@ class SRGANModel(SRModel):
         state = super().init_state(seed)
         if not self.has_d:
             return state
-        net_d = build_network(deepcopy(self.opt["network_d"]))
-        net_d.reset_parameters(torch.Generator().manual_seed(seed + 1))
+        net_d = self.build_d(self.opt["network_d"], seed + 1)
         path = (self.opt.get("path") or {})
         if path.get("pretrain_network_d"):
             load_network(net_d, path["pretrain_network_d"], path.get("param_key_d", "params"),
@@ -72,6 +71,12 @@ class SRGANModel(SRModel):
         state.opt_d = build_optimizer(self.train_opt["optim_d"], state.net_d.parameters(),
                                       self.schedule_d)
         return state
+
+    def build_d(self, net_opt: dict, seed: int):
+        """The D of the option dict ``net_opt``, its weights drawn from ``seed``."""
+        net_d = build_network(deepcopy(net_opt))
+        net_d.reset_parameters(torch.Generator().manual_seed(seed))
+        return net_d
 
     # ---------------------------------------------------------------- GAN terms
     def gan_g_loss(self, fake_pred, real_pred):

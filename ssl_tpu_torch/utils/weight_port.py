@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 FAMILIES = ("RRDBNet", "VGGStyleDiscriminator", "UNetDiscriminatorSN", "VGGFeatureExtractor",
+            "RRDBBebyGANNet", "BSRGANRRDBNet", "SPSRNet", "RankSRGANSRResNet",
+            "Discriminator_VGG_296", "Ranker_VGG12_296", "SwinIR", "ELAN",
             "UNetModelDualcondV2",
             "EncoderUNetModelWT", "AutoencoderKL", "StableSRSSL")
 
@@ -45,6 +47,18 @@ def _conv(sd: dict, name: str, node: dict, index=None) -> None:
         sd[f"{name}.bias"] = _t(b[index] if index is not None else b)
 
 
+def _rrdb(sd: dict, name: str, node: dict, index=None) -> None:
+    """One RRDB (three dense blocks of five convs) under ``name``."""
+    for j in range(3):
+        for kk in range(5):
+            leaf = node[f"ResidualDenseBlock_{j}"][f"Conv3x3_{kk}"]["Conv_0"]
+            _conv(sd, f"{name}.rdb{j + 1}.conv{kk + 1}", leaf, index)
+
+
+def _count(params: dict, prefix: str) -> int:
+    return sum(1 for k in params if re.fullmatch(rf"{prefix}\d+", k))
+
+
 def _rrdbnet(params: dict) -> dict:
     sd: dict = {}
     for name in ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr", "conv_last"):
@@ -54,15 +68,141 @@ def _rrdbnet(params: dict) -> dict:
         cell = body["RRDB_0"]
         n_blocks = np.asarray(
             cell["ResidualDenseBlock_0"]["Conv3x3_0"]["Conv_0"]["kernel"]).shape[0]
-        blocks = [(i, cell, i) for i in range(n_blocks)]
+        for i in range(n_blocks):
+            _rrdb(sd, f"body.{i}", cell, i)
     else:
-        n_blocks = sum(1 for k in params if k.startswith("body_"))
-        blocks = [(i, params[f"body_{i}"], None) for i in range(n_blocks)]
-    for i, blk, index in blocks:
-        for j in range(3):
-            for kk in range(5):
-                leaf = blk[f"ResidualDenseBlock_{j}"][f"Conv3x3_{kk}"]["Conv_0"]
-                _conv(sd, f"body.{i}.rdb{j + 1}.conv{kk + 1}", leaf, index)
+        for i in range(_count(params, "body_")):
+            _rrdb(sd, f"body.{i}", params[f"body_{i}"])
+    return sd
+
+
+def _rrdb_trunk(params: dict) -> dict:
+    """RRDBBebyGANNet / BSRGANRRDBNet (the flax tree under ``net``)."""
+    params, sd = params["net"], {}
+    for name in ("conv_first", "trunk_conv", "upconv1", "upconv2", "HRconv", "conv_last"):
+        if name in params:
+            _conv(sd, name, params[name])
+    for i in range(_count(params, "body_")):
+        _rrdb(sd, f"body.{i}", params[f"body_{i}"])
+    return sd
+
+
+def _spsr(params: dict) -> dict:
+    sd: dict = {}
+    for name, node in params.items():
+        m = re.fullmatch(r"(rb|b_block|b_concat|up|b_up)_(\d+)", name)
+        if m:  # flax numbers the branch's blocks from 1, torch's lists from 0
+            base = f"{m[1]}.{int(m[2]) - (m[1] in ('b_block', 'b_concat'))}"
+        else:
+            base = name
+        if name.startswith(("rb_", "b_block_")) or name == "f_block":
+            _rrdb(sd, base, node)
+        else:
+            _conv(sd, base, node.get("Conv_0", node))
+    return sd
+
+
+def _ranksrgan_g(params: dict) -> dict:
+    sd: dict = {}
+    for name, node in params.items():
+        if name.startswith("trunk_"):
+            i = name[len("trunk_"):]
+            _conv(sd, f"recon_trunk.{i}.conv1", node["Conv3x3_0"]["Conv_0"])
+            _conv(sd, f"recon_trunk.{i}.conv2", node["Conv3x3_1"]["Conv_0"])
+        else:
+            _conv(sd, name, node)
+    return sd
+
+
+def _ranker(params: dict, batch_stats: dict | None) -> dict:
+    sd: dict = {}
+    for name, node in params.items():
+        _leaves(sd, name, node)
+        if batch_stats is not None and name in batch_stats:
+            st = batch_stats[name]
+            sd[f"{name}.running_mean"], sd[f"{name}.running_var"] = _t(st["mean"]), _t(st["var"])
+    return sd
+
+
+def _linear(sd: dict, name: str, node: dict, index=None) -> None:
+    """A flax Dense, or a 1x1 Conv, into a torch Linear; ``index`` picks one
+    layer of stacked leaves."""
+    def leaf(key):
+        a = np.asarray(node[key])
+        return a[index] if index is not None else a
+    k = leaf("kernel")
+    sd[f"{name}.weight"] = _t((k[0, 0] if k.ndim == 4 else k).T)
+    sd[f"{name}.bias"] = _t(leaf("bias"))
+
+
+def _norm(sd: dict, name: str, node: dict, index=None) -> None:
+    for leaf, key in (("scale", "weight"), ("bias", "bias")):
+        a = np.asarray(node[leaf])
+        sd[f"{name}.{key}"] = _t(a[index] if index is not None else a)
+
+
+def _swin_block(sd: dict, name: str, node: dict, index=None) -> None:
+    attn = node["WindowAttention_0"]
+    _norm(sd, f"{name}.norm1", node["LayerNorm_0"], index)
+    _linear(sd, f"{name}.attn.qkv", attn["qkv"], index)
+    _linear(sd, f"{name}.attn.proj", attn["proj"], index)
+    table = np.asarray(attn["rel_pos_bias"])
+    sd[f"{name}.attn.relative_position_bias_table"] = _t(table[index] if index is not None
+                                                         else table)
+    _norm(sd, f"{name}.norm2", node["LayerNorm_1"], index)
+    _linear(sd, f"{name}.mlp.fc1", node["Dense_0"], index)
+    _linear(sd, f"{name}.mlp.fc2", node["Dense_1"], index)
+
+
+def _swinir(params: dict) -> dict:
+    """SwinIR; an RSTB scanned in (no-shift, shift) pairs holds its blocks'
+    leaves stacked (depth // 2, ...) under ``pairs``: pair p is blocks 2p
+    and 2p + 1."""
+    sd: dict = {}
+    upsample = sorted((k for k in params if re.fullmatch(r"Conv_\d+", k)),
+                      key=lambda k: int(k[5:]))
+    for k, name in enumerate(upsample):          # conv, pixel shuffle, conv, ...
+        _conv(sd, f"upsample.{2 * k}", params[name])
+    for name, node in params.items():
+        if name in upsample:
+            continue
+        if name == "patch_embed_norm":
+            _norm(sd, "patch_embed.norm", node)
+        elif name == "norm":
+            _norm(sd, "norm", node)
+        elif name == "conv_before_upsample":
+            _conv(sd, "conv_before_upsample.0", node)
+        elif name.startswith("layer_"):
+            base = f"layers.{name[len('layer_'):]}"
+            _conv(sd, f"{base}.conv", node["conv"])
+            if "pairs" in node:
+                cells = node["pairs"]
+                n = np.asarray(cells["SwinBlock_0"]["WindowAttention_0"]["rel_pos_bias"]).shape[0]
+                for p in range(n):
+                    for j in (0, 1):
+                        _swin_block(sd, f"{base}.residual_group.blocks.{2 * p + j}",
+                                    cells[f"SwinBlock_{j}"], p)
+            else:
+                for j in range(_count(node, "block_")):
+                    _swin_block(sd, f"{base}.residual_group.blocks.{j}", node[f"block_{j}"])
+        else:
+            _conv(sd, name, node)
+    return sd
+
+
+def _elan(params: dict) -> dict:
+    sd: dict = {}
+    for name in ("head", "tail"):
+        _conv(sd, name, params[name])
+    for i in range(_count(params, "body_")):
+        block = params[f"body_{i}"]
+        for j in range(_count(block, "lfe_")):
+            lfe, gmsa, base = block[f"lfe_{j}"], block[f"gmsa_{j}"], f"body.{i}"
+            _linear(sd, f"{base}.lfe.{j}.conv0.conv", lfe["ShiftConv_0"]["Conv_0"])
+            _linear(sd, f"{base}.lfe.{j}.conv1.conv", lfe["ShiftConv_1"]["Conv_0"])
+            _linear(sd, f"{base}.gmsa.{j}.project_inp", gmsa["Conv_0"])
+            _norm(sd, f"{base}.gmsa.{j}.norm", gmsa["LayerNorm_0"])
+            _linear(sd, f"{base}.gmsa.{j}.project_out", gmsa["Conv_1"])
     return sd
 
 
@@ -209,6 +349,23 @@ def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
         return _rrdbnet(params)
     if family == "VGGStyleDiscriminator":
         return _vgg_disc(params, batch_stats)
+    if family == "Discriminator_VGG_296":   # the stack is a submodule in flax
+        stack = "_VGGDownStack_0"
+        return _vgg_disc({**params[stack], "Dense_0": params["Dense_0"],
+                          "Dense_1": params["Dense_1"]},
+                         None if batch_stats is None else batch_stats[stack])
+    if family in ("RRDBBebyGANNet", "BSRGANRRDBNet"):
+        return _rrdb_trunk(params)
+    if family == "SPSRNet":
+        return _spsr(params)
+    if family == "RankSRGANSRResNet":
+        return _ranksrgan_g(params)
+    if family == "Ranker_VGG12_296":
+        return _ranker(params, batch_stats)
+    if family == "SwinIR":
+        return _swinir(params)
+    if family == "ELAN":
+        return _elan(params)
     if family == "UNetDiscriminatorSN":
         return _unet_disc(params, batch_stats)
     if family == "VGGFeatureExtractor":
