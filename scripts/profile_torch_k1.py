@@ -2,8 +2,9 @@
 
     python3 scripts/profile_torch_k1.py [--root DIR] [--label NAME] [--iters 10]
 
-For the ESRGAN step's (16, 3, 128, 128) and the diffusion mini-step's
-(2, 3, 512, 512), both at search 25 / window 9 / sigma 0.004 on
+For the ESRGAN step's (16, 3, 128, 128), the diffusion mini-step's
+(2, 3, 512, 512) and BSRGAN-SSL's (48, 3, 256, 256), at search 25 / window
+9 / sigma 0.004 on
 chip_smoke.py's smooth images with a mask of density 0.25, prints one JSON
 line: the kernel's device time (torch.profiler, ms per call), the wrapper's
 time by CUDA events (the reflect padding, the kernel and the sum of the
@@ -24,7 +25,7 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = {"esrgan_train": (16, 128), "diffusion_train": (2, 512)}
+SHAPES = {"esrgan_train": (16, 128), "diffusion_train": (2, 512), "bsrgan_train": (48, 256)}
 
 
 def main() -> int:

@@ -94,43 +94,77 @@ def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum() + eps)
 
 
-class SNConv2d(nn.Conv2d):
-    """Spectrally normalized conv with torch padding, (k - 1) // 2 on both
-    sides (``ssl_tpu``'s ``_SNConv``), and flax's power-iteration rule:
+def spectral_normalize(module: nn.Module, mat: torch.Tensor) -> torch.Tensor:
+    """flax's power-iteration rule on the (fan_in, out) matrix ``mat`` of
+    ``module``, whose buffers ``u`` (1, out) and ``sigma`` () it reads and,
+    in train mode, stores:
 
-    * the weight as flax sees it, HWIO reshaped to (kh kw in, out); ``u``
-      (1, out) and ``sigma`` () are buffers;
     * one power-iteration step on every call, in eval too:
       v = l2n(u W^T), u' = l2n(v W) with l2n(x) = x / sqrt(|x|^2 + eps);
       u' and v carry no gradient;
     * sigma = v W u'^T (the gradient reaches W through it), and W / sigma
       where sigma != 0;
     * in train mode u' and sigma are stored (flax's ``update_stats``)."""
+    with torch.no_grad():
+        v = _l2_normalize(module.u @ mat.T, module.eps)
+        u = _l2_normalize(v @ mat, module.eps)
+    sigma = (v @ mat @ u.T)[0, 0]
+    mat = mat / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+    if module.training:
+        with torch.no_grad():
+            module.u.copy_(u)
+            module.sigma.copy_(sigma)
+    return mat
+
+
+class SNConv2d(nn.Conv2d):
+    """Spectrally normalized conv with torch padding, ``padding`` on each
+    side ((k - 1) // 2 unless given, as ``ssl_tpu``'s ``_SNConv``), and
+    flax's power-iteration rule (``spectral_normalize``) on the weight as
+    flax sees it, HWIO reshaped to (kh kw in, out)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 bias: bool = False, eps: float = 1e-12):
-        super().__init__(in_ch, out_ch, kernel, stride, (kernel - 1) // 2, bias=bias)
+                 bias: bool = False, eps: float = 1e-12, padding: int | None = None):
+        super().__init__(in_ch, out_ch, kernel, stride,
+                         (kernel - 1) // 2 if padding is None else padding, bias=bias)
         self.eps = eps
         self.register_buffer("u", torch.zeros(1, out_ch))
         self.register_buffer("sigma", torch.ones(()))
 
     def normalized_weight(self) -> torch.Tensor:
         out_ch = self.weight.shape[0]
-        mat = self.weight.permute(2, 3, 1, 0).reshape(-1, out_ch)
-        with torch.no_grad():
-            v = _l2_normalize(self.u @ mat.T, self.eps)
-            u = _l2_normalize(v @ mat, self.eps)
-        sigma = (v @ mat @ u.T)[0, 0]
-        mat = mat / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
-        if self.training:
-            with torch.no_grad():
-                self.u.copy_(u)
-                self.sigma.copy_(sigma)
+        mat = spectral_normalize(self, self.weight.permute(2, 3, 1, 0).reshape(-1, out_ch))
         return mat.reshape(self.weight.shape[2], self.weight.shape[3], self.weight.shape[1],
                            out_ch).permute(3, 2, 0, 1)
 
     def forward(self, x):
         return F.conv2d(x, self.normalized_weight(), self.bias, self.stride, self.padding)
+
+
+class SNLinear(nn.Linear):
+    """A linear layer under flax's spectral norm: the matrix flax sees is
+    the (in, out) kernel, the transpose of torch's weight."""
+
+    def __init__(self, in_features: int, out_features: int, eps: float = 1e-12):
+        super().__init__(in_features, out_features)
+        self.eps = eps
+        self.register_buffer("u", torch.zeros(1, out_features))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def forward(self, x):
+        return F.linear(x, spectral_normalize(self, self.weight.T).T, self.bias)
+
+
+@torch.no_grad()
+def init_sn_discriminator(net: nn.Module, generator: torch.Generator) -> None:
+    """Weights from N(0, 1 / fan_in), zero biases, unit batch norms, and each
+    spectral norm's ``u`` from N(0, 1) (flax draws it with
+    ``jax.random.normal``)."""
+    normal_init_(net, generator)
+    for m in net.modules():
+        if isinstance(m, (SNConv2d, SNLinear)):
+            m.u.copy_(torch.randn(m.u.shape, generator=generator))
+            m.sigma.fill_(1.0)
 
 
 @ARCH_REGISTRY.register()
@@ -159,15 +193,8 @@ class UNetDiscriminatorSN(nn.Module):
         self.conv8 = SNConv2d(nf, nf, 3)
         self.conv9 = nn.Conv2d(nf, 1, 3, 1, 1)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Weights from N(0, 1 / fan_in), zero biases, and each ``u`` from
-        N(0, 1) (flax draws it with ``jax.random.normal``)."""
-        normal_init_(self, generator)
-        for m in self.modules():
-            if isinstance(m, SNConv2d):
-                m.u.copy_(torch.randn(m.u.shape, generator=generator))
-                m.sigma.fill_(1.0)
+        init_sn_discriminator(self, generator)
 
     def forward(self, x):
         def lrelu(v):

@@ -1,14 +1,16 @@
 """Dataset builders (reference surface: basicsr/data/__init__.py).
 
 Counterpart of ``ssl_tpu/data/__init__.py`` for the paired datasets of the
-ESRGAN-SSL recipe, the GT + kernel datasets of RealESRGAN-SSL and the
-two-stage-degradation datasets of the diffusion tree; the blind-SR, video
-and CFW datasets are later slices (ROADMAP.md)."""
+ESRGAN-SSL recipe, the GT + kernel datasets of RealESRGAN-SSL, the
+two-stage-degradation datasets of the diffusion tree and the KAIR blind-SR
+dataset; the video and CFW datasets are later slices (ROADMAP.md)."""
 from copy import deepcopy
 
+from ssl_tpu_torch.data import blindsr_mask_dataset as _b  # noqa: F401
 from ssl_tpu_torch.data import extra_datasets as _e  # noqa: F401
 from ssl_tpu_torch.data import paired_image_dataset as _p  # noqa: F401
 from ssl_tpu_torch.data import realesrgan_dataset as _r  # noqa: F401
+from ssl_tpu_torch.data.blindsr_mask_dataset import DatasetBlindSRMask  # noqa: F401
 from ssl_tpu_torch.data.extra_datasets import (  # noqa: F401
     TwoStageDegradationDF2KDataset, TwoStageDegradationImgMaskDataset,
 )

@@ -72,16 +72,58 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop`` at its defaults: nu = (1 - decay) g^2 + decay nu
+    from nu = 0, and p -= lr g / sqrt(nu + eps), eps inside the root (torch's
+    ``RMSprop`` adds it outside)."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, {"lr": lr, "decay": decay, "eps": eps})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.copy_((1 - group["decay"]) * p.grad * p.grad + group["decay"] * nu)
+                p.add_(p.grad * torch.rsqrt(nu + group["eps"]), alpha=-group["lr"])
+
+
 def build_optimizer(optim_opt: dict, params, schedule: Callable):
-    """Optimizer factory (reference base_model.py:103-120).  Only Adam is
-    ported; its learning rate is written from ``schedule`` at every step."""
+    """Optimizer factory (reference base_model.py:103-120) with the update
+    rules of the JAX package's optax transforms; the learning rate is written
+    from ``schedule`` at every step.
+
+    * Adam: ``optax.adam``, after ``add_decayed_weights`` when
+      ``weight_decay`` is set (torch's L2 term adds wd p to the gradient);
+    * AdamW: ``optax.adamw`` (decoupled decay, 0 unless set);
+    * SGD: ``optax.sgd`` with ``momentum`` (a trace from 0, no dampening);
+    * RMSprop: ``optax.rmsprop`` (``RMSprop`` above);
+    * Adamax: ``optax.adamax`` (|g| + eps inside the running maximum, as
+      torch's ``Adamax`` does).
+
+    Like the JAX factory, SGD, RMSprop and Adamax ignore ``weight_decay``."""
     o = deepcopy(optim_opt)
     otype = o.pop("type", "Adam")
-    if otype != "Adam":
-        raise NotImplementedError(f"optimizer {otype} is not ported yet (only Adam)")
     betas = tuple(o.pop("betas", (0.9, 0.999)))
-    return torch.optim.Adam(params, lr=schedule(0), betas=betas, eps=1e-8,
-                            weight_decay=o.pop("weight_decay", 0))
+    wd = o.pop("weight_decay", 0)
+    lr = schedule(0)
+    if otype == "Adam":
+        return torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8, weight_decay=wd)
+    if otype == "AdamW":
+        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=1e-8, weight_decay=wd)
+    if otype == "SGD":
+        return torch.optim.SGD(params, lr=lr, momentum=o.pop("momentum", 0.0))
+    if otype == "RMSprop":
+        return RMSprop(params, lr=lr)
+    if otype == "Adamax":
+        return torch.optim.Adamax(params, lr=lr, betas=betas, eps=1e-8)
+    raise NotImplementedError(f"optimizer {otype} is not supported yet.")
 
 
 def optimizer_step(opt: torch.optim.Optimizer, lr: float, apply: bool = True) -> None:

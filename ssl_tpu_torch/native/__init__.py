@@ -1,5 +1,6 @@
 """The port's host C++ (``pipeline.cpp``): the JPEG round trip and the
-reflect-101 ``filter2d`` of the two-stage degrader, bound with ``ctypes``.
+reflect-101 ``filter2d`` of the two-stage degrader, and the libjpeg-exact
+JPEG round trip of the BSRGAN degradation, bound with ``ctypes``.
 
 Counterpart of ``ssl_tpu/native`` (its ``box_ssd_ssg`` oracle stays there).
 The library is compiled by ``g++`` at first use into
@@ -70,6 +71,9 @@ def library() -> ctypes.CDLL:
             lib.filter2d_reflect_batch.argtypes = [f32p, f32p, cint, cint, cint, cint, f32p,
                                                    cint, cint]
             lib.filter2d_reflect_batch.restype = None
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            lib.jpeg_libjpeg_roundtrip.argtypes = [u8p, cint, cint, cint]
+            lib.jpeg_libjpeg_roundtrip.restype = None
             _LIB = lib
     return _LIB
 
@@ -103,4 +107,16 @@ def filter2d_batch(imgs: np.ndarray, kernels: np.ndarray, n_threads: int = 8) ->
     src = np.ascontiguousarray(imgs, np.float32)
     out = np.empty_like(src)
     library().filter2d_reflect_batch(src, out, b, h, w, c, kernels, kernels.shape[1], n_threads)
+    return out
+
+
+def jpeg_libjpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
+    """(h, w, 3) RGB uint8 -> its baseline JPEG encode and decode at
+    ``quality`` as libjpeg computes them at ``cv2``'s defaults (4:2:0, the
+    integer DCTs, fancy upsampling): ``cv2.imdecode(cv2.imencode(".jpg",
+    img, [cv2.IMWRITE_JPEG_QUALITY, quality]))`` in RGB."""
+    if img.ndim != 3 or img.shape[-1] != 3 or img.dtype != np.uint8:
+        raise ValueError(f"expected an (h, w, 3) uint8 image, got {img.dtype} {img.shape}")
+    out = np.ascontiguousarray(img).copy()
+    library().jpeg_libjpeg_roundtrip(out, out.shape[0], out.shape[1], int(quality))
     return out

@@ -103,11 +103,12 @@ def apply_mask_stride(mask: torch.Tensor, stride: int) -> torch.Tensor:
     return mask * ((yy % stride) == (xx % stride)).to(mask.dtype)
 
 
-def _band_matrix(n_out: int, n_in: int, p: int, lo: int, hi: int, device) -> torch.Tensor:
+def _band_matrix(n_out: int, n_in: int, p: int, lo: int, hi: int, device,
+                 dtype=torch.float32) -> torch.Tensor:
     """0/1 band matrix B[y, u] = 1 iff lo <= u - (y + p) <= hi."""
     d = (torch.arange(n_in, device=device)[None, :]
          - torch.arange(n_out, device=device)[:, None] - p)
-    return ((d >= lo) & (d <= hi)).to(torch.float32)
+    return ((d >= lo) & (d <= hi)).to(dtype)
 
 
 def _window_bounds(d: int, p: int, k: int) -> tuple[int, int]:
@@ -129,12 +130,12 @@ def _context(img: torch.Tensor, cfg: SSGConfig) -> _Context:
     _, _, h, w = img.shape
     P = reflect_pad_2d(img, p)
     center2 = torch.sum(P * P, dim=1)
-    dev = img.device
-    box_c2 = (_band_matrix(h, h + 2 * p, p, -k, k, dev) @ center2
-              @ _band_matrix(w, w + 2 * p, p, -k, k, dev).T)
-    by = [_band_matrix(h, h + 2 * p, p, *_window_bounds(i - p, p, k), dev)
+    dev, dt = img.device, img.dtype
+    box_c2 = (_band_matrix(h, h + 2 * p, p, -k, k, dev, dt) @ center2
+              @ _band_matrix(w, w + 2 * p, p, -k, k, dev, dt).T)
+    by = [_band_matrix(h, h + 2 * p, p, *_window_bounds(i - p, p, k), dev, dt)
           for i in range(cfg.search)]
-    bx = [_band_matrix(w, w + 2 * p, p, *_window_bounds(i - p, p, k), dev)
+    bx = [_band_matrix(w, w + 2 * p, p, *_window_bounds(i - p, p, k), dev, dt)
           for i in range(cfg.search)]
     return _Context(P, F.pad(P, (p, p, p, p)), center2, box_c2, by, bx)
 
@@ -157,7 +158,8 @@ def ssl_loss_sums_reference(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tens
                             cfg: SSGConfig = SSGConfig()):
     """Plain version of the fused SSL-loss forward (K1).
 
-    sr, gt: (b, c, h, w) float32; mask: (b, h, w).  Returns
+    sr, gt: (b, c, h, w) float32 (float64 for a float64 reference); mask:
+    (b, h, w).  Returns
     ``(l1_sum, kl_sum, count, inv_sr, inv_gt, a_map, b_map)``: the masked loss
     sums over (pixels x offsets), the mask count, the (b, h, w)
     row-normalizers 1/(sum_d q_d + 1e-10) of SR and GT, and the backward
@@ -224,7 +226,7 @@ def ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl,
     P, Pbig = ctx.P[:b], ctx.Pbig[:b]
     hp, wp = P.shape[-2], P.shape[-1]
     mask = mask.to(sr.dtype)
-    dev = sr.device
+    dev, dt = sr.device, sr.dtype
 
     def g_of(q_sr, q_gt):
         x = q_sr * inv_sr
@@ -243,9 +245,9 @@ def ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl,
             T = T + g_of(q_sr, q_gt) * q_sr
 
     # band transposes of the shifted rectangles, per dy / dx index
-    by_s = [_band_matrix(h, hp, p, *(v + i - p for v in _window_bounds(i - p, p, k)), dev)
+    by_s = [_band_matrix(h, hp, p, *(v + i - p for v in _window_bounds(i - p, p, k)), dev, dt)
             for i in range(search)]
-    bx_s = [_band_matrix(w, wp, p, *(v + i - p for v in _window_bounds(i - p, p, k)), dev)
+    bx_s = [_band_matrix(w, wp, p, *(v + i - p for v in _window_bounds(i - p, p, k)), dev, dt)
             for i in range(search)]
 
     acc1 = sr.new_zeros((b, c, hp, wp))
@@ -263,6 +265,7 @@ def ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl,
         sum_shift_a = sum_shift_a + shift_a
         sum_g = sum_g + G_d
 
-    a9 = (_band_matrix(h, hp, p, -k, k, dev).T @ sum_g @ _band_matrix(w, wp, p, -k, k, dev))
+    a9 = (_band_matrix(h, hp, p, -k, k, dev, dt).T @ sum_g
+          @ _band_matrix(w, wp, p, -k, k, dev, dt))
     dP = 2.0 * ((sum_shift_a + a9)[:, None] * P - acc1)
     return reflect_pad_2d_adjoint(dP, p)

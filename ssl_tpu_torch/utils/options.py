@@ -2,7 +2,8 @@
 
 Counterpart of ``ssl_tpu/utils/options.py``: the same YAML schema, the same
 ``-opt``, ``--auto_resume``, ``--debug`` and ``--force_yml key:sub=val``
-switches, the same experiment and result paths, plus ``--device`` (``cuda``
+switches, the same experiment and result paths, KAIR ``.json`` files through
+``utils/kair_options.py``, plus ``--device`` (``cuda``
 unless the caller names another).  ``yaml`` is imported only to read a YAML
 file: a ``.json`` option file (``//`` comments allowed) needs none, and
 without ``yaml`` a ``--force_yml`` value is read as JSON, else kept as a
@@ -15,6 +16,8 @@ import json
 import os
 import random
 import re
+
+from ssl_tpu_torch.utils.kair_options import is_kair_options, kair_to_opt
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
 
@@ -94,8 +97,8 @@ def parse_options(root_path: str, is_train: bool = True, args=None):
                                   f"{_ROADMAP}, item 10")
 
     opt = ordered_yaml_load(parsed.opt)
-    if "netG" in opt or "dataset_type" in str(opt.get("datasets", {})):
-        raise NotImplementedError(f"KAIR-format options are {_ROADMAP}, item 8")
+    if is_kair_options(opt):
+        opt = kair_to_opt(opt)
     if parsed.force_yml:
         for entry in parsed.force_yml:
             set_by_dotted(opt, entry.strip())

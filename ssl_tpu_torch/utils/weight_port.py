@@ -29,6 +29,9 @@ import torch
 FAMILIES = ("RRDBNet", "VGGStyleDiscriminator", "UNetDiscriminatorSN", "VGGFeatureExtractor",
             "RRDBBebyGANNet", "BSRGANRRDBNet", "SPSRNet", "RankSRGANSRResNet",
             "Discriminator_VGG_296", "Ranker_VGG12_296", "SwinIR", "ELAN",
+            "MSRResNet", "KAIRMSRResNet0", "KAIRDiscriminatorVGG96", "KAIRDiscriminatorVGG128",
+            "KAIRDiscriminatorVGG192", "KAIRDiscriminatorVGG128SN", "KAIRDiscriminatorPatchGAN",
+            "SRVGGNetCompact", "EDSR", "RCAN", "ECBSR",
             "UNetModelDualcondV2",
             "EncoderUNetModelWT", "AutoencoderKL", "StableSRSSL")
 
@@ -244,6 +247,165 @@ def _unet_disc(params: dict, batch_stats: dict | None) -> dict:
     return sd
 
 
+def _sn_stats(sd: dict, name: str, stats: dict | None, leaf: str) -> None:
+    """A spectral norm's ``u`` and ``sigma`` (flax keeps them in batch_stats
+    under ``SpectralNorm_0`` as ``{leaf}/kernel/u`` and ``.../sigma``)."""
+    if stats is not None and name in stats:
+        sn = stats[name]["SpectralNorm_0"]
+        sd[f"{name}.u"] = _t(sn[f"{leaf}/kernel/u"])
+        sd[f"{name}.sigma"] = _t(sn[f"{leaf}/kernel/sigma"])
+
+
+def _bn(sd: dict, name: str, node: dict, stats: dict | None) -> None:
+    sd[f"{name}.weight"], sd[f"{name}.bias"] = _t(node["scale"]), _t(node["bias"])
+    if stats is not None:
+        sd[f"{name}.running_mean"], sd[f"{name}.running_var"] = _t(stats["mean"]), _t(stats["var"])
+
+
+def _resblocks(sd: dict, params: dict, prefix: str = "body") -> None:
+    """ResidualBlockNoBN's ``{prefix}_{i}/Conv3x3_{j}/Conv_0`` ->
+    ``{prefix}.{i}.conv{j + 1}``."""
+    for name, node in params.items():
+        if re.fullmatch(rf"{prefix}_\d+", name):
+            i = name.split("_")[-1]
+            for j in (0, 1):
+                _conv(sd, f"{prefix}.{i}.conv{j + 1}", node[f"Conv3x3_{j}"]["Conv_0"])
+
+
+def _msrresnet(params: dict) -> dict:
+    sd: dict = {}
+    for name in ("conv_first", "upconv1", "upconv2", "conv_hr", "conv_last"):
+        if name in params:
+            _conv(sd, name, params[name])
+    _resblocks(sd, params)
+    return sd
+
+
+def _kair_msrresnet0(params: dict) -> dict:
+    sd: dict = {}
+    for name, node in params.items():
+        m = re.fullmatch(r"b(\d+)_conv(\d)", name) or re.fullmatch(r"up(\d+)", name)
+        if m is None:
+            _conv(sd, name, node)
+        elif name.startswith("up"):
+            _conv(sd, f"ups.{m[1]}", node)
+        else:
+            _conv(sd, f"blocks.{m[1]}.conv{m[2]}", node)
+    return sd
+
+
+def _kair_vgg_d(params: dict, batch_stats: dict | None) -> dict:
+    """The KAIR VGG discriminators: ``_KAIRVGGFeatures_0``'s ``Conv_{k}`` and
+    ``BatchNorm_{k}``; the head flattens NCHW in both, so no reorder."""
+    sd: dict = {}
+    feats = params["_KAIRVGGFeatures_0"]
+    stats = None if batch_stats is None else batch_stats["_KAIRVGGFeatures_0"]
+    for name, node in feats.items():
+        kind, k = name.rsplit("_", 1)
+        if kind == "Conv":
+            _conv(sd, f"convs.{k}", node)
+        else:
+            _bn(sd, f"bns.{k}", node, None if stats is None else stats[name])
+    _linear(sd, "linear0", params["Dense_0"])
+    _linear(sd, "linear1", params["Dense_1"])
+    return sd
+
+
+def _kair_vgg128_sn(params: dict, batch_stats: dict | None) -> dict:
+    sd: dict = {}
+    for name, node in params.items():
+        if name.startswith("conv"):
+            _conv(sd, name, node["Conv_0"])
+            _sn_stats(sd, name, batch_stats, "Conv_0")
+        else:
+            _linear(sd, name, node["Dense_0"])
+            _sn_stats(sd, name, batch_stats, "Dense_0")
+    return sd
+
+
+def _kair_patchgan(params: dict, batch_stats: dict | None) -> dict:
+    sd: dict = {}
+    for name, node in params.items():
+        if name.startswith("child"):
+            _conv(sd, name, node.get("Conv_0", node))
+            _sn_stats(sd, name, batch_stats, "Conv_0")
+        else:
+            _bn(sd, f"bns.{name.rsplit('_', 1)[1]}", node,
+                None if batch_stats is None else batch_stats[name])
+    return sd
+
+
+def _srvgg(params: dict) -> dict:
+    """``conv_first`` / ``act_first`` / ``conv_{i}`` / ``act_{i}`` /
+    ``conv_last`` -> the reference's alternating ``body.{k}``."""
+    sd: dict = {}
+    n_conv = _count(params, "conv_")
+    _conv(sd, "body.0", params["conv_first"])
+    for i in range(n_conv):
+        _conv(sd, f"body.{2 * i + 2}", params[f"conv_{i}"])
+    _conv(sd, f"body.{2 * n_conv + 2}", params["conv_last"])
+    for name, node in params.items():
+        if name.startswith("act_"):
+            k = 1 if name == "act_first" else 2 * int(name[len("act_"):]) + 3
+            sd[f"body.{k}.weight"] = _t(node["alpha"])
+    return sd
+
+
+def _upsample(sd: dict, node: dict) -> None:
+    for name, leaf in node.items():         # Conv_{j} -> upsample.{2 j}
+        _conv(sd, f"upsample.{2 * int(name.split('_')[1])}", leaf)
+
+
+def _edsr(params: dict) -> dict:
+    sd: dict = {}
+    for name in ("conv_first", "conv_after_body", "conv_last"):
+        _conv(sd, name, params[name])
+    _resblocks(sd, params)
+    _upsample(sd, params["upsample"])
+    return sd
+
+
+def _rcan(params: dict) -> dict:
+    sd: dict = {}
+    for name in ("conv_first", "conv_after_body", "conv_last"):
+        _conv(sd, name, params[name])
+    _upsample(sd, params["upsample"])
+    for name, group in params.items():
+        if not name.startswith("group_"):
+            continue
+        g = f"body.{name.split('_')[1]}"
+        _conv(sd, f"{g}.conv", group["conv"])
+        for bname, block in group.items():
+            if bname.startswith("rcab_"):
+                b = f"{g}.residual_group.{bname.split('_')[1]}.rcab"
+                _conv(sd, f"{b}.0", block["conv1"])
+                _conv(sd, f"{b}.2", block["conv2"])
+                _conv(sd, f"{b}.3.attention.1", block["ca"]["down"])
+                _conv(sd, f"{b}.3.attention.3", block["ca"]["up"])
+    return sd
+
+
+def _ecbsr(params: dict) -> dict:
+    sd: dict = {}
+    for name, block in params.items():
+        base = f"backbone.{name.split('_')[1]}"
+        _conv(sd, f"{base}.conv3x3", block["conv3x3"])
+        for br, node in block.items():
+            if not br.startswith("conv1x1"):
+                continue
+            sd[f"{base}.{br}.k0"] = _t(np.asarray(node["conv0_w"]["kernel"]).transpose(3, 2, 0, 1))
+            sd[f"{base}.{br}.b0"] = _t(node["b0_pad"])
+            if "conv1" in node:
+                sd[f"{base}.{br}.k1"] = _t(np.asarray(node["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+                sd[f"{base}.{br}.b1"] = _t(node["conv1"]["bias"])
+            else:
+                sd[f"{base}.{br}.scale"] = _t(np.asarray(node["scale"]).reshape(-1, 1, 1, 1))
+                sd[f"{base}.{br}.bias"] = _t(node["bias"])
+        if "act" in block:
+            sd[f"{base}.act.weight"] = _t(block["act"]["alpha"])
+    return sd
+
+
 def _vgg_features(params: dict) -> dict:
     sd: dict = {}
     for name, node in params.items():
@@ -368,6 +530,24 @@ def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
         return _elan(params)
     if family == "UNetDiscriminatorSN":
         return _unet_disc(params, batch_stats)
+    if family == "MSRResNet":
+        return _msrresnet(params)
+    if family == "KAIRMSRResNet0":
+        return _kair_msrresnet0(params)
+    if family in ("KAIRDiscriminatorVGG96", "KAIRDiscriminatorVGG128", "KAIRDiscriminatorVGG192"):
+        return _kair_vgg_d(params, batch_stats)
+    if family == "KAIRDiscriminatorVGG128SN":
+        return _kair_vgg128_sn(params, batch_stats)
+    if family == "KAIRDiscriminatorPatchGAN":
+        return _kair_patchgan(params, batch_stats)
+    if family == "SRVGGNetCompact":
+        return _srvgg(params)
+    if family == "EDSR":
+        return _edsr(params)
+    if family == "RCAN":
+        return _rcan(params)
+    if family == "ECBSR":
+        return _ecbsr(params)
     if family == "VGGFeatureExtractor":
         return _vgg_features(params)
     raise KeyError(f"no weight carry for {family!r}; known: {FAMILIES}")

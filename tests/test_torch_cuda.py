@@ -306,3 +306,69 @@ def test_diffusion_cli_mini_step_on_card(card, tmp_path, capsys):
     assert state.params["null_context"].is_cuda
     logged = capsys.readouterr().out
     assert "step 1 (" in logged and "nan" not in logged
+
+
+@pytest.mark.cuda
+def test_native_jpeg_matches_cv2_on_the_card_machine(card):
+    """The BSRGAN degradation's C++ JPEG round trip, built by that machine's
+    g++, against that machine's cv2 (libjpeg at its defaults), at sizes that
+    are and are not multiples of 16: equal, or within one level on at most
+    0.1% of the values."""
+    try:
+        import cv2
+    except ImportError:
+        pytest.skip("cv2 is not installed on this machine: nothing to hold the JPEG against")
+    from ssl_tpu_torch.native import jpeg_libjpeg_roundtrip
+    rng = np.random.RandomState(0)
+    for (h, w), quality in (((64, 64), 75), ((61, 45), 85), ((256, 256), 95), ((37, 53), 90)):
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = (128 + 60 * np.sin(yy / 5.0)[..., None] * np.cos(xx[..., None] / 7.0 + np.arange(3))
+               + rng.randn(h, w, 3) * 20).clip(0, 255).astype(np.uint8)
+        want = cv2.cvtColor(cv2.imdecode(cv2.imencode(
+            ".jpg", cv2.cvtColor(img, cv2.COLOR_RGB2BGR),
+            [int(cv2.IMWRITE_JPEG_QUALITY), quality])[1], 1), cv2.COLOR_BGR2RGB)
+        d = np.abs(jpeg_libjpeg_roundtrip(img, quality).astype(int) - want.astype(int))
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3, ((h, w), quality, d.max())
+
+
+@pytest.mark.cuda
+def test_kair_step_on_card(card, tmp_path, monkeypatch):
+    """Two iterations of a tiny KAIR file through the train CLI on the card
+    (BSRGANRRDBNet nf 8, the BSRGAN degradation on the host with cv2 hidden,
+    the stride-3 mask): K1 launched once per iteration, every loss finite,
+    the nets on the card."""
+    import json
+    import sys
+
+    from scipy.io import savemat
+
+    import ssl_tpu_torch.train as ttrain
+    from ssl_tpu_torch.utils.png import encode_png
+    from torch_kair_cases import tiny_kair
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    rng = np.random.RandomState(0)
+    d = {k: str(tmp_path / k) for k in ("gt", "mask", "vgt", "vlq")}
+    for k, path in d.items():
+        (tmp_path / k).mkdir()
+    for i in range(4):
+        (tmp_path / "gt" / f"{i}.png").write_bytes(
+            encode_png((rng.rand(64, 64, 3) * 255).astype(np.uint8)))
+        savemat(str(tmp_path / "mask" / f"{i}.mat"),
+                {"mat": (rng.rand(64, 64) < 0.2).astype(np.float64)})
+    for name, size in (("vgt", 64), ("vlq", 16)):
+        (tmp_path / name / "v.png").write_bytes(
+            encode_png((rng.rand(size, size, 3) * 255).astype(np.uint8)))
+    path = tmp_path / "kair.json"
+    path.write_text(json.dumps(tiny_kair(d, "kair_card", iterations=2)))
+    seen = []
+    from ssl_tpu_torch.utils import logger as tlogger
+    call = tlogger.MessageLogger.__call__
+    monkeypatch.setattr(tlogger.MessageLogger, "__call__",
+                        lambda self, logs: (seen.append(dict(logs)), call(self, logs))[1])
+    before = ssg_cuda.launches
+    state = ttrain.train_pipeline(str(tmp_path), ["-opt", str(path)])
+    assert ssg_cuda.launches == before + 2 and state.step == 2
+    assert next(state.net_g.parameters()).is_cuda and type(state.net_g).__name__ == "BSRGANRRDBNet"
+    for logs in seen:
+        for k in ("l_pix", "l_percep", "l_g_gan", "l_selfsim", "l_selfsim_kl", "l_d_real"):
+            assert np.isfinite(logs[k]), (k, logs)

@@ -86,11 +86,13 @@ def test_unported_switches_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         topt.parse_options("/r", True, ["-opt", TRAIN_YML, "--device", "cpu",
                                         "--launcher", "jax"])
+    # KAIR files are ported: one parses to the JAX package's adapted dict
     kair = os.path.join(tmp_path, "kair.json")
     with open(kair, "w") as f:
         json.dump({"name": "k", "netG": {"net_type": "rrdbnet"}}, f)
-    with pytest.raises(NotImplementedError, match="KAIR"):
-        topt.parse_options("/r", True, ["-opt", kair, "--device", "cpu"])
+    got, _ = topt.parse_options("/r", True, ["-opt", kair, "--device", "cpu"])
+    want, _ = jopt.parse_options("/r", True, ["-opt", kair])
+    assert got == want and got["model_type"] == "BSRGANSSLModel"
     assert topt.visible_devices({"num_devices": "auto"}, "cpu") == 1
 
 

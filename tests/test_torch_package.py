@@ -118,8 +118,12 @@ def test_build_model_on_cpu_when_asked():
 def test_unported_options_raise():
     from ssl_tpu_torch.models.base_model import build_optimizer
     from ssl_tpu_torch.utils.registry import build_network
-    with pytest.raises(NotImplementedError):
-        build_optimizer({"type": "SGD"}, [torch.zeros(1, requires_grad=True)], lambda s: 0.1)
+    from ssl_tpu.models.base_model import build_optimizer as jax_build_optimizer
+    for build in (lambda: build_optimizer({"type": "Lion"}, [torch.zeros(1, requires_grad=True)],
+                                          lambda s: 0.1),
+                  lambda: jax_build_optimizer({"type": "Lion"}, lambda s: 0.1)):
+        with pytest.raises(NotImplementedError):    # refused by both packages
+            build()
     with pytest.raises(NotImplementedError):
         build_network({"type": "RRDBNet", "num_feat": 8, "num_block": 1,
                        "compute_dtype": "bfloat16"})
@@ -138,9 +142,19 @@ def test_schedules_match_jax():
         j, t = jsched.build_schedule(o, 1e-4), tsched.build_schedule(o, 1e-4)
         for step in range(12):
             assert t(step) == pytest.approx(float(j(step)), rel=1e-6), (o, step)
-    with pytest.raises(NotImplementedError):
-        tsched.build_schedule({"scheduler": {"type": "CosineAnnealingRestartLR",
-                                             "periods": [4]}}, 1e-4)
+    # the cosine with restarts: JAX evaluates it in float32 (cos and the
+    # fraction), the port in float64, so they agree to float32's 1e-5
+    cosines = [{"scheduler": {"type": "CosineAnnealingRestartLR", "periods": [4, 3, 5],
+                              "restart_weights": [1.0, 0.5], "eta_min": 1e-6}},
+               {"scheduler": {"type": "CosineAnnealingRestartLR", "periods": [5]},
+                "warmup_iter": 2}]
+    for o in cosines:
+        j, t = jsched.build_schedule(o, 1e-4), tsched.build_schedule(o, 1e-4)
+        for step in range(14):
+            assert t(step) == pytest.approx(float(j(step)), rel=1e-5, abs=1e-12), (o, step)
+    for sched in (tsched, jsched):                      # refused by both packages
+        with pytest.raises(NotImplementedError):
+            sched.build_schedule({"scheduler": {"type": "LinearLR"}}, 1e-4)
 
 
 def test_pretrained_generator_loads_from_reference_layout(tmp_path):

@@ -73,6 +73,30 @@ def test_backward_matches_jax_grad(case, with_maps):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=grad_atol(ref))
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_version_runs_in_float64(case):
+    """The plain forward and backward keep float64 inputs in float64 (the
+    card's hold takes them as the arbiter of two float32 routes) and agree
+    with their float32 run at the tolerances above."""
+    sr, gt, mask, _, cfg_t = _case(case)
+    runs = []
+    for dtype in (torch.float32, torch.float64):
+        srt, gtt, maskt = (torch.from_numpy(a).to(dtype) for a in (sr, gt, mask))
+        fwd = tssg.ssl_loss_sums_reference(srt, gtt, maskt, cfg_t)
+        one = torch.ones((), dtype=dtype)
+        d_sr = tssg.ssl_loss_dense_bwd(srt, gtt, maskt, fwd[3], fwd[4], one, one, cfg_t,
+                                       fwd[5], fwd[6])
+        runs.append([t.numpy() for t in fwd] + [d_sr.numpy()])
+    assert all(t.dtype == np.float64 for t in runs[1])
+    ref, got = runs
+    assert float(got[2]) == float(ref[2])
+    np.testing.assert_allclose(got[:2], ref[:2], rtol=1e-4)
+    for name, g, r in zip(("inv_sr", "inv_gt", "b_map"), got[3:5] + got[6:7], ref[3:5] + ref[6:7]):
+        np.testing.assert_allclose(g, r, rtol=MAP_RTOL[case], atol=1e-6 * np.abs(r).max(),
+                                   err_msg=name)
+    np.testing.assert_allclose(got[7], ref[7], rtol=1e-4, atol=grad_atol(ref[7]))
+
+
 @pytest.mark.parametrize("pad", [1, 4, 12])
 def test_reflect_pad_and_adjoint_match_jax(pad):
     """reflect_pad_2d against jnp.pad(mode='reflect') and its adjoint against
