@@ -17,8 +17,14 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            3x192^2; b16, 3x256^2, real edge masks on the stride-3 lattice),
            and the ESRGAN
            step's own inputs (bench.py's uniform images, on which every off-centre q is
-           0); forward outputs and d_sr through the autograd function, with
-           the L1 subgradient's ties accounted for, and a second launch bit
+           0), at bench.py's step's (b24, 3x128^2) in float32 and in K1's
+           bf16 stream + store mode (the stored route), and at BSRGAN-SSL's
+           shape with the bf16 knobs (the batched route: K1's stream mode);
+           forward outputs and d_sr through the autograd function, with
+           the L1 subgradient's ties (and, with the bf16 store, q at a bf16
+           rounding boundary) accounted for, where K1's d_sr misses the
+           strict bound against the plain version the float64 criterion
+           (``d_sr_float64``), and a second launch bit
            for bit; times the kernel (CUDA events and the profiler), the
            plain forward and the backward.  Then hold K2's forward
            (ssl_tpu_torch/csrc/flash_attn_fwd.cu: flash_attn_fwd, at d = 512
@@ -83,7 +89,16 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            gt 128: one warm-up step and 3 timed steps through build_model ->
            init_state -> train_step, with the K1 launch count read around
            them
-10. cli    the ESRGAN-SSL train and test CLIs (ssl_tpu_torch.train /
+10. bench  bench.py's ESRGAN-SSL step (bench.py:54-116: batch 24, gt 128,
+           RRDBNet 64/23/32 and UNetDiscriminatorSN 64 in bf16, VGG19
+           conv5_4 in float32, SSL 25/9/0.004 with the bf16 q store and
+           stream) through build_model -> init_state -> train_step, and the
+           same with its bf16 knobs in float32: the bf16 G's image and D's
+           logits held against float32 within 3e-2 of scale, then the two
+           in turns (bf16, float32, float32, bf16), each run a warm-up and 3
+           timed steps (ms/step, imgs/s, peak memory, K1 once a step in the
+           run's mode, losses finite; G, D and EMA moved)
+11. cli    the ESRGAN-SSL train and test CLIs (ssl_tpu_torch.train /
            ssl_tpu_torch.test) at the same widths on files: 24 GT PNGs of
            192^2 written through utils/png.py, their LQ and .mat edge masks
            made on the card, read by 4 loader processes; a .json option file
@@ -94,7 +109,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            decoding with cv2 where it imports); the test CLI on net_g_6.pth
            whole and tiled; times per iteration and the loader's data wait
            from the logger's timers, and the loader alone with each decoder
-11. realesrgan  the RealESRGAN-SSL train and test CLIs at the shipped widths
+12. realesrgan  the RealESRGAN-SSL train and test CLIs at the shipped widths
            (RRDBNet 64/23/32, UNetDiscriminatorSN 64, VGG19 at five layers,
            SSL 25/9/0.004) on files: 24 GT PNGs of 512^2 made on the card,
            their .mat masks from the generate_mask entry point, a .json
@@ -111,7 +126,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            streams and pool reloaded bit for bit).  K1 is also held at its
            shapes (b12, 3x400^2 and 3x256^2) in the kernel phase, on
            pictures with real edge masks
-12. recipes the six bicubic GAN-SSL recipes (LDL, BebyGAN, SPSR,
+13. recipes the six bicubic GAN-SSL recipes (LDL, BebyGAN, SPSR,
            RankSRGAN-PI, SwinIR-GAN, ELAN-GAN) through the train and test
            CLIs at their shipped widths on the cli phase's files: the
            options/train/<recipe> YAML's values in a .json file, batch 16, 4
@@ -123,7 +138,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            its plain version on SwinIR's and ELAN's SR of 16 training pairs;
            ms per iteration, data wait, the first iteration's extra time,
            peak memory and the test CLI's ms per image
-13. kair   the KAIR/BSRGAN GAN-SSL family (BSRGAN-SSL, ELAN-GAN-SSL,
+14. kair   the KAIR/BSRGAN GAN-SSL family (BSRGAN-SSL, ELAN-GAN-SSL,
            SwinIR-GAN-SSL on the BSRGAN degradation) through the train and
            test CLIs: each options/train/<recipe>/*.json (a KAIR-schema file,
            through utils/kair_options.py) at its widths (SwinIR's netG
@@ -138,10 +153,13 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            model (BSGRANTestModel / BSGRANTestSwinIRModel) and G on a
            BlindLR-style set whole and tiled; the loader alone; K1 held on
            BSRGAN-SSL's SR of 16 degraded pairs with the stride-3 mask, for
-           three seeds of the pairs (where K1's d_sr misses the strict bound
-           against the plain float32 version, a float64 run decides)
-14. kernels one line per ported kernel: launches on its main paths, error
-           against the plain version, times and the bound
+           three seeds of the pairs, each also by the float64 criterion
+           (``d_sr_float64``), and on the wide-range SR of the same G drawn
+           with flax's init variance (std ~9: the inverse maps within 1e-4 of
+           a float64 run, ``hold_k1_wide``)
+15. kernels one line per ported kernel (K1's float32 and bf16 stream + store
+           modes each), launches on its main paths, error against the plain
+           version, times and the bound
 
 then the card's name and power limit as nvidia-smi reports them, and last
 {"ok": true, "device": {...}}.  Weights are random from fixed seeds (no
@@ -171,6 +189,11 @@ PEAK_FP32_PER_S = 67e12
 PEAK_TF32_PER_S = 495e12
 
 MAIN_B, MAIN_GT, SCALE = 16, 128, 4
+# bench.py's ESRGAN-SSL step (bench.py:54-116): batch 24, gt 128; a warm-up
+# step, then BENCH_STEPS timed steps, at its bf16 defaults and in float32.
+BENCH_B, BENCH_GT, BENCH_STEPS = 24, 128, 3
+# ... in turns, on the same two models: host-bound step times move between runs.
+BENCH_TURNS = ("bfloat16", "float32", "float32", "bfloat16")
 
 # The TPU kernels K2's backward replaces: upstream's Pallas TPU flash attention
 # (jax/experimental/pallas/ops/tpu/flash_attention.py, jax 0.9.0), whose custom
@@ -183,6 +206,9 @@ UPSTREAM_DQ = ("jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
 # |x - y| / max(x, y) below which the plain forward's sign(x - y) counts as
 # tied: q carries up to ~1e-5 of relative rounding at sigma 0.004 and the
 # kernel's inverse maps ~2e-5, so another summation order moves x - y by less.
+# With the bf16 q store, a q (or q_sr - q_gt) within TIE_RTOL of its largest
+# q of a bf16 rounding boundary counts as tied too: one float32 ulp may round
+# it to the next bf16 value, which moves x or y by a bf16 ulp.
 TIE_RTOL = 1e-4
 # On a generator's SR (``hold_k1(map_error_ties=True)``) two more kinds of
 # tie: [x > 1e-10] in b_map = sum_d y [x > 1e-10] counts as tied where
@@ -199,12 +225,14 @@ THRESHOLD_RTOL = 1e-2
 # 3x128^2, search 25, window 9, sigma 0.004 on smooth images: PERF.md).
 D_SR_REL_L2 = 1e-3
 # The strict d_sr check (tied pixels out) compares two float32 routes at
-# float32's own noise, and the plain one is no truth there: on BSRGAN-SSL's SR
-# it misses that bound against a float64 run by up to 1.3x at single elements
-# (PERF.md, section 6).  Where K1 misses it against the plain version, the plain
-# version in float64 decides (``d_sr_arbiter``): K1's d_sr must lie within
-# D_SR_ARBITER times the strict bound of the float64 d_sr at every element.
-D_SR_ARBITER = 4.0
+# float32's own noise, and the plain one is no truth there.  Where K1 misses it
+# against the plain version, and at every hold on BSRGAN-SSL's SR, the plain
+# version run in float64 decides (``d_sr_float64``): d_sr through the float64
+# backward fed K1's maps may miss the strict bound against the float64 run by
+# no more than that backward fed the plain float32 version's maps does (or 1,
+# the bound itself), at no more elements.  The float32 backward that both
+# routes share misses it by itself on generator SR (PERF.md, section 6), so
+# its error is reported and not held.
 
 # The serving path: ssl_base.yml at 512^2 (a 64^2 latent), spaced DDPM.
 SERVE_LQ, SERVE_SIZE, SERVE_STEPS, SERVE_REQUESTS = 128, 512, 50, 2
@@ -534,33 +562,61 @@ def near_ties(sr, gt, ref, cfg, band=0.0):
     any such offset, the number of tied pixel-offsets, a_map's lower and
     upper bounds with every tied sign free in [-1, 1], sum_d x, and sum_d y
     over the offsets whose x lies within THRESHOLD_RTOL (or the band) of
-    1e-10 (what b_map may move by)."""
+    1e-10 (what b_map may move by); and with the bf16 q store, what x and y
+    may move by over the offsets whose stored values are tied at a bf16
+    rounding boundary (sum_d of a bf16 ulp times inv), and how many are."""
     import torch
-    from ssl_tpu_torch.ops.ssg import _context, _q_maps
+    from ssl_tpu_torch.ops.ssg import BF16, _context, _q_decode, _q_maps
     b, c = sr.shape[:2]
     inv_sr, inv_gt = ref[3], ref[4]
     ctx = _context(torch.cat([sr, gt]), cfg)
     norm = c * float(cfg.window) ** 2
     tied_px = torch.zeros(inv_sr.shape, dtype=torch.bool, device=sr.device)
     n_tied = torch.zeros((), device=sr.device)
-    a_fixed, a_free, x_sum, b_free = (torch.zeros_like(inv_sr) for _ in range(4))
+    n_bf16 = torch.zeros((), device=sr.device)
+    a_fixed, a_free, x_sum, b_free, x16, y16 = (torch.zeros_like(inv_sr) for _ in range(6))
     rtol = TIE_RTOL + band
+    store16 = cfg.q_store_dtype == BF16
     for s in range(cfg.search ** 2):
         q_sr, q_gt = _q_maps(ctx, s, cfg, norm, b)
+        dx = dy = 0.0
+        if store16:
+            slack = rtol * torch.maximum(q_sr, q_gt)
+            (t1, u1), (t2, u2) = (bf16_tie(v, slack) for v in (q_sr, q_sr - q_gt))
+            dx, dy = t1 * u1 * inv_sr, (t1 * u1 + t2 * u2) * inv_gt
+            x16 += dx
+            y16 += dy
+            n_bf16 += (t1 | t2).sum()
+            q_sr, q_gt = _q_decode(q_sr, q_gt, cfg)
         x, y = q_sr * inv_sr, q_gt * inv_gt
         top = torch.maximum(x, y)
-        tie = ((x - y).abs() <= rtol * top) & (top > 0)
-        tied_px |= tie | ((x - 1e-10).abs() <= rtol * 1e-10)
+        tied_px |= (((x - y).abs() <= rtol * top) & (top > 0)) | \
+            ((x - 1e-10).abs() <= rtol * 1e-10)
+        # a bf16 tie moves x by dx and y by dy: sign(x - y) may flip with them
+        tie = ((x - y).abs() <= rtol * top + dx + dy) & (top > 0)
         n_tied += tie.sum()
         a_fixed += torch.sign(x - y) * x * ~tie
         a_free += x * tie
         x_sum += x
         b_free += y * ((x - 1e-10).abs() <= torch.clamp(torch.as_tensor(rtol), min=THRESHOLD_RTOL)
-                       * 1e-10)
-    return tied_px, int(n_tied), a_fixed - a_free, a_fixed + a_free, x_sum, b_free
+                       * 1e-10 + dx)
+    return (tied_px, int(n_tied), a_fixed - a_free, a_fixed + a_free, x_sum, b_free, x16, y16,
+            int(n_bf16))
 
 
-def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd, map_error_ties=False):
+def bf16_tie(v, slack):
+    """Whether each value of ``v`` lies within ``slack`` of a bf16 rounding
+    boundary (the midpoint of two neighbouring bf16 values), and its bf16
+    ulp there (what a rounding to the other side moves it by)."""
+    import torch
+    a = v.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-38))) - 7)
+    mid = torch.floor(a / ulp) * ulp + ulp / 2
+    return ((a - mid).abs() <= slack) & (a > 0), ulp
+
+
+def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd, map_error_ties=False, float64=False,
+            stored=False):
     """Hold the forward ``fwd`` (K1's wrapper) and d_sr through the autograd
     function against the plain version; fail() at the first disagreement.
 
@@ -576,9 +632,14 @@ def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd, map_error_ties=False):
     mask, rtol 1e-4 (tests/test_ssg_pallas.py:48) with an atol of 1e-7 or 1e-6
     of the gradient's largest value, whichever is larger (the backward's terms
     inv g_d - inv^2 T cancel, so d_sr carries the maps' rounding on its own
-    scale), and where K1 misses that, the plain version run in float64
-    decides (``d_sr_arbiter``); with the full mask, a relative L2 error of at
-    most D_SR_REL_L2.
+    scale), and where K1 misses that, or always with ``float64``, the plain
+    version run in float64 decides (``d_sr_float64``); with the full mask, a
+    relative L2 error of at most D_SR_REL_L2.  ``cfg``'s bf16 knobs pick
+    K1's mode and the plain version's; ``stored``: the stored route's
+    backward.  With the bf16 q store, x and y may also move by a bf16 ulp at
+    the offsets ``near_ties`` finds tied at a rounding boundary: a_map and
+    b_map by those sums, l1 by their masked sum, and the pixels where they
+    exceed the maps' atol leave the strict d_sr check.
     With ``map_error_ties`` (a generator's SR) the ties are those of
     THRESHOLD_RTOL's comment: each pixel's band widens by the inv maps'
     measured relative error there, b_map may also move by sum_d y over the
@@ -594,28 +655,28 @@ def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd, map_error_ties=False):
     ref = ssl_loss_sums_reference(sr, gt, mask, cfg)
     if float(got[2]) != float(ref[2]):
         fail(f"{name}: count {float(got[2])} vs {float(ref[2])}")
-    errs = {"l1": check_close(f"{name} l1", got[0], ref[0], 1e-4),
-            "kl": check_close(f"{name} kl", got[1], ref[1], 1e-3), "count": 0.0}
-    maps = ((3, "inv_sr"), (4, "inv_gt")) + (() if map_error_ties else ((6, "b_map"),))
-    for i, key in maps:
-        errs[key] = check_close(f"{name} {key}", got[i], ref[i], map_rtol,
-                                1e-6 * float(ref[i].abs().max()))
-
     band = ((got[3] / ref[3] - 1).abs() + (got[4] / ref[4] - 1).abs()) if map_error_ties \
         else 0.0
-    tied, n_tied, a_lo, a_hi, x_sum, b_free = near_ties(sr, gt, ref, cfg, band)
-    if map_error_ties:
-        b_diff = (got[6] - ref[6]).abs()
-        strict = map_rtol * ref[6].abs() + 1e-6 * float(ref[6].abs().max())
-        b_out = b_diff > strict + b_free
-        if bool(b_out.any()):
-            i = int(b_out.flatten().nonzero()[0])
-            fail(f"{name} b_map: {int(b_out.sum())} elements off beyond the threshold ties' "
-                 f"sum_d y; first at {i}: {float(got[6].flatten()[i])} vs "
-                 f"{float(ref[6].flatten()[i])} (allowance {float(b_free.flatten()[i])})")
-        errs["b_map"] = float(b_diff.max())
-        tied = tied | (b_diff > strict)
-    slack = map_rtol * x_sum
+    tied, n_tied, a_lo, a_hi, x_sum, b_free, x16, y16, n_bf16 = near_ties(sr, gt, ref, cfg,
+                                                                           band)
+    errs = {"l1": check_close(f"{name} l1", got[0], ref[0], 1e-4,
+                              float((mask * (x16 + y16)).sum())),
+            "kl": check_close(f"{name} kl", got[1], ref[1], 1e-3), "count": 0.0}
+    for i, key in ((3, "inv_sr"), (4, "inv_gt")):
+        errs[key] = check_close(f"{name} {key}", got[i], ref[i], map_rtol,
+                                1e-6 * float(ref[i].abs().max()))
+    b_diff = (got[6] - ref[6]).abs()
+    strict = map_rtol * ref[6].abs() + 1e-6 * float(ref[6].abs().max())
+    b_allow = y16 + (b_free if map_error_ties or cfg.q_store_dtype == "bfloat16" else 0.0)
+    b_out = b_diff > strict + b_allow
+    if bool(b_out.any()):
+        i = int(b_out.flatten().nonzero()[0])
+        fail(f"{name} b_map: {int(b_out.sum())} elements off beyond the ties' allowance; "
+             f"first at {i}: {float(got[6].flatten()[i])} vs {float(ref[6].flatten()[i])} "
+             f"(allowance {float(b_allow.flatten()[i]) if torch.is_tensor(b_allow) else 0.0})")
+    errs["b_map"] = float(b_diff.max())
+    tied = tied | (b_diff > strict)
+    slack = map_rtol * x_sum + x16
     outside = (got[5] < a_lo - slack) | (got[5] > a_hi + slack)
     if bool(outside.any()):
         i = int(outside.flatten().nonzero()[0])
@@ -625,22 +686,26 @@ def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd, map_error_ties=False):
     a_diff = (got[5] - ref[5]).abs()
     a_off = a_diff > map_rtol * ref[5].abs() + 1e-6 * float(ref[5].abs().max())
     errs["a_map"] = float(a_diff.max())
+    if cfg.q_store_dtype == "bfloat16":   # the maps moved by a bf16 tie (inside the bounds above)
+        tied = tied | a_off
 
     one = torch.ones((), device=sr.device)
 
     def d_sr(m):
         """(autograd through fwd, the backward fed the plain maps) for mask m."""
         s = sr.clone().requires_grad_(True)
-        l1, kl, _ = ssg_cuda.ssl_loss_sums(s, gt, m, cfg)
+        l1, kl, _ = ssg_cuda.ssl_loss_sums(s, gt, m, cfg, stored)
         (l1 + kl).backward()
         return s.grad, ssl_loss_dense_bwd(sr, gt, m, ref[3], ref[4], one, one, cfg,
-                                          ref[5], ref[6])
+                                          ref[5], ref[6], stored=stored)
 
     got_d, ref_d = d_sr(mask * ~tied)
     atol = max(1e-7, 1e-6 * float(ref_d.abs().max()))
     off = (got_d - ref_d).abs() > atol + 1e-4 * ref_d.abs()
-    arbiter = d_sr_arbiter(name, sr, gt, mask * ~tied, cfg, got_d, ref_d, off) \
-        if bool(off.any()) else {}
+    judged = {"d_sr_off_strict": int(off.sum())}
+    if float64 or bool(off.any()):
+        judged.update(d_sr_float64(name, sr, gt, mask * ~tied, cfg, stored, got, ref, got_d,
+                                   ref_d))
     got_d, ref_d = d_sr(mask)
     d_diff = got_d - ref_d
     rel_l2 = float(d_diff.norm() / ref_d.norm().clamp_min(1e-30))
@@ -659,7 +724,10 @@ def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd, map_error_ties=False):
             "a_map_max_abs_over_sum_x_at_untied_pixels": float((a_diff * ~tied / x_sum).max()),
             "d_sr_rel_l2": rel_l2, "d_sr_off_elementwise_share": float(d_off.float().mean()),
             "d_sr_max_abs": float(ref_d.abs().max())}
-    ties.update(arbiter)
+    ties.update(judged)
+    if cfg.q_store_dtype == "bfloat16":
+        ties.update(bf16_tied_pixel_offsets=n_bf16,
+                    pixels_with_a_bf16_tie=int((x16 + y16 > 0).sum()))
     if map_error_ties:
         ties.update(b_map_off_strict=int((b_diff > strict).sum()),
                     pixels_with_a_threshold_tie=int((b_free > 0).sum()),
@@ -668,37 +736,97 @@ def hold_k1(name, sr, gt, mask, cfg, map_rtol, fwd, map_error_ties=False):
     return errs, ties
 
 
-def d_sr_arbiter(name, sr, gt, m, cfg, got_d, ref_d, off) -> dict:
-    """Decide the elements ``off`` where K1's d_sr (``got_d``, mask ``m``)
-    misses the strict bound against the plain float32 version's (``ref_d``):
-    the plain forward and backward run again in float64 on the same inputs,
-    and K1's d_sr must lie within D_SR_ARBITER times the strict bound (rtol
-    1e-4, atol 1e-6 of the largest value) of that d_sr at every element.
-    Returns both float32 routes' largest errors against it in units of the
-    strict bound, and how many elements of each miss it."""
+def hold_k1_wide(name, sr, gt, mask, cfg) -> dict:
+    """K1 on a wide-range SR (``flax_variance_init``'s, std ~9) against the
+    plain version run in float64, which is the truth there (the plain float32
+    version's window sums cancel boxes of C2 near 1e5 and its inverse maps lie
+    ~1e-2 off): the count exact, inv_sr and inv_gt within rtol 1e-4 (atol 1e-6
+    of the largest value), and d_sr (mask with the float64 run's tied pixels
+    out) by ``d_sr_float64``'s criterion.  Returns each route's errors."""
+    import torch
+    from ssl_tpu_torch.ops import ssg_cuda
+    from ssl_tpu_torch.ops.ssg import ssl_loss_dense_bwd, ssl_loss_sums_reference
+    got = ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg)
+    ref = ssl_loss_sums_reference(sr, gt, mask, cfg)
+    sr64, gt64 = sr.double(), gt.double()
+    f64 = ssl_loss_sums_reference(sr64, gt64, mask.double(), cfg)
+    if float(got[2]) != float(f64[2]):
+        fail(f"{name}: count {float(got[2])} vs {float(f64[2])}")
+    out = {}
+    for route, maps in (("k1", got), ("plain_f32", ref)):
+        for i, key in ((0, "l1"), (1, "kl"), (3, "inv_sr"), (4, "inv_gt")):
+            out[f"{route}_{key}_max_rel_err"] = float(
+                ((maps[i].double() - f64[i]).abs() / f64[i].abs()).max())
+    for i, key in ((3, "inv_sr"), (4, "inv_gt")):
+        check_close(f"{name} {key} against float64", got[i], f64[i], 1e-4,
+                    1e-6 * float(f64[i].abs().max()))
+    m = mask * ~near_ties(sr64, gt64, f64, cfg)[0]
+    one = torch.ones((), device=sr.device)
+
+    def d32(maps):
+        return ssl_loss_dense_bwd(sr, gt, m, maps[3], maps[4], one, one, cfg, maps[5], maps[6])
+    out.update(d_sr_float64(name, sr, gt, m, cfg, False, got, ref, d32(got), d32(ref)))
+    out.update(sr_range=[float(sr.min()), float(sr.max())], sr_std=float(sr.std()))
+    return out
+
+
+def flax_variance_init(net, generator) -> None:
+    """The JAX package's RRDB init: N(0, 1 / fan_in) (flax's default) outside
+    the dense blocks, the dense blocks as the reference draws them; a
+    full-width RRDB net's SR of a [0, 1] input then has a std of ~9."""
+    from ssl_tpu_torch.archs.arch_util import normal_init_
+    from ssl_tpu_torch.archs.rrdbnet_arch import ResidualDenseBlock
+    normal_init_(net, generator)
+    for m in net.modules():
+        if isinstance(m, ResidualDenseBlock):
+            normal_init_(m, generator, gain=2.0, scale=0.1)
+
+
+def d_sr_float64(name, sr, gt, m, cfg, stored, got, ref, got_d, ref_d) -> dict:
+    """The float64 criterion on d_sr (mask ``m``): the plain forward and
+    backward run again in float64 on the same inputs, and the float64
+    backward is also fed K1's maps (``got``) and the plain float32 version's
+    (``ref``).  Through it, K1's d_sr may miss the strict bound (rtol 1e-4,
+    atol 1e-6 of the largest value) against the float64 d_sr by no more than
+    the plain version's does, or 1, and at no more elements; else fail().
+    Returns those two routes' worst errors in units of the strict bound and
+    their elements off it, and the same for the float32 d_sr of each route
+    (``got_d``, ``ref_d``) and of the float32 backward fed the float64 maps
+    (the backward's own error, which both routes share)."""
     import torch
     from ssl_tpu_torch.ops.ssg import ssl_loss_dense_bwd, ssl_loss_sums_reference
     sr64, gt64, m64 = (t.double() for t in (sr, gt, m))
     fwd64 = ssl_loss_sums_reference(sr64, gt64, m64, cfg)
     one = torch.ones((), dtype=torch.float64, device=sr.device)
-    d64 = ssl_loss_dense_bwd(sr64, gt64, m64, fwd64[3], fwd64[4], one, one, cfg, fwd64[5],
-                             fwd64[6])
-    del fwd64, sr64, gt64, m64
+
+    def bwd64(maps):
+        return ssl_loss_dense_bwd(sr64, gt64, m64, *(maps[i].double() for i in (3, 4)), one,
+                                  one, cfg, *(maps[i].double() for i in (5, 6)), stored=stored)
+    d64 = bwd64(fwd64)
     bound = max(1e-7, 1e-6 * float(d64.abs().max())) + 1e-4 * d64.abs()
-    k1 = (got_d.double() - d64).abs() / bound
-    plain = (ref_d.double() - d64).abs() / bound
-    if bool((k1 > D_SR_ARBITER).any()):
-        i = int(k1.flatten().argmax())
-        fail(f"{name} d_sr: {int(off.sum())} elements off the plain float32 version's; "
-             f"{int((k1 > D_SR_ARBITER).sum())} elements more than {D_SR_ARBITER}x the strict "
-             f"bound off the float64 run; worst at {i}: {float(got_d.flatten()[i])} vs "
-             f"{float(d64.flatten()[i])} ({float(k1.flatten()[i])}x; the plain float32 "
-             f"{float(plain.flatten()[i])}x)")
-    return {"d_sr_off_strict": int(off.sum()),
-            "d_sr_f64_k1_worst_over_strict_bound": float(k1.max()),
-            "d_sr_f64_plain_worst_over_strict_bound": float(plain.max()),
-            "d_sr_f64_k1_off_strict": int((k1 > 1).sum()),
-            "d_sr_f64_plain_off_strict": int((plain > 1).sum())}
+
+    def over(d):
+        ratio = (d.double() - d64).abs() / bound
+        return float(ratio.max()), int((ratio > 1).sum())
+    (k1_worst, k1_off), (plain_worst, plain_off) = over(bwd64(got)), over(bwd64(ref))
+    one32 = one.float()
+    alone = over(ssl_loss_dense_bwd(sr, gt, m, *(fwd64[i].float() for i in (3, 4)), one32, one32,
+                                    cfg, *(fwd64[i].float() for i in (5, 6)), stored=stored))
+    out = {"d_sr_f64_k1_maps_worst_over_strict_bound": k1_worst,
+           "d_sr_f64_k1_maps_off_strict": k1_off,
+           "d_sr_f64_plain_maps_worst_over_strict_bound": plain_worst,
+           "d_sr_f64_plain_maps_off_strict": plain_off,
+           "d_sr_f32_k1_worst_over_strict_bound": over(got_d)[0],
+           "d_sr_f32_k1_off_strict": over(got_d)[1],
+           "d_sr_f32_plain_worst_over_strict_bound": over(ref_d)[0],
+           "d_sr_f32_plain_off_strict": over(ref_d)[1],
+           "d_sr_f32_backward_alone_worst_over_strict_bound": alone[0],
+           "d_sr_f32_backward_alone_off_strict": alone[1]}
+    if k1_worst > max(plain_worst, 1.0) or k1_off > plain_off:
+        fail(f"{name} d_sr against float64: through K1's maps {k1_worst}x the strict bound at "
+             f"worst, {k1_off} elements off; through the plain float32 version's "
+             f"{plain_worst}x, {plain_off} off ({out})")
+    return out
 
 
 def phase_kernel():
@@ -706,12 +834,18 @@ def phase_kernel():
     bit against the first, then its times (CUDA events, and the kernel alone
     from the profiler).  Returns the results by case: ``main_path`` and
     ``diffusion_smooth`` are the shapes the ESRGAN step and the diffusion
-    mini-step give it, ``kair_<recipe>`` each KAIR recipe's."""
+    mini-step give it, ``kair_<recipe>`` each KAIR recipe's, ``bench_f32``
+    and ``bench_bf16`` bench.py's step in float32 and at its bf16 defaults
+    (K1's stream + store mode on the stored route), ``kair_BSRGANSSL_bf16``
+    BSRGAN-SSL's shape with those knobs (the batched route: K1's stream
+    mode).  Each case takes the route ``dense_route`` gives its shape."""
     import torch
+    from ssl_tpu_torch.losses.ssl_loss import dense_route
     from ssl_tpu_torch.ops import ssg_cuda
     from ssl_tpu_torch.ops.ssg import SSGConfig
 
     shipped = SSGConfig(search=25, window=9, sigma=0.004)
+    bf16 = shipped._replace(q_store_dtype="bfloat16", stream_dtype="bfloat16")
     cases = [("small", smooth_case(2, 20, 47, 0.3), SSGConfig(search=9, window=5, sigma=0.1),
               1e-5),
              ("shipped_32", smooth_case(1, 32, 2, 0.3), shipped, 1e-4),
@@ -722,20 +856,29 @@ def phase_kernel():
              ("realesrgan_host_edges", edge_case(RE_B, RE_HOST_GT, 7), shipped, 1e-4)]
     cases += [(f"kair_{r}", kair_case(spec["batch"], spec["gt"], 8 + i), shipped, 1e-4)
               for i, (r, spec) in enumerate(KAIR.items())]
+    bench_inputs = smooth_case(BENCH_B, BENCH_GT, 12, 0.25)
+    cases += [("bench_f32", bench_inputs, shipped, 1e-4), ("bench_bf16", bench_inputs, bf16, 1e-4),
+              ("kair_BSRGANSSL_bf16", kair_case(KAIR["BSRGANSSL"]["batch"],
+                                                KAIR["BSRGANSSL"]["gt"], 8), bf16, 1e-4)]
     results = {}
     for name, arrays, cfg, map_rtol in cases:
         sr, gt, mask = (torch.from_numpy(a).cuda() for a in arrays)
-        errs, ties = hold_k1(name, sr, gt, mask, cfg, map_rtol, ssg_cuda.ssg_loss_fwd_cuda)
+        stored, cfg = dense_route(*mask.shape, cfg)
+        errs, ties = hold_k1(name, sr, gt, mask, cfg, map_rtol, ssg_cuda.ssg_loss_fwd_cuda,
+                             stored=stored)
         first, again = (ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg) for _ in range(2))
         if not all(torch.equal(x, y) for x, y in zip(first, again)):
             fail(f"K1 {name}: a second launch differs from the first")
         del first, again
         iters = 50 if sr.numel() < 1e5 else 20
-        t = k1_times(sr, gt, mask, cfg, iters)
-        results[name] = {"max_abs_err": max(errs.values()), "ms": t["kernel_ms"],
+        t = k1_times(sr, gt, mask, cfg, iters, stored)
+        mode = k1_mode_name(cfg)
+        results[name] = {"max_abs_err": max(errs.values()), "ms": t["kernel_ms"], "mode": mode,
+                         "stored": stored,
                          **{k: t[k] for k in ("device_ms", "plain_ms", "bwd_ms", "bound_ms",
                                               "bound_by")}}
-        emit({"phase": "kernel", "kernel": "ssg_loss_fwd", "case": name,
+        emit({"phase": "kernel", "kernel": "ssg_loss_fwd", "case": name, "mode": mode,
+              "route": "stored" if stored else "batched",
               "shape": list(sr.shape), "search": cfg.search, "window": cfg.window,
               "sigma": cfg.sigma, "max_abs_err": errs, "ties": ties, "repeat_bit_for_bit": True,
               **{k: v for k, v in t.items() if k != "bound_by"},
@@ -745,7 +888,18 @@ def phase_kernel():
     return results
 
 
-def k1_times(sr, gt, mask, cfg, iters: int) -> dict:
+# K1's modes (ssg_cuda.k1_modes: stream_bf16, store_bf16) as the kernels line names them
+K1_MODE_NAMES = {(0, 0): "float32", (1, 0): "bf16_stream", (0, 1): "bf16_store",
+                 (1, 1): "bf16_stream_store"}
+
+
+def k1_mode_name(cfg) -> str:
+    """K1's mode for ``cfg``, as the kernels line names it."""
+    from ssl_tpu_torch.ops.ssg_cuda import k1_modes
+    return K1_MODE_NAMES[k1_modes(cfg)]
+
+
+def k1_times(sr, gt, mask, cfg, iters: int, stored: bool = False) -> dict:
     """K1 on these inputs: the wrapper's ms (CUDA events over ``iters``
     launches), the kernel alone (profiler), the plain forward and the plain
     backward (CUDA events), the bytes and operations its function needs and
@@ -760,7 +914,7 @@ def k1_times(sr, gt, mask, cfg, iters: int) -> dict:
     plain_ms = time_ms(lambda: ssl_loss_sums_reference(sr, gt, mask, cfg), 2)
     maps = ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg)
     bwd_ms = time_ms(lambda: ssl_loss_dense_bwd(sr, gt, mask, maps[3], maps[4], one, one,
-                                                cfg, maps[5], maps[6]), 2)
+                                                cfg, maps[5], maps[6], stored=stored), 2)
     b, c, h, w = sr.shape
     nbytes = 4 * (2 * b * c * h * w + b * h * w) + 4 * (4 * b * h * w + 3)
     ops = k1_operations(b, c, h, w, cfg.search, cfg.generalization)
@@ -1406,6 +1560,156 @@ def phase_train():
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     return launches
+
+
+def bench_opt(dtype: str) -> dict:
+    """bench.py:54-116's option dict with its defaults: ``dtype`` "bfloat16"
+    gives its bf16 knobs (G's and D's compute_dtype, the SSG's q store and
+    stream), "float32" the same dict with those four in float32.  VGG stays
+    float32, as bench.py's default; ``remat_policy: none`` and
+    ``scan_unroll`` are the JAX option keys, which eager PyTorch accepts and
+    has no use for."""
+    return {
+        "name": "bench", "model_type": "ESRGANSSLModel", "scale": SCALE, "is_train": True,
+        "manual_seed": 0, "datasets": {"train": {"gt_size": BENCH_GT}},
+        "network_g": {"type": "RRDBNet", "num_feat": 64, "num_block": 23, "num_grow_ch": 32,
+                      "remat_policy": "none", "scan_unroll": 23, "compute_dtype": dtype},
+        "network_d": {"type": "UNetDiscriminatorSN", "num_feat": 64, "compute_dtype": dtype},
+        "path": {},
+        "ssl_setting": {"mask_stride": 3, "kernel_size_search": 25, "sigma": 0.004,
+                        "kernel_size_window": 9, "generalization": True, "q_store_dtype": dtype,
+                        "stream_dtype": dtype, "pair_offsets": True, "impl": "dense",
+                        "capacity": BENCH_GT * BENCH_GT // 4},
+        "train": {
+            "ema_decay": 0.999,
+            "optim_g": {"type": "Adam", "lr": 1e-4, "betas": [0.9, 0.99]},
+            "optim_d": {"type": "Adam", "lr": 1e-4, "betas": [0.9, 0.99]},
+            "scheduler": {"type": "MultiStepLR", "milestones": [50000], "gamma": 0.5},
+            "pixel_opt": {"type": "L1Loss", "loss_weight": 1e-2},
+            "selfsim_opt": {"type": "L1Loss", "loss_weight": 1e3},
+            "selfsim1_opt": {"type": "KLDistanceLoss", "loss_weight": 1e3, "softmax": False},
+            "perceptual_opt": {"type": "PerceptualLoss", "layer_weights": {"conv5_4": 1.0},
+                               "perceptual_weight": 1.0, "style_weight": 0, "criterion": "l1",
+                               "compute_dtype": "float32"},
+            "gan_opt": {"type": "GANLoss", "gan_type": "vanilla", "loss_weight": 5e-3}}}
+
+
+def phase_bench(device: str = "cuda"):
+    """bench.py's ESRGAN-SSL step (``bench_opt``) through build_model ->
+    init_state -> train_step at its bf16 defaults and in float32, in turns,
+    on bench.py's uniform batch (batch BENCH_B, gt BENCH_GT, a mask of
+    density 0.25, drawn in NCHW): first the bf16 G's image and D's logits
+    held against the float32 nets' on the same seeded weights (within 3e-2
+    of the float32 output's scale, the JAX contract), then for each a
+    warm-up step and BENCH_STEPS timed steps; every loss finite, G, D and the
+    EMA moved, K1 once a step in the mode of the run (stream + store on the
+    stored route in bf16, float32 in float32) and never the plain forward.
+    The runs go in turns (BENCH_TURNS) on the same two models, each with its
+    own warm-up step.  Returns the K1 launches by mode name and the runs."""
+    import gc
+
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.losses.ssl_loss import dense_route
+    from ssl_tpu_torch.models import build_model
+    from ssl_tpu_torch.ops import ssg_cuda
+
+    lq_size = BENCH_GT // SCALE
+    rng = np.random.RandomState(0)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in {
+        "lq": rng.rand(BENCH_B, 3, lq_size, lq_size).astype(np.float32),
+        "gt": rng.rand(BENCH_B, 3, BENCH_GT, BENCH_GT).astype(np.float32),
+        "gt_mask": (rng.rand(BENCH_B, 1, BENCH_GT, BENCH_GT) < 0.25).astype(np.float32)}.items()}
+    dtypes = ("bfloat16", "float32")
+    with torch.no_grad():
+        nets = {}
+        for dt in dtypes:
+            state = build_model(bench_opt(dt), device=device).init_state(seed=0)
+            net_d = state.net_d.eval()          # eval: the power iteration stores nothing
+            nets[dt] = (state.net_g(batch["lq"]), net_d(batch["gt"]))
+            del state, net_d
+        held = {}
+        for i, key in enumerate(("g_image", "d_logits")):
+            got, ref = nets["bfloat16"][i], nets["float32"][i]
+            if got.dtype != torch.float32:
+                fail(f"bench: the bf16 {key} is {got.dtype}, not float32")
+            held[key] = float((got - ref).abs().max() / ref.abs().max())
+            if not held[key] < 3e-2:
+                fail(f"bench: the bf16 {key} lies {held[key]} of its scale off float32's")
+        del nets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs, launches_by = {}, {}
+    plain_on_card = []
+    plain = ssg_cuda.ssl_loss_sums_reference
+
+    def counted_plain(sr, *args, **kw):
+        if sr.is_cuda:
+            plain_on_card.append(tuple(sr.shape))
+        return plain(sr, *args, **kw)
+
+    models = {}
+    for dt in dtypes:
+        model = build_model(bench_opt(dt), device=device)
+        state = model.init_state(seed=0)
+        stored, cfg = dense_route(BENCH_B, BENCH_GT, BENCH_GT, model.ssl_setting.ssg)
+        before = {name: [p.detach().clone() for p in net.parameters()]
+                  for name, net in (("g", state.net_g), ("d", state.net_d),
+                                    ("ema", state.net_g_ema))}
+        models[dt] = [model, state, stored, k1_mode_name(cfg), before]
+    for turn, dt in enumerate(BENCH_TURNS):
+        model, state, stored, mode, _ = models[dt]
+        torch.cuda.reset_peak_memory_stats()
+        ssg_cuda.launches, ssg_cuda.launches_by_mode = 0, {}
+        ssg_cuda.ssl_loss_sums_reference = counted_plain
+        try:
+            state, logs = model.train_step(state, batch)          # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BENCH_STEPS):
+                state, logs = model.train_step(state, batch)
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / BENCH_STEPS
+        finally:
+            ssg_cuda.ssl_loss_sums_reference = plain
+        models[dt][1] = state
+        by_mode = {K1_MODE_NAMES[m]: n for m, n in ssg_cuda.launches_by_mode.items()}
+        if by_mode != {mode: BENCH_STEPS + 1} or plain_on_card:
+            fail(f"bench {dt}: K1 launched {by_mode} in {BENCH_STEPS + 1} steps, expected "
+                 f"{mode} once a step; the plain forward on the card at {plain_on_card}")
+        values = {k: float(logs[k]) for k in RC_LOSSES}
+        if not all(np.isfinite(v) for v in values.values()):
+            fail(f"bench {dt}: non-finite loss: {values}")
+        launches_by[mode] = launches_by.get(mode, 0) + by_mode[mode]
+        run = {"turn": turn, "ms_per_step": 1e3 * step_s, "imgs_per_s": BENCH_B / step_s,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "k1_mode": mode,
+               "k1_launches": by_mode[mode], "ssg_route": "stored" if stored else "batched",
+               "losses": values}
+        runs.setdefault(dt, []).append(run)
+        emit({"phase": "bench", "dtype": dt, **run})
+    for dt, (model, state, _, _, before) in models.items():
+        for name, net in (("g", state.net_g), ("d", state.net_d), ("ema", state.net_g_ema)):
+            if all(torch.equal(a, p) for a, p in zip(before[name], net.parameters())):
+                fail(f"bench {dt}: {name} parameters did not change")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = {dt: sum(r["ms_per_step"] for r in rs) / len(rs) for dt, rs in runs.items()}
+    emit({"phase": "bench", "config": "bench.py:54-116 (its defaults; float32: its four bf16 "
+                                      "knobs in float32)",
+          "batch": BENCH_B, "gt_size": BENCH_GT, "steps_timed": BENCH_STEPS, "warmup_steps": 1,
+          "turns": list(BENCH_TURNS), "ms_per_step": ms,
+          "imgs_per_s": {dt: BENCH_B / (1e-3 * v) for dt, v in ms.items()},
+          "peak_mem_gb": {dt: max(r["peak_mem_gb"] for r in rs) for dt, rs in runs.items()},
+          "bf16_speedup": ms["float32"] / ms["bfloat16"],
+          "bf16_vs_float32_of_scale": held, "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "k1": "float32 window sums (running sums in double), csrc/ssg_loss_fwd.cu",
+          "bench_matmul_precision": "bench.py's JAX global; no counterpart: cuDNN TF32 as the "
+                                    "port's training runs",
+          "card": card() if device == "cuda" else None})
+    return launches_by, runs
 
 
 def smooth_picture(h: int, w: int, gen, device: str):
@@ -2555,6 +2859,8 @@ def phase_kair(device: str = "cuda"):
                                   for seed in KR_HOLD_SEEDS[1:]]
                 with torch.no_grad():
                     srs = [resumed.net_g.eval()(p["lq"]).contiguous() for p in sets]
+                    flax_variance_init(resumed.net_g, torch.Generator().manual_seed(0))
+                    wide = resumed.net_g(sets[0]["lq"]).contiguous()
             del resumed
             gc.collect()
             torch.cuda.empty_cache()
@@ -2562,7 +2868,7 @@ def phase_kair(device: str = "cuda"):
                 for seed, p, sr in zip(KR_HOLD_SEEDS, sets, srs):
                     errs, ties = hold_k1(f"kair {recipe} SR, seed {seed}", sr, p["gt"],
                                          p["mask"], cfg, 1e-4, ssg_cuda.ssg_loss_fwd_cuda,
-                                         map_error_ties=True)
+                                         map_error_ties=True, float64=True)
                     if not ties["d_sr_max_abs"] > 0:
                         fail(f"kair {recipe}: the SSL gradient of the SR K1 was held on is 0")
                     holds.append({"recipe": recipe, "seed": seed, "shape": list(sr.shape),
@@ -2571,7 +2877,10 @@ def phase_kair(device: str = "cuda"):
                                   "mask_share": float(p["mask"].mean()),
                                   "sr_range": [float(sr.min()), float(sr.max())]})
                     emit({"phase": "kair", "k1_hold": holds[-1]})
-                del sets, srs
+                wide_hold = hold_k1_wide(f"kair {recipe} wide-range SR", wide, sets[0]["gt"],
+                                         sets[0]["mask"], cfg)
+                emit({"phase": "kair", "k1_wide_range_hold": wide_hold})
+                del sets, srs, wide
             del pairs
             torch.cuda.empty_cache()
             # the loader: each worker makes whole batches, so a batch takes one
@@ -3097,13 +3406,16 @@ def realesrgan_host_run(root: str, opt: dict, device: str) -> tuple[dict, int]:
 
 
 def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
-                 recipes, kair) -> dict:
+                 recipes, kair, bench) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
     phases' results (K1's, K2's forward's and backward's by case, the serving
     K2 launches and forward kernel launches, the diffusion_train and
     diffusion_cli launch counts, the K1 launches of the ESRGAN train step
     and of the CLIs, the recipes phase's K1 launches and holds, and the kair
-    phase's K1 launches by recipe and holds)."""
+    phase's K1 launches by recipe and holds, and the bench phase's K1
+    launches by mode).  K1's float32 mode and its bf16 stream + store mode
+    (bench.py's step) each have an entry; ``modes`` under the first lists
+    every mode held, the bf16 stream mode (the batched route) included."""
     from torch_attention_cases import TRAIN_MIX_BWD
 
     serve_calls, serve_fwd = serve
@@ -3187,29 +3499,44 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
     realesrgan, realesrgan_host = realesrgan
     recipes, recipe_holds = recipes
     kair_launches, kair_holds = kair
+    bench_launches = bench[0]
     shapes = {"b16_3x128^2": "main_path", "b2_3x512^2": "diffusion_smooth",
+              "b24_3x128^2": "bench_f32",
               "b12_3x400^2": "realesrgan_edges", "b12_3x256^2": "realesrgan_host_edges",
               **{f"b{KAIR[r]['batch']}_3x{KAIR[r]['gt']}^2": f"kair_{r}" for r in KAIR}}
     k1_runs = {"main_path": launches + cli + recipes,
                "diffusion_smooth": train["k1"] + dcli["k1"],
                "realesrgan_edges": realesrgan, "realesrgan_host_edges": realesrgan_host,
+               "bench_f32": bench_launches["float32"],
                **{f"kair_{r}": n for r, n in kair_launches.items()}}
 
     def k1_mean(key):
         return sum(w * k1[c][key] for c, w in k1_runs.items()) / sum(k1_runs.values())
 
+    def mode_entry(case, n):
+        r = k1[case]
+        return {"case": case, "route": "stored" if r["stored"] else "batched",
+                "launches_on_paths": n, "ms": r["device_ms"], "wrapper_ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "max_abs_err": r["max_abs_err"]}
+    bf16 = k1["bench_bf16"]
+    bf16_launches = bench_launches["bf16_stream_store"]
+
     return {"kernels": [{
         "name": "ssg_loss_fwd", "route": "cuda", "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu",
         "replaces": "ssl_tpu/ops/ssg_pallas.py:41",
+        "mode": "float32",
         "launches": launches + cli + train["k1"] + realesrgan + realesrgan_host + dcli["k1"]
-        + recipes + sum(kair_launches.values()),
+        + recipes + sum(kair_launches.values()) + bench_launches["float32"],
         "launches_by_path": {"esrgan_train": launches, "esrgan_cli": cli,
                              "diffusion_train": train["k1"], "realesrgan_cli": realesrgan,
                              "realesrgan_host_cli": realesrgan_host, "diffusion_cli": dcli["k1"],
-                             "recipes_cli": recipes, "kair_cli": sum(kair_launches.values())},
+                             "recipes_cli": recipes, "kair_cli": sum(kair_launches.values()),
+                             "bench_f32": bench_launches["float32"]},
         "max_abs_err": max([k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth",
                                                            "realesrgan_edges",
-                                                           "realesrgan_host_edges")]
+                                                           "realesrgan_host_edges",
+                                                           "bench_f32")]
                            + [k1[f"kair_{r}"]["max_abs_err"] for r in KAIR]
                            + [max(h["max_abs_err"].values()) for h in recipe_holds.values()]
                            + [max(h["max_abs_err"].values()) for h in kair_holds]),
@@ -3233,7 +3560,21 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
                      "masks, at the three KAIR shapes on such pictures with the stride-3 "
                      "mask, at b16 3x128^2 on SwinIR's and ELAN's SR of training pairs, and "
                      "at b16 3x256^2 on BSRGAN-SSL's SR of BSRGAN-degraded pairs with the "
-                     "stride-3 mask (three seeds)"},
+                     "stride-3 mask (three seeds)",
+        "modes": {"float32": mode_entry("bench_f32", bench_launches["float32"]),
+                  "bf16_stream_store": mode_entry("bench_bf16", bf16_launches),
+                  "bf16_stream": mode_entry("kair_BSRGANSSL_bf16", 0)}},
+        {"name": "ssg_loss_fwd", "mode": "bf16_stream_store", "route": "cuda",
+         "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu (template STREAM16, STORE16)",
+         "replaces": "ssl_tpu/ops/ssg_pallas.py:41 (with ssl_tpu/ops/ssg.py:61,71's bf16 "
+                     "knobs, ssl_tpu/ops/ssg.py:490-526)",
+         "launches": bf16_launches, "launches_by_path": {"bench_bf16": bf16_launches},
+         "max_abs_err": bf16["max_abs_err"], "ms": bf16["device_ms"], "wrapper_ms": bf16["ms"],
+         "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+         "bound_by": bf16["bound_by"], "library_ms": None,
+         "times_are": "b24 3x128^2, bench.py's step on the stored route; ms is the kernel's "
+                      "device time (profiler), wrapper_ms the call's (CUDA events); plain_ms "
+                      "the plain version in the same mode"},
         *(fwd_entry(f) for f in ("fwd", "fwd_d512", "fwd_combine")),
         *(bwd_entry(f, replaces) for f, replaces in bwd_kernels.items())]}
 
@@ -3273,6 +3614,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = phase_train()
     torch.cuda.empty_cache()
+    bench = phase_bench()
+    torch.cuda.empty_cache()
     cli = phase_cli()
     torch.cuda.empty_cache()
     realesrgan = phase_realesrgan()
@@ -3282,7 +3625,7 @@ def main() -> int:
     kair = phase_kair()
 
     emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli, recipes,
-                      kair))
+                      kair, bench))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

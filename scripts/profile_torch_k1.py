@@ -1,11 +1,15 @@
 """K1 (the fused SSL-loss forward) at the main paths' shapes, on one CUDA device.
 
     python3 scripts/profile_torch_k1.py [--root DIR] [--label NAME] [--iters 10]
+        [--modes float32,stream,store,both] [--shapes esrgan_train,...]
 
-For the ESRGAN step's (16, 3, 128, 128), the diffusion mini-step's
-(2, 3, 512, 512) and BSRGAN-SSL's (48, 3, 256, 256), at search 25 / window
-9 / sigma 0.004 on
-chip_smoke.py's smooth images with a mask of density 0.25, prints one JSON
+At each training path's shape (``SHAPES``: the ESRGAN step's (16, 3, 128,
+128), the diffusion mini-step's (2, 3, 512, 512), RealESRGAN-SSL's
+(12, 3, 400, 400) and its host mode's (12, 3, 256, 256), the three KAIR
+recipes' and bench.py's (24, 3, 128, 128)), at search 25 / window 9 /
+sigma 0.004 on chip_smoke.py's smooth images with a mask of density 0.25,
+and in each of K1's modes (``--modes``: ``float32``; ``stream``, ``store``
+and ``both`` for the bf16 stream, the bf16 q store and both), prints one JSON
 line: the kernel's device time (torch.profiler, ms per call), the wrapper's
 time by CUDA events (the reflect padding, the kernel and the sum of the
 per-block partials), the bound (chip_smoke.py::k1_operations at the fp32
@@ -25,7 +29,12 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = {"esrgan_train": (16, 128), "diffusion_train": (2, 512), "bsrgan_train": (48, 256)}
+SHAPES = {"esrgan_train": (16, 128), "diffusion_train": (2, 512),
+          "realesrgan_train": (12, 400), "realesrgan_host": (12, 256),
+          "bsrgan_train": (48, 256), "elan_bsrgan_train": (64, 192),
+          "swinir_bsrgan_train": (16, 256), "bench": (24, 128)}
+MODES = {"float32": ("float32", "float32"), "stream": ("float32", "bfloat16"),
+         "store": ("bfloat16", "float32"), "both": ("bfloat16", "bfloat16")}
 
 
 def main() -> int:
@@ -34,6 +43,8 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--no-check", action="store_true", help="skip the plain version")
+    ap.add_argument("--modes", default="float32", help="comma-separated keys of MODES")
+    ap.add_argument("--shapes", default=",".join(SHAPES), help="comma-separated keys of SHAPES")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -51,8 +62,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = card()
-    cfg = SSGConfig(search=25, window=9, sigma=0.004)
-    for shape, (b, h) in SHAPES.items():
+    runs = [(shape, mode) for shape in args.shapes.split(",") for mode in args.modes.split(",")]
+    for shape, mode in runs:
+        b, h = SHAPES[shape]
+        store, stream = MODES[mode]
+        cfg = SSGConfig(search=25, window=9, sigma=0.004, q_store_dtype=store,
+                        stream_dtype=stream)
         sr, gt, mask = (torch.from_numpy(a).cuda() for a in smooth_case(b, h, 3, 0.25))
 
         def kernel():
@@ -73,7 +88,8 @@ def main() -> int:
         ops = k1_operations(b, 3, h, h, cfg.search)
         nbytes = 4 * (2 * b * 3 * h * h + b * h * h) + 4 * 4 * b * h * h
         bound_ms = 1e3 * max(ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S)
-        print(json.dumps({"label": args.label, "shape": shape, "b_c_h_w": [b, 3, h, h],
+        print(json.dumps({"label": args.label, "shape": shape, "mode": mode,
+                          "b_c_h_w": [b, 3, h, h],
                           "kernel_device_ms": sum(device_ms.values()), "wrapper_ms": wrapper_ms,
                           "bound_ms": bound_ms, "operations": ops, "max_rel_err": errs,
                           "repeat_bit_for_bit": repeat, "card": name}), flush=True)

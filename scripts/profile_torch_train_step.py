@@ -1,11 +1,14 @@
 """Where the time of the port's ESRGAN-SSL or RealESRGAN-SSL train step goes,
 on one CUDA device.
 
-    python3 scripts/profile_torch_train_step.py [--recipe esrgan|realesrgan]
-        [--batch 16] [--iters 3]
+    python3 scripts/profile_torch_train_step.py [--recipe esrgan|bench|realesrgan]
+        [--dtype bf16|fp32] [--batch 16] [--iters 3]
 
 ``esrgan`` runs the step of chip_smoke.py's train phase (the shipped
-ESRGAN-SSL widths, random weights, bench-like random batch); ``realesrgan``
+ESRGAN-SSL widths, random weights, bench-like random batch); ``bench`` the
+step of bench.py:54-116 (chip_smoke.bench_opt: batch 24 by default,
+UNetDiscriminatorSN, with ``--dtype bf16`` its bf16 defaults for G, D and
+the SSG, with ``fp32`` those four knobs in float32); ``realesrgan``
 the step of its realesrgan phase (the shipped RealESRGAN-SSL widths, batch 12
 by default, GT 400^2 pictures made on the card with their edge masks and
 kernels from the port's synthesis, the pool cut to 24 slots and full).
@@ -40,26 +43,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import (MAIN_GT, RE_B, RE_CROP, RE_QUEUE, SCALE, card, realesrgan_opt,
-                            shipped_opt, smooth_picture)
+    from chip_smoke import (BENCH_B, BENCH_GT, MAIN_GT, RE_B, RE_CROP, RE_QUEUE, SCALE,
+                            bench_opt, card, realesrgan_opt, shipped_opt, smooth_picture)
     from ssl_tpu_torch.models import build_model
     from ssl_tpu_torch.models.srgan_model import frozen_discriminator
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--recipe", choices=("esrgan", "realesrgan"), default="esrgan")
+    ap.add_argument("--recipe", choices=("esrgan", "bench", "realesrgan"), default="esrgan")
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
+                    help="the bench recipe's bf16 knobs: bench.py's defaults or float32")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args()
     rng = np.random.RandomState(0)
-    if args.recipe == "esrgan":
-        b = args.batch or 16
-        model = build_model(shipped_opt(b))
+    if args.recipe in ("esrgan", "bench"):
+        if args.recipe == "esrgan":
+            b, gt_size = args.batch or 16, MAIN_GT
+            model = build_model(shipped_opt(b))
+        else:
+            b, gt_size = args.batch or BENCH_B, BENCH_GT
+            model = build_model(bench_opt({"bf16": "bfloat16", "fp32": "float32"}[args.dtype]))
         state = model.init_state(seed=0)
-        lq_size = MAIN_GT // SCALE
+        lq_size = gt_size // SCALE
         batch = {k: torch.from_numpy(v).cuda() for k, v in {
             "lq": rng.rand(b, 3, lq_size, lq_size).astype(np.float32),
-            "gt": rng.rand(b, 3, MAIN_GT, MAIN_GT).astype(np.float32),
-            "gt_mask": (rng.rand(b, 1, MAIN_GT, MAIN_GT) < 0.25).astype(np.float32)}.items()}
+            "gt": rng.rand(b, 3, gt_size, gt_size).astype(np.float32),
+            "gt_mask": (rng.rand(b, 1, gt_size, gt_size) < 0.25).astype(np.float32)}.items()}
         raw = batch
     else:
         import random
@@ -131,7 +140,7 @@ def main() -> int:
         optimizer_step(state.opt_d, 1e-4)
         ema_update(state.net_g_ema, net_g, 0.999)
 
-    comps = {} if args.recipe == "esrgan" else {
+    comps = {} if args.recipe != "realesrgan" else {
         "degrade_usm_pool": timed(lambda: model.degrade_batch(state, raw))}
     comps |= {"g_fwd_bwd": timed(g_fwd_bwd), "ssl_fwd_k1": timed(ssl_fwd),
              "ssl_fwd_bwd": timed(ssl_fwd_bwd), "percep_fwd_bwd": timed(percep_fwd_bwd),
@@ -139,7 +148,8 @@ def main() -> int:
              "optim_ema": timed(updates)}
     comps["ssl_bwd_plain"] = comps["ssl_fwd_bwd"] - comps["ssl_fwd_k1"]
     comps["train_step"] = timed(lambda: model.train_step(state, raw))
-    print(json.dumps({"recipe": args.recipe, "components_ms": comps, "batch": b,
+    print(json.dumps({"recipe": args.recipe, "dtype": args.dtype if args.recipe == "bench"
+                      else "fp32", "components_ms": comps, "batch": b,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
 
     from torch.profiler import ProfilerActivity, profile

@@ -72,8 +72,22 @@ def make_layer(block_cls, num_blocks: int, **kwargs) -> nn.Sequential:
     return nn.Sequential(*[block_cls(**kwargs) for _ in range(num_blocks)])
 
 
-def check_compute_dtype(compute_dtype) -> None:
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the bf16 activation knobs are not ported "
-            "(queued in ROADMAP.md); the port computes in float32")
+def compute_dtype_of(compute_dtype):
+    """The torch dtype of the JAX archs' ``compute_dtype`` knob (flax's
+    ``dtype=``): None for float32 throughout, else ``torch.bfloat16``."""
+    if compute_dtype in (None, "float32"):
+        return None
+    if compute_dtype == "bfloat16":
+        return torch.bfloat16
+    raise NotImplementedError(f"compute_dtype={compute_dtype!r}: the port takes float32 or "
+                              "bfloat16")
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its input's dtype, as flax's ``nn.Conv``
+    with ``dtype=`` does: the float32 parameters are cast for each call (a
+    float32 input leaves them as they are)."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  None if self.bias is None else self.bias.to(x.dtype))

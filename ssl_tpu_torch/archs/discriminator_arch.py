@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ssl_tpu_torch.archs.arch_util import check_compute_dtype, normal_init_
+from ssl_tpu_torch.archs.arch_util import Conv2d, compute_dtype_of, normal_init_
 from ssl_tpu_torch.utils.registry import ARCH_REGISTRY
 
 
@@ -138,7 +138,10 @@ class SNConv2d(nn.Conv2d):
                            out_ch).permute(3, 2, 0, 1)
 
     def forward(self, x):
-        return F.conv2d(x, self.normalized_weight(), self.bias, self.stride, self.padding)
+        # the normalized float32 weight, cast to the input's dtype (flax's dtype=)
+        return F.conv2d(x, self.normalized_weight().to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype), self.stride,
+                        self.padding)
 
 
 class SNLinear(nn.Linear):
@@ -173,16 +176,19 @@ class UNetDiscriminatorSN(nn.Module):
     (reference discriminator_arch.py:326-385); returns a per-pixel logit
     map (b, 1, h, w).  The x2 upsamplings are ``F.interpolate`` bilinear
     with ``align_corners=False``, which is what ``jax.image.resize``'s
-    bilinear computes for a factor of 2.  ``compute_dtype`` (the JAX
-    package's bf16 knob) raises: ROADMAP.md queues the bf16 knobs."""
+    bilinear computes for a factor of 2.  ``compute_dtype: bfloat16`` runs
+    the convs, ``leaky_relu``, upsamplings and skip adds in bf16, as the JAX
+    module does; the parameters and the spectral norms' ``u`` and ``sigma``
+    stay float32 (the normalized weight is cast for each conv) and the logits
+    come back as float32."""
 
     def __init__(self, num_in_ch: int = 3, num_feat: int = 64, skip_connection: bool = True,
                  compute_dtype=None):
         super().__init__()
-        check_compute_dtype(compute_dtype)
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.skip_connection = skip_connection
         nf = num_feat
-        self.conv0 = nn.Conv2d(num_in_ch, nf, 3, 1, 1)
+        self.conv0 = Conv2d(num_in_ch, nf, 3, 1, 1)
         self.conv1 = SNConv2d(nf, nf * 2, 4, 2)
         self.conv2 = SNConv2d(nf * 2, nf * 4, 4, 2)
         self.conv3 = SNConv2d(nf * 4, nf * 8, 4, 2)
@@ -191,7 +197,7 @@ class UNetDiscriminatorSN(nn.Module):
         self.conv6 = SNConv2d(nf * 2, nf, 3)
         self.conv7 = SNConv2d(nf, nf, 3)
         self.conv8 = SNConv2d(nf, nf, 3)
-        self.conv9 = nn.Conv2d(nf, 1, 3, 1, 1)
+        self.conv9 = Conv2d(nf, 1, 3, 1, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_sn_discriminator(self, generator)
@@ -204,6 +210,8 @@ class UNetDiscriminatorSN(nn.Module):
             return F.interpolate(v, size=(2 * v.shape[-2], 2 * v.shape[-1]), mode="bilinear",
                                  align_corners=False)
 
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         x0 = lrelu(self.conv0(x))
         x1 = lrelu(self.conv1(x0))
         x2 = lrelu(self.conv2(x1))
@@ -219,4 +227,5 @@ class UNetDiscriminatorSN(nn.Module):
             x6 = x6 + x0
         out = lrelu(self.conv7(x6))
         out = lrelu(self.conv8(out))
-        return self.conv9(out)
+        out = self.conv9(out)
+        return out if self.compute_dtype is None else out.float()

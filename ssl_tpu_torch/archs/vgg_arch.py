@@ -3,7 +3,10 @@
 Counterpart of ``ssl_tpu/archs/vgg_arch.py::VGGFeatureExtractor``: named
 taps ('conv1_1' ... 'conv5_4', relu/pool variants), ImageNet input
 normalization and optional [-1, 1] -> [0, 1] range norm.  A 'convX_Y' tap is
-taken before its ReLU.  The tower is built only as deep as the deepest tap."""
+taken before its ReLU.  The tower is built only as deep as the deepest tap.
+``compute_dtype: bfloat16`` runs the tower in bf16 after the input
+normalization, on bf16 copies of the float32 parameters, and returns every
+tap as float32, as the JAX module does."""
 
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ssl_tpu_torch.archs.arch_util import normal_init_
+from ssl_tpu_torch.archs.arch_util import Conv2d, compute_dtype_of, normal_init_
 from ssl_tpu_torch.utils.registry import ARCH_REGISTRY
 
 VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -50,8 +53,9 @@ class VGGFeatureExtractor(nn.Module):
     """Runs VGG19 until the deepest requested layer; returns a dict of taps."""
 
     def __init__(self, layer_name_list=("conv5_4",), use_input_norm: bool = True,
-                 range_norm: bool = False):
+                 range_norm: bool = False, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.layer_name_list = tuple(layer_name_list)
         self.use_input_norm = use_input_norm
         self.range_norm = range_norm
@@ -65,7 +69,7 @@ class VGGFeatureExtractor(nn.Module):
             if v == "M":
                 pos, block, idx = pos + 1, block + 1, 1
             else:
-                self.convs[f"conv{block}_{idx}"] = nn.Conv2d(cin, v, 3, 1, 1)
+                self.convs[f"conv{block}_{idx}"] = Conv2d(cin, v, 3, 1, 1)
                 cin, pos, idx = v, pos + 2, idx + 1
         self.register_buffer("mean", torch.tensor([0.485, 0.456, 0.406]).view(1, 3, 1, 1),
                              persistent=False)
@@ -80,6 +84,8 @@ class VGGFeatureExtractor(nn.Module):
             x = (x + 1.0) / 2.0
         if self.use_input_norm:
             x = (x - self.mean) / self.std
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         wanted = set(self.layer_name_list)
         out = {}
         block, idx, pos = 1, 1, 0
@@ -103,7 +109,7 @@ class VGGFeatureExtractor(nn.Module):
             if f"relu{block}_{idx}" in wanted:
                 out[f"relu{block}_{idx}"] = x
             pos, idx = pos + 1, idx + 1
-        return out
+        return {k: v.float() for k, v in out.items()}
 
 
 def load_torchvision_vgg19(module: VGGFeatureExtractor, path: str) -> None:

@@ -51,11 +51,31 @@
 //     rounded constant); sweep 2 takes log x as e + log inv_sr (log inv once
 //     per pixel) where x > 1e-10, else the clamp's log, instead of two logf
 //     per pixel-offset: the same value up to float rounding.
+//   * the running sums of both passes are kept in double and rounded once
+//     per output: a float running sum carries the rounding of the largest
+//     sums that passed through it (on an SR of std ~9 those reach 1e5 and
+//     more) into a small window sum, where q = exp(-S / 0.972) turns an
+//     absolute error of S into a relative one of q.  In double that error is
+//     below 1e-10 whatever passed, and S carries only its own float rounding.
 // expf/logf (not the __expf intrinsics) and no fast-math keep it near the
-// CPU reference.  The launch geometry (tile, grid, shared memory) is
+// CPU reference.
+//
+// Two modes mirror ssl_tpu/ops/ssg.py's bf16 knobs (template parameters, one
+// kernel each):
+//   * STREAM16 (SSGConfig.stream_dtype = bfloat16): the staged images are
+//     rounded to bf16 after C2 and H9 are taken from the float32 values, and
+//     each channel difference of D is rounded to bf16 before it is squared
+//     in float32 (exactly: a bf16 value squares exactly in float32), which is
+//     what XLA compiles jnp.sum((P - P_d) ** 2, dtype=float32) on bf16 P to;
+//   * STORE16 (SSGConfig.q_store_dtype = bfloat16, the JAX stored route):
+//     sweep 1 sums the float32 q; sweep 2 encodes q_sr as bf16(q_sr) and
+//     q_gt as bf16(q_sr - q_gt) (the difference in float32), decodes q_gt =
+//     max(q_sr' - diff', 0), and takes x, y, the sums and the maps from the
+//     decoded values, with log x and log y from logf of them.  The launch geometry (tile, grid, shared memory) is
 // mirrored by ssl_tpu_torch/ops/ssg_cuda.py::k1_launch, which the wrapper
 // checks against ssg_loss_fwd_blocks and ssg_loss_fwd_smem_bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -98,6 +118,10 @@ struct Offset {
   int dy, dx, ay, by, ax, bx;   // shift and clipped rectangle
 };
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 __device__ __forceinline__ Offset offset_of(int s, int search, int p, int k) {
   Offset o;
   o.dy = s / search - p;
@@ -115,8 +139,9 @@ __device__ __forceinline__ Offset offset_of(int s, int search, int p, int k) {
 // rect) goes to position x of the same buffer, whose D there has been read
 // for the last time (x <= x + k + ax, the column leaving the window, and
 // every later output lies left of every later leaving column).  Rows
-// outside the rect's reach are skipped.  C: channels (0: L.c at run time).
-template <int C>
+// outside the rect's reach are skipped.  C: channels (0: L.c at run time); STREAM16:
+// D's channel differences rounded to bf16.
+template <int C, bool STREAM16>
 __device__ __forceinline__ void pass_rows(const Layout& L, const float* smem, float* rows,
                                           const Offset& o, int lane) {
   const int rho = lane, k = L.k, nch = C ? C : L.c;
@@ -131,7 +156,7 @@ __device__ __forceinline__ void pass_rows(const Layout& L, const float* smem, fl
   float* r1 = r0 + REGION_ROWS * L.dp;
   const float* c2r0 = smem + L.c2 + rho * L.cp;
   const float* c2r1 = c2r0 + REGION_ROWS * L.cp;
-  float run0 = 0.f, run1 = 0.f;
+  double run0 = 0.0, run1 = 0.0;
 #pragma unroll 2
   for (int col = c_lo; col <= c_hi; ++col) {
     // the values that leave the window at this column, read before anything
@@ -143,8 +168,12 @@ __device__ __forceinline__ void pass_rows(const Layout& L, const float* smem, fl
     float d0 = 0.f, d1 = 0.f;
 #pragma unroll
     for (int ch = 0; ch < nch; ++ch) {
-      const float u0 = p0[ch * plane + col] - p0[ch * plane + col + shift];
-      const float u1 = p1[ch * plane + col] - p1[ch * plane + col + shift];
+      float u0 = p0[ch * plane + col] - p0[ch * plane + col + shift];
+      float u1 = p1[ch * plane + col] - p1[ch * plane + col + shift];
+      if (STREAM16) {
+        u0 = round_bf16(u0);
+        u1 = round_bf16(u1);
+      }
       d0 += u0 * u0;
       d1 += u1 * u1;
     }
@@ -154,7 +183,7 @@ __device__ __forceinline__ void pass_rows(const Layout& L, const float* smem, fl
     run1 += d1;
     if (full) {
       const int x = col - k - o.bx;
-      float h0 = run0, h1v = run1;
+      float h0 = (float)run0, h1v = (float)run1;
       run0 -= wx > 1 ? l0 : d0;
       run1 -= wx > 1 ? l1 : d1;
       if (clipped) {
@@ -188,7 +217,7 @@ __device__ __forceinline__ void pass_columns(const Layout& L, const float* smem,
   const float* col1 = col0 + REGION_ROWS * L.dp;
   const float* h90 = smem + L.h9 + x;
   const float* h91 = h90 + REGION_ROWS * L.hp;
-  float run0 = 0.f, run1 = 0.f;
+  double run0 = 0.0, run1 = 0.0;
   for (int r = k + o.ay; r < k + o.by; ++r) {
     run0 += col0[r * L.dp];
     run1 += col1[r * L.dp];
@@ -198,7 +227,7 @@ __device__ __forceinline__ void pass_columns(const Layout& L, const float* smem,
     if (y < L.th) {
       run0 += col0[(y + k + o.by) * L.dp];
       run1 += col1[(y + k + o.by) * L.dp];
-      float s0 = run0, s1 = run1;
+      float s0 = (float)run0, s1 = (float)run1;
       if (clipped) {
         for (int u = -k; u < o.ay; ++u) {
           s0 += h90[(y + k + u) * L.hp];
@@ -230,7 +259,7 @@ __device__ __forceinline__ float block_sum(float v, float* s_red) {
   return total;
 }
 
-template <int C>
+template <int C, bool STREAM16, bool STORE16>
 __global__ void __launch_bounds__(NTHREADS)
 ssg_loss_fwd_kernel(const float* __restrict__ psr, const float* __restrict__ pgt,
                     const float* __restrict__ mask, float* __restrict__ partial,
@@ -295,6 +324,10 @@ ssg_loss_fwd_kernel(const float* __restrict__ psr, const float* __restrict__ pgt
     smem[L.h9 + (im * REGION_ROWS + r) * L.hp + x] = a;
   }
   __syncthreads();
+  if (STREAM16) {   // C2 and H9 keep the float32 values; D streams bf16 ones
+    for (int e = tid; e < 2 * c * plane; e += NTHREADS) smem[L.img + e] = round_bf16(smem[L.img + e]);
+    __syncthreads();
+  }
 
   // sweep 1: per-pixel sums of q over this warp's offsets, then over warps
   float* red = smem + L.scratch;   // [NWARPS][2][th][32], over the warps' scratch
@@ -304,7 +337,7 @@ ssg_loss_fwd_kernel(const float* __restrict__ psr, const float* __restrict__ pgt
     for (int y = 0; y < REGION_ROWS; ++y) rs[y] = rg[y] = 0.f;
     for (int s = warp; s < n2; s += NWARPS) {
       const Offset o = offset_of(s, search, p, k);
-      pass_rows<C>(L, smem, rows, o, lane);
+      pass_rows<C, STREAM16>(L, smem, rows, o, lane);
       __syncwarp();
       pass_columns(L, smem, rows, o, lane, neg_inv, [&](int y, float e_sr, float e_gt) {
         rs[y] += expf(e_sr);
@@ -347,17 +380,24 @@ ssg_loss_fwd_kernel(const float* __restrict__ psr, const float* __restrict__ pgt
     for (int y = 0; y < REGION_ROWS; ++y) am[y] = bm[y] = 0.f;
     for (int s = warp; s < n2; s += NWARPS) {
       const Offset o = offset_of(s, search, p, k);
-      pass_rows<C>(L, smem, rows, o, lane);
+      pass_rows<C, STREAM16>(L, smem, rows, o, lane);
       __syncwarp();
       pass_columns(L, smem, rows, o, lane, neg_inv, [&](int y, float e_sr, float e_gt) {
         const int e = y * TILE_W + lane;
         const float m = s_mask[e];
-        const float xv = expf(e_sr) * s_inv_sr[e], yv = expf(e_gt) * s_inv_gt[e];
+        float q_sr = expf(e_sr), q_gt = expf(e_gt);
+        if (STORE16) {   // the stored route's bf16 q stack, encoded and decoded
+          const float diff = round_bf16(q_sr - q_gt);
+          q_sr = round_bf16(q_sr);
+          q_gt = fmaxf(q_sr - diff, 0.f);
+        }
+        const float xv = q_sr * s_inv_sr[e], yv = q_gt * s_inv_gt[e];
         const float d = xv - yv;
         l1 += m * fabsf(d);
-        // log x = e_sr + log inv_sr where x > 1e-10, else the clamp's log
-        const float lx = xv > 1e-10f ? e_sr + s_log_inv_sr[e] : kLogClamp;
-        const float ly = yv > 1e-10f ? e_gt + s_log_inv_gt[e] : kLogClamp;
+        // log x = e_sr + log inv_sr where x > 1e-10, else the clamp's log; with
+        // the bf16 store, logf of the decoded values
+        const float lx = xv > 1e-10f ? (STORE16 ? logf(xv) : e_sr + s_log_inv_sr[e]) : kLogClamp;
+        const float ly = yv > 1e-10f ? (STORE16 ? logf(yv) : e_gt + s_log_inv_gt[e]) : kLogClamp;
         kl += m * (fmaxf(yv, 1e-10f) * (ly - lx));
         am[y] += d > 0.f ? xv : (d < 0.f ? -xv : 0.f);
         bm[y] += xv > 1e-10f ? yv : 0.f;
@@ -421,28 +461,32 @@ const char* ssg_cuda_error_string(int err) { return cudaGetErrorString((cudaErro
 
 // psr, pgt: (b, c, h + 2p, w + 2p) reflect-padded; mask: (b, h, w);
 // partial: (blocks, 3); inv_sr, inv_gt, a_map, b_map: (b, h, w).  All float32,
-// contiguous, on the current device.  window <= 31.  Returns
-// cudaGetLastError() after the launch.
+// contiguous, on the current device.  window <= 31.  stream_bf16 and
+// store_bf16 (0 or 1) pick the mode; the bf16 modes take 3 channels.
+// Returns cudaGetLastError() after the launch.
 int ssg_loss_fwd(const float* psr, const float* pgt, const float* mask, float* partial,
                  float* inv_sr, float* inv_gt, float* a_map, float* b_map, int b, int c,
                  int h, int w, int search, int window, float sigma, int generalization,
-                 void* stream) {
+                 int stream_bf16, int store_bf16, void* stream) {
   if (REGION_ROWS - 2 * (window / 2) < 1) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const float*, const float*, const float*, float*, float*, float*,
+                          float*, float*, int, int, int, int, int, float, int);
+  // [stream_bf16][store_bf16] for 3 channels (unrolled); float32 alone for others
+  static const Kernel kernels[2][2] = {
+      {ssg_loss_fwd_kernel<3, false, false>, ssg_loss_fwd_kernel<3, false, true>},
+      {ssg_loss_fwd_kernel<3, true, false>, ssg_loss_fwd_kernel<3, true, true>}};
+  if (c != 3 && (stream_bf16 || store_bf16)) return (int)cudaErrorInvalidValue;
+  const Kernel kernel =
+      c == 3 ? kernels[stream_bf16 != 0][store_bf16 != 0] : ssg_loss_fwd_kernel<0, false, false>;
   const int smem = ssg_loss_fwd_smem_bytes(c, search, window);
-  cudaError_t err = cudaFuncSetAttribute(
-      c == 3 ? ssg_loss_fwd_kernel<3> : ssg_loss_fwd_kernel<0>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int th = REGION_ROWS - 2 * (window / 2);
   const dim3 grid((w + TILE_W - 1) / TILE_W, (h + th - 1) / th, b);
-  if (c == 3)   // the images' channels, unrolled
-    ssg_loss_fwd_kernel<3><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-        psr, pgt, mask, partial, inv_sr, inv_gt, a_map, b_map, c, h, w, search, window,
-        sigma, generalization);
-  else
-    ssg_loss_fwd_kernel<0><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-        psr, pgt, mask, partial, inv_sr, inv_gt, a_map, b_map, c, h, w, search, window,
-        sigma, generalization);
+  kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+      psr, pgt, mask, partial, inv_sr, inv_gt, a_map, b_map, c, h, w, search, window, sigma,
+      generalization);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@ Counterpart of ``ssl_tpu/losses/perceptual.py::PerceptualLoss`` (reference
 basicsr/losses/basic_loss.py:161-266).  The VGG19 tower is frozen.  Its
 weights come from a torchvision-format ``vgg19`` state dict when a file is
 given (``vgg_path`` or the ``VGG19_PTH`` environment variable), else from a
-``torch.Generator`` seeded with ``vgg_seed``."""
+``torch.Generator`` seeded with ``vgg_seed``.  ``compute_dtype`` (the option
+``perceptual_opt.compute_dtype``) is the tower's, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ def _gram(x):
 class PerceptualLoss(nn.Module):
     def __init__(self, layer_weights, vgg_type="vgg19", use_input_norm=True,
                  range_norm=False, perceptual_weight=1.0, style_weight=0.0,
-                 criterion="l1", vgg_path=None, vgg_seed: int = 0):
+                 criterion="l1", vgg_path=None, vgg_seed: int = 0, compute_dtype=None):
         super().__init__()
         if not vgg_type.startswith("vgg19"):
             raise NotImplementedError("only vgg19 is wired up (reference default)")
@@ -38,7 +39,8 @@ class PerceptualLoss(nn.Module):
         self.style_weight = style_weight
         self.criterion = criterion
         self.vgg = VGGFeatureExtractor(layer_name_list=tuple(self.layer_weights),
-                                       use_input_norm=use_input_norm, range_norm=range_norm)
+                                       use_input_norm=use_input_norm, range_norm=range_norm,
+                                       compute_dtype=compute_dtype)
         vgg_path = vgg_path or os.environ.get("VGG19_PTH")
         if vgg_path and os.path.exists(vgg_path):
             load_torchvision_vgg19(self.vgg, vgg_path)

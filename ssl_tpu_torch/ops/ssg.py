@@ -26,6 +26,24 @@ Box-sums use the banded-matrix form of ``_dense_smap_b``: for offset d the
 clipped window rectangle [a_y, b_y] x [a_x, b_x] is a 0/1 band matrix on each
 side, and S_d = By (D_d - C2) Bx^T + box9(C2) with D_d = sum_c (P - P_d)^2
 and C2 = sum_c P^2.
+
+The bf16 knobs of ``SSGConfig`` round at the JAX package's points:
+
+* ``stream_dtype="bfloat16"`` (``_dense_context_b``, ``_dense_smap_b``): C2
+  and box9(C2) come from the float32 padded image; P and its shifted copies
+  are rounded to bf16, and D sums over the channels in float32 the squares of
+  the bf16-rounded differences (what XLA compiles ``jnp.sum((P - P_d) ** 2,
+  dtype=float32)`` on bf16 operands to: it keeps the square in float32).  The
+  backward streams the same rounded slices; its epilogue dP = 2((sum shiftA
+  + A9) P - acc1) takes the float32 P on the stored route and the rounded P
+  on the batched one, as the two JAX routes do.
+* ``q_store_dtype="bfloat16"`` (``_q_stack``, ``_q_decode``; the stored route
+  only): the row sums take the float32 q; everything after them (x, y, the
+  loss sums, a_map, b_map and the backward) takes the decoded pair q_sr' =
+  bf16(q_sr), q_gt' = max(q_sr' - bf16(q_sr - q_gt), 0).
+
+``losses/ssl_loss.py::dense_route`` chooses the route by the JAX package's
+rule; on the batched route the store knob has no effect.
 """
 
 from __future__ import annotations
@@ -39,9 +57,8 @@ import torch.nn.functional as F
 class SSGConfig(NamedTuple):
     """Hyper-parameters of the SSG (defaults = every shipped config,
     ``options/train/ESRGANSSL/train_ESRGANSSL_bicubic_x4.yml:70-76``).
-
-    ``q_store_dtype`` and ``stream_dtype`` accept only ``"float32"`` here;
-    the bfloat16 variants are queued in ROADMAP.md."""
+    ``q_store_dtype`` and ``stream_dtype`` take ``"float32"`` or
+    ``"bfloat16"`` (see the module docstring)."""
 
     search: int = 25
     window: int = 9
@@ -51,13 +68,15 @@ class SSGConfig(NamedTuple):
     stream_dtype: str = "float32"
 
 
+BF16 = "bfloat16"
+
+
 def check_config(cfg: SSGConfig) -> None:
     """Raise on settings this port does not implement."""
     for name in ("q_store_dtype", "stream_dtype"):
-        if getattr(cfg, name) != "float32":
+        if getattr(cfg, name) not in ("float32", BF16):
             raise NotImplementedError(
-                f"SSGConfig.{name}={getattr(cfg, name)!r}: only float32 is ported "
-                "(bf16 SSG knobs are queued in ROADMAP.md)")
+                f"SSGConfig.{name}={getattr(cfg, name)!r}: the port takes float32 or bfloat16")
     if cfg.search % 2 == 0 or cfg.window % 2 == 0 or cfg.window > cfg.search:
         raise ValueError(f"search and window must be odd with window <= search, got {cfg}")
 
@@ -103,6 +122,21 @@ def apply_mask_stride(mask: torch.Tensor, stride: int) -> torch.Tensor:
     return mask * ((yy % stride) == (xx % stride)).to(mask.dtype)
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bf16 value (ties to even), in its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _q_decode(q_sr: torch.Tensor, q_gt: torch.Tensor, cfg: SSGConfig):
+    """The q pair as the stored route reads it back (``ssl_tpu/ops/ssg.py::
+    _q_stack``, ``_q_decode``): with the bf16 store, q_sr rounded and q_gt
+    from the rounded difference q_sr - q_gt, clipped at 0."""
+    if cfg.q_store_dtype != BF16:
+        return q_sr, q_gt
+    first = round_bf16(q_sr)
+    return first, torch.clamp(first - round_bf16(q_sr - q_gt), min=0.0)
+
+
 def _band_matrix(n_out: int, n_in: int, p: int, lo: int, hi: int, device,
                  dtype=torch.float32) -> torch.Tensor:
     """0/1 band matrix B[y, u] = 1 iff lo <= u - (y + p) <= hi."""
@@ -117,9 +151,10 @@ def _window_bounds(d: int, p: int, k: int) -> tuple[int, int]:
 
 
 class _Context(NamedTuple):
-    P: torch.Tensor        # (n, c, hp, wp) reflect-padded images
+    P: torch.Tensor        # (n, c, hp, wp) reflect-padded images, in the stream's values
     Pbig: torch.Tensor     # (n, c, hp + 2p, wp + 2p): P with p more zeros each side
-    center2: torch.Tensor  # (n, hp, wp) sum_c P^2
+    center2: torch.Tensor  # (n, hp, wp) sum_c P^2 of the float32 P
+    stream_bf16: bool      # D from bf16-rounded differences
     box_c2: torch.Tensor   # (n, h, w) full window x window box of center2
     by: list               # per dy index: (h, hp) band of the clipped rectangle
     bx: list               # per dx index: (w, wp)
@@ -137,7 +172,10 @@ def _context(img: torch.Tensor, cfg: SSGConfig) -> _Context:
           for i in range(cfg.search)]
     bx = [_band_matrix(w, w + 2 * p, p, *_window_bounds(i - p, p, k), dev, dt)
           for i in range(cfg.search)]
-    return _Context(P, F.pad(P, (p, p, p, p)), center2, box_c2, by, bx)
+    stream_bf16 = cfg.stream_dtype == BF16
+    if stream_bf16:
+        P = round_bf16(P)
+    return _Context(P, F.pad(P, (p, p, p, p)), center2, stream_bf16, box_c2, by, bx)
 
 
 def _smap(ctx: _Context, s: int, cfg: SSGConfig) -> torch.Tensor:
@@ -145,7 +183,10 @@ def _smap(ctx: _Context, s: int, cfg: SSGConfig) -> torch.Tensor:
     iy, ix = divmod(s, cfg.search)                       # dy = iy - p, dx = ix - p
     hp, wp = ctx.P.shape[-2], ctx.P.shape[-1]
     shifted = ctx.Pbig[:, :, iy:iy + hp, ix:ix + wp]     # P shifted by (dy, dx)
-    D = torch.sum((ctx.P - shifted) ** 2, dim=1)
+    diff = ctx.P - shifted
+    if ctx.stream_bf16:
+        diff = round_bf16(diff)
+    D = torch.sum(diff * diff, dim=1)
     return ctx.by[iy] @ (D - ctx.center2) @ ctx.bx[ix].T + ctx.box_c2
 
 
@@ -164,7 +205,8 @@ def ssl_loss_sums_reference(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tens
     sums over (pixels x offsets), the mask count, the (b, h, w)
     row-normalizers 1/(sum_d q_d + 1e-10) of SR and GT, and the backward
     helpers a_map = sum_d sign(x - y) x and b_map = sum_d y [x > 1e-10]
-    (semantics of ``ssl_tpu/ops/ssg.py::_ssl_loss_dense_core``)."""
+    (semantics of ``ssl_tpu/ops/ssg.py::_ssl_loss_dense_core``, and with the
+    bf16 store of ``_ssl_loss_dense_core_stored``)."""
     check_config(cfg)
     b, c, h, w = sr.shape
     n2 = cfg.search * cfg.search
@@ -191,7 +233,7 @@ def ssl_loss_sums_reference(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tens
     a_map = sr.new_zeros((b, h, w))
     b_map = sr.new_zeros((b, h, w))
     for s in range(n2):
-        q_sr, q_gt = _q_maps(ctx, s, cfg, norm, b)
+        q_sr, q_gt = _q_decode(*_q_maps(ctx, s, cfg, norm, b), cfg)
         x = q_sr * inv_sr
         y = q_gt * inv_gt
         l1_sum = l1_sum + torch.sum(mask * torch.abs(x - y))
@@ -204,9 +246,14 @@ def ssl_loss_sums_reference(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tens
 
 
 def ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl,
-                       cfg: SSGConfig = SSGConfig(), a_map=None, b_map=None):
+                       cfg: SSGConfig = SSGConfig(), a_map=None, b_map=None,
+                       stored: bool = False):
     """Analytic gradient of (g_l1 * l1_sum + g_kl * kl_sum) w.r.t. sr
-    (port of ``ssl_tpu/ops/ssg.py::ssl_loss_dense_bwd``; gt is a constant).
+    (port of ``ssl_tpu/ops/ssg.py::ssl_loss_dense_bwd``, and with ``stored``
+    of ``_ssl_dense_bwd_stored``, which differs from it only in its bf16
+    modes: the decoded q pair, and the float32 P in the epilogue; gt is a
+    constant).  It recomputes q for each offset where the JAX stored route
+    reads its stack back.
 
     With x = q_sr * inv_sr and y = q_gt * inv_gt:
       g_d  = mask * (g_l1 * sign(x - y) - g_kl * y / x)
@@ -216,6 +263,8 @@ def ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl,
       dP   = 2 [ P (sum_d shiftA_d + box9^T(sum_d G_d)) - sum_d (A_d P_d + shiftA_d P_-d) ]
     and the reflect-pad adjoint folds dP back onto the image."""
     check_config(cfg)
+    if cfg.q_store_dtype == BF16 and not stored:
+        raise ValueError("q_store_dtype bfloat16 applies to the stored route only")
     b, c, h, w = sr.shape
     search = cfg.search
     p, k = search // 2, cfg.window // 2
@@ -241,7 +290,7 @@ def ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl,
     else:
         T = sr.new_zeros((b, h, w))
         for s in range(n2):
-            q_sr, q_gt = _q_maps(ctx, s, cfg, norm, b)
+            q_sr, q_gt = _q_decode(*_q_maps(ctx, s, cfg, norm, b), cfg)
             T = T + g_of(q_sr, q_gt) * q_sr
 
     # band transposes of the shifted rectangles, per dy / dx index
@@ -255,7 +304,7 @@ def ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl,
     sum_g = sr.new_zeros((b, h, w))
     for s in range(n2):
         iy, ix = divmod(s, search)
-        q_sr, q_gt = _q_maps(ctx, s, cfg, norm, b)
+        q_sr, q_gt = _q_decode(*_q_maps(ctx, s, cfg, norm, b), cfg)
         G_d = (inv_sr * g_of(q_sr, q_gt) - inv_sr * inv_sr * T) * q_sr * scale
         A_d = ctx.by[iy].T @ G_d @ ctx.bx[ix]
         shift_a = by_s[iy].T @ G_d @ bx_s[ix]
@@ -267,5 +316,7 @@ def ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl,
 
     a9 = (_band_matrix(h, hp, p, -k, k, dev, dt).T @ sum_g
           @ _band_matrix(w, wp, p, -k, k, dev, dt))
+    if stored:
+        P = reflect_pad_2d(sr, p)                        # the float32 P (JAX's stored routes)
     dP = 2.0 * ((sum_shift_a + a9)[:, None] * P - acc1)
     return reflect_pad_2d_adjoint(dP, p)

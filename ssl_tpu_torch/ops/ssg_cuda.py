@@ -6,7 +6,10 @@ kernel source is ``ssl_tpu_torch/csrc/ssg_loss_fwd.cu``.  For a CUDA tensor
 the forward launches that kernel (or raises); for a CPU tensor it runs the
 plain version ``ssl_loss_sums_reference``.  Either way the backward is
 ``ssl_loss_dense_bwd`` in plain PyTorch, fed the forward's ``inv_*`` and
-``a_map``/``b_map`` maps so that it skips its own T pass."""
+``a_map``/``b_map`` maps so that it skips its own T pass.
+
+``SSGConfig``'s bf16 knobs pick K1's mode (``k1_modes``): on a CUDA tensor a
+bf16 request launches that mode, never the plain version."""
 
 from __future__ import annotations
 
@@ -16,11 +19,13 @@ from typing import NamedTuple
 import torch
 
 from ssl_tpu_torch.ops.cuda_build import load_library
-from ssl_tpu_torch.ops.ssg import (SSGConfig, check_config, reflect_pad_2d,
+from ssl_tpu_torch.ops.ssg import (BF16, SSGConfig, check_config, reflect_pad_2d,
                                    ssl_loss_dense_bwd, ssl_loss_sums_reference)
 
-# Launches of the K1 kernel in this process (one per ``ssg_loss_fwd_cuda`` call).
+# Launches of the K1 kernel in this process (one per ``ssg_loss_fwd_cuda`` call),
+# and by mode (``k1_modes``).
 launches = 0
+launches_by_mode = {}
 
 # The kernel's block (csrc/ssg_loss_fwd.cu): 8 warps over a tile 32 pixels
 # wide and 32 - 2k rows high (k = window // 2), so that the tile's rows with
@@ -60,9 +65,15 @@ def k1_launch(b: int, c: int, h: int, w: int, search: int, window: int) -> K1Lau
     return K1Launch((th, K1_TILE_W), grid, grid[0] * grid[1] * grid[2], 32 * K1_WARPS, 4 * floats)
 
 
+def k1_modes(cfg: SSGConfig) -> tuple:
+    """K1's mode for ``cfg``: (stream_bf16, store_bf16), each 0 or 1 (the
+    kernel's STREAM16 and STORE16 template parameters)."""
+    return int(cfg.stream_dtype == BF16), int(cfg.q_store_dtype == BF16)
+
+
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssg_loss_fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, p]
+    lib.ssg_loss_fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, i, i, p]
     lib.ssg_loss_fwd.restype = i
     lib.ssg_loss_fwd_blocks.argtypes = [i, i, i, i]
     lib.ssg_loss_fwd_blocks.restype = i
@@ -99,6 +110,8 @@ def ssg_loss_fwd_cuda(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
     if not sr.is_cuda:
         raise ValueError("ssg_loss_fwd_cuda takes CUDA tensors")
     _check_inputs(sr, gt, mask, cfg)
+    if sr.shape[1] != 3 and any(k1_modes(cfg)):
+        raise ValueError(f"K1's bf16 modes take 3 channels, got {sr.shape[1]}")
     lib = load_library("ssg_loss_fwd", _declare)
     b, c, h, w = sr.shape
     p = cfg.search // 2
@@ -118,22 +131,26 @@ def ssg_loss_fwd_cuda(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
         err = lib.ssg_loss_fwd(psr.data_ptr(), pgt.data_ptr(), mask.data_ptr(),
                                partial.data_ptr(), *(m.data_ptr() for m in maps), b, c, h, w,
                                cfg.search, cfg.window, float(cfg.sigma),
-                               int(cfg.generalization), torch.cuda.current_stream().cuda_stream)
+                               int(cfg.generalization), *k1_modes(cfg),
+                               torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssg_loss_fwd launch failed: {lib.ssg_cuda_error_string(err).decode()}")
     launches += 1
+    mode = k1_modes(cfg)
+    launches_by_mode[mode] = launches_by_mode.get(mode, 0) + 1
     l1, kl, count = partial.sum(dim=0)
     return (l1, kl, count, *maps)
 
 
 class SSLLossSums(torch.autograd.Function):
-    """(l1_sum, kl_sum, count) of the SSL loss; differentiable w.r.t. sr only."""
+    """(l1_sum, kl_sum, count) of the SSL loss; differentiable w.r.t. sr only.
+    ``stored``: the JAX stored route's backward (``ssl_loss_dense_bwd``)."""
 
     @staticmethod
-    def forward(ctx, sr, gt, mask, cfg):
+    def forward(ctx, sr, gt, mask, cfg, stored):
         fwd = ssg_loss_fwd_cuda if sr.is_cuda else ssl_loss_sums_reference
         l1, kl, count, inv_sr, inv_gt, a_map, b_map = fwd(sr, gt, mask, cfg)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.stored = cfg, stored
         ctx.save_for_backward(sr, gt, mask, inv_sr, inv_gt, a_map, b_map)
         ctx.mark_non_differentiable(count)
         return l1, kl, count
@@ -142,15 +159,19 @@ class SSLLossSums(torch.autograd.Function):
     def backward(ctx, g_l1, g_kl, _g_count):
         sr, gt, mask, inv_sr, inv_gt, a_map, b_map = ctx.saved_tensors
         d_sr = ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl, ctx.cfg,
-                                  a_map=a_map, b_map=b_map)
-        return d_sr, None, None, None
+                                  a_map=a_map, b_map=b_map, stored=ctx.stored)
+        return d_sr, None, None, None, None
 
 
 def ssl_loss_sums(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
-                  cfg: SSGConfig = SSGConfig()):
+                  cfg: SSGConfig = SSGConfig(), stored: bool = False):
     """Fused masked-dense SSL loss sums for a batch: sr, gt (b, c, h, w),
     mask (b, h, w) -> (l1_sum, kl_sum, count).  Divide by count * search^2
-    for the reference's mean.  gt is a constant target."""
+    for the reference's mean.  gt is a constant target.  ``stored`` picks
+    the JAX stored route (``losses/ssl_loss.py::dense_route``): the bf16
+    store applies there only."""
     check_config(cfg)
+    if cfg.q_store_dtype == BF16 and not stored:
+        raise ValueError("q_store_dtype bfloat16 applies to the stored route only")
     _check_inputs(sr, gt, mask, cfg)
-    return SSLLossSums.apply(sr, gt.detach(), mask, cfg)
+    return SSLLossSums.apply(sr, gt.detach(), mask, cfg, stored)

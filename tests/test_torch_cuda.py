@@ -80,6 +80,40 @@ def test_k1_gradient_matches_plain_on_card(cuda_case):
     np.testing.assert_allclose(s.grad.cpu().numpy(), d_ref, rtol=1e-4, atol=grad_atol(d_ref))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [(1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("cuda_case", ["small"], indirect=True)
+def test_k1_bf16_modes_match_plain_on_card(cuda_case, mode):
+    """K1's bf16 modes (stream, store, both) against the plain version in
+    the same mode: the count exact, the inverse maps as in float32 (they sum
+    the float32 q), l1 and kl rel 1e-3, and a_map and b_map within the plain
+    version's bounds with its ties free (``chip_smoke.near_ties``: a sign of
+    x - y within rounding of the other side, which the bf16 stream makes
+    common by rounding SR and GT to the same values; with the bf16 store, a q
+    within rounding of a bf16 rounding boundary, which moves x or y by a bf16
+    ulp); each launch counted under its mode."""
+    from chip_smoke import near_ties
+    args, cfg, case = cuda_case
+    cfg = cfg._replace(stream_dtype="bfloat16" if mode[0] else "float32",
+                       q_store_dtype="bfloat16" if mode[1] else "float32")
+    before = ssg_cuda.launches_by_mode.get(mode, 0)
+    got = ssg_cuda.ssg_loss_fwd_cuda(*args, cfg)
+    assert ssg_cuda.launches_by_mode[mode] == before + 1
+    ref = ssl_loss_sums_reference(*args, cfg)
+    assert float(got[2]) == float(ref[2])
+    for i in (0, 1):
+        assert abs(float(got[i]) - float(ref[i])) <= 1e-3 * abs(float(ref[i]))
+    rtol = MAP_RTOL[case]
+    for name, g, r in zip(("inv_sr", "inv_gt"), got[3:5], ref[3:5]):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=rtol,
+                                   atol=1e-6 * float(r.abs().max()), err_msg=name)
+    _, _, a_lo, a_hi, x_sum, b_free, x16, y16, _ = near_ties(args[0], args[1], ref, cfg)
+    slack = rtol * x_sum + x16
+    assert bool(((got[5] >= a_lo - slack) & (got[5] <= a_hi + slack)).all()), "a_map"
+    b_tol = rtol * ref[6].abs() + 1e-6 * float(ref[6].abs().max()) + y16 + b_free
+    assert bool(((got[6] - ref[6]).abs() <= b_tol).all()), "b_map"
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():

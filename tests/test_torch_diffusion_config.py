@@ -120,7 +120,7 @@ def test_k2_calls_per_training_mini_step(monkeypatch):
         bwd.append((q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[3]))
         return tuple(torch.empty(t.shape, device=t.device) for t in (q, k, v))
 
-    def record_k1(sr, gt, mask, cfg):
+    def record_k1(sr, gt, mask, cfg, stored):
         k1.append(tuple(sr.shape))
         zero = (sr * 0).sum()
         return zero, zero, torch.ones((), device=sr.device)

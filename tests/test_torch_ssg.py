@@ -149,9 +149,14 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_inputs():
 
 
 def test_bf16_knobs_raise():
-    cfg = tssg.SSGConfig(search=9, window=5, q_store_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tssg.check_config(cfg)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tssg.check_config(tssg.SSGConfig(stream_dtype="bfloat16"))
+    """The SSG's bf16 knobs are ported (tests/test_torch_bf16.py); the knob
+    that stays unported is the diffusion tree's compute_dtype, and an SSG
+    dtype outside float32 and bfloat16 is refused."""
+    from ssl_tpu_torch.diffusion.unet import UNetModelDualcondV2
+    tssg.check_config(tssg.SSGConfig(search=9, window=5, q_store_dtype="bfloat16",
+                                     stream_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        tssg.check_config(tssg.SSGConfig(stream_dtype="float16"))
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        UNetModelDualcondV2(compute_dtype="bfloat16")
 

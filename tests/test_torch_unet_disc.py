@@ -80,5 +80,6 @@ def test_spectral_norm_gradient_reaches_the_weight_through_sigma():
     torch.nn.functional.conv2d(x, wbar, None, 2, 1).sum().backward()
     torch.testing.assert_close(conv.weight.grad, w.grad, rtol=1e-5, atol=1e-7)
     assert torch.equal(conv.u, u.detach())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNetDiscriminatorSN(num_feat=4, compute_dtype="bfloat16")
+    # compute_dtype takes float32 or bfloat16 (tests/test_torch_bf16.py); other types raise
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        UNetDiscriminatorSN(num_feat=4, compute_dtype="float16")
