@@ -42,8 +42,17 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            attention, and a second launch bit for bit against the first;
            times the kernels (each alone from the profiler), the plain
            backward and SDPA's backward.  TF32 is off throughout for the
-           plain versions; the kernels' own products are 3xTF32.  K2's
-           holds and times run before K1's.
+           plain versions; the kernels' own products are 3xTF32.  Then
+           K2's bf16 kernels (the ``_bf16`` kernels of the same sources,
+           for compute_dtype bfloat16) at the same shapes on bf16 inputs,
+           the packed-qkv strides included: the forward's o within 5e-3
+           relative L2 of the float32 plain version on the inputs upcast
+           and at most 1.5x the plain bf16 route's error, the backward's
+           dq, dk and dv (fed the float32 reference's o and lse) within
+           1e-2 and at most 1.5x ``flash_attn_bwd_reference`` on the bf16
+           inputs, each bit for bit on repeat; times with SDPA in bf16 as
+           the yardstick and bounds with bf16 products at 989 TFLOP/s and
+           2-byte operands.  K2's holds and times run before K1's.
 3. diffusion  the StableSR-SSL model of options/diffusion/ssl_base.yml at
            full width with model.use_flash_attention on, random weights from
            seeds; every layer the init leaves at 0 is drawn from a seeded
@@ -61,7 +70,19 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            the K2 route and the plain route from the same weights and draws:
            the logs within TRAIN_LOG_RTOL and every parameter's gradient
            within TRAIN_GRAD_REL_L2; K2 launches as derived
-7. diffusion_train  the shipped training options (lr 5e-5, 12 mini-steps
+7. diffusion_bf16  the same model under model.compute_dtype bfloat16
+           (build_from_config with the key; the same seeded weights):
+           the UNet eps and the VAE decode against float32 within 3e-2 of
+           its scale, a 256^2 request on the bf16 K2 and bf16 plain routes
+           against the float32 K2 route (the K2 route's relative L2 at most
+           1.25x the plain route's), 512^2 requests and 512^2, batch 2
+           mini-steps in turns bf16, float32, float32, bf16 (ms per request,
+           per denoising step and per mini-step, peak memory, device
+           launches per step; K2 14 per step and 17 forward, 15 backward a
+           mini-step, all bf16 kernels; the UNet gradient's cosine to
+           float32 above 0.98), then 12 mini-steps through the training CLI
+           with model.compute_dtype=bfloat16 as an override (one update)
+8. diffusion_train  the shipped training options (lr 5e-5, 12 mini-steps
            per update, EMA 0.9999) at 512^2, batch 2, on smooth synthetic
            GT/LQ with a mask of density 0.25: one full accumulation cycle of
            12 mini-steps through train_step; logs finite, weights unchanged
@@ -69,7 +90,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            and K2 17 forward and 15 backward per mini-step, every K2
            kernel launched; times, peak memory and K2's forward and
            backward device time per mini-step
-8. diffusion_cli  StableSR-SSL training through its CLI
+9. diffusion_cli  StableSR-SSL training through its CLI
            (ssl_tpu_torch.diffusion.main --train) at the same width with
            model.use_flash_attention=true as a dotlist override, on files:
            24 GT PNGs of 512^2 made on the card, .mat masks from the
@@ -84,12 +105,12 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            images); the host C++ filter2d and JPEG held against their numpy
            versions on 2 x 512^2; ms per mini-step, data wait and the host
            degrader's share from the CLI's timers
-9. train   the ESRGAN-SSL train step at the shipped widths (RRDBNet 64/23/32,
+10. train   the ESRGAN-SSL train step at the shipped widths (RRDBNet 64/23/32,
            VGGStyleDiscriminator 64, VGG19 conv5_4, SSL 25/9/0.004), batch 16,
            gt 128: one warm-up step and 3 timed steps through build_model ->
            init_state -> train_step, with the K1 launch count read around
            them
-10. bench  bench.py's ESRGAN-SSL step (bench.py:54-116: batch 24, gt 128,
+11. bench  bench.py's ESRGAN-SSL step (bench.py:54-116: batch 24, gt 128,
            RRDBNet 64/23/32 and UNetDiscriminatorSN 64 in bf16, VGG19
            conv5_4 in float32, SSL 25/9/0.004 with the bf16 q store and
            stream) through build_model -> init_state -> train_step, and the
@@ -98,7 +119,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            in turns (bf16, float32, float32, bf16), each run a warm-up and 3
            timed steps (ms/step, imgs/s, peak memory, K1 once a step in the
            run's mode, losses finite; G, D and EMA moved)
-11. cli    the ESRGAN-SSL train and test CLIs (ssl_tpu_torch.train /
+12. cli    the ESRGAN-SSL train and test CLIs (ssl_tpu_torch.train /
            ssl_tpu_torch.test) at the same widths on files: 24 GT PNGs of
            192^2 written through utils/png.py, their LQ and .mat edge masks
            made on the card, read by 4 loader processes; a .json option file
@@ -109,7 +130,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            decoding with cv2 where it imports); the test CLI on net_g_6.pth
            whole and tiled; times per iteration and the loader's data wait
            from the logger's timers, and the loader alone with each decoder
-12. realesrgan  the RealESRGAN-SSL train and test CLIs at the shipped widths
+13. realesrgan  the RealESRGAN-SSL train and test CLIs at the shipped widths
            (RRDBNet 64/23/32, UNetDiscriminatorSN 64, VGG19 at five layers,
            SSL 25/9/0.004) on files: 24 GT PNGs of 512^2 made on the card,
            their .mat masks from the generate_mask entry point, a .json
@@ -126,7 +147,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            streams and pool reloaded bit for bit).  K1 is also held at its
            shapes (b12, 3x400^2 and 3x256^2) in the kernel phase, on
            pictures with real edge masks
-13. recipes the six bicubic GAN-SSL recipes (LDL, BebyGAN, SPSR,
+14. recipes the six bicubic GAN-SSL recipes (LDL, BebyGAN, SPSR,
            RankSRGAN-PI, SwinIR-GAN, ELAN-GAN) through the train and test
            CLIs at their shipped widths on the cli phase's files: the
            options/train/<recipe> YAML's values in a .json file, batch 16, 4
@@ -138,7 +159,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            its plain version on SwinIR's and ELAN's SR of 16 training pairs;
            ms per iteration, data wait, the first iteration's extra time,
            peak memory and the test CLI's ms per image
-14. kair   the KAIR/BSRGAN GAN-SSL family (BSRGAN-SSL, ELAN-GAN-SSL,
+15. kair   the KAIR/BSRGAN GAN-SSL family (BSRGAN-SSL, ELAN-GAN-SSL,
            SwinIR-GAN-SSL on the BSRGAN degradation) through the train and
            test CLIs: each options/train/<recipe>/*.json (a KAIR-schema file,
            through utils/kair_options.py) at its widths (SwinIR's netG
@@ -157,11 +178,13 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            (``d_sr_float64``), and on the wide-range SR of the same G drawn
            with flax's init variance (std ~9: the inverse maps within 1e-4 of
            a float64 run, ``hold_k1_wide``)
-15. kernels one line per ported kernel (K1's float32 and bf16 stream + store
-           modes each), launches on its main paths, error against the plain
+16. kernels one line per ported kernel (K1's float32 and bf16 stream + store
+           modes each, K2's float32 and bf16 kernels each), launches on its
+           main paths, error against the plain
            version, times and the bound
 
-then the card's name and power limit as nvidia-smi reports them, and last
+before it a ``wall`` line with each phase's seconds, then the card's name
+and power limit as nvidia-smi reports them, and last
 {"ok": true, "device": {...}}.  Weights are random from fixed seeds (no
 VGG19, UNet or VAE weight file is in the repository).  Needs one CUDA
 device; imports nothing of JAX.
@@ -187,6 +210,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_TF32_PER_S = 495e12
+# K2's bf16 kernels: one bf16 product on the tensor cores per product.
+PEAK_BF16_PER_S = 989e12
 
 MAIN_B, MAIN_GT, SCALE = 16, 128, 4
 # bench.py's ESRGAN-SSL step (bench.py:54-116): batch 24, gt 128; a warm-up
@@ -271,6 +296,17 @@ TRAIN_K2_FWD, TRAIN_K2_BWD = 17, 15
 # its replay 1), TF32 off.  Bounds stated before the first run (PERF.md).
 TRAIN_E2E_SIZE, TRAIN_E2E_K2 = 256, {"fwd": 10, "bwd": 8}
 TRAIN_LOG_RTOL, TRAIN_GRAD_REL_L2 = 1e-4, 1e-3
+# StableSR-SSL under model.compute_dtype bfloat16 (diffusion_bf16): the UNet
+# eps and the VAE decode within BF16_NET_BOUND of float32's largest value
+# (the JAX contract, tests/test_diffusion.py:400-480); on the E2E_LQ request
+# the bf16 K2 route's relative L2 to the float32 K2 route at most
+# BF16_E2E_RATIO times the bf16 plain route's; a mini-step's UNet gradient
+# with cosine above BF16_GRAD_COS to float32's on the same batch and draws.
+# Serving requests and in-process mini-steps run bf16 and float32 in turns;
+# the train CLI with the override runs BF16_CLI_STEPS mini-steps (one update).
+BF16_NET_BOUND, BF16_E2E_RATIO, BF16_GRAD_COS = 3e-2, 1.25, 0.98
+BF16_TURNS = ("bfloat16", "float32", "float32", "bfloat16")
+BF16_CLI_STEPS = 12
 # The train and test CLIs on files: CLI_TRAIN GT images of CLI_GT^2 with their
 # LQ and masks, read by CLI_WORKERS loader processes, each image CLI_ENLARGE
 # times an epoch (dataset_enlarge_ratio) so that the run stays in one epoch, as
@@ -926,29 +962,43 @@ def k1_times(sr, gt, mask, cfg, iters: int, stored: bool = False) -> dict:
             else "operations"}
 
 
-def k2_bound(products: float, elementwise: float, nbytes: float) -> dict:
+def k2_bound(products: float, elementwise: float, nbytes: float, dtype: str = "float32") -> dict:
     """K2's least times (ms): ``ops_ms`` with the matrix products as 3xTF32
-    at the tensor cores' TF32 rate and the elementwise operations at the
-    fp32 rate; ``bytes_ms`` for the bytes; ``fp32_ops_ms`` with everything on
-    the CUDA cores (the bound PRs 1-3 reported)."""
-    return {"ops_ms": 1e3 * (3 * products / PEAK_TF32_PER_S + elementwise / PEAK_FP32_PER_S),
+    at the tensor cores' TF32 rate (float32 inputs) or once at their bf16
+    rate (bf16 inputs), and the elementwise operations at the fp32 rate;
+    ``bytes_ms`` for the bytes; ``fp32_ops_ms`` with everything on the CUDA
+    cores (the bound of the first float32 kernels)."""
+    products_s = (3 * products / PEAK_TF32_PER_S if dtype == "float32"
+                  else products / PEAK_BF16_PER_S)
+    return {"ops_ms": 1e3 * (products_s + elementwise / PEAK_FP32_PER_S),
             "bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
             "fp32_ops_ms": 1e3 * (products + elementwise) / PEAK_FP32_PER_S}
 
 
-def k2_times(b, h, n, m, d):
+def element_bytes(dtype: str) -> int:
+    return 4 if dtype == "float32" else 2
+
+
+def k2_times(b, h, n, m, d, dtype="float32"):
     """K2's forward: 4bhnmd for the two products, 5bhnm for scale, max, exp,
-    sum and the normalisation; q, k, v read once, o written once."""
-    return k2_bound(4 * b * h * n * m * d, 5 * b * h * n * m, 4 * b * h * (2 * n * d + 2 * m * d))
+    sum and the normalisation; q, k, v read once, o written once, in
+    ``dtype``."""
+    return k2_bound(4 * b * h * n * m * d, 5 * b * h * n * m,
+                    element_bytes(dtype) * b * h * (2 * n * d + 2 * m * d), dtype)
 
 
-def k2_combine_times(b, h, n, d, split):
-    """The least time of flash_attn_fwd_combine: it reads each part's output
-    and row max and sum once and writes o and lse once (bytes); per output
-    element and part one exp-weighted FMA, per row and part an exp."""
+def k2_combine_times(b, h, n, d, split, dtype="float32"):
+    """The least time of flash_attn_fwd_combine[_bf16]: it reads each part's
+    output and row max and sum once (float32) and writes o (in ``dtype``)
+    and lse once (bytes); per output element and part one exp-weighted FMA,
+    per row and part an exp."""
     rows = b * h * n
-    nbytes = 4 * (split * rows * (d + 2) + rows * (d + 1))
-    return k2_bound(0, 2 * split * rows * d + 3 * split * rows, nbytes)
+    nbytes = 4 * split * rows * (d + 2) + rows * (element_bytes(dtype) * d + 4)
+    return k2_bound(0, 2 * split * rows * d + 3 * split * rows, nbytes, dtype)
+
+
+def rel_l2(got, ref) -> float:
+    return float((got.double() - ref.double()).norm() / ref.double().norm())
 
 
 def phase_k2():
@@ -1029,7 +1079,96 @@ def phase_k2():
     return results
 
 
-def k2_bwd_times(b, h, n, m, d, splits=(1, 1)):
+def phase_k2_bf16():
+    """K2's bf16 forward (flash_attn_fwd_bf16, flash_attn_fwd_d512_bf16 and
+    flash_attn_fwd_combine_bf16) at the serving path's shapes and at large
+    logits, the packed-qkv strides included: o against the float32 plain
+    version on the same bf16 inputs upcast, within BF16_FWD_REL_L2 relative
+    L2 and at most BF16_PLAIN_RATIO times the plain bf16 route's error; lse
+    against ``attention_lse_reference`` on the bf16 inputs (rtol and atol
+    1e-5); a second launch bit for bit.  Times as ``phase_k2``'s, the
+    library yardstick SDPA on the bf16 inputs, the bounds with bf16
+    products and operands."""
+    import torch
+    import torch.nn.functional as F
+    from torch_attention_cases import (BF16_FWD_REL_L2, BF16_PLAIN_RATIO, CUDA_CASES,
+                                       attention_inputs, combine_parts)
+    from ssl_tpu_torch.ops import attention_cuda
+    from ssl_tpu_torch.ops.attention import attention_lse_reference, sdp_attention_reference
+
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results = {}
+    for name, (b, h, n, m, d, scale, layout, logit_range) in CUDA_CASES.items():
+        q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logit_range, device="cuda",
+                                   dtype=bf16)
+        split, _, plan = attention_cuda.fwd_plan(b, h, n, m, d, sms, bf16)
+        before = dict(attention_cuda.fwd_kernel_launches)
+        got, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+        launched = {k_: c - before[k_] for k_, c in attention_cuda.fwd_kernel_launches.items()}
+        if launched != {k_: plan.get(k_, 0) for k_ in launched}:
+            fail(f"K2 bf16 {name}: kernels launched {launched}, the plan {plan}")
+        again, lse2 = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+        ref = sdp_attention_reference(q.float(), k.float(), v.float(), scale)
+        plain = sdp_attention_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        if got.dtype != bf16 or not (torch.equal(got, again) and torch.equal(lse, lse2)):
+            fail(f"K2 bf16 {name}: o is {got.dtype}, or a second launch differs from the first")
+        err, plain_err = rel_l2(got, ref), rel_l2(plain, ref)
+        if err > BF16_FWD_REL_L2 or err > BF16_PLAIN_RATIO * plain_err:
+            fail(f"K2 bf16 {name}: relative L2 {err} against float32 (bound {BF16_FWD_REL_L2}; "
+                 f"the plain bf16 route's {plain_err})")
+        lse_err = check_close(f"K2 bf16 {name} lse", lse, attention_lse_reference(q, k, scale),
+                              1e-5, 1e-5)
+        max_abs = float((got.double() - ref.double()).abs().max())
+        del again, lse2
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+        def kernel():
+            return attention_cuda.flash_attn_fwd_cuda(q, k, v, scale)
+
+        library_err = rel_l2(library().transpose(1, 2), ref)
+        device = {k_.removesuffix("_kernel"): v_
+                  for k_, v_ in kernel_device_ms(kernel, "flash_attn_fwd", 10).items()}
+        if set(device) != {k_ for k_, c in plan.items() if c}:
+            fail(f"K2 bf16 {name}: the profiler shows kernels {sorted(device)}, the plan {plan}")
+        kernel_ms = time_ms(kernel, 20)
+        plain_ms = time_ms(lambda: sdp_attention_reference(q, k, v, scale), 20)
+        library_ms = time_ms(library, 20)
+        bound = k2_times(b, h, n, m, d, "bfloat16")
+        bound_ms = max(bound["ops_ms"], bound["bytes_ms"])
+        combine = {}
+        if split > 1:
+            parts = [(torch.randn((b, n, h, d), device="cuda"),
+                      torch.randn((b, h, n), device="cuda"), torch.rand((b, h, n), device="cuda"))
+                     for _ in range(split)]
+            combine = {"combine_plain_ms": time_ms(lambda: combine_parts(parts)[0].to(bf16), 20),
+                       "combine_bounds": k2_combine_times(b, h, n, d, split, "bfloat16")}
+            del parts
+        results[name] = {"max_abs_err": max_abs, "rel_l2": err, "plain_rel_l2": plain_err,
+                         "ms": kernel_ms, "device_ms": device, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "split": split,
+                         "launches": {k_: c for k_, c in plan.items() if c}, **bound, **combine}
+        emit({"phase": "kernel", "kernel": "flash_attn_fwd_bf16", "case": name,
+              "b_heads_n_m_d": [b, h, n, m, d], "layout": layout, "sm_scale": scale,
+              "logit_range": logit_range, "split": split, "rel_l2_vs_float32": err,
+              "plain_bf16_rel_l2_vs_float32": plain_err, "library_rel_l2_vs_float32": library_err,
+              "bounds": {"rel_l2": BF16_FWD_REL_L2, "plain_ratio": BF16_PLAIN_RATIO},
+              "max_abs_err": max_abs, "lse_max_abs_err": lse_err, "repeat_bit_for_bit": True,
+              "kernel_ms": kernel_ms, "kernels_device_ms": device,
+              "device_ms": sum(device.values()), "plain_ms": plain_ms, "library_ms": library_ms,
+              **combine, "bound_ms": bound_ms,
+              "bound_by": "operations" if bound["ops_ms"] >= bound["bytes_ms"] else "bytes",
+              "fraction_of_bound": bound_ms / sum(device.values())})
+        del q, k, v, got, ref, plain
+        torch.cuda.empty_cache()
+    return results
+
+
+def k2_bwd_times(b, h, n, m, d, splits=(1, 1), dtype="float32"):
     """The least times of K2's backward kernels (``k2_bound`` each).  Per
     kernel: the fused dkv needs q kᵀ, dO vᵀ, Pᵀ dO and dSᵀ q (8bhnmd) and
     5bhnm for P and dS; the fused dq q kᵀ, dO vᵀ and dS k (6bhnmd) and the
@@ -1037,19 +1176,21 @@ def k2_bwd_times(b, h, n, m, d, splits=(1, 1)):
     5bhnm and writes P and dS, dkv_mm Pᵀ dO and dSᵀ q (4bhnmd) and dq_mm dS k
     (2bhnmd), reading P and dS; sum adds the split parts (``splits`` =
     dkv's, dq's).  "bwd" is the function: 10bhnmd + 8bhnm, q, k, v, dO, lse
-    and di read once and dq, dk, dv written once."""
+    and di read once and dq, dk, dv written once.  q, k, v, dO, the
+    gradients and P and dS are ``dtype``; lse, di and split parts float32."""
+    e = element_bytes(dtype)
     nm, nd, md = b * h * n * m, b * h * n * d, b * h * m * d
-    inputs = 4 * (2 * nd + 2 * md + 2 * b * h * n)
+    inputs = e * (2 * nd + 2 * md) + 4 * 2 * b * h * n
     parts = 2 * md * splits[0] * (splits[0] > 1) + nd * splits[1] * (splits[1] > 1)
     outs = 2 * md * (splits[0] > 1) + nd * (splits[1] > 1)
-    work = {"dkv": (8 * nm * d, 5 * nm, inputs + 4 * 2 * md),
-            "dq": (6 * nm * d, 5 * nm, inputs + 4 * nd),
-            "p_ds": (4 * nm * d, 5 * nm, inputs + 4 * 2 * nm),
-            "dkv_mm": (4 * nm * d, 0, 4 * (2 * nm + 2 * nd + 2 * md)),
-            "dq_mm": (2 * nm * d, 0, 4 * (nm + md + nd)),
-            "sum": (0, parts - outs, 4 * (parts + outs)),
-            "bwd": (10 * nm * d, 8 * nm, inputs + 4 * (nd + 2 * md))}
-    return {k: k2_bound(*w) for k, w in work.items()}
+    work = {"dkv": (8 * nm * d, 5 * nm, inputs + e * 2 * md),
+            "dq": (6 * nm * d, 5 * nm, inputs + e * nd),
+            "p_ds": (4 * nm * d, 5 * nm, inputs + e * 2 * nm),
+            "dkv_mm": (4 * nm * d, 0, e * (2 * nm + 2 * nd + 2 * md)),
+            "dq_mm": (2 * nm * d, 0, e * (nm + md + nd)),
+            "sum": (0, parts - outs, 4 * parts + e * outs),
+            "bwd": (10 * nm * d, 8 * nm, inputs + e * (nd + 2 * md))}
+    return {k: k2_bound(*w, dtype) for k, w in work.items()}
 
 
 def kernel_launch_counts() -> dict:
@@ -1197,6 +1338,103 @@ def phase_k2_bwd():
     return results
 
 
+def phase_k2_bwd_bf16():
+    """K2's bf16 backward at the training path's shapes and at large logits,
+    fed the float32 reference's o (rounded to bf16) and lse: dq, dk and dv
+    against the float32 ``flash_attn_bwd_reference`` on the same inputs
+    upcast within BF16_BWD_REL_L2 relative L2 and at most BF16_PLAIN_RATIO
+    times the error of ``flash_attn_bwd_reference`` on the bf16 inputs (the
+    kernels' rounding points); a second launch bit for bit.  Times as
+    ``phase_k2_bwd``'s, SDPA's backward on the bf16 inputs as the yardstick,
+    the bounds with bf16 products and operands."""
+    import torch
+    import torch.nn.functional as F
+    from torch_attention_cases import (BF16_BWD_REL_L2, BF16_PLAIN_RATIO, TRAIN_CASES,
+                                       attention_inputs)
+    from ssl_tpu_torch.ops import attention_cuda
+    from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_reference,
+                                             sdp_attention_reference)
+
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results = {}
+    for name, (b, h, n, m, d, scale, layout, logit_range) in TRAIN_CASES.items():
+        q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logit_range, device="cuda",
+                                   dtype=bf16)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        do = torch.randn((b, n, h, d), generator=torch.Generator(device="cuda").manual_seed(11),
+                         device="cuda").to(bf16)
+        ref_o, lse = sdp_attention_reference(q32, k32, v32, scale), attention_lse_reference(
+            q32, k32, scale)
+        o = ref_o.to(bf16)
+        got = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+        again = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        for g_name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+            if g.dtype != bf16 or not torch.equal(g, g2):
+                fail(f"K2 bf16 bwd {name} {g_name}: {g.dtype}, or a second launch differs")
+        del again
+        ref = flash_attn_bwd_reference(q32, k32, v32, ref_o, lse, do.float(), scale)
+        plain = flash_attn_bwd_reference(q, k, v, o, lse, do, scale)
+        rel, plain_rel = {}, {}
+        for g_name, g, r, p_ in zip(("dq", "dk", "dv"), got, ref, plain):
+            rel[g_name], plain_rel[g_name] = rel_l2(g, r), rel_l2(p_, r)
+            if rel[g_name] > BF16_BWD_REL_L2 or rel[g_name] > BF16_PLAIN_RATIO * plain_rel[g_name]:
+                fail(f"K2 bf16 bwd {name} {g_name}: relative L2 {rel[g_name]} against float32 "
+                     f"(bound {BF16_BWD_REL_L2}; the plain bf16 backward's {plain_rel[g_name]})")
+        max_abs = max(float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref))
+        del ref, plain, got
+
+        def kernel():
+            attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+
+        iters = 5 if d == 512 or n == 4096 else 20
+        split = kernel_device_ms(kernel, "flash_attn_bwd", iters)
+        dkv_split, dq_split, _, launches = attention_cuda.bwd_plan(b, h, n, m, d, sms, bf16)
+        if set(split) != {f"{k_}_kernel" for k_ in launches if launches[k_]}:
+            fail(f"K2 bf16 bwd {name}: the profiler shows kernels {sorted(split)}, the plan "
+                 f"{launches}")
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        do_t = do.transpose(1, 2)
+        kernel_ms = time_ms(kernel, iters)
+        plain_ms = time_ms(lambda: flash_attn_bwd_reference(q, k, v, o, lse, do, scale), iters)
+        library_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                                         retain_graph=True), iters)
+        bounds = k2_bwd_times(b, h, n, m, d, (dkv_split, dq_split), "bfloat16")
+        sums = {}
+        if dkv_split > 1 or dq_split > 1:      # one output's parts, as the sum kernel adds them
+            nparts, size = ((dkv_split, b * m * h * d) if dkv_split > 1
+                            else (dq_split, b * n * h * d))
+            parts = torch.randn((nparts, size), device="cuda")
+
+            def ordered():
+                out = parts[0].clone()
+                for part in parts[1:]:
+                    out += part
+                return out.to(bf16)
+
+            sums = {"sum_plain_ms": time_ms(ordered, iters),
+                    "sum_library_ms": time_ms(lambda: parts.sum(0).to(bf16), iters)}
+            del parts
+        results[name] = {"max_abs_err": max_abs, "rel_l2": rel, "ms": kernel_ms,
+                         "kernel_ms": {k_.removesuffix("_kernel"): v_ for k_, v_ in split.items()},
+                         "launches": {k_: c for k_, c in launches.items() if c},
+                         "plain_ms": plain_ms, "library_ms": library_ms, "bounds": bounds, **sums}
+        emit({"phase": "kernel", "kernel": "flash_attn_bwd_bf16", "case": name,
+              "b_heads_n_m_d": [b, h, n, m, d], "layout": layout, "sm_scale": scale,
+              "logit_range": logit_range, "splits": [dkv_split, dq_split],
+              "rel_l2_vs_float32": rel, "plain_bf16_rel_l2_vs_float32": plain_rel,
+              "bounds": {"rel_l2": BF16_BWD_REL_L2, "plain_ratio": BF16_PLAIN_RATIO},
+              "max_abs_err": max_abs, "repeat_bit_for_bit": True, "kernel_ms": kernel_ms,
+              "kernels_device_ms": split, "plain_ms": plain_ms, "library_ms": library_ms, **sums,
+              "bound_ms": {k_: max(v_["ops_ms"], v_["bytes_ms"]) for k_, v_ in bounds.items()},
+              "fraction_of_bound": bounds["bwd"]["ops_ms"] / kernel_ms})
+        del q, k, v, q32, k32, v32, o, lse, do, qt, kt, vt, sdpa_out
+        torch.cuda.empty_cache()
+    return results
+
+
 def ssl_base_cfg() -> dict:
     """options/diffusion/ssl_base.yml's model, sslopt and train blocks as a dict
     (the card's machine has no yaml), with model.use_flash_attention on, as
@@ -1240,6 +1478,19 @@ def flash_modules(state):
     return [m for net in nets for m in net.modules() if hasattr(m, "use_flash_attention")]
 
 
+def redraw_zero_init(state) -> None:
+    """Draw every layer the init leaves at 0 from a seeded normal scaled by
+    fan-in, the same draws for the weights and their EMA."""
+    import torch
+    with torch.no_grad():
+        for i, name in enumerate(("unet", "structcond")):
+            for params in (state.params, state.ema_params):
+                gen = torch.Generator(device="cuda").manual_seed(100 + i)
+                for m in params[name].modules():
+                    if getattr(m, "zero_init", False):
+                        m.weight.normal_(generator=gen).mul_(m.weight[0].numel() ** -0.5)
+
+
 def phase_diffusion():
     """The full-width model, its zero-initialised layers drawn from a seeded
     normal scaled by fan-in (the same draws for the weights and their EMA),
@@ -1250,13 +1501,8 @@ def phase_diffusion():
     t0 = time.perf_counter()
     model = build_from_config(ssl_base_cfg())
     state = model.init_state(seed=0)
+    redraw_zero_init(state)
     with torch.no_grad():
-        for i, name in enumerate(("unet", "structcond")):
-            for params in (state.params, state.ema_params):
-                gen = torch.Generator(device="cuda").manual_seed(100 + i)
-                for m in params[name].modules():
-                    if getattr(m, "zero_init", False):
-                        m.weight.normal_(generator=gen).mul_(m.weight[0].numel() ** -0.5)
         p = model.infer_params(state)
         gen = torch.Generator(device="cuda").manual_seed(5)
         z = torch.randn((1, 4, 64, 64), generator=gen, device="cuda")
@@ -1318,8 +1564,7 @@ def phase_serve(model, state):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     requests = []
-    attention_cuda.launches = 0
-    attention_cuda.fwd_kernel_launches.update(dict.fromkeys(attention_cuda.fwd_kernel_launches, 0))
+    reset_k2_counts()
     for lq_up in images:
         timings = {}
         t0 = time.perf_counter()
@@ -1346,7 +1591,7 @@ def phase_serve(model, state):
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
     if launches != expected:
         fail(f"serve: K2 launched {launches} times, expected {expected}")
-    idle = [k_ for k_, c in fwd_kernels.items() if c == 0]
+    idle = [k_ for k_, c in fwd_kernels.items() if c == 0 and not k_.endswith("_bf16")]
     if idle:
         fail(f"serve: K2 forward kernels {idle} were never launched: {fwd_kernels}")
     return launches, fwd_kernels
@@ -1445,9 +1690,8 @@ def phase_diffusion_train(model, state):
     start = [p.detach().clone() for p in trainable(state.params)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ssg_cuda.launches = attention_cuda.launches = attention_cuda.bwd_launches = 0
-    attention_cuda.bwd_kernel_launches.update(dict.fromkeys(attention_cuda.bwd_kernel_launches, 0))
-    attention_cuda.fwd_kernel_launches.update(dict.fromkeys(attention_cuda.fwd_kernel_launches, 0))
+    ssg_cuda.launches = 0
+    reset_k2_counts()
     ms, logs, k2_bwd_ms = [], [], None
     for i, batch in enumerate(batches):
         if i == TRAIN_MINI_STEPS - 1:
@@ -1502,11 +1746,338 @@ def phase_diffusion_train(model, state):
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
     if launches != expected:
         fail(f"diffusion_train: launches {launches}, expected {expected}")
-    idle = [k_ for k_, c in {**bwd_kernels, **fwd_kernels}.items() if c == 0]
+    idle = [k_ for k_, c in {**bwd_kernels, **fwd_kernels}.items()
+            if c == 0 and not k_.endswith("_bf16")]
     if idle:
         fail(f"diffusion_train: K2 kernels {idle} were never launched: "
              f"{bwd_kernels}, {fwd_kernels}")
     return dict(launches, **bwd_kernels, **fwd_kernels)
+
+
+def profiled_launches(fn) -> int:
+    """Device kernels one call of ``fn`` launches, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+
+
+def k2_counts() -> dict:
+    from ssl_tpu_torch.ops import attention_cuda
+    return {"k2_fwd": attention_cuda.launches, "k2_bwd": attention_cuda.bwd_launches,
+            **attention_cuda.fwd_kernel_launches, **attention_cuda.bwd_kernel_launches}
+
+
+def reset_k2_counts() -> None:
+    from ssl_tpu_torch.ops import attention_cuda
+    attention_cuda.launches = attention_cuda.bwd_launches = 0
+    for counts in (attention_cuda.fwd_kernel_launches, attention_cuda.bwd_kernel_launches):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def bf16_train_cli(device: str = "cuda") -> dict:
+    """BF16_CLI_STEPS StableSR-SSL mini-steps through the training CLI with
+    ``model.use_flash_attention=true model.compute_dtype=bfloat16`` as
+    overrides, on fresh ``diffusion_cli_fixtures`` data (the shipped
+    checkpoint and preview intervals, so none falls in the run): losses
+    finite, the weights moved after the last mini-step only, per mini-step K1
+    once and K2 TRAIN_K2_FWD / TRAIN_K2_BWD times, every one a bf16 kernel,
+    each bf16 kernel launched."""
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.diffusion import main as dmain
+    from ssl_tpu_torch.diffusion.ddpm_ssl import StableSRSSL, trainable
+    from ssl_tpu_torch.ops import attention_cuda, ssg_cuda
+
+    per_step_expected = {"k1": 1, "k2_fwd": TRAIN_K2_FWD, "k2_bwd": TRAIN_K2_BWD}
+    with tempfile.TemporaryDirectory(prefix="diffusion_bf16_smoke_") as root:
+        d, _ = diffusion_cli_fixtures(os.path.join(root, "data"), device)
+        cfg = ssl_base_train_cfg(d)
+        cfg["train"].update(max_steps=BF16_CLI_STEPS, save_every=1000, image_every=1000)
+        cfg_path = os.path.join(root, "ssl_base.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        records, steps, live = [], [], {}
+        call = StableSRSSL.train_step
+
+        def counts():
+            return {"k1": ssg_cuda.launches, **k2_counts()}
+
+        def step(self, state, batch, draws=None):
+            if "start" not in live:
+                live["start"] = [p.detach().clone() for p in trainable(state.params)]
+                live["dtype"] = state.params["unet"].dtype
+            before = counts()
+            out = call(self, state, batch, draws)
+            steps.append({k: v - before[k] for k, v in counts().items()})
+            return out
+
+        def on_iteration(record, state, degrader):
+            moved = not all(torch.equal(a, p) for a, p in zip(live["start"],
+                                                               trainable(state.params)))
+            records.append(dict(record, moved=moved))
+
+        ssg_cuda.launches = 0
+        reset_k2_counts()
+        StableSRSSL.train_step = step
+        args = types.SimpleNamespace(
+            base=cfg_path, logdir=os.path.join(root, "logs"), device=device, resume=None,
+            overrides=["model.use_flash_attention=true", "model.compute_dtype=bfloat16"])
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            dmain.train(args, on_iteration)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            StableSRSSL.train_step = call
+        launches = {k: v for k, v in counts().items() if "_bf16" in k or k in per_step_expected}
+        f32_kernels = sum(c for k, c in counts().items() if k.startswith("flash_attn")
+                          and not k.endswith("_bf16"))
+    if live.get("dtype") != torch.bfloat16:
+        fail(f"diffusion_bf16: the CLI with the override built a UNet in {live.get('dtype')}")
+    if [r["step"] for r in records] != list(range(1, BF16_CLI_STEPS + 1)):
+        fail(f"diffusion_bf16: the CLI ran mini-steps {[r['step'] for r in records]}")
+    for r in records:
+        if not all(np.isfinite(v) for v in r["logs"].values()):
+            fail(f"diffusion_bf16: CLI mini-step {r['step']} logged {r['logs']}")
+        if r["moved"] != (r["step"] == BF16_CLI_STEPS):
+            fail(f"diffusion_bf16: after CLI mini-step {r['step']} the weights "
+                 f"{'moved' if r['moved'] else 'did not move'}")
+    if any({k: s_[k] for k in per_step_expected} != per_step_expected for s_ in steps):
+        fail(f"diffusion_bf16: CLI launches per mini-step {steps}, expected {per_step_expected}")
+    idle = [k for k, c in launches.items() if c == 0]
+    if idle or f32_kernels:
+        fail(f"diffusion_bf16: the CLI's bf16 kernels {idle} never launched, or {f32_kernels} "
+             f"float32 K2 launches: {launches}")
+    warm = [r["iter_s"] for r in records[1:-1]]
+    return {"mini_steps": BF16_CLI_STEPS, "wall_s": wall,
+            "ms_first": 1e3 * records[0]["iter_s"], "ms_warm_mean": 1e3 * sum(warm) / len(warm),
+            "ms_applying": 1e3 * records[-1]["iter_s"],
+            "data_wait_ms_mean": 1e3 * sum(r["data_s"] for r in records[1:]) / (len(records) - 1),
+            "degrader_ms_mean": 1e3 * sum(r["degrade_s"] for r in records) / len(records),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses_last": records[-1]["logs"], "launches": launches}
+
+
+def phase_diffusion_bf16(model, state):
+    """StableSR-SSL under ``model.compute_dtype: bfloat16`` at the full width
+    of options/diffusion/ssl_base.yml, against the float32 model of
+    ``phase_diffusion`` (the same seeded weights, its zero-init layers drawn
+    the same way): the UNet eps and the VAE decode (TF32 off for the
+    float32 side), an E2E_LQ request on the bf16 K2 and bf16 plain routes
+    against the float32 K2 route, SERVE_SIZE requests of SERVE_STEPS steps
+    and mini-steps at TRAIN_SIZE, batch TRAIN_B (after a warm-up mini-step
+    each) in turns (BF16_TURNS) with their times, peak memory (both models
+    resident) and working memory (the peak above what was resident), device
+    launches a denoising step, the mini-step's UNet gradient against
+    float32's, and ``bf16_train_cli``.
+    Returns the bf16 K2 launches of the serving requests, the in-process
+    mini-steps and the CLI, by kernel."""
+    import torch
+    from ssl_tpu_torch.diffusion.ddpm_ssl import latent_shape, trainable
+    from ssl_tpu_torch.diffusion.main import build_from_config
+    from ssl_tpu_torch.diffusion.test_cli import restore
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    t0 = time.perf_counter()
+    cfg = ssl_base_cfg()
+    cfg["model"]["compute_dtype"] = "bfloat16"
+    model16 = build_from_config(cfg)
+    state16 = model16.init_state(seed=0)
+    redraw_zero_init(state16)
+    nets16 = (state16.params["unet"], state16.params["structcond"], state16.frozen["vae"].encoder,
+              state16.frozen["vae"].decoder)
+    if any(n.dtype != torch.bfloat16 for n in nets16) or any(
+            p.dtype != torch.float32 for n in nets16 for p in n.parameters()):
+        fail("diffusion_bf16: compute_dtype did not reach every net, or a parameter is not fp32")
+    same = all(torch.equal(a, b) for a, b in zip(
+        [*trainable(state.params), *state.frozen["vae"].parameters()],
+        [*trainable(state16.params), *state16.frozen["vae"].parameters()]))
+    if not same:
+        fail("diffusion_bf16: the bf16 model's weights differ from the float32 model's")
+    setup_s = time.perf_counter() - t0
+    routes = {"bfloat16": (model16, state16), "float32": (model, state)}
+
+    # the UNet eps and the VAE decode, bf16 against float32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    z = torch.randn((1, 4, 64, 64), generator=gen, device="cuda")
+    outs = {}
+    with torch.no_grad():
+        for dtype, (m_, st) in routes.items():
+            p = m_.infer_params(st)
+            outs[dtype] = (m_.apply_model(p, z, torch.full((1,), 500, device="cuda"),
+                                          p["null_context"][None], z),
+                           m_.decode(st.frozen["vae"], z))
+    nets = {}
+    for i, name in enumerate(("unet_eps", "vae_decode")):
+        got, ref = outs["bfloat16"][i], outs["float32"][i]
+        if got.dtype != torch.float32 or not bool(torch.isfinite(got).all()):
+            fail(f"diffusion_bf16: the bf16 {name} is {got.dtype} or not finite")
+        nets[name] = {"max_abs_of_scale": float((got - ref).abs().max() / ref.abs().max()),
+                      "rel_l2": rel_l2(got, ref), "shape": list(got.shape)}
+    del outs
+    if max(v["max_abs_of_scale"] for v in nets.values()) >= BF16_NET_BOUND:
+        fail(f"diffusion_bf16: bf16 against float32 {nets} (bound {BF16_NET_BOUND} of scale)")
+
+    # an E2E_LQ request: bf16 K2 and bf16 plain routes against the float32 K2 route
+    lq_up = lq_image(E2E_LQ, 4 * E2E_LQ, seed=1)
+    e2e, e2e_launches = {}, {}
+    for route, (dtype, flash) in {"bf16_k2": ("bfloat16", True), "bf16_plain": ("bfloat16", False),
+                                  "f32_k2": ("float32", True)}.items():
+        m_, st = routes[dtype]
+        for mod in flash_modules(st):
+            mod.use_flash_attention = flash
+        reset_k2_counts()
+        e2e[route] = restore(m_, st, lq_up, torch.Generator(device="cuda").manual_seed(7), "ddpm",
+                             E2E_STEPS, colorfix="nofix")
+        torch.cuda.synchronize()
+        e2e_launches[route] = {k: c for k, c in k2_counts().items() if c}
+        for mod in flash_modules(st):
+            mod.use_flash_attention = True
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if e2e_launches["bf16_k2"].get("k2_fwd") != E2E_K2_LAUNCHES or any(
+            k.startswith("flash_attn") and not k.endswith("_bf16")
+            for k in e2e_launches["bf16_k2"]):
+        fail(f"diffusion_bf16: K2 on the bf16 route {e2e_launches['bf16_k2']}, expected "
+             f"{E2E_K2_LAUNCHES} bf16 launches")
+    ref = e2e["f32_k2"]
+    e2e_rel = {r: rel_l2(e2e[r], ref) for r in ("bf16_k2", "bf16_plain")}
+    if not bool(torch.isfinite(e2e["bf16_k2"]).all()) or \
+            e2e_rel["bf16_k2"] > BF16_E2E_RATIO * e2e_rel["bf16_plain"]:
+        fail(f"diffusion_bf16: the {4 * E2E_LQ}^2 request's relative L2 to float32 {e2e_rel} "
+             f"(the K2 route at most {BF16_E2E_RATIO}x the plain route's)")
+    del e2e
+
+    # serving requests in turns
+    images = [lq_image(SERVE_LQ, SERVE_SIZE, seed=10 + i) for i in range(len(BF16_TURNS))]
+    serve = {dtype: [] for dtype in routes}
+    reset_k2_counts()
+    for dtype, lq_up in zip(BF16_TURNS, images):
+        m_, st = routes[dtype]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        before = k2_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        img = restore(m_, st, lq_up, torch.Generator(device="cuda").manual_seed(42), "ddpm",
+                      SERVE_STEPS, timings=timings)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launched = {k: c - before[k] for k, c in k2_counts().items()}
+        if tuple(img.shape) != (1, 3, SERVE_SIZE, SERVE_SIZE) or \
+                not bool(torch.isfinite(img).all()):
+            fail(f"diffusion_bf16: the {dtype} request gave {tuple(img.shape)} or non-finite "
+                 "values")
+        expected = K2_PER_REQUEST + SERVE_STEPS * K2_PER_STEP
+        wrong = [k for k, c in launched.items() if c and k.startswith("flash_attn")
+                 and k.endswith("_bf16") != (dtype == "bfloat16")]
+        if launched["k2_fwd"] != expected or wrong:
+            fail(f"diffusion_bf16: a {dtype} request launched K2 {launched}")
+        serve[dtype].append({"ms": ms, "ms_per_step": 1e3 * timings["sample"] / SERVE_STEPS,
+                             "vae_encode_ms": 1e3 * timings["encode"],
+                             "vae_decode_ms": 1e3 * timings["decode"],
+                             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                             "working_mem_gb":
+                                 (torch.cuda.max_memory_allocated() - resident) / 1e9})
+    serve_kernels = {k: c for k, c in k2_counts().items() if k.endswith("_bf16")
+                     and k.startswith("flash_attn_fwd")}
+    if not all(serve_kernels.values()):
+        fail(f"diffusion_bf16: bf16 forward kernels never launched in serving: {serve_kernels}")
+    step_launches = {}
+    for dtype, (m_, st) in routes.items():
+        p = m_.infer_params(st)
+        zz = torch.randn((1, 4, SERVE_SIZE // 8, SERVE_SIZE // 8), device="cuda")
+
+        def one_step():
+            with torch.no_grad():
+                m_.apply_model(p, zz, torch.full((1,), 500, device="cuda"),
+                               p["null_context"][None], zz)
+        step_launches[dtype] = profiled_launches(one_step)
+
+    # mini-steps in turns on one batch and one set of draws
+    batch = train_batch(TRAIN_SIZE, seed=30)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    shape = latent_shape(state.frozen["vae"], TRAIN_B, TRAIN_SIZE, TRAIN_SIZE)
+    draws = {"enc_noise": torch.randn((2 * TRAIN_B, *shape[1:]), generator=gen, device="cuda"),
+             "t": torch.tensor([1, 3], device="cuda") * (model.sched.num_timesteps // 4),
+             "noise": torch.randn(shape, generator=gen, device="cuda")}
+    mini, grads, logs = {dtype: [] for dtype in routes}, {}, {}
+    train_kernels = {}
+    for dtype, (m_, st) in routes.items():       # a warm-up mini-step each, not timed
+        m_.train_step(st, batch, draws)
+        reset_training(st)
+    for dtype in BF16_TURNS:
+        m_, st = routes[dtype]
+        reset_training(st)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        before = k2_counts()
+        t0 = time.perf_counter()
+        _, out = m_.train_step(st, batch, draws)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launched = {k: c - before[k] for k, c in k2_counts().items()}
+        wrong = [k for k, c in launched.items() if c and k.startswith("flash_attn")
+                 and k.endswith("_bf16") != (dtype == "bfloat16")]
+        if (launched["k2_fwd"], launched["k2_bwd"]) != (TRAIN_K2_FWD, TRAIN_K2_BWD) or wrong:
+            fail(f"diffusion_bf16: a {dtype} mini-step launched K2 {launched}")
+        if dtype == "bfloat16":
+            for k, c in launched.items():
+                if k.endswith("_bf16"):
+                    train_kernels[k] = train_kernels.get(k, 0) + c
+        values = {k: float(v) for k, v in out.items()}
+        if not all(v == v and abs(v) != float("inf") for v in values.values()):
+            fail(f"diffusion_bf16: a {dtype} mini-step logged {values}")
+        mini[dtype].append({"ms": ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                            "working_mem_gb": (torch.cuda.max_memory_allocated() - resident) / 1e9})
+        if dtype not in grads:
+            grads[dtype] = torch.cat([p.grad.flatten() for p in st.params["unet"].parameters()])
+            logs[dtype] = values
+        reset_training(st)
+    if not all(p.grad is None or p.grad.dtype == torch.float32 for p in trainable(state16.params)):
+        fail("diffusion_bf16: a bf16 mini-step's gradient is not float32")
+    g16, g32 = grads["bfloat16"].double(), grads["float32"].double()
+    cos = float(g16 @ g32 / (g16.norm() * g32.norm()))
+    if not cos > BF16_GRAD_COS:
+        fail(f"diffusion_bf16: the UNet gradient's cosine to float32 is {cos} "
+             f"(bound {BF16_GRAD_COS})")
+    del grads, g16, g32, model16, state16, nets16, routes, m_, st, p
+    torch.cuda.empty_cache()
+    cli = bf16_train_cli()
+    torch.cuda.empty_cache()
+
+    def mean(rows, key):
+        return sum(r[key] for r in rows) / len(rows)
+    emit({"phase": "diffusion_bf16", "config": "options/diffusion/ssl_base.yml",
+          "compute_dtype": "bfloat16", "use_flash_attention": True, "setup_s": setup_s,
+          "nets_vs_float32": nets, "net_bound": BF16_NET_BOUND,
+          "e2e": {"size": 4 * E2E_LQ, "steps": E2E_STEPS, "rel_l2_vs_f32_k2": e2e_rel,
+                  "ratio_bound": BF16_E2E_RATIO, "k2_launches": e2e_launches},
+          "serve": {"size": SERVE_SIZE, "steps": SERVE_STEPS, "turns": list(BF16_TURNS),
+                    "requests": serve, "device_launches_per_step": step_launches,
+                    "ms_per_request": {k: mean(v, "ms") for k, v in serve.items()},
+                    "ms_per_step": {k: mean(v, "ms_per_step") for k, v in serve.items()},
+                    "bf16_kernel_launches": serve_kernels},
+          "mini_steps": {"size": TRAIN_SIZE, "batch": TRAIN_B, "turns": list(BF16_TURNS),
+                         "runs": mini, "ms": {k: mean(v, "ms") for k, v in mini.items()},
+                         "logs": logs, "unet_grad_cosine": cos, "cosine_bound": BF16_GRAD_COS,
+                         "bf16_kernel_launches": train_kernels},
+          "train_cli": cli,
+          "reduced": {"serve_requests": f"{len(BF16_TURNS)} in turns, 2 per dtype",
+                      "cli_mini_steps": [800000, BF16_CLI_STEPS]},
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "card": card()})
+    return {"serve": serve_kernels, "mini_steps": train_kernels, "cli": cli["launches"]}
 
 
 def phase_train():
@@ -3142,10 +3713,8 @@ def phase_diffusion_cli(device: str = "cuda"):
                 records.append(dict(record, moved=moved))
                 live.update(state=state, degrader=degrader)
 
-            for m, a in counters:
-                setattr(m, a, 0)
-            for kl in (attention_cuda.fwd_kernel_launches, attention_cuda.bwd_kernel_launches):
-                kl.update(dict.fromkeys(kl, 0))
+            ssg_cuda.launches = 0
+            reset_k2_counts()
             StableSRSSL.train_step = step
             args = types.SimpleNamespace(base=cfg_path, logdir=logdir, device=device,
                                          overrides=["model.use_flash_attention=true"] + extra,
@@ -3179,7 +3748,7 @@ def phase_diffusion_cli(device: str = "cuda"):
         records, state, degrader, steps, kernels, wall = run([])
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         check(records, steps, 1, DC_STEPS)
-        idle = [k_ for k_, c in kernels.items() if c == 0]
+        idle = [k_ for k_, c in kernels.items() if c == 0 and not k_.endswith("_bf16")]
         if idle:
             fail(f"diffusion_cli: kernels {idle} were never launched: {kernels}")
         for f in [f"ckpt_{s}.pkl" for s in (DC_SAVE, DC_STEPS)] + \
@@ -3405,75 +3974,76 @@ def realesrgan_host_run(root: str, opt: dict, device: str) -> tuple[dict, int]:
             "pool_pairs_bit_for_bit": len(want["pool_buffers"])}, launches
 
 
-def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
-                 recipes, kair, bench) -> dict:
-    """The {"kernels": [...]} line: one entry per kernel of the port, from the
-    phases' results (K1's, K2's forward's and backward's by case, the serving
-    K2 launches and forward kernel launches, the diffusion_train and
-    diffusion_cli launch counts, the K1 launches of the ESRGAN train step
-    and of the CLIs, the recipes phase's K1 launches and holds, and the kair
-    phase's K1 launches by recipe and holds, and the bench phase's K1
-    launches by mode).  K1's float32 mode and its bf16 stream + store mode
-    (bench.py's step) each have an entry; ``modes`` under the first lists
-    every mode held, the bf16 stream mode (the batched route) included."""
+def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
+    """The kernels line's K2 entries, float32 and bf16: the kernel phases'
+    results by case (``phase_k2``, ``phase_k2_bwd`` and their bf16
+    counterparts) and ``paths``, the launches by kernel name of each path
+    that ran them ({"": {path: counts}, "_bf16": {path: counts}}; the
+    backward's paths are those not serving)."""
     from torch_attention_cases import TRAIN_MIX_BWD
 
-    serve_calls, serve_fwd = serve
     both = f"{UPSTREAM_DKV}; {UPSTREAM_DQ}"
     bwd_kernels = {"dkv": UPSTREAM_DKV, "dq": UPSTREAM_DQ, "sum": both, "p_ds": both,
                    "dkv_mm": UPSTREAM_DKV, "dq_mm": UPSTREAM_DQ}
+    bf16_note = " with bf16 q, k and v under compute_dtype (ssl_tpu/diffusion/unet.py:24-31)"
 
-    def bwd_entry(f, replaces):
-        """flash_attn_bwd_<f>: per-launch means over the launches one training
-        mini-step's mix of shapes gives it (TRAIN_MIX_BWD calls per case)."""
-        runs = {c: w * k2_bwd[c]["launches"][f"flash_attn_bwd_{f}"]
-                for c, w in TRAIN_MIX_BWD.items()
-                if f"flash_attn_bwd_{f}" in k2_bwd[c]["launches"]}
+    def bwd_entry(f, replaces, sfx=""):
+        """flash_attn_bwd_<f>[_bf16]: per-launch means over the launches one
+        training mini-step's mix of shapes gives it (TRAIN_MIX_BWD calls per
+        case)."""
+        name, res = f"flash_attn_bwd_{f}{sfx}", (k2_bwd_16 if sfx else k2_bwd)
+        runs = {c: w * res[c]["launches"][name] for c, w in TRAIN_MIX_BWD.items()
+                if name in res[c]["launches"]}
         total = sum(runs.values())
 
         def per_launch(value):
-            return sum(TRAIN_MIX_BWD[c] * value(k2_bwd[c]) for c in runs) / total
+            return sum(TRAIN_MIX_BWD[c] * value(res[c]) for c in runs) / total
 
         ops, nbytes, fp32 = (per_launch(lambda r, kind=kind: r["bounds"][f][kind])
                              for kind in ("ops_ms", "bytes_ms", "fp32_ops_ms"))
 
         def call_mean(key):
-            return sum(TRAIN_MIX_BWD[c] * k2_bwd[c][key] for c in runs) / sum(
+            return sum(TRAIN_MIX_BWD[c] * res[c][key] for c in runs) / sum(
                 TRAIN_MIX_BWD[c] for c in runs)
-        entry = {"name": f"flash_attn_bwd_{f}", "route": "cuda",
-                 "source": "ssl_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": replaces,
-                 "launches": train[f"flash_attn_bwd_{f}"] + dcli[f"flash_attn_bwd_{f}"],
-                 "launches_by_path": {"diffusion_train": train[f"flash_attn_bwd_{f}"],
-                                      "diffusion_cli": dcli[f"flash_attn_bwd_{f}"]},
-                 "max_abs_err": max(k2_bwd[c]["max_abs_err"] for c in runs),
-                 "ms": per_launch(lambda r: r["kernel_ms"][f"flash_attn_bwd_{f}"]),
+        by_path = {path: counts.get(name, 0) for path, counts in paths[sfx].items()
+                   if not path.startswith("serve")}
+        entry = {"name": name, "route": "cuda",
+                 "source": "ssl_tpu_torch/csrc/flash_attn_bwd.cu",
+                 "replaces": replaces + (bf16_note if sfx else ""),
+                 "launches": sum(by_path.values()), "launches_by_path": by_path,
+                 "max_abs_err": max(res[c]["max_abs_err"] for c in runs),
+                 "ms": per_launch(lambda r: r["kernel_ms"][name]),
                  "bound_ms": max(ops, nbytes),
-                 "bound_by": "operations" if ops >= nbytes else "bytes",
-                 "fp32_bound_ms": max(fp32, nbytes), "cases": sorted(runs)}
+                 "bound_by": "operations" if ops >= nbytes else "bytes", "cases": sorted(runs)}
+        if not sfx:
+            entry["fp32_bound_ms"] = max(fp32, nbytes)
+        what = ("the float32 reference's" if sfx else "the whole backward's")
         if f == "sum":
             entry.update(plain_ms=call_mean("sum_plain_ms"), library_ms=call_mean("sum_library_ms"),
                          times_are="mean per launch over one training mini-step's mix of shapes; "
                                    "plain_ms (an in-order loop) and library_ms (torch.sum) add "
-                                   "one output's split parts; max_abs_err is the whole backward's")
+                                   f"one output's split parts; max_abs_err is {what}")
         else:
             entry.update(plain_ms=call_mean("plain_ms"), library_ms=call_mean("library_ms"),
                          times_are="mean per launch over one training mini-step's mix of shapes; "
                                    "plain_ms and library_ms (SDPA) time the whole backward "
                                    "(dq, dk, dv) per call at the shapes this kernel runs; "
-                                   "max_abs_err is the whole backward's")
+                                   f"max_abs_err is {what}")
+        if sfx:
+            entry["rel_l2_vs_float32"] = max(max(res[c]["rel_l2"].values()) for c in runs)
         return entry
 
-    def fwd_entry(f):
-        """flash_attn_<f>: per-launch means over the launches one serving
-        request's mix of shapes (SERVE_MIX) gives it; device times from the
-        profiler.  The main kernels' plain and library times are the whole
-        forward's; the combine's plain time is ``combine_parts``."""
-        name = f"flash_attn_{f}"
-        mix = {c: w for c, w in SERVE_MIX.items() if name in k2[c]["launches"]}
+    def fwd_entry(f, sfx=""):
+        """flash_attn_<f>[_bf16]: per-launch means over the launches one
+        serving request's mix of shapes (SERVE_MIX) gives it; device times
+        from the profiler.  The main kernels' plain and library times are the
+        whole forward's; the combine's plain time is ``combine_parts``."""
+        name, res = f"flash_attn_{f}{sfx}", (k2_16 if sfx else k2)
+        mix = {c: w for c, w in SERVE_MIX.items() if name in res[c]["launches"]}
         total = sum(mix.values())
 
         def mean(value):
-            return sum(w * value(k2[c]) for c, w in mix.items()) / total
+            return sum(w * value(res[c]) for c, w in mix.items()) / total
 
         if f == "fwd_combine":
             ops, nbytes = (mean(lambda r, kind=kind: r["combine_bounds"][kind])
@@ -3482,12 +4052,12 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
         else:
             ops, nbytes = mean(lambda r: r["ops_ms"]), mean(lambda r: r["bytes_ms"])
             plain, library = mean(lambda r: r["plain_ms"]), mean(lambda r: r["library_ms"])
+        by_path = {path: counts.get(name, 0) for path, counts in paths[sfx].items()}
+        extra = {"rel_l2_vs_float32": max(res[c]["rel_l2"] for c in mix)} if sfx else {}
         return {"name": name, "route": "cuda", "source": "ssl_tpu_torch/csrc/flash_attn_fwd.cu",
-                "replaces": "ssl_tpu/ops/attention.py:28",
-                "launches": serve_fwd[name] + train[name] + dcli[name],
-                "launches_by_path": {"serve": serve_fwd[name], "diffusion_train": train[name],
-                                     "diffusion_cli": dcli[name]},
-                "max_abs_err": max(k2[c]["max_abs_err"] for c in mix),
+                "replaces": "ssl_tpu/ops/attention.py:28" + (bf16_note if sfx else ""),
+                "launches": sum(by_path.values()), "launches_by_path": by_path, **extra,
+                "max_abs_err": max(res[c]["max_abs_err"] for c in mix),
                 "ms": mean(lambda r: r["device_ms"][name]),
                 "wrapper_ms": mean(lambda r: r["ms"]), "plain_ms": plain, "library_ms": library,
                 "bound_ms": max(ops, nbytes), "bound_by": "operations" if ops >= nbytes else "bytes",
@@ -3496,6 +4066,31 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
                              "the kernel's device time (profiler), wrapper_ms the call's (CUDA "
                              "events); max_abs_err is the whole forward's"}
 
+    return [*(fwd_entry(f, sfx) for sfx in ("", "_bf16")
+              for f in ("fwd", "fwd_d512", "fwd_combine")),
+            *(bwd_entry(f, replaces, sfx) for sfx in ("", "_bf16")
+              for f, replaces in bwd_kernels.items())]
+
+
+def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
+                 recipes, kair, bench, k2_16, k2_bwd_16, dbf16) -> dict:
+    """The {"kernels": [...]} line: one entry per kernel of the port, from the
+    phases' results (K1's, K2's forward's and backward's by case, the serving
+    K2 launches and forward kernel launches, the diffusion_train and
+    diffusion_cli launch counts, the K1 launches of the ESRGAN train step
+    and of the CLIs, the recipes phase's K1 launches and holds, and the kair
+    phase's K1 launches by recipe and holds, and the bench phase's K1
+    launches by mode; K2's bf16 kernels from the bf16 kernel phases and the
+    diffusion_bf16 phase's launches).  K1's float32 mode and its bf16 stream
+    + store mode (bench.py's step) each have an entry; ``modes`` under the
+    first lists every mode held, the bf16 stream mode (the batched route)
+    included.  Each K2 kernel has an entry, its bf16 counterpart
+    (``_bf16``) another."""
+    serve_calls, serve_fwd = serve
+    paths = {"": {"serve": serve_fwd, "diffusion_train": train, "diffusion_cli": dcli},
+             "_bf16": {"serve_bf16": dbf16["serve"],
+                       "diffusion_bf16_mini_steps": dbf16["mini_steps"],
+                       "diffusion_bf16_cli": dbf16["cli"]}}
     realesrgan, realesrgan_host = realesrgan
     recipes, recipe_holds = recipes
     kair_launches, kair_holds = kair
@@ -3575,8 +4170,7 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
          "times_are": "b24 3x128^2, bench.py's step on the stored route; ms is the kernel's "
                       "device time (profiler), wrapper_ms the call's (CUDA events); plain_ms "
                       "the plain version in the same mode"},
-        *(fwd_entry(f) for f in ("fwd", "fwd_d512", "fwd_combine")),
-        *(bwd_entry(f, replaces) for f, replaces in bwd_kernels.items())]}
+        *k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths)]}
 
 
 def main() -> int:
@@ -3591,41 +4185,54 @@ def main() -> int:
         return 2
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))      # torch_attention_cases (JAX-free)
-    phase_build()
+    wall, start = {}, time.perf_counter()
+
+    def run(name, phase, *args):
+        """``phase(*args)``, its wall seconds kept for the ``wall`` line."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    run("build", phase_build)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # K2 first: after K1's holds at the KAIR shapes the profiler's traces of
     # K2's forward missed one to five of ten launches (PERF.md)
-    k2 = phase_k2()
-    k2_bwd = phase_k2_bwd()
-    k1 = phase_kernel()
-    model, state = phase_diffusion()
-    phase_e2e(model, state)
+    k2 = run("k2", phase_k2)
+    k2_bwd = run("k2_bwd", phase_k2_bwd)
+    k2_16 = run("k2_bf16", phase_k2_bf16)
+    k2_bwd_16 = run("k2_bwd_bf16", phase_k2_bwd_bf16)
+    k1 = run("kernel", phase_kernel)
+    model, state = run("diffusion", phase_diffusion)
+    run("e2e", phase_e2e, model, state)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    serve = phase_serve(model, state)
+    serve = run("serve", phase_serve, model, state)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    phase_train_e2e(model, state)
+    run("train_e2e", phase_train_e2e, model, state)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    train = phase_diffusion_train(model, state)
+    dbf16 = run("diffusion_bf16", phase_diffusion_bf16, model, state)
+    train = run("diffusion_train", phase_diffusion_train, model, state)
     del model, state
     torch.cuda.empty_cache()
-    dcli = phase_diffusion_cli()
+    dcli = run("diffusion_cli", phase_diffusion_cli)
     torch.cuda.empty_cache()
-    launches = phase_train()
+    launches = run("train", phase_train)
     torch.cuda.empty_cache()
-    bench = phase_bench()
+    bench = run("bench", phase_bench)
     torch.cuda.empty_cache()
-    cli = phase_cli()
+    cli = run("cli", phase_cli)
     torch.cuda.empty_cache()
-    realesrgan = phase_realesrgan()
+    realesrgan = run("realesrgan", phase_realesrgan)
     torch.cuda.empty_cache()
-    recipes = phase_recipes()
+    recipes = run("recipes", phase_recipes)
     torch.cuda.empty_cache()
-    kair = phase_kair()
+    kair = run("kair", phase_kair)
 
+    emit({"phase": "wall", "seconds": wall, "total_s": time.perf_counter() - start})
     emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli, recipes,
-                      kair, bench))
+                      kair, bench, k2_16, k2_bwd_16, dbf16))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

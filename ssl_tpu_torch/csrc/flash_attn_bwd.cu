@@ -80,11 +80,25 @@
 // Determinism: no atomics; every element of dQ, dK and dV (and of each split
 // part) is summed by one thread in a fixed order, and the parts are added in
 // order, so two launches on the same inputs give bit-identical outputs.
+//
+// bf16 (compute_dtype bfloat16; the *_bf16_kernel kernels, entry
+// flash_attn_bwd_bf16): upstream's two Pallas backward kernels with bf16
+// operands: P recomputed in fp32 from lse, dV = Pᵀ dO and dP = dO vᵀ on bf16
+// operands, dS = P (dP - di) formed in fp32 and rounded to bf16 for
+// dK = sm_scale dSᵀ q and dQ = sm_scale dS k, all sums in fp32
+// accumulators (mma.sync m16n8k16, bf16_mma.cuh); dq, dk and dv written in
+// bf16 (split parts in fp32, rounded by flash_attn_bwd_sum_bf16_kernel).
+// What bounds it: the five products at the bf16 rate, 2-byte operands.  The
+// float32 kernels' plans with 8 warps of 16 rows at d = 64 and 128, the
+// streamed or resident tile read transposed by ldmatrix.trans for the
+// accumulations; at d = 512 P and dS go to scratch in bf16 (half the float32
+// scratch), where the products that read them round them anyway.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"   // bf16 mma.sync products, ldmatrix fragment loads
 #include "tf32_mma.cuh"   // 3xTF32 mma.sync products, cp.async tile copies
 
 namespace {
@@ -143,11 +157,19 @@ __device__ __forceinline__ void logits_and_dp(const float* a, const float* b, co
   }
 }
 
+// Two adjacent output values, as float32 or rounded to bf16.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // Store a 16·RW x D accumulator times scale into contiguous (b, seq, heads,
 // D) rows: row tile i's rows are row0 + 16i + g and + 8 of the sequence, and
 // element (r, col) of the (b·seq·heads, D) output is at out + (r·heads + hi)·D.
-template <int D, int RW>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 8][RW][4],
+template <int D, int RW, typename OutT>
+__device__ __forceinline__ void store_rows(OutT* out, const float (&acc)[D / 8][RW][4],
                                            long long row0, int heads, int hi, float scale,
                                            int g, int t) {
 #pragma unroll
@@ -156,10 +178,8 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 8]
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       const int col = 8 * c + 2 * t;
-      *reinterpret_cast<float2*>(out + (r * heads + hi) * D + col) =
-          make_float2(acc[c][i][0] * scale, acc[c][i][1] * scale);
-      *reinterpret_cast<float2*>(out + ((r + 8) * heads + hi) * D + col) =
-          make_float2(acc[c][i][2] * scale, acc[c][i][3] * scale);
+      store2(out + (r * heads + hi) * D + col, acc[c][i][0] * scale, acc[c][i][1] * scale);
+      store2(out + ((r + 8) * heads + hi) * D + col, acc[c][i][2] * scale, acc[c][i][3] * scale);
     }
   }
 }
@@ -244,8 +264,8 @@ flash_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__
 
   const long long part = (long long)split * b * m * heads * D;
   const long long row0 = (long long)bi * m + k0 + 16 * RW * warp;
-  store_rows<D, RW>(dk + part, acc_k, row0, heads, hi, sm_scale, g, t);
-  store_rows<D, RW>(dv + part, acc_v, row0, heads, hi, 1.f, g, t);
+  store_rows<D, RW, float>(dk + part, acc_k, row0, heads, hi, sm_scale, g, t);
+  store_rows<D, RW, float>(dv + part, acc_v, row0, heads, hi, 1.f, g, t);
 }
 
 template <int D, int BQ, int BK, int RW>
@@ -325,7 +345,7 @@ flash_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 
   const long long part = (long long)split * b * n * heads * D;
-  store_rows<D, RW>(dq + part, acc, (long long)bi * n + r0, heads, hi, sm_scale, g, t);
+  store_rows<D, RW, float>(dq + part, acc, (long long)bi * n + r0, heads, hi, sm_scale, g, t);
 }
 
 // out[i] = sum over s of parts[s·count + i], s = 0, 1, ... in order.
@@ -556,11 +576,408 @@ flash_attn_bwd_dq_mm_kernel(const float* __restrict__ k, const float* __restrict
                 dq + ((long long)bi * n * heads + hi) * D, (long long)heads * D, m, sm_scale);
 }
 
+// ---- bf16, d = 64 and 128: the fused kernels ----------------------------
+//
+// The float32 kernels' plan with bf16 operands (m16n8k16, fp32
+// accumulators), 8 warps of 16 rows: the logit products read 32-bit pairs
+// along d (frag_a_rows / frag_b_rows), the accumulations read the streamed
+// or resident tile transposed by ldmatrix.trans (accumulate_bf16), and Pᵀ,
+// dSᵀ (dS in dq) are formed in fp32 and rounded to bf16 as they are packed
+// into the A fragments.  Outputs are bf16, or the fp32 parts of a split.
+
+// bytes: K and V [BN][D + 8] bf16, 2 x {q, dO [BM][D + 8]} bf16, 2 x {lse, di [BM]} float
+template <int D, int BN, int BM>
+constexpr size_t dkv_bf16_smem_bytes() {
+  return sizeof(bf16) * ((size_t)2 * BN * (D + 8) + (size_t)2 * 2 * BM * (D + 8)) +
+         sizeof(float) * (size_t)2 * 2 * BM;
+}
+
+// bytes: Q and dO [BQ][D + 8], 2 x {k, v [BK][D + 8]}, all bf16
+template <int D, int BQ, int BK>
+constexpr size_t dq_bf16_smem_bytes() {
+  return sizeof(bf16) * ((size_t)2 * BQ * (D + 8) + (size_t)2 * 2 * BK * (D + 8));
+}
+
+template <int D, int BN, int BM, typename OutT>
+__global__ void __launch_bounds__(BN * 2)
+flash_attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ di,
+                               OutT* __restrict__ dk, OutT* __restrict__ dv, Strides st, int b,
+                               int heads, int n, int m, int tiles_per_split, float sm_scale) {
+  constexpr int NTHREADS = BN * 2, P = D + 8, NT = BM / 8;
+  constexpr int STAGE = 2 * BM * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s_k = reinterpret_cast<bf16*>(smem_raw);   // [BN][D + 8]
+  bf16* s_v = s_k + BN * P;                         // [BN][D + 8]
+  bf16* ring = s_v + BN * P;                        // 2 x {q [BM][D + 8], dO [BM][D + 8]}
+  float* ring_f = reinterpret_cast<float*>(ring + 2 * STAGE);   // 2 x {lse [BM], di [BM]}
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
+  const int k0 = blockIdx.x * BN, split = blockIdx.z;
+  const int tile0 = split * tiles_per_split;
+  const bf16* qp = q + bi * st.qb + hi * st.qh;
+  const bf16* gp = dout + bi * st.gb + hi * st.gh;
+  const float* lp = lse + (long long)bh * n;
+  const float* dip = di + (long long)bh * n;
+
+  auto load_stage = [&](int stage, int tile) {
+    bf16* s = ring + stage * STAGE;
+    float* f = ring_f + stage * 2 * BM;
+    const long long q0 = (long long)tile * BM;
+    load_tile_bf16<BM, D, P, NTHREADS>(s, qp + q0 * st.qn, st.qn, tid);
+    load_tile_bf16<BM, D, P, NTHREADS>(s + BM * P, gp + q0 * st.gn, st.gn, tid);
+    load_vec_async<BM, NTHREADS>(f, lp + q0, tid);
+    load_vec_async<BM, NTHREADS>(f + BM, dip + q0, tid);
+  };
+
+  load_tile_bf16<BN, D, P, NTHREADS>(s_k, k + bi * st.kb + hi * st.kh + (long long)k0 * st.kn,
+                                     st.kn, tid);
+  load_tile_bf16<BN, D, P, NTHREADS>(s_v, v + bi * st.vb + hi * st.vh + (long long)k0 * st.vn,
+                                     st.vn, tid);
+  load_stage(0, tile0);
+  cp_async_commit();
+
+  float acc_k[D / 8][1][4], acc_v[D / 8][1][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc_k[c][0][r] = acc_v[c][0][r] = 0.f;
+
+  const bf16* my_k = s_k + 16 * warp * P;     // the warp's 16 keys
+  const bf16* my_v = s_v + 16 * warp * P;
+  for (int it = 0; it < tiles_per_split; ++it) {
+    if (it + 1 < tiles_per_split) load_stage((it + 1) & 1, tile0 + it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();       // this tile (and K, V) have landed
+    __syncthreads();
+    const bf16* s_q = ring + (it & 1) * STAGE;
+    const bf16* s_do = s_q + BM * P;
+    const float* s_lse = ring_f + (it & 1) * 2 * BM;
+    const float* s_di = s_lse + BM;
+
+    float s[NT][1][4], dp[NT][1][4];   // Sᵀ, dPᵀ: rows = the warp's keys, columns = queries
+    logits_bf16<D, NT, 1, P>(my_k, s_q, g, t, s);
+    logits_bf16<D, NT, 1, P>(my_v, s_do, g, t, dp);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = 8 * j + 2 * t;     // this thread's query columns c and c + 1
+      const float lse2[2] = {s_lse[c], s_lse[c + 1]}, di2[2] = {s_di[c], s_di[c + 1]};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        s[j][0][r] = expf(s[j][0][r] * sm_scale - lse2[r % 2]);
+        dp[j][0][r] = s[j][0][r] * (dp[j][0][r] - di2[r % 2]);
+      }
+    }
+    accumulate_bf16<D, NT, 1, P>(acc_v, s, s_do, lane);    // dV += Pᵀ dO
+    accumulate_bf16<D, NT, 1, P>(acc_k, dp, s_q, lane);    // dK += dSᵀ Q
+    __syncthreads();          // every warp is done with this stage before it is refilled
+  }
+
+  const long long part = (long long)split * b * m * heads * D;
+  const long long row0 = (long long)bi * m + k0 + 16 * warp;
+  store_rows<D, 1, OutT>(dk + part, acc_k, row0, heads, hi, sm_scale, g, t);
+  store_rows<D, 1, OutT>(dv + part, acc_v, row0, heads, hi, 1.f, g, t);
+}
+
+template <int D, int BQ, int BK, typename OutT>
+__global__ void __launch_bounds__(BQ * 2)
+flash_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ di,
+                              OutT* __restrict__ dq, Strides st, int b, int heads, int n, int m,
+                              int tiles_per_split, float sm_scale) {
+  constexpr int NTHREADS = BQ * 2, P = D + 8, NT = BK / 8;
+  constexpr int STAGE = 2 * BK * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);   // [BQ][D + 8]
+  bf16* s_do = s_q + BQ * P;                        // [BQ][D + 8]
+  bf16* ring = s_do + BQ * P;                       // 2 x {k [BK][D + 8], v [BK][D + 8]}
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
+  const int q0 = blockIdx.x * BQ, split = blockIdx.z;
+  const int tile0 = split * tiles_per_split;
+  const bf16* kp = k + bi * st.kb + hi * st.kh;
+  const bf16* vp = v + bi * st.vb + hi * st.vh;
+
+  auto load_stage = [&](int stage, int tile) {
+    bf16* s = ring + stage * STAGE;
+    const long long k0 = (long long)tile * BK;
+    load_tile_bf16<BK, D, P, NTHREADS>(s, kp + k0 * st.kn, st.kn, tid);
+    load_tile_bf16<BK, D, P, NTHREADS>(s + BK * P, vp + k0 * st.vn, st.vn, tid);
+  };
+
+  load_tile_bf16<BQ, D, P, NTHREADS>(s_q, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn,
+                                     st.qn, tid);
+  load_tile_bf16<BQ, D, P, NTHREADS>(
+      s_do, dout + bi * st.gb + hi * st.gh + (long long)q0 * st.gn, st.gn, tid);
+  load_stage(0, tile0);
+  cp_async_commit();
+
+  // the warp's rows: q0 + 16·warp + g and + 8
+  const int r0 = q0 + 16 * warp;
+  float row_lse[2], row_di[2], acc[D / 8][1][4];
+#pragma unroll
+  for (int h8 = 0; h8 < 2; ++h8) {
+    row_lse[h8] = lse[(long long)bh * n + r0 + g + 8 * h8];
+    row_di[h8] = di[(long long)bh * n + r0 + g + 8 * h8];
+  }
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[c][0][r] = 0.f;
+
+  const bf16* my_q = s_q + 16 * warp * P;
+  const bf16* my_do = s_do + 16 * warp * P;
+  for (int it = 0; it < tiles_per_split; ++it) {
+    if (it + 1 < tiles_per_split) load_stage((it + 1) & 1, tile0 + it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* s_k = ring + (it & 1) * STAGE;
+    const bf16* s_v = s_k + BK * P;
+
+    float s[NT][1][4], dp[NT][1][4];   // S and dP: rows = the warp's queries, columns = keys
+    logits_bf16<D, NT, 1, P>(my_q, s_k, g, t, s);
+    logits_bf16<D, NT, 1, P>(my_do, s_v, g, t, dp);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        dp[j][0][r] = expf(s[j][0][r] * sm_scale - row_lse[r / 2]) * (dp[j][0][r] - row_di[r / 2]);
+    accumulate_bf16<D, NT, 1, P>(acc, dp, s_k, lane);      // dQ += dS K
+    __syncthreads();
+  }
+
+  const long long part = (long long)split * b * n * heads * D;
+  store_rows<D, 1, OutT>(dq + part, acc, (long long)bi * n + r0, heads, hi, sm_scale, g, t);
+}
+
+// out[i] = sum over s of parts[s·count + i], s = 0, 1, ... in order, rounded to bf16.
+__global__ void flash_attn_bwd_sum_bf16_kernel(const float4* __restrict__ parts,
+                                               bf16* __restrict__ out, long long count4,
+                                               int nparts) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count4;
+       i += (long long)gridDim.x * blockDim.x) {
+    float4 a = parts[i];
+    for (int s = 1; s < nparts; ++s) {
+      const float4 x = parts[s * count4 + i];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    store2(out + 4 * i, a.x, a.y);
+    store2(out + 4 * i + 2, a.z, a.w);
+  }
+}
+
+// ---- bf16, d = 512: P and dS through bf16 scratch -----------------------
+
+constexpr int PDSB_P = PDS_KC + 8;
+constexpr int PDSB_STAGE = 2 * (PDS_BM + PDS_BN) * PDSB_P;
+constexpr int MMB_PA = MM_KC + 8, MMB_PT = MM_BM + 8;   // pitches: [i][k] and [k][i or j]
+constexpr int MMB_STAGE = MM_BM * MMB_PA + MM_KC * MMB_PT;
+
+// P and dS of 128 queries x 64 keys, as flash_attn_bwd_p_ds_kernel, from bf16
+// operands in fp32 accumulators; written rounded to bf16, the operands of
+// the two products that follow.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_attn_bwd_p_ds_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ di,
+                                bf16* __restrict__ p_out, bf16* __restrict__ ds_out, Strides st,
+                                int heads, int n, int m, float sm_scale) {
+  constexpr int P = PDSB_P, NCHUNK = D / PDS_KC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = warp / 2, wc = warp % 2;
+  const int bh = blockIdx.z, bi = bh / heads, hi = bh % heads;
+  const int q0 = blockIdx.y * PDS_BM, k0 = blockIdx.x * PDS_BN;
+  const bf16* qp = q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn;
+  const bf16* gp = dout + bi * st.gb + hi * st.gh + (long long)q0 * st.gn;
+  const bf16* kp = k + bi * st.kb + hi * st.kh + (long long)k0 * st.kn;
+  const bf16* vp = v + bi * st.vb + hi * st.vh + (long long)k0 * st.vn;
+
+  auto load_stage = [&](int stage, int chunk) {
+    bf16* s = smem + stage * PDSB_STAGE;
+    const int c0 = chunk * PDS_KC;
+    load_tile_bf16<PDS_BM, PDS_KC, P, 256>(s, qp + c0, st.qn, tid);
+    load_tile_bf16<PDS_BM, PDS_KC, P, 256>(s + PDS_BM * P, gp + c0, st.gn, tid);
+    load_tile_bf16<PDS_BN, PDS_KC, P, 256>(s + 2 * PDS_BM * P, kp + c0, st.kn, tid);
+    load_tile_bf16<PDS_BN, PDS_KC, P, 256>(s + (2 * PDS_BM + PDS_BN) * P, vp + c0, st.vn, tid);
+  };
+
+  float s[4][2][4], dp[4][2][4];   // [column tile j][row tile i]
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[j][i][r] = dp[j][i][r] = 0.f;
+
+  load_stage(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < NCHUNK; ++it) {
+    if (it + 1 < NCHUNK) load_stage((it + 1) & 1, it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* s_q = smem + (it & 1) * PDSB_STAGE + wr * 32 * P;
+    const bf16* s_do = s_q + PDS_BM * P;
+    const bf16* s_k = smem + (it & 1) * PDSB_STAGE + 2 * PDS_BM * P + wc * 32 * P;
+    const bf16* s_v = s_k + PDS_BN * P;
+    mma_rows_bf16<PDS_KC, 4, 2, P>(s_q, s_k, g, t, s);
+    mma_rows_bf16<PDS_KC, 4, 2, P>(s_do, s_v, g, t, dp);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const int row = q0 + wr * 32 + 16 * i + g + 8 * h8;
+      const float l = lse[(long long)bh * n + row], d = di[(long long)bh * n + row];
+      const long long base = ((long long)bh * n + row) * m + k0 + wc * 32 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p0 = expf(s[j][i][2 * h8] * sm_scale - l);
+        const float p1 = expf(s[j][i][2 * h8 + 1] * sm_scale - l);
+        store2(p_out + base + 8 * j, p0, p1);
+        store2(ds_out + base + 8 * j, p0 * (dp[j][i][2 * h8] - d), p1 * (dp[j][i][2 * h8 + 1] - d));
+      }
+    }
+  }
+}
+
+// out (rows, D) = alpha A B over k < kdim in bf16 operands, as mm_tile: one
+// 128 x 128 tile per block, 8 warps of 64 x 32, a three-stage ring of 32-deep
+// chunks.  A(i, kk) is a[i·lda + kk] when A_KCONTIG (32-bit fragment reads),
+// else a[kk·lda + i] (ldmatrix.trans); B(kk, j) = b[kk·ldb + j]
+// (ldmatrix.trans); out(i, j) = out[i·ostride + j], rounded to bf16.
+template <bool A_KCONTIG>
+__device__ __forceinline__ void mm_tile_bf16(const bf16* __restrict__ a, long long lda,
+                                             const bf16* __restrict__ b, long long ldb,
+                                             bf16* __restrict__ out, long long ostride, int kdim,
+                                             float alpha) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = warp / 4, wc = warp % 4;
+  const int i0 = blockIdx.y * MM_BM, j0 = blockIdx.x * MM_BN;
+  const int nchunk = kdim / MM_KC;
+
+  auto load_stage = [&](int stage, int chunk) {
+    bf16* s = smem + stage * MMB_STAGE;
+    const long long c0 = (long long)chunk * MM_KC;
+    if (A_KCONTIG)
+      load_tile_bf16<MM_BM, MM_KC, MMB_PA, 256>(s, a + i0 * lda + c0, lda, tid);
+    else
+      load_tile_bf16<MM_KC, MM_BM, MMB_PT, 256>(s, a + c0 * lda + i0, lda, tid);
+    load_tile_bf16<MM_KC, MM_BN, MMB_PT, 256>(s + MM_BM * MMB_PA, b + c0 * ldb + j0, ldb, tid);
+  };
+
+  float acc[4][4][4];   // [column tile j][row tile i]
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[j][i][r] = 0.f;
+
+#pragma unroll
+  for (int c = 0; c < MM_STAGES - 1; ++c) {
+    if (c < nchunk) load_stage(c, c);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nchunk; ++it) {
+    if (it + MM_STAGES - 1 < nchunk) load_stage((it + MM_STAGES - 1) % MM_STAGES,
+                                                it + MM_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<MM_STAGES - 1>();
+    __syncthreads();
+    const bf16* s_a = smem + (it % MM_STAGES) * MMB_STAGE;
+    const bf16* s_b = s_a + MM_BM * MMB_PA;
+#pragma unroll
+    for (int kk = 0; kk < MM_KC; kk += 16) {
+      uint32_t fa[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wr * 64 + 16 * i;
+        if (A_KCONTIG)
+          frag_a_rows<MMB_PA>(fa[i], s_a + r * MMB_PA, kk, g, t);
+        else
+          frag_a_trans<MMB_PT>(fa[i], s_a, r, kk, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        uint32_t fb[4];
+        frag_b_trans<MMB_PT>(fb, s_b, kk, wc * 32 + 8 * j, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_bf16(acc[j][i], fa[i], fb[0], fb[1]);
+          mma_bf16(acc[j + 1][i], fa[i], fb[2], fb[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long r = i0 + wr * 64 + 16 * i + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = j0 + wc * 32 + 8 * j + 2 * t;
+      store2(out + r * ostride + col, acc[j][i][0] * alpha, acc[j][i][1] * alpha);
+      store2(out + (r + 8) * ostride + col, acc[j][i][2] * alpha, acc[j][i][3] * alpha);
+    }
+  }
+}
+
+// dV = Pᵀ dO (blockIdx.z even) and dK = sm_scale dSᵀ q (odd) for b·head z / 2.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_attn_bwd_dkv_mm_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ dout,
+                                  const bf16* __restrict__ p, const bf16* __restrict__ ds,
+                                  bf16* __restrict__ dk, bf16* __restrict__ dv, Strides st,
+                                  int heads, int n, int m, float sm_scale) {
+  const int bh = blockIdx.z / 2, bi = bh / heads, hi = bh % heads;
+  const long long out = ((long long)bi * m * heads + hi) * D;
+  if (blockIdx.z % 2 == 0)
+    mm_tile_bf16<false>(p + (long long)bh * n * m, m, dout + bi * st.gb + hi * st.gh, st.gn,
+                        dv + out, (long long)heads * D, n, 1.f);
+  else
+    mm_tile_bf16<false>(ds + (long long)bh * n * m, m, q + bi * st.qb + hi * st.qh, st.qn,
+                        dk + out, (long long)heads * D, n, sm_scale);
+}
+
+// dQ = sm_scale dS k for b·head blockIdx.z.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_attn_bwd_dq_mm_bf16_kernel(const bf16* __restrict__ k, const bf16* __restrict__ ds,
+                                 bf16* __restrict__ dq, Strides st, int heads, int n, int m,
+                                 float sm_scale) {
+  const int bh = blockIdx.z, bi = bh / heads, hi = bh % heads;
+  mm_tile_bf16<true>(ds + (long long)bh * n * m, m, k + bi * st.kb + hi * st.kh, st.kn,
+                     dq + ((long long)bi * n * heads + hi) * D, (long long)heads * D, m,
+                     sm_scale);
+}
+
 // ---- launches ------------------------------------------------------------
 
+// q, k, v, dO, dq, dk and dv in T (float or bf16); lse, di and the split
+// parts in float; the d = 512 scratch (P and dS) in T
+template <typename T>
 struct Args {
-  const float *q, *k, *v, *dout, *lse, *di;
-  float *dq, *dk, *dv, *scratch;
+  const T *q, *k, *v, *dout;
+  const float *lse, *di;
+  T *dq, *dk, *dv;
+  void* scratch;
   Strides st;
   int b, heads, n, m, dkv_split, dq_split;
   float sm_scale;
@@ -571,44 +988,39 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-cudaError_t launch_sum(const float* parts, float* out, long long count, int nparts,
+template <typename T>
+cudaError_t launch_sum(const float* parts, T* out, long long count, int nparts,
                        cudaStream_t stream) {
   const long long count4 = count / 4;
   const int blocks = (int)(count4 / 256 < 1056 ? (count4 + 255) / 256 : 1056);
-  flash_attn_bwd_sum_kernel<<<blocks, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(parts), reinterpret_cast<float4*>(out), count4, nparts);
+  if constexpr (sizeof(T) == sizeof(float))
+    flash_attn_bwd_sum_kernel<<<blocks, 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(parts), reinterpret_cast<float4*>(out), count4, nparts);
+  else
+    flash_attn_bwd_sum_bf16_kernel<<<blocks, 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(parts), out, count4, nparts);
   return cudaGetLastError();
 }
 
-// flash_attn_bwd_dkv_kernel, then flash_attn_bwd_dq_kernel, then the sums of
-// split parts, on one stream; returns the first error.  Split parts go to
-// scratch as [dk parts | dv parts | dq parts].
-template <int D, int BN, int BM, int KRW, int BQ, int BK, int QRW>
-cudaError_t launch_fused(const Args& a, cudaStream_t stream) {
-  const long long kv_size = (long long)a.b * a.m * a.heads * D;
-  const long long q_size = (long long)a.b * a.n * a.heads * D;
-  if ((a.n / BM) % a.dkv_split || (a.m / BK) % a.dq_split || a.m % BN || a.n % BQ)
+// the dkv kernel, then the dq kernel, then the sums of split parts, on one
+// stream; returns the first error.  Split parts go to scratch (float) as
+// [dk parts | dv parts | dq parts].  ``Dkv``/``Dq`` launch the two kernels on
+// (grid, output pointers).
+template <typename T, typename LaunchDkv, typename LaunchDq>
+cudaError_t launch_split_parts(const Args<T>& a, int d, int bm, int bk, int bn, int bq,
+                               LaunchDkv dkv_kernel, LaunchDq dq_kernel, cudaStream_t stream) {
+  const long long kv_size = (long long)a.b * a.m * a.heads * d;
+  const long long q_size = (long long)a.b * a.n * a.heads * d;
+  if ((a.n / bm) % a.dkv_split || (a.m / bk) % a.dq_split || a.m % bn || a.n % bq)
     return cudaErrorInvalidValue;
   if ((a.dkv_split > 1 || a.dq_split > 1) && a.scratch == nullptr) return cudaErrorInvalidValue;
-  float* dk = a.dkv_split > 1 ? a.scratch : a.dk;
-  float* dv = a.dkv_split > 1 ? a.scratch + a.dkv_split * kv_size : a.dv;
-  float* dq = a.dq_split > 1 ? a.scratch + (a.dkv_split > 1 ? 2 * a.dkv_split * kv_size : 0)
-                             : a.dq;
-  const size_t smem_dkv = sizeof(float) * dkv_smem_floats<D, BN, BM>();
-  const size_t smem_dq = sizeof(float) * dq_smem_floats<D, BQ, BK>();
-  cudaError_t err = set_smem(flash_attn_bwd_dkv_kernel<D, BN, BM, KRW>, smem_dkv);
-  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_kernel<D, BQ, BK, QRW>, smem_dq);
+  float* scratch = static_cast<float*>(a.scratch);
+  float* dk = scratch;
+  float* dv = scratch + (a.dkv_split > 1 ? a.dkv_split * kv_size : 0);
+  float* dq = scratch + (a.dkv_split > 1 ? 2 * a.dkv_split * kv_size : 0);
+  cudaError_t err = dkv_kernel(dk, dv);
   if (err != cudaSuccess) return err;
-  flash_attn_bwd_dkv_kernel<D, BN, BM, KRW>
-      <<<dim3(a.m / BN, a.b * a.heads, a.dkv_split), BN / KRW * 2, smem_dkv, stream>>>(
-          a.q, a.k, a.v, a.dout, a.lse, a.di, dk, dv, a.st, a.b, a.heads, a.n, a.m,
-          a.n / BM / a.dkv_split, a.sm_scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_attn_bwd_dq_kernel<D, BQ, BK, QRW>
-      <<<dim3(a.n / BQ, a.b * a.heads, a.dq_split), BQ / QRW * 2, smem_dq, stream>>>(
-          a.q, a.k, a.v, a.dout, a.lse, a.di, dq, a.st, a.b, a.heads, a.n, a.m,
-          a.m / BK / a.dq_split, a.sm_scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = dq_kernel(dq)) != cudaSuccess) return err;
   if (a.dkv_split > 1) {
     if ((err = launch_sum(dk, a.dk, kv_size, a.dkv_split, stream)) != cudaSuccess) return err;
     if ((err = launch_sum(dv, a.dv, kv_size, a.dkv_split, stream)) != cudaSuccess) return err;
@@ -617,13 +1029,78 @@ cudaError_t launch_fused(const Args& a, cudaStream_t stream) {
   return cudaSuccess;
 }
 
+template <int D, int BN, int BM, int KRW, int BQ, int BK, int QRW>
+cudaError_t launch_fused(const Args<float>& a, cudaStream_t stream) {
+  const size_t smem_dkv = sizeof(float) * dkv_smem_floats<D, BN, BM>();
+  const size_t smem_dq = sizeof(float) * dq_smem_floats<D, BQ, BK>();
+  cudaError_t err = set_smem(flash_attn_bwd_dkv_kernel<D, BN, BM, KRW>, smem_dkv);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_kernel<D, BQ, BK, QRW>, smem_dq);
+  if (err != cudaSuccess) return err;
+  auto dkv = [&](float* dk_parts, float* dv_parts) {
+    flash_attn_bwd_dkv_kernel<D, BN, BM, KRW>
+        <<<dim3(a.m / BN, a.b * a.heads, a.dkv_split), BN / KRW * 2, smem_dkv, stream>>>(
+            a.q, a.k, a.v, a.dout, a.lse, a.di, a.dkv_split > 1 ? dk_parts : a.dk,
+            a.dkv_split > 1 ? dv_parts : a.dv, a.st, a.b, a.heads, a.n, a.m,
+            a.n / BM / a.dkv_split, a.sm_scale);
+    return cudaGetLastError();
+  };
+  auto dq = [&](float* dq_parts) {
+    flash_attn_bwd_dq_kernel<D, BQ, BK, QRW>
+        <<<dim3(a.n / BQ, a.b * a.heads, a.dq_split), BQ / QRW * 2, smem_dq, stream>>>(
+            a.q, a.k, a.v, a.dout, a.lse, a.di, a.dq_split > 1 ? dq_parts : a.dq, a.st, a.b,
+            a.heads, a.n, a.m, a.m / BK / a.dq_split, a.sm_scale);
+    return cudaGetLastError();
+  };
+  return launch_split_parts(a, D, BM, BK, BN, BQ, dkv, dq, stream);
+}
+
+// bf16: a split writes float parts (the OutT = float instantiation), an
+// unsplit loop bf16 outputs directly.
+template <int D, int BN, int BM, int BQ, int BK>
+cudaError_t launch_fused_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  const size_t smem_dkv = dkv_bf16_smem_bytes<D, BN, BM>();
+  const size_t smem_dq = dq_bf16_smem_bytes<D, BQ, BK>();
+  cudaError_t err = set_smem(flash_attn_bwd_dkv_bf16_kernel<D, BN, BM, float>, smem_dkv);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dkv_bf16_kernel<D, BN, BM, bf16>, smem_dkv);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_bf16_kernel<D, BQ, BK, float>, smem_dq);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_bf16_kernel<D, BQ, BK, bf16>, smem_dq);
+  if (err != cudaSuccess) return err;
+  auto dkv = [&](float* dk_parts, float* dv_parts) {
+    const dim3 grid(a.m / BN, a.b * a.heads, a.dkv_split);
+    const int tiles = a.n / BM / a.dkv_split;
+    if (a.dkv_split > 1)
+      flash_attn_bwd_dkv_bf16_kernel<D, BN, BM, float><<<grid, BN * 2, smem_dkv, stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.di, dk_parts, dv_parts, a.st, a.b, a.heads, a.n, a.m,
+          tiles, a.sm_scale);
+    else
+      flash_attn_bwd_dkv_bf16_kernel<D, BN, BM, bf16><<<grid, BN * 2, smem_dkv, stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.di, a.dk, a.dv, a.st, a.b, a.heads, a.n, a.m, tiles,
+          a.sm_scale);
+    return cudaGetLastError();
+  };
+  auto dq = [&](float* dq_parts) {
+    const dim3 grid(a.n / BQ, a.b * a.heads, a.dq_split);
+    const int tiles = a.m / BK / a.dq_split;
+    if (a.dq_split > 1)
+      flash_attn_bwd_dq_bf16_kernel<D, BQ, BK, float><<<grid, BQ * 2, smem_dq, stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.di, dq_parts, a.st, a.b, a.heads, a.n, a.m, tiles,
+          a.sm_scale);
+    else
+      flash_attn_bwd_dq_bf16_kernel<D, BQ, BK, bf16><<<grid, BQ * 2, smem_dq, stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.di, a.dq, a.st, a.b, a.heads, a.n, a.m, tiles,
+          a.sm_scale);
+    return cudaGetLastError();
+  };
+  return launch_split_parts(a, D, BM, BK, BN, BQ, dkv, dq, stream);
+}
+
 // d = 512: flash_attn_bwd_p_ds_kernel into scratch as [P | dS], then
 // flash_attn_bwd_dkv_mm_kernel and flash_attn_bwd_dq_mm_kernel.
 template <int D>
-cudaError_t launch_d512(const Args& a, cudaStream_t stream) {
+cudaError_t launch_d512(const Args<float>& a, cudaStream_t stream) {
   if (a.scratch == nullptr || a.dkv_split != 1 || a.dq_split != 1) return cudaErrorInvalidValue;
-  float* p = a.scratch;
-  float* ds = a.scratch + (long long)a.b * a.heads * a.n * a.m;
+  float* p = static_cast<float*>(a.scratch);
+  float* ds = p + (long long)a.b * a.heads * a.n * a.m;
   const size_t smem_pds = sizeof(float) * 2 * PDS_STAGE;
   const size_t smem_mm = sizeof(float) * MM_STAGES * MM_STAGE;
   cudaError_t err = set_smem(flash_attn_bwd_p_ds_kernel<D>, smem_pds);
@@ -639,6 +1116,32 @@ cudaError_t launch_d512(const Args& a, cudaStream_t stream) {
           a.q, a.dout, p, ds, a.dk, a.dv, a.st, a.heads, a.n, a.m, a.sm_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   flash_attn_bwd_dq_mm_kernel<D>
+      <<<dim3(D / MM_BN, a.n / MM_BM, a.b * a.heads), 256, smem_mm, stream>>>(
+          a.k, ds, a.dq, a.st, a.heads, a.n, a.m, a.sm_scale);
+  return cudaGetLastError();
+}
+
+// the same in bf16: P and dS in bf16 scratch
+template <int D>
+cudaError_t launch_d512_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  if (a.scratch == nullptr || a.dkv_split != 1 || a.dq_split != 1) return cudaErrorInvalidValue;
+  bf16* p = static_cast<bf16*>(a.scratch);
+  bf16* ds = p + (long long)a.b * a.heads * a.n * a.m;
+  const size_t smem_pds = sizeof(bf16) * 2 * PDSB_STAGE;
+  const size_t smem_mm = sizeof(bf16) * MM_STAGES * MMB_STAGE;
+  cudaError_t err = set_smem(flash_attn_bwd_p_ds_bf16_kernel<D>, smem_pds);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dkv_mm_bf16_kernel<D>, smem_mm);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_mm_bf16_kernel<D>, smem_mm);
+  if (err != cudaSuccess) return err;
+  flash_attn_bwd_p_ds_bf16_kernel<D>
+      <<<dim3(a.m / PDS_BN, a.n / PDS_BM, a.b * a.heads), 256, smem_pds, stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.di, p, ds, a.st, a.heads, a.n, a.m, a.sm_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_attn_bwd_dkv_mm_bf16_kernel<D>
+      <<<dim3(D / MM_BN, a.m / MM_BM, 2 * a.b * a.heads), 256, smem_mm, stream>>>(
+          a.q, a.dout, p, ds, a.dk, a.dv, a.st, a.heads, a.n, a.m, a.sm_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_attn_bwd_dq_mm_bf16_kernel<D>
       <<<dim3(D / MM_BN, a.n / MM_BM, a.b * a.heads), 256, smem_mm, stream>>>(
           a.k, ds, a.dq, a.st, a.heads, a.n, a.m, a.sm_scale);
   return cudaGetLastError();
@@ -669,9 +1172,9 @@ int flash_attn_bwd(const float* q, const float* k, const float* v, const float* 
                    long long kn, long long kh, long long vb, long long vn, long long vh,
                    long long gb, long long gn, long long gh, int b, int heads, int n, int m,
                    int d, int dkv_split, int dq_split, float sm_scale, void* stream) {
-  const Args a{q, k, v, dout, lse, di, dq, dk, dv, scratch,
-               Strides{qb, qn, qh, kb, kn, kh, vb, vn, vh, gb, gn, gh},
-               b, heads, n, m, dkv_split, dq_split, sm_scale};
+  const Args<float> a{q, k, v, dout, lse, di, dq, dk, dv, scratch,
+                      Strides{qb, qn, qh, kb, kn, kh, vb, vn, vh, gb, gn, gh},
+                      b, heads, n, m, dkv_split, dq_split, sm_scale};
   const cudaStream_t s = (cudaStream_t)stream;
   if (n % 128 != 0 || m % 128 != 0 || dkv_split < 1 || dq_split < 1)
     return (int)cudaErrorInvalidValue;
@@ -679,6 +1182,32 @@ int flash_attn_bwd(const float* q, const float* k, const float* v, const float* 
     case 64: return (int)launch_fused<64, 128, 32, 2, 128, 32, 2>(a, s);
     case 128: return (int)launch_fused<128, 128, 32, 1, 128, 32, 1>(a, s);
     case 512: return (int)launch_d512<512>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// flash_attn_bwd with bf16 q, k, v, dout, dq, dk and dv (lse and di
+// float32): every stride a multiple of 8 and every base 16-byte aligned.
+// scratch: d = 512: 2·b·heads·n·m bf16 (P and dS); d = 64 or 128 the float32
+// split parts as flash_attn_bwd's (32-row query and key tiles).
+int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* di, void* dq, void* dk, void* dv,
+                        void* scratch, long long qb, long long qn, long long qh, long long kb,
+                        long long kn, long long kh, long long vb, long long vn, long long vh,
+                        long long gb, long long gn, long long gh, int b, int heads, int n, int m,
+                        int d, int dkv_split, int dq_split, float sm_scale, void* stream) {
+  const Args<bf16> a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, di,
+                     static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                     scratch, Strides{qb, qn, qh, kb, kn, kh, vb, vn, vh, gb, gn, gh},
+                     b, heads, n, m, dkv_split, dq_split, sm_scale};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n % 128 != 0 || m % 128 != 0 || dkv_split < 1 || dq_split < 1)
+    return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 64: return (int)launch_fused_bf16<64, 128, 32, 128, 32>(a, s);
+    case 128: return (int)launch_fused_bf16<128, 128, 32, 128, 32>(a, s);
+    case 512: return (int)launch_d512_bf16<512>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -57,11 +57,26 @@
 // flash_attn_fwd_combine_kernel merges the parts in order into o and lse.
 // Determinism: no atomics, every sum in a fixed order: two launches on the
 // same inputs give bit-identical outputs.  expf/logf, no fast-math.
+//
+// bf16 (compute_dtype bfloat16; flash_attn_fwd_bf16_kernel,
+// flash_attn_fwd_d512_bf16_kernel, flash_attn_fwd_combine_bf16_kernel,
+// entry flash_attn_fwd_bf16): upstream's Pallas kernel with bf16 q, k and v,
+// whose roundings it keeps: S = q kᵀ on bf16 operands into fp32
+// accumulators (mma.sync m16n8k16, bf16_mma.cuh), the online softmax and the
+// row sum in fp32, P rounded to bf16 for P·V (fp32 accumulators), o rounded
+// to bf16 once at the end; lse and split parts stay fp32.  What bounds it:
+// the products at the bf16 rate (989 TFLOP/s, one mma per product where the
+// float32 kernels issue three plus the splits), 2-byte operands.  The same
+// plans with 8 warps of 16 rows and 64-key tiles at d = 64 and 128 (the
+// accumulators of two adjacent 8-key tiles are the A fragment of P·V, V's
+// fragments by ldmatrix.trans), and the d = 512 kernel's 32 x 32 tiles with
+// P rounded to bf16 in shared memory (~123 KB).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"   // bf16 mma.sync products, ldmatrix fragment loads
 #include "tf32_mma.cuh"   // 3xTF32 mma.sync products, cp.async tile copies
 
 namespace {
@@ -78,31 +93,44 @@ struct Parts {
   float *o, *m, *l;
 };
 
+// Two adjacent output values, as float32 or rounded to bf16.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // Rows row0 + 16i + g (+ 8) of the (b, n, heads, D) output, columns col0 +
 // 8c + 2t (+ 1), from unnormalised accumulators with each row's max and sum:
-// as o (divided by the sum) and lse, or, with a split, as part ``split``.
-// ``stats``: this thread's warp writes the row statistics.
-template <int D, int NC, int RW>
+// as o (divided by the sum, in o's type) and lse, or, with a split, as
+// float32 part ``split``.  ``stats``: this thread's warp writes the row
+// statistics.
+template <int D, int NC, int RW, typename OutT>
 __device__ __forceinline__ void write_rows(const float (&acc)[NC][RW][4],
                                            const float (&row_m)[RW][2],
-                                           const float (&row_l)[RW][2], float* o, float* lse,
+                                           const float (&row_l)[RW][2], OutT* o, float* lse,
                                            const Parts& parts, int split, int b, int heads,
                                            int n, int bi, int hi, int row0, int col0, bool stats,
                                            int g, int t) {
   const long long bh_row = ((long long)bi * heads + hi) * n;
   const long long stats_part = (long long)split * b * heads * n;
-  float* out = parts.o ? parts.o + (long long)split * b * n * heads * D : o;
 #pragma unroll
   for (int i = 0; i < RW; ++i)
 #pragma unroll
     for (int h8 = 0; h8 < 2; ++h8) {
       const int row = row0 + 16 * i + g + 8 * h8;
-      const float l = parts.o ? 1.f : row_l[i][h8];
-      float* dst = out + (((long long)bi * n + row) * heads + hi) * D + col0 + 2 * t;
+      const long long at = (((long long)bi * n + row) * heads + hi) * D + col0 + 2 * t;
+      if (parts.o) {
+        float* dst = parts.o + (long long)split * b * n * heads * D + at;
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
-        *reinterpret_cast<float2*>(dst + 8 * c) =
-            make_float2(acc[c][i][2 * h8] / l, acc[c][i][2 * h8 + 1] / l);
+        for (int c = 0; c < NC; ++c) store2(dst + 8 * c, acc[c][i][2 * h8], acc[c][i][2 * h8 + 1]);
+      } else {
+        const float l = row_l[i][h8];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          store2(o + at + 8 * c, acc[c][i][2 * h8] / l, acc[c][i][2 * h8 + 1] / l);
+      }
       if (stats && t == 0) {
         if (parts.o) {
           parts.m[stats_part + bh_row + row] = row_m[i][h8];
@@ -295,8 +323,8 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       row_l[i][h8] += __shfl_xor_sync(0xffffffffu, row_l[i][h8], 1);
       row_l[i][h8] += __shfl_xor_sync(0xffffffffu, row_l[i][h8], 2);
     }
-  write_rows<D, NC, RW>(acc, row_m, row_l, o, lse, parts, split, b, heads, n, bi, hi, q0 + r0, 0,
-                        true, g, t);
+  write_rows<D, NC, RW, float>(acc, row_m, row_l, o, lse, parts, split, b, heads, n, bi, hi,
+                               q0 + r0, 0, true, g, t);
 }
 
 // ---- d = 512 -------------------------------------------------------------
@@ -478,18 +506,273 @@ flash_attn_fwd_d512_kernel(const float* __restrict__ q, const float* __restrict_
       ms[i][h8] = s_m[16 * i + g + 8 * h8];
       ls[i][h8] = s_l[16 * i + g + 8 * h8];
     }
-  write_rows<D, NC, 2>(acc, ms, ls, o, lse, parts, split, b, heads, n, bi, hi, q0,
-                       64 * warp, warp == 0, g, t);
+  write_rows<D, NC, 2, float>(acc, ms, ls, o, lse, parts, split, b, heads, n, bi, hi, q0,
+                              64 * warp, warp == 0, g, t);
+}
+
+// ---- bf16, d = 64 and 128 ------------------------------------------------
+
+// bytes of shared memory: Q [BQ][D + 8], then 2 x {k [BK][D + 8], v [BK][D + 8]}
+template <int D, int BQ, int BK>
+constexpr size_t fwd_bf16_smem_bytes() {
+  return sizeof(bf16) * ((size_t)BQ * (D + 8) + (size_t)2 * 2 * BK * (D + 8));
+}
+
+// The float32 kernel's plan with bf16 operands: one block per (query tile of
+// BQ = 128, b·head[, split]), 8 warps of 16 rows; Q stays in shared memory,
+// K and V tiles of BK = 64 keys stream through a two-stage cp.async ring.
+// Per key tile the warp's logits (16 x 64) accumulate in fp32 registers from
+// bf16 Q and K fragments, the online softmax runs on them in fp32 (the row
+// sum from the fp32 probabilities), the output is rescaled, and P, rounded to
+// bf16 as two adjacent tiles' accumulators packed into an A fragment, goes
+// into P·V with V's fragments read by ldmatrix.trans.  o is rounded to bf16
+// once, at the end (or the fp32 parts of a split go to scratch).
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(BQ * 2)
+flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           float* __restrict__ lse, Parts parts, Strides st, int b, int heads,
+                           int n, int tiles_per_split, float sm_scale) {
+  constexpr int NTHREADS = BQ * 2, P = D + 8, NT = BK / 8, NC = D / 8;
+  constexpr int STAGE = 2 * BK * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);   // [BQ][D + 8]
+  bf16* ring = s_q + BQ * P;                        // 2 x {k [BK][D + 8], v [BK][D + 8]}
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
+  const int q0 = blockIdx.x * BQ, split = blockIdx.z;
+  const int tile0 = split * tiles_per_split;
+  const bf16* kp = k + bi * st.kb + hi * st.kh;
+  const bf16* vp = v + bi * st.vb + hi * st.vh;
+
+  auto load_stage = [&](int stage, int tile) {
+    bf16* s = ring + stage * STAGE;
+    const long long k0 = (long long)tile * BK;
+    load_tile_bf16<BK, D, P, NTHREADS>(s, kp + k0 * st.kn, st.kn, tid);
+    load_tile_bf16<BK, D, P, NTHREADS>(s + BK * P, vp + k0 * st.vn, st.vn, tid);
+  };
+
+  load_tile_bf16<BQ, D, P, NTHREADS>(s_q, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn,
+                                     st.qn, tid);
+  load_stage(0, tile0);
+  cp_async_commit();
+
+  float acc[NC][1][4], row_m[1][2] = {{-INFINITY, -INFINITY}}, row_l[1][2] = {{0.f, 0.f}};
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[c][0][r] = 0.f;
+
+  const int r0 = 16 * warp;   // the warp's first row in the tile
+  for (int it = 0; it < tiles_per_split; ++it) {
+    if (it + 1 < tiles_per_split) load_stage((it + 1) & 1, tile0 + it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();       // this tile (and Q) have landed
+    __syncthreads();
+    const bf16* s_k = ring + (it & 1) * STAGE;
+    const bf16* s_v = s_k + BK * P;
+
+    float s[NT][1][4], alpha[1][2];
+    logits_bf16<D, NT, 1, P>(s_q + r0 * P, s_k, g, t, s);
+    online_softmax<NT, 1>(s, row_m, row_l, alpha, sm_scale);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[c][0][r] *= alpha[0][r / 2];
+    accumulate_bf16<D, NT, 1, P>(acc, s, s_v, lane);    // += this tile's P·V
+    __syncthreads();          // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int h8 = 0; h8 < 2; ++h8) {        // the quad's shares of the row sum
+    row_l[0][h8] += __shfl_xor_sync(0xffffffffu, row_l[0][h8], 1);
+    row_l[0][h8] += __shfl_xor_sync(0xffffffffu, row_l[0][h8], 2);
+  }
+  write_rows<D, NC, 1, bf16>(acc, row_m, row_l, o, lse, parts, split, b, heads, n, bi, hi,
+                             q0 + r0, 0, true, g, t);
+}
+
+// ---- bf16, d = 512 -------------------------------------------------------
+
+constexpr int WB_PP = W_BK + 8;   // pitch of P in bf16
+
+template <int D>
+constexpr size_t d512_bf16_smem_bytes() {
+  return sizeof(bf16) * ((size_t)(W_BQ + 2 * W_BK) * (D + 8) + (size_t)W_BQ * WB_PP) +
+         sizeof(float) * ((size_t)4 * W_BQ * W_PS + (size_t)3 * W_BQ);
+}
+
+// The float32 d = 512 kernel's plan with bf16 operands: 32 queries x 32 keys
+// a tile, the logits by quarter of d in fp32 accumulators, the four parts
+// added in order and the softmax in fp32 in shared memory, P rounded to bf16
+// there, and P·V with warp w owning output columns 64w .. 64w + 63 (V's
+// fragments by ldmatrix.trans); ~123 KB of shared memory.
+template <int D>
+__global__ void __launch_bounds__(W_THREADS)
+flash_attn_fwd_d512_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, bf16* __restrict__ o,
+                                float* __restrict__ lse, Parts parts, Strides st, int b,
+                                int heads, int n, int tiles_per_split, float sm_scale) {
+  constexpr int P = D + 8, DQ = D / 4, NC = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);   // [32][D + 8]
+  bf16* s_k = s_q + W_BQ * P;                       // [32][D + 8] the key tile
+  bf16* s_v = s_k + W_BK * P;                       // [32][D + 8] the value tile
+  bf16* s_p = s_v + W_BK * P;                       // [32][WB_PP] P
+  float* s_part = reinterpret_cast<float*>(s_p + W_BQ * WB_PP);   // [4][32][W_PS]
+  float* s_alpha = s_part + 4 * W_BQ * W_PS;        // [32] each row's rescale
+  float* s_m = s_alpha + W_BQ;                      // [32] row max, at the end
+  float* s_l = s_m + W_BQ;                          // [32] row sum, at the end
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
+  const int q0 = blockIdx.x * W_BQ, split = blockIdx.z;
+  const int tile0 = split * tiles_per_split;
+  const bf16* kp = k + bi * st.kb + hi * st.kh;
+  const bf16* vp = v + bi * st.vb + hi * st.vh;
+  const int dq = warp & 3, kh = warp >> 2;           // logits: quarter of d, half of the keys
+  const int sr = tid >> 3, sc = (tid & 7) * 4;       // softmax: row and 4 columns
+
+  load_tile_bf16<W_BQ, D, P, W_THREADS>(
+      s_q, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn, st.qn, tid);
+  load_tile_bf16<W_BK, D, P, W_THREADS>(s_k, kp + (long long)tile0 * W_BK * st.kn, st.kn, tid);
+  cp_async_commit();
+
+  float acc[NC][2][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[c][i][r] = 0.f;
+  float row_m = -INFINITY, row_l = 0.f;   // of softmax row sr, the same in its 8 threads
+
+  for (int it = 0; it < tiles_per_split; ++it) {
+    const long long k0 = (long long)(tile0 + it) * W_BK;
+    load_tile_bf16<W_BK, D, P, W_THREADS>(s_v, vp + k0 * st.vn, st.vn, tid);
+    cp_async_commit();
+    cp_async_wait<1>();       // the key tile (and Q) have landed
+    __syncthreads();
+
+    // this warp's quarter of d for 32 queries x 16 keys
+    float s[2][2][4];
+    logits_bf16<DQ, 2, 2, P>(s_q + dq * DQ, s_k + 16 * kh * P + dq * DQ, g, t, s);
+    float* part = s_part + dq * W_BQ * W_PS;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 16 * kh + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(part + (16 * i + g) * W_PS + col) =
+            make_float2(s[j][i][0], s[j][i][1]);
+        *reinterpret_cast<float2*>(part + (16 * i + g + 8) * W_PS + col) =
+            make_float2(s[j][i][2], s[j][i][3]);
+      }
+    __syncthreads();          // the parts are complete and the key tile is free
+    if (it + 1 < tiles_per_split)
+      load_tile_bf16<W_BK, D, P, W_THREADS>(s_k, kp + (k0 + W_BK) * st.kn, st.kn, tid);
+    cp_async_commit();
+
+    // softmax: the four parts in order, 8 threads per row
+    float x[4];
+    {
+      const int at = sr * W_PS + sc;
+      const float4 p0 = *reinterpret_cast<const float4*>(s_part + at);
+      const float4 p1 = *reinterpret_cast<const float4*>(s_part + W_BQ * W_PS + at);
+      const float4 p2 = *reinterpret_cast<const float4*>(s_part + 2 * W_BQ * W_PS + at);
+      const float4 p3 = *reinterpret_cast<const float4*>(s_part + 3 * W_BQ * W_PS + at);
+      x[0] = (((p0.x + p1.x) + p2.x) + p3.x) * sm_scale;
+      x[1] = (((p0.y + p1.y) + p2.y) + p3.y) * sm_scale;
+      x[2] = (((p0.z + p1.z) + p2.z) + p3.z) * sm_scale;
+      x[3] = (((p0.w + p1.w) + p2.w) + p3.w) * sm_scale;
+    }
+    float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(row_m, mx);
+    const float alpha = expf(row_m - m_new);
+    row_m = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = expf(x[e] - m_new);
+      sum += x[e];
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    row_l = row_l * alpha + sum;
+    store2(s_p + sr * WB_PP + sc, x[0], x[1]);
+    store2(s_p + sr * WB_PP + sc + 2, x[2], x[3]);
+    if ((tid & 7) == 0) s_alpha[sr] = alpha;
+    cp_async_wait<1>();       // the value tile has landed (the next key tile may not have)
+    __syncthreads();
+
+    // rescale, then P·V for columns 64·warp .. 64·warp + 63 of all 32 rows
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float a0 = s_alpha[16 * i + g], a1 = s_alpha[16 * i + g + 8];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[c][i][0] *= a0;
+        acc[c][i][1] *= a0;
+        acc[c][i][2] *= a1;
+        acc[c][i][3] *= a1;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < W_BK; kk += 16) {
+      uint32_t fa[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) frag_a_rows<WB_PP>(fa[i], s_p + 16 * i * WB_PP, kk, g, t);
+#pragma unroll
+      for (int c = 0; c < NC; c += 2) {
+        uint32_t fb[4];
+        frag_b_trans<P>(fb, s_v, kk, 64 * warp + 8 * c, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[c][i], fa[i], fb[0], fb[1]);
+          mma_bf16(acc[c + 1][i], fa[i], fb[2], fb[3]);
+        }
+      }
+    }
+    __syncthreads();          // the value tile, P and the rescales are free
+  }
+
+  if ((tid & 7) == 0) {
+    s_m[sr] = row_m;
+    s_l[sr] = row_l;
+  }
+  __syncthreads();
+  float ms[2][2], ls[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      ms[i][h8] = s_m[16 * i + g + 8 * h8];
+      ls[i][h8] = s_l[16 * i + g + 8 * h8];
+    }
+  write_rows<D, NC, 2, bf16>(acc, ms, ls, o, lse, parts, split, b, heads, n, bi, hi, q0,
+                             64 * warp, warp == 0, g, t);
 }
 
 // ---- the parts of a split key loop ---------------------------------------
 
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 x) {
+  store2(p, x.x, x.y);
+  store2(p + 2, x.z, x.w);
+}
+
 // o row r (of b·n·heads), columns c .. c + 3, and lse: the parts merged in
 // order, o = sum_s e^(m_s - M) o_s / L with M = max_s m_s and L = sum_s
-// e^(m_s - M) l_s; lse = M + log L.
-__global__ void flash_attn_fwd_combine_kernel(Parts parts, float* __restrict__ o,
-                                              float* __restrict__ lse, int b, int heads, int n,
-                                              int d, int nsplit) {
+// e^(m_s - M) l_s; lse = M + log L; o in its own type.
+template <typename OutT>
+__device__ __forceinline__ void combine_rows(const Parts& parts, OutT* __restrict__ o,
+                                             float* __restrict__ lse, int b, int heads, int n,
+                                             int d, int nsplit) {
   const long long rows = (long long)b * n * heads, chunks = d / 4;
   const long long part = rows * d, stats = (long long)b * heads * n;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < rows * chunks;
@@ -511,42 +794,63 @@ __global__ void flash_attn_fwd_combine_kernel(Parts parts, float* __restrict__ o
       acc.z = fmaf(w, x.z, acc.z);
       acc.w = fmaf(w, x.w, acc.w);
     }
-    *reinterpret_cast<float4*>(o + r * d + c) =
-        make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+    store4(o + r * d + c, make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l));
     if (lse != nullptr && c == 0) lse[srow] = mx + logf(l);
   }
 }
 
+__global__ void flash_attn_fwd_combine_kernel(Parts parts, float* __restrict__ o,
+                                              float* __restrict__ lse, int b, int heads, int n,
+                                              int d, int nsplit) {
+  combine_rows<float>(parts, o, lse, b, heads, n, d, nsplit);
+}
+
+// the same, writing a bf16 o
+__global__ void flash_attn_fwd_combine_bf16_kernel(Parts parts, bf16* __restrict__ o,
+                                                   float* __restrict__ lse, int b, int heads,
+                                                   int n, int d, int nsplit) {
+  combine_rows<bf16>(parts, o, lse, b, heads, n, d, nsplit);
+}
+
 // ---- launches ------------------------------------------------------------
 
+// q, k, v and o in T (float or bf16); lse and the scratch of a split in float
+template <typename T>
 struct Args {
-  const float *q, *k, *v;
-  float *o, *lse, *scratch;
+  const T *q, *k, *v;
+  T* o;
+  float *lse, *scratch;
   Strides st;
   int b, heads, n, m, split;
   float sm_scale;
 };
 
 // scratch as [o parts | row max parts | row sum parts], or no parts
-Parts parts_of(const Args& a, int d) {
+template <typename T>
+Parts parts_of(const Args<T>& a, int d) {
   if (a.split == 1) return Parts{nullptr, nullptr, nullptr};
   const long long po = (long long)a.split * a.b * a.n * a.heads * d;
   const long long ps = (long long)a.split * a.b * a.heads * a.n;
   return Parts{a.scratch, a.scratch + po, a.scratch + po + ps};
 }
 
-cudaError_t launch_combine(const Args& a, const Parts& parts, int d, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_combine(const Args<T>& a, const Parts& parts, int d, cudaStream_t stream) {
   const long long work = (long long)a.b * a.n * a.heads * (d / 4);
   const int blocks = (int)(work / 256 < 1056 ? (work + 255) / 256 : 1056);
-  flash_attn_fwd_combine_kernel<<<blocks, 256, 0, stream>>>(parts, a.o, a.lse, a.b, a.heads, a.n,
-                                                            d, a.split);
+  if constexpr (sizeof(T) == sizeof(float))
+    flash_attn_fwd_combine_kernel<<<blocks, 256, 0, stream>>>(parts, a.o, a.lse, a.b, a.heads,
+                                                              a.n, d, a.split);
+  else
+    flash_attn_fwd_combine_bf16_kernel<<<blocks, 256, 0, stream>>>(parts, a.o, a.lse, a.b,
+                                                                   a.heads, a.n, d, a.split);
   return cudaGetLastError();
 }
 
 // the main kernel on its grid, then, with a split, the combine
-template <typename K>
+template <typename T, typename K>
 cudaError_t launch_split(K kernel, int bq, int bk, int threads, size_t smem, int d,
-                         const Args& a, cudaStream_t stream) {
+                         const Args<T>& a, cudaStream_t stream) {
   const int tiles = a.m / bk;
   if (a.n % bq || a.m % bk || tiles % a.split) return cudaErrorInvalidValue;
   if (a.split > 1 && a.scratch == nullptr) return cudaErrorInvalidValue;
@@ -561,15 +865,27 @@ cudaError_t launch_split(K kernel, int bq, int bk, int threads, size_t smem, int
 }
 
 template <int D, int BQ, int BK, int RW>
-cudaError_t launch_fused(const Args& a, cudaStream_t stream) {
+cudaError_t launch_fused(const Args<float>& a, cudaStream_t stream) {
   return launch_split(flash_attn_fwd_kernel<D, BQ, BK, RW>, BQ, BK, BQ / RW * 2,
                       sizeof(float) * fwd_smem_floats<D, BQ, BK>(), D, a, stream);
 }
 
 template <int D>
-cudaError_t launch_d512(const Args& a, cudaStream_t stream) {
+cudaError_t launch_d512(const Args<float>& a, cudaStream_t stream) {
   return launch_split(flash_attn_fwd_d512_kernel<D>, W_BQ, W_BK, W_THREADS,
                       sizeof(float) * d512_smem_floats<D>(), D, a, stream);
+}
+
+template <int D, int BQ, int BK>
+cudaError_t launch_fused_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  return launch_split(flash_attn_fwd_bf16_kernel<D, BQ, BK>, BQ, BK, BQ * 2,
+                      fwd_bf16_smem_bytes<D, BQ, BK>(), D, a, stream);
+}
+
+template <int D>
+cudaError_t launch_d512_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  return launch_split(flash_attn_fwd_d512_bf16_kernel<D>, W_BQ, W_BK, W_THREADS,
+                      d512_bf16_smem_bytes<D>(), D, a, stream);
 }
 
 }  // namespace
@@ -591,14 +907,36 @@ int flash_attn_fwd(const float* q, const float* k, const float* v, float* o, flo
                    float* scratch, long long qb, long long qn, long long qh, long long kb,
                    long long kn, long long kh, long long vb, long long vn, long long vh, int b,
                    int heads, int n, int m, int d, int split, float sm_scale, void* stream) {
-  const Args a{q, k, v, o, lse, scratch, Strides{qb, qn, qh, kb, kn, kh, vb, vn, vh},
-               b, heads, n, m, split, sm_scale};
+  const Args<float> a{q, k, v, o, lse, scratch, Strides{qb, qn, qh, kb, kn, kh, vb, vn, vh},
+                      b, heads, n, m, split, sm_scale};
   const cudaStream_t s = (cudaStream_t)stream;
   if (n % 128 != 0 || m % 128 != 0 || split < 1) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64: return (int)launch_fused<64, 128, 32, 2>(a, s);
     case 128: return (int)launch_fused<128, 128, 32, 1>(a, s);
     case 512: return (int)launch_d512<512>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// flash_attn_fwd with bf16 q, k, v and o (lse and scratch float32): every
+// stride a multiple of 8 and every base 16-byte aligned; split divides m/64
+// at d = 64 and 128, m/32 at d = 512.
+int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        float* scratch, long long qb, long long qn, long long qh, long long kb,
+                        long long kn, long long kh, long long vb, long long vn, long long vh,
+                        int b, int heads, int n, int m, int d, int split, float sm_scale,
+                        void* stream) {
+  const Args<bf16> a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, scratch,
+                     Strides{qb, qn, qh, kb, kn, kh, vb, vn, vh}, b, heads, n, m, split,
+                     sm_scale};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n % 128 != 0 || m % 128 != 0 || split < 1) return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 64: return (int)launch_fused_bf16<64, 128, 64>(a, s);
+    case 128: return (int)launch_fused_bf16<128, 128, 64>(a, s);
+    case 512: return (int)launch_d512_bf16<512>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,10 +5,14 @@
         [train.max_steps=24 model.use_flash_attention=true ...]
 
 Counterpart of ``ssl_tpu/diffusion/main.py`` (``build_from_config``,
-``train``, ``apply_dotlist``, ``main``).  ``model.use_flash_attention`` fans
-out to the UNet, the struct-cond encoder and the VAE, as there (without it
-K2 is off the path and only K1 runs).  The training options come over as
-there: ``sslopt`` into the SSL setting (``mask_stride`` 3 by default;
+``train``, ``apply_dotlist``, ``main``).  ``model.use_flash_attention`` and
+``model.compute_dtype`` fan out to the UNet, the struct-cond encoder and the
+VAE, as there, each overridable per component (``model.unet.compute_dtype``
+and so on): without the first, K2 is off the path and only K1 runs; with
+``compute_dtype: bfloat16`` (or the override ``model.compute_dtype=bfloat16``)
+the three nets run their activations in bf16 on float32 weights, K2 runs its
+bf16 kernels, and the SSL loss (K1) still sees a float32 decoded image.  The
+training options come over as there: ``sslopt`` into the SSL setting (``mask_stride`` 3 by default;
 ``capacity``, the gather API's, is read and ignored), ``train.lr`` and
 ``train.accumulate_grad_batches``.
 
@@ -32,9 +36,9 @@ A top-level ``seed`` (0 by default; the JAX CLI leaves its degrader
 unseeded) seeds the weights, the loader, the degrader and the step's draws.
 A ``.json`` base file needs no ``yaml``.  Runs on ``cuda`` unless
 ``--device`` names another device.  Not ported yet, and raising
-``NotImplementedError``: ``compute_dtype`` (bf16 activations), ``parallel``
-(data and tensor parallelism), ``train.ckpt_backend: orbax``,
-reference-schema configs (``model.target``), the SSL strategy zoo, and the
+``NotImplementedError``: a ``compute_dtype`` other than float32 and
+bfloat16, ``parallel`` (data and tensor parallelism), ``train.ckpt_backend:
+orbax``, reference-schema configs (``model.target``), the SSL strategy zoo, and the
 checkpoint and CLIP weight paths."""
 
 from __future__ import annotations

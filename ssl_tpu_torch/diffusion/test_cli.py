@@ -12,10 +12,12 @@ VAE decode, color fix, PNG out (``restore`` is one such request, without
 the file handling).  ``--ckpt`` is the JAX package's params
 pickle (``{'unet', 'structcond', 'null_context'}`` with numpy leaves, as
 ``ssl_tpu.diffusion.main`` saves it), carried over with ``params_from_jax``;
-sampling uses those weights.  Runs on ``cuda`` unless ``--device`` names
-another device.  Images are read and written through ``utils/img_util.py``
-(``cv2`` where it imports, else ``utils/png.py``), and a ``.json`` config
-needs no ``yaml``.
+sampling uses those weights.  A config with ``model.compute_dtype:
+bfloat16`` serves in bf16 (the nets' activations and K2's bf16 kernels on
+float32 weights; the sampler's latents stay float32).  Runs on ``cuda``
+unless ``--device`` names another device.  Images are read and written
+through ``utils/img_util.py`` (``cv2`` where it imports, else
+``utils/png.py``), and a ``.json`` config needs no ``yaml``.
 ``--vqgan_ckpt`` (CFW), ``--tp``, ``--tile_parallel`` and ``--prompt`` are not
 ported yet and raise."""
 

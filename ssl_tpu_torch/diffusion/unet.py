@@ -13,7 +13,16 @@ GELU is exact.  Self-attention goes through ``ops/attention.py::
 sdp_attention``: with ``use_flash_attention`` on, eligible calls on CUDA
 launch the flash kernel K2.
 
-``compute_dtype`` (bf16 activations) is not ported yet and raises."""
+``compute_dtype: bfloat16`` runs the conv, linear and attention activations
+in bf16, the JAX package's precision contract (``ssl_tpu/diffusion/unet.py``
+:24-31): the parameters stay float32 and are cast for each call (``Conv2d``,
+``Linear``), GroupNorm and LayerNorm compute their statistics and their
+normalisation in float32 and return bf16 (``GroupNorm``, ``LayerNorm``: what
+flax's norms with ``dtype=bf16`` do), the attention softmax runs in float32
+(``ops/attention.py``; K2's bf16 kernels on the card), and the outputs (the
+UNet's eps, each struct-cond feature) are cast back to float32.  The
+networks cast their inputs, time embedding, context and struct features to
+bf16 where flax's first bf16 layer would.  Other types raise."""
 
 from __future__ import annotations
 
@@ -24,14 +33,49 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssl_tpu_torch.archs.arch_util import Conv2d
 from ssl_tpu_torch.ops.attention import sdp_attention
 
 NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
 
 
-def check_compute_dtype(compute_dtype) -> None:
-    if compute_dtype:
-        raise NotImplementedError(f"compute_dtype={compute_dtype!r} {NOT_PORTED}")
+def activation_dtype(compute_dtype):
+    """The activations' type under the diffusion nets' ``compute_dtype``
+    (flax's ``dtype=``): None for float32 throughout, or ``torch.bfloat16``."""
+    if compute_dtype in (None, "float32"):
+        return None
+    if compute_dtype == "bfloat16":
+        return torch.bfloat16
+    raise NotImplementedError(f"compute_dtype={compute_dtype!r} {NOT_PORTED}: the diffusion "
+                              "nets take float32 or bfloat16")
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's type: the float32 parameters are cast for
+    each call, as flax's ``nn.Dense`` with ``dtype=`` does."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` computed in float32 and returned in its input's type,
+    as flax's ``nn.GroupNorm`` with ``dtype=`` (float32 statistics, the
+    normalisation and affine in float32, one rounding at the end)."""
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in float32 and returned in its input's type
+    (flax's ``nn.LayerNorm`` with ``dtype=``)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -44,9 +88,9 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> to
     return F.pad(emb, (0, 1)) if dim % 2 else emb
 
 
-def normalization(ch: int) -> nn.GroupNorm:
+def normalization(ch: int) -> GroupNorm:
     """GroupNorm32 (openaimodel normalization()): 32 groups, eps 1e-5."""
-    return nn.GroupNorm(32, ch, eps=1e-5)
+    return GroupNorm(32, ch, eps=1e-5)
 
 
 def zero_module(m: nn.Module) -> nn.Module:
@@ -82,9 +126,9 @@ class SPADE(nn.Module):
     def __init__(self, norm_nc: int, label_nc: int, nhidden: int = 128):
         super().__init__()
         self.param_free_norm = normalization(norm_nc)
-        self.mlp_shared = nn.Sequential(nn.Conv2d(label_nc, nhidden, 3, padding=1), nn.ReLU())
-        self.mlp_gamma = nn.Conv2d(nhidden, norm_nc, 3, padding=1)
-        self.mlp_beta = nn.Conv2d(nhidden, norm_nc, 3, padding=1)
+        self.mlp_shared = nn.Sequential(Conv2d(label_nc, nhidden, 3, padding=1), nn.ReLU())
+        self.mlp_gamma = Conv2d(nhidden, norm_nc, 3, padding=1)
+        self.mlp_beta = Conv2d(nhidden, norm_nc, 3, padding=1)
 
     def forward(self, x, s_dict):
         actv = self.mlp_shared(s_dict[str(x.shape[-1])])
@@ -98,13 +142,13 @@ class ResBlockRef(nn.Module):
     def __init__(self, channels: int, emb_channels: int, out_channels: int):
         super().__init__()
         self.in_layers = nn.Sequential(normalization(channels), nn.SiLU(),
-                                       nn.Conv2d(channels, out_channels, 3, padding=1))
-        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
+                                       Conv2d(channels, out_channels, 3, padding=1))
+        self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_channels, out_channels))
         self.out_layers = nn.Sequential(
             normalization(out_channels), nn.SiLU(), nn.Dropout(0.0),
-            zero_module(nn.Conv2d(out_channels, out_channels, 3, padding=1)))
+            zero_module(Conv2d(out_channels, out_channels, 3, padding=1)))
         self.skip_connection = (nn.Identity() if channels == out_channels
-                                else nn.Conv2d(channels, out_channels, 1))
+                                else Conv2d(channels, out_channels, 1))
 
     def residual(self, x, emb):
         h = self.in_layers(x) + self.emb_layers(emb)[:, :, None, None]
@@ -131,7 +175,7 @@ class Downsample(nn.Module):
 
     def __init__(self, ch: int):
         super().__init__()
-        self.op = nn.Conv2d(ch, ch, 3, stride=2, padding=1)
+        self.op = Conv2d(ch, ch, 3, stride=2, padding=1)
 
     def forward(self, x):
         return self.op(x)
@@ -142,7 +186,7 @@ class Upsample(nn.Module):
 
     def __init__(self, ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, padding=1)
+        self.conv = Conv2d(ch, ch, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -158,10 +202,10 @@ class CrossAttention(nn.Module):
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.use_flash_attention = use_flash_attention
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(0.0))
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = nn.Sequential(Linear(inner, query_dim), nn.Dropout(0.0))
 
     def forward(self, x, context=None):
         b, n, _ = x.shape
@@ -176,7 +220,7 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Linear(dim_in, dim_out * 2)
 
     def forward(self, x):
         a, gate = self.proj(x).chunk(2, dim=-1)
@@ -186,7 +230,7 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
-        self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Dropout(0.0), nn.Linear(dim * mult, dim))
+        self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Dropout(0.0), Linear(dim * mult, dim))
 
     def forward(self, x):
         return self.net(x)
@@ -199,9 +243,9 @@ class BasicTransformerBlock(nn.Module):
         self.attn1 = CrossAttention(dim, dim, heads, dim_head, use_flash_attention)
         self.ff = FeedForward(dim)
         self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, use_flash_attention)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
+        self.norm3 = LayerNorm(dim, eps=1e-5)
 
     def forward(self, x, context):
         x = x + self.attn1(self.norm1(x))
@@ -218,11 +262,11 @@ class SpatialTransformerV2(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.norm = normalization(in_channels)
-        self.proj_in = nn.Linear(in_channels, inner)
+        self.proj_in = Linear(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, heads, dim_head, context_dim, use_flash_attention)
             for _ in range(depth))
-        self.proj_out = zero_module(nn.Linear(inner, in_channels))
+        self.proj_out = zero_module(Linear(inner, in_channels))
 
     def forward(self, x, context):
         b, c, h, w = x.shape
@@ -250,12 +294,13 @@ class AttentionBlockQKV(nn.Module):
         b, c, h, w = x.shape
         d = c // self.num_heads
         y = self.norm(x).flatten(2).transpose(1, 2)
-        qkv = F.linear(y, self.qkv.weight[:, :, 0], self.qkv.bias)
+        qkv = F.linear(y, self.qkv.weight[:, :, 0].to(y.dtype), self.qkv.bias.to(y.dtype))
         qkv = qkv.view(b, h * w, self.num_heads, 3, d)
         scale = 1.0 / math.sqrt(math.sqrt(d))
         out = sdp_attention(qkv[..., 0, :] * scale, qkv[..., 1, :] * scale, qkv[..., 2, :], 1.0,
                             self.use_flash_attention).reshape(b, h * w, c)
-        out = F.linear(out, self.proj_out.weight[:, :, 0], self.proj_out.bias)
+        out = F.linear(out, self.proj_out.weight[:, :, 0].to(out.dtype),
+                       self.proj_out.bias.to(out.dtype))
         return x + out.transpose(1, 2).reshape(b, c, h, w)
 
 
@@ -283,7 +328,7 @@ class UNetModelDualcondV2(nn.Module):
                  context_dim: int = 1024, semb_channels: int = 256,
                  use_flash_attention: bool = False, compute_dtype: str | None = None):
         super().__init__()
-        check_compute_dtype(compute_dtype)
+        self.dtype = activation_dtype(compute_dtype)
         mc, temb = model_channels, model_channels * 4
 
         def heads(ch):   # num_head_channels wins over num_heads (unet.py:239-242)
@@ -295,8 +340,8 @@ class UNetModelDualcondV2(nn.Module):
                                         use_flash_attention)
 
         self.model_channels = mc
-        self.time_embed = nn.Sequential(nn.Linear(mc, temb), nn.SiLU(), nn.Linear(temb, temb))
-        self.input_blocks = nn.ModuleList([nn.ModuleList([nn.Conv2d(in_channels, mc, 3, padding=1)])])
+        self.time_embed = nn.Sequential(Linear(mc, temb), nn.SiLU(), Linear(temb, temb))
+        self.input_blocks = nn.ModuleList([nn.ModuleList([Conv2d(in_channels, mc, 3, padding=1)])])
         chans, ch, ds = [mc], mc, 1
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
@@ -325,10 +370,15 @@ class UNetModelDualcondV2(nn.Module):
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
         self.out = nn.Sequential(normalization(ch), nn.SiLU(),
-                                 zero_module(nn.Conv2d(ch, out_channels, 3, padding=1)))
+                                 zero_module(Conv2d(ch, out_channels, 3, padding=1)))
 
     def forward(self, x, t, context, struct_feats=None):
-        emb = self.time_embed(timestep_embedding(t, self.model_channels))
+        emb_in = timestep_embedding(t, self.model_channels)
+        if self.dtype is not None:        # where flax's first bf16 layer casts them
+            x, emb_in, context = x.to(self.dtype), emb_in.to(self.dtype), context.to(self.dtype)
+            if struct_feats is not None:
+                struct_feats = {k: f.to(self.dtype) for k, f in struct_feats.items()}
+        emb = self.time_embed(emb_in)
         hs, h = [], x
         for block in self.input_blocks:
             h = _run_block(block, h, emb, context, struct_feats)
@@ -336,7 +386,8 @@ class UNetModelDualcondV2(nn.Module):
         h = _run_block(self.middle_block, h, emb, context, struct_feats)
         for block in self.output_blocks:
             h = _run_block(block, torch.cat([h, hs.pop()], dim=1), emb, context, struct_feats)
-        return self.out(h)
+        out = self.out(h)
+        return out if self.dtype is None else out.float()
 
 
 class EncoderUNetModelWT(nn.Module):
@@ -349,11 +400,11 @@ class EncoderUNetModelWT(nn.Module):
                  channel_mult: Sequence[int] = (1, 1, 2, 2), num_heads: int = 4,
                  use_flash_attention: bool = False, compute_dtype: str | None = None):
         super().__init__()
-        check_compute_dtype(compute_dtype)
+        self.dtype = activation_dtype(compute_dtype)
         mc, temb = model_channels, model_channels * 4
         self.model_channels = mc
-        self.time_embed = nn.Sequential(nn.Linear(mc, temb), nn.SiLU(), nn.Linear(temb, temb))
-        self.input_blocks = nn.ModuleList([nn.ModuleList([nn.Conv2d(in_channels, mc, 3, padding=1)])])
+        self.time_embed = nn.Sequential(Linear(mc, temb), nn.SiLU(), Linear(temb, temb))
+        self.input_blocks = nn.ModuleList([nn.ModuleList([Conv2d(in_channels, mc, 3, padding=1)])])
         self.feature_blocks = []          # input-block indices whose output is a feature
         result_chans, ch, ds = [], mc, 1
         for level, mult in enumerate(channel_mult):
@@ -375,11 +426,14 @@ class EncoderUNetModelWT(nn.Module):
         self.fea_tran = nn.ModuleList(ResBlockRef(c, temb, out_channels) for c in result_chans)
 
     def forward(self, x, t):
-        emb = self.time_embed(timestep_embedding(t, self.model_channels))
+        emb_in = timestep_embedding(t, self.model_channels)
+        if self.dtype is not None:
+            x, emb_in = x.to(self.dtype), emb_in.to(self.dtype)
+        emb = self.time_embed(emb_in)
         results, h = [], x
         for i, block in enumerate(self.input_blocks):
             h = _run_block(block, h, emb)
             if i in self.feature_blocks:
                 results.append(h)
         results.append(_run_block(self.middle_block, h, emb))
-        return {str(r.shape[-1]): tran(r, emb) for r, tran in zip(results, self.fea_tran)}
+        return {str(r.shape[-1]): tran(r, emb).float() for r, tran in zip(results, self.fea_tran)}

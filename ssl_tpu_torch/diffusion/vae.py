@@ -19,8 +19,15 @@ stages (stage 0 = the mid blocks and the latent-resolution ``up`` level),
 while the mid attention always replays.  The replay runs the same function,
 so values are unchanged; with the flash switch on, the replayed mid
 attention launches K2's forward a second time.  Forward-only decoding (no
-grad) checkpoints nothing.  ``compute_dtype`` and the CFW decoder
-(``AutoencoderKLResi``) are not ported yet."""
+grad) checkpoints nothing.
+
+``compute_dtype: bfloat16`` runs the encoder's and decoder's activations in
+bf16 under the UNet's precision contract (``diffusion/unet.py``; JAX
+``ssl_tpu/diffusion/vae.py:7-12``): float32 parameters cast for each call,
+GroupNorm in float32, the mid attention's softmax in float32 (K2's bf16
+kernels at d = 512 on the card), the encoder's moments and the decoded image
+cast back to float32; ``quant_conv`` and ``post_quant_conv`` stay float32.
+The CFW decoder (``AutoencoderKLResi``) is not ported yet."""
 
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ssl_tpu_torch.diffusion.unet import check_compute_dtype
+from ssl_tpu_torch.archs.arch_util import Conv2d
+from ssl_tpu_torch.diffusion.unet import GroupNorm, activation_dtype
 from ssl_tpu_torch.ops.attention import sdp_attention
 
 
@@ -40,24 +48,25 @@ def _num_groups(c: int) -> int:
     return 32 if c % 32 == 0 else (math.gcd(c, 32) or 1)
 
 
-def Normalize(c: int) -> nn.GroupNorm:
-    return nn.GroupNorm(_num_groups(c), c, eps=1e-6)
+def Normalize(c: int) -> GroupNorm:
+    return GroupNorm(_num_groups(c), c, eps=1e-6)
 
 
 def _conv1x1(layer: nn.Conv2d, x_tokens: torch.Tensor) -> torch.Tensor:
-    """A 1x1 conv applied to (b, hw, c) tokens as a matmul."""
-    return F.linear(x_tokens, layer.weight[:, :, 0, 0], layer.bias)
+    """A 1x1 conv applied to (b, hw, c) tokens as a matmul, in their type."""
+    return F.linear(x_tokens, layer.weight[:, :, 0, 0].to(x_tokens.dtype),
+                    layer.bias.to(x_tokens.dtype))
 
 
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.norm1 = Normalize(in_channels)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         self.norm2 = Normalize(out_channels)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
-            self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.nin_shortcut = Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x):
         h = self.conv1(F.silu(self.norm1(x)))
@@ -74,10 +83,10 @@ class AttnBlock(nn.Module):
         super().__init__()
         self.use_flash_attention = use_flash_attention
         self.norm = Normalize(c)
-        self.q = nn.Conv2d(c, c, 1)
-        self.k = nn.Conv2d(c, c, 1)
-        self.v = nn.Conv2d(c, c, 1)
-        self.proj_out = nn.Conv2d(c, c, 1)
+        self.q = Conv2d(c, c, 1)
+        self.k = Conv2d(c, c, 1)
+        self.v = Conv2d(c, c, 1)
+        self.proj_out = Conv2d(c, c, 1)
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -90,7 +99,7 @@ class AttnBlock(nn.Module):
 class Downsample(nn.Module):
     def __init__(self, c: int):
         super().__init__()
-        self.conv = nn.Conv2d(c, c, 3, stride=2)
+        self.conv = Conv2d(c, c, 3, stride=2)
 
     def forward(self, x):
         return self.conv(F.pad(x, (0, 1, 0, 1)))
@@ -99,7 +108,7 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     def __init__(self, c: int):
         super().__init__()
-        self.conv = nn.Conv2d(c, c, 3, padding=1)
+        self.conv = Conv2d(c, c, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -132,9 +141,11 @@ class _Level(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, in_channels: int = 3, z_channels: int = 4,
-                 double_z: bool = True, use_flash_attention: bool = False):
+                 double_z: bool = True, use_flash_attention: bool = False,
+                 compute_dtype: str | None = None):
         super().__init__()
-        self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
+        self.dtype = activation_dtype(compute_dtype)
+        self.conv_in = Conv2d(in_channels, ch, 3, padding=1)
         self.down = nn.ModuleList()
         c = ch
         for i, mult in enumerate(ch_mult):
@@ -146,29 +157,30 @@ class Encoder(nn.Module):
             self.down.append(_Level(blocks, None if last else "down", c))
         self.mid = _Mid(c, use_flash_attention)
         self.norm_out = Normalize(c)
-        self.conv_out = nn.Conv2d(c, 2 * z_channels if double_z else z_channels, 3, padding=1)
+        self.conv_out = Conv2d(c, 2 * z_channels if double_z else z_channels, 3, padding=1)
 
     def forward(self, x):
-        h = self.conv_in(x)
+        h = self.conv_in(x if self.dtype is None else x.to(self.dtype))
         for level in self.down:
             for blk in level.block:
                 h = blk(h)
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(F.silu(self.norm_out(h))).float()
 
 
 class Decoder(nn.Module):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, out_ch: int = 3, z_channels: int = 4,
                  use_flash_attention: bool = False, remat_blocks: bool = True,
-                 remat_skip_lowres: int = 0):
+                 remat_skip_lowres: int = 0, compute_dtype: str | None = None):
         super().__init__()
+        self.dtype = activation_dtype(compute_dtype)
         self.remat_blocks = remat_blocks
         self.remat_skip_lowres = remat_skip_lowres
         c = ch * ch_mult[-1]
-        self.conv_in = nn.Conv2d(z_channels, c, 3, padding=1)
+        self.conv_in = Conv2d(z_channels, c, 3, padding=1)
         self.mid = _Mid(c, use_flash_attention)
         levels = [None] * len(ch_mult)      # up.0 is the finest level, as in ldm
         for i in reversed(range(len(ch_mult))):
@@ -179,7 +191,7 @@ class Decoder(nn.Module):
             levels[i] = _Level(blocks, "up" if i != 0 else None, c)
         self.up = nn.ModuleList(levels)
         self.norm_out = Normalize(c)
-        self.conv_out = nn.Conv2d(c, out_ch, 3, padding=1)
+        self.conv_out = Conv2d(c, out_ch, 3, padding=1)
 
     def forward(self, z):
         remat = self.remat_blocks and torch.is_grad_enabled()
@@ -192,7 +204,7 @@ class Decoder(nn.Module):
                 return checkpoint(block, h, use_reentrant=False)
             return block(h)
 
-        h = run(self.mid.block_1, self.conv_in(z), 0)
+        h = run(self.mid.block_1, self.conv_in(z if self.dtype is None else z.to(self.dtype)), 0)
         h = run(self.mid.block_2, run(self.mid.attn_1, h), 0)
         for i in reversed(range(len(self.up))):
             level = self.up[i]
@@ -200,7 +212,7 @@ class Decoder(nn.Module):
                 h = run(blk, h, len(self.up) - 1 - i)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(F.silu(self.norm_out(h))).float()
 
 
 class AutoencoderKL(nn.Module):
@@ -211,14 +223,14 @@ class AutoencoderKL(nn.Module):
                  remat_decoder_blocks: bool = True, remat_skip_lowres: int = 0,
                  compute_dtype: str | None = None):
         super().__init__()
-        check_compute_dtype(compute_dtype)
         self.embed_dim = embed_dim
         self.encoder = Encoder(ch, ch_mult, num_res_blocks, z_channels=embed_dim,
-                               use_flash_attention=use_flash_attention)
+                               use_flash_attention=use_flash_attention,
+                               compute_dtype=compute_dtype)
         self.decoder = Decoder(ch, ch_mult, num_res_blocks, z_channels=embed_dim,
                                use_flash_attention=use_flash_attention,
                                remat_blocks=remat_decoder_blocks,
-                               remat_skip_lowres=remat_skip_lowres)
+                               remat_skip_lowres=remat_skip_lowres, compute_dtype=compute_dtype)
         self.quant_conv = nn.Conv2d(2 * embed_dim, 2 * embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(embed_dim, embed_dim, 1)
 

@@ -13,8 +13,10 @@ autograd through it), which the JAX package takes for the same shapes.
 
 Beside the kernels stand their plain contracts: ``attention_lse_reference``
 (the forward's per-row log-sum-exp) and ``flash_attn_bwd_reference`` (the
-backward's recompute formula).  The CPU tests and ``chip_smoke.py`` hold the
-kernels against them; no path on a card calls them."""
+backward's recompute formula), on float32 or bf16 inputs; in bf16 with the
+kernels' rounding points and float32 arithmetic between them.  The CPU tests
+and ``chip_smoke.py`` hold the kernels against them; no path on a card calls
+them."""
 
 from __future__ import annotations
 
@@ -42,25 +44,35 @@ def sdp_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_lse_reference(q: torch.Tensor, k: torch.Tensor, sm_scale: float) -> torch.Tensor:
     """Each row's log-sum-exp of the scaled logits, (b, heads, n) float32: the
-    plain version of what K2's forward writes for the backward."""
-    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * sm_scale
-    return torch.logsumexp(logits.float(), dim=-1)
+    plain version of what K2's forward writes for the backward.  bf16 q and k
+    are multiplied and summed in float32, as the kernel's fp32 accumulators
+    take their products."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * sm_scale
+    return torch.logsumexp(logits, dim=-1)
 
 
 def flash_attn_bwd_reference(q, k, v, o, lse, do, sm_scale: float):
-    """The plain version of K2's backward: (dq, dk, dv) from the forward's
-    output o and log-sum-exp lse and the incoming gradient dO, by the
-    recompute formula of upstream's custom VJP:
+    """The plain version of K2's backward: (dq, dk, dv) in q's type from the
+    forward's output o and log-sum-exp lse and the incoming gradient dO, by
+    the recompute formula of upstream's custom VJP:
         P = exp(sm_scale q kᵀ - lse)    dP = dO vᵀ    di = rowsum(o * dO)
-        dS = P * (dP - di)    dV = Pᵀ dO    dK = sm_scale dSᵀ q    dQ = sm_scale dS k"""
-    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", q, k) * sm_scale - lse[..., None])
-    dp = torch.einsum("bnhd,bmhd->bhnm", do, v)
-    di = (o * do).sum(-1).transpose(1, 2)
-    ds = p * (dp - di[..., None])
-    dv = torch.einsum("bhnm,bnhd->bmhd", p, do)
-    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q) * sm_scale
-    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k) * sm_scale
-    return dq, dk, dv
+        dS = P * (dP - di)    dV = Pᵀ dO    dK = sm_scale dSᵀ q    dQ = sm_scale dS k
+    In float32 throughout for float32 inputs.  For bf16 inputs the kernel's
+    contract: every product of bf16 operands summed in float32, P and dS
+    formed in float32 and rounded to bf16 where they enter dV, dK and dQ, and
+    the gradients rounded to bf16 once."""
+    def operand(x):          # where the kernel rounds to the inputs' type
+        return x.to(q.dtype).float()
+
+    q32, k32, v32, o32, do32 = (t.float() for t in (q, k, v, o, do))
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", q32, k32) * sm_scale - lse[..., None])
+    dp = torch.einsum("bnhd,bmhd->bhnm", do32, v32)
+    di = (o32 * do32).sum(-1).transpose(1, 2)
+    ds = operand(p * (dp - di[..., None]))
+    dv = torch.einsum("bhnm,bnhd->bmhd", operand(p), do32)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q32) * sm_scale
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k32) * sm_scale
+    return tuple(g.to(q.dtype) for g in (dq, dk, dv))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -78,6 +90,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        """dq, dk and dv in the inputs' type (the kernels' outputs)."""
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, ctx.sm_scale)
         return dq, dk, dv, None

@@ -27,15 +27,18 @@ from ssl_tpu_torch.ops.cuda_build import load_library
 launches = 0
 # Launches of each forward kernel in this process, counted where the C entry
 # that launches it returns without error.
-fwd_kernel_launches = dict.fromkeys(
-    ("flash_attn_fwd", "flash_attn_fwd_d512", "flash_attn_fwd_combine"), 0)
+FWD_KERNELS = ("flash_attn_fwd", "flash_attn_fwd_d512", "flash_attn_fwd_combine")
+fwd_kernel_launches = dict.fromkeys(FWD_KERNELS + tuple(f"{k}_bf16" for k in FWD_KERNELS), 0)
 # Calls of ``flash_attn_bwd_cuda`` in this process.
 bwd_launches = 0
 # Launches of each backward kernel in this process, counted where the C entry
 # that launches it returns without error.
-bwd_kernel_launches = dict.fromkeys(
-    ("flash_attn_bwd_dkv", "flash_attn_bwd_dq", "flash_attn_bwd_sum", "flash_attn_bwd_p_ds",
-     "flash_attn_bwd_dkv_mm", "flash_attn_bwd_dq_mm"), 0)
+BWD_KERNELS = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq", "flash_attn_bwd_sum",
+               "flash_attn_bwd_p_ds", "flash_attn_bwd_dkv_mm", "flash_attn_bwd_dq_mm")
+bwd_kernel_launches = dict.fromkeys(BWD_KERNELS + tuple(f"{k}_bf16" for k in BWD_KERNELS), 0)
+
+# The element types the kernels take, and the suffix of their kernels' names.
+SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 # Head widths the kernels are instantiated for (a template on d in the
 # sources): the UNet's and struct-cond encoder's heads and the VAE's single head.
@@ -47,32 +50,42 @@ HEAD_DIMS = (64, 128, 512)
 BWD_BLOCK_ROWS = {64: (128, 128), 128: (128, 128)}
 BWD_STREAM_ROWS = {64: (32, 32), 128: (32, 32)}
 BWD_BLOCKS_PER_SM = {64: (2, 2), 128: (1, 1)}
+# The bf16 kernels own and stream the same rows with 8 warps of 16 rows a
+# block: 169 and 128 registers a thread at d = 64 (dkv, dq), 244 and 168 at
+# d = 128 (ptxas for sm_90a).
+BWD_BLOCKS_PER_SM_BF16 = {64: (1, 2), 128: (1, 1)}
 BWD_MAX_SPLIT = 4
 # The forward's kernels by head width (csrc/flash_attn_fwd.cu): query rows a
-# block owns, keys streamed per tile, and blocks that fit one SM.
+# block owns, keys streamed per tile, and blocks that fit one SM; in float32
+# and in bf16 (8 warps of 16 rows at d = 64 and 128: 128 and 189 registers a
+# thread).
 FWD_TILES = {64: (128, 32, 2), 128: (128, 32, 1), 512: (32, 32, 1)}
+FWD_TILES_BF16 = {64: (128, 64, 2), 128: (128, 64, 1), 512: (32, 32, 1)}
 FWD_MAX_SPLIT = 8
 
 
 def _declare_fwd(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attn_fwd.argtypes = [p] * 6 + [ll] * 9 + [i] * 6 + [ctypes.c_float, p]
-    lib.flash_attn_fwd.restype = i
+    for entry in (lib.flash_attn_fwd, lib.flash_attn_fwd_bf16):
+        entry.argtypes = [p] * 6 + [ll] * 9 + [i] * 6 + [ctypes.c_float, p]
+        entry.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
 
 def _declare_bwd(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attn_bwd.argtypes = [p] * 10 + [ll] * 12 + [i] * 7 + [ctypes.c_float, p]
-    lib.flash_attn_bwd.restype = i
+    for entry in (lib.flash_attn_bwd, lib.flash_attn_bwd_bf16):
+        entry.argtypes = [p] * 10 + [ll] * 12 + [i] * 7 + [ctypes.c_float, p]
+        entry.restype = i
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the kernels take: float32 (b, seq, heads, d) tensors on one device,
-    unit stride along d, n and m multiples of 128, d in ``HEAD_DIMS``."""
+    """What the kernels take: (b, seq, heads, d) tensors on one device, all
+    float32 or all bfloat16, unit stride along d, n and m multiples of 128, d
+    in ``HEAD_DIMS``."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q, k, v must be (b, seq, heads, d) with k and v alike, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -82,8 +95,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in SUFFIX or t.dtype != q.dtype:
+            raise TypeError(f"q, k and v must be all float32 or all bfloat16, got {q.dtype}, "
+                            f"{k.dtype}, {v.dtype}")
         if t.stride(3) != 1:
             raise ValueError(f"{name} must have unit stride along d, got strides {t.stride()}")
     if n % 128 or k.shape[1] % 128:
@@ -94,23 +108,24 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def check_bwd_inputs(q, k, v, o, lse, do) -> None:
     """``check_inputs`` for q, k and v, plus the forward's o and lse and the
-    incoming gradient dO: o and dO shaped like q, lse (b, heads, n) and
-    contiguous, all float32 on q's device."""
+    incoming gradient dO: o and dO shaped like q and of q's type, lse (b,
+    heads, n), float32 and contiguous, all on q's device."""
     check_inputs(q, k, v)
     b, n, h, _ = q.shape
-    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape), ("lse", lse, (b, h, n))):
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (b, h, n), torch.float32)):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not lse.is_contiguous():
         raise ValueError("lse must be contiguous (b, heads, n)")
 
 
-def fwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int):
-    """How the forward runs: (split, scratch floats, kernels).
+def fwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int, dtype=torch.float32):
+    """How the forward runs on ``dtype`` inputs: (split, scratch floats, kernels).
 
     The key loop is cut into ``split`` parts when the grid of (query tile,
     b·head) blocks would fill under 90% of the ``sms`` SMs' block slots:
@@ -118,7 +133,7 @@ def fwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int):
     Each part writes its unnormalised output and row max and sum to scratch
     (b·heads·n·(d + 2) floats a part) and ``flash_attn_fwd_combine`` merges
     them in order.  ``kernels`` names each kernel with its launches."""
-    rows, keys, per_sm = FWD_TILES[d]
+    rows, keys, per_sm = (FWD_TILES_BF16 if dtype == torch.bfloat16 else FWD_TILES)[d]
     blocks, tiles = n // rows * b * heads, m // keys
     split = 1
     while (blocks * split < 0.9 * per_sm * sms and tiles % (2 * split) == 0
@@ -126,13 +141,15 @@ def fwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int):
         split *= 2
     scratch = split * b * heads * n * (d + 2) if split > 1 else 0
     main = "flash_attn_fwd_d512" if d == 512 else "flash_attn_fwd"
-    return split, scratch, {main: 1, "flash_attn_fwd_combine": int(split > 1)}
+    sfx = SUFFIX[dtype]
+    return split, scratch, {main + sfx: 1, f"flash_attn_fwd_combine{sfx}": int(split > 1)}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a contiguous copy where a stride or the base is not 16-byte
-    aligned (the kernels copy rows in 16-byte pieces)."""
-    if t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3]):
+    aligned (the kernels copy rows in 16-byte pieces: 4 floats, 8 bf16)."""
+    per_16 = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s % per_16 == 0 for s in t.stride()[:3]):
         return t
     return t.contiguous()
 
@@ -154,18 +171,18 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_sc
     b, n, h, d = q.shape
     m = k.shape[1]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    split, scratch_floats, kernels = fwd_plan(b, h, n, m, d, sms)
-    out = torch.empty((b, n, h, d), device=q.device, dtype=torch.float32)
+    split, scratch_floats, kernels = fwd_plan(b, h, n, m, d, sms, q.dtype)
+    out = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32) if return_lse else None
     scratch = (torch.empty(scratch_floats, device=q.device, dtype=torch.float32)
                if scratch_floats else None)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    entry = lib.flash_attn_fwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_attn_fwd
     with torch.cuda.device(q.device):     # the C entry launches on the current device
-        err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 lse.data_ptr() if return_lse else None,
-                                 None if scratch is None else scratch.data_ptr(), *strides, b, h,
-                                 n, m, d, split, float(sm_scale),
-                                 torch.cuda.current_stream().cuda_stream)
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr() if return_lse else None,
+                    None if scratch is None else scratch.data_ptr(), *strides, b, h, n, m, d,
+                    split, float(sm_scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: "
                            f"{lib.flash_attn_error_string(err).decode()}")
@@ -175,20 +192,24 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_sc
     return (out, lse) if return_lse else out
 
 
-def bwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int):
-    """How the backward runs: (dkv_split, dq_split, scratch floats, kernels).
+def bwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int, dtype=torch.float32):
+    """How the backward runs on ``dtype`` inputs: (dkv_split, dq_split,
+    scratch elements, kernels).
 
     At d = 64 and 128, a split cuts the dkv kernel's loop over query tiles
     (dq's over key tiles) into parts when the grid would fill under 90% of
     the ``sms`` SMs' block slots: powers of 2, at most ``BWD_MAX_SPLIT``,
     each dividing the tile count.  Parts go to scratch and
-    ``flash_attn_bwd_sum`` adds them in order.  At d = 512 the scratch holds
-    P and dS (b·heads·n·m floats each).  ``kernels`` names each kernel with
-    its launches."""
+    ``flash_attn_bwd_sum`` adds them in order; the parts are float32.  At
+    d = 512 the scratch holds P and dS (b·heads·n·m each) in ``dtype``: in
+    bf16 they are rounded there, where the products that read them take
+    them.  ``kernels`` names each kernel with its launches."""
+    sfx = SUFFIX[dtype]
     if d == 512:
-        return 1, 1, 2 * b * heads * n * m, {"flash_attn_bwd_p_ds": 1, "flash_attn_bwd_dkv_mm": 1,
-                                             "flash_attn_bwd_dq_mm": 1}
-    block, rows, per_sm = BWD_BLOCK_ROWS[d], BWD_STREAM_ROWS[d], BWD_BLOCKS_PER_SM[d]
+        return 1, 1, 2 * b * heads * n * m, {f"flash_attn_bwd_{k}{sfx}": 1
+                                             for k in ("p_ds", "dkv_mm", "dq_mm")}
+    block, rows = BWD_BLOCK_ROWS[d], BWD_STREAM_ROWS[d]
+    per_sm = (BWD_BLOCKS_PER_SM_BF16 if dtype == torch.bfloat16 else BWD_BLOCKS_PER_SM)[d]
 
     def split(blocks, tiles, slots):
         s = 1
@@ -200,16 +221,16 @@ def bwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int):
     dq = split(n // block[1] * b * heads, m // rows[1], per_sm[1] * sms)
     scratch = (2 * dkv * b * m * heads * d if dkv > 1 else 0) + (dq * b * n * heads * d
                                                                 if dq > 1 else 0)
-    kernels = {"flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1,
-               "flash_attn_bwd_sum": 2 * (dkv > 1) + (dq > 1)}
+    kernels = {f"flash_attn_bwd_dkv{sfx}": 1, f"flash_attn_bwd_dq{sfx}": 1,
+               f"flash_attn_bwd_sum{sfx}": 2 * (dkv > 1) + (dq > 1)}
     return dkv, dq, scratch, kernels
 
 
 def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, sm_scale: float):
-    """Launch K2's backward on CUDA tensors: (dq, dk, dv), what
+    """Launch K2's backward on CUDA tensors: (dq, dk, dv) in q's type, what
     ``flash_attn_bwd_reference`` returns.  di = rowsum(o * dO) is a plain
-    reduction here, as upstream leaves it to XLA; q, k, v and dO are taken
+    float32 reduction here, as upstream leaves it to XLA; q, k, v and dO are taken
     through their strides, or copied once if their last axis is not
     unit-stride or a row is not 16-byte aligned.  Scratch (``bwd_plan``) is
     allocated here."""
@@ -224,20 +245,21 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     b, n, h, d = q.shape
     m = k.shape[1]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    dkv_split, dq_split, scratch_floats, kernels = bwd_plan(b, h, n, m, d, sms)
-    di = (o * do).sum(-1).transpose(1, 2).contiguous()      # (b, heads, n)
-    dq = torch.empty((b, n, h, d), device=q.device, dtype=torch.float32)
-    dk = torch.empty(k.shape, device=q.device, dtype=torch.float32)
-    dv = torch.empty(k.shape, device=q.device, dtype=torch.float32)
-    scratch = (torch.empty(scratch_floats, device=q.device, dtype=torch.float32)
-               if scratch_floats else None)
+    dkv_split, dq_split, scratch_size, kernels = bwd_plan(b, h, n, m, d, sms, q.dtype)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()      # (b, heads, n)
+    dq = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype)
+    dk = torch.empty(k.shape, device=q.device, dtype=q.dtype)
+    dv = torch.empty(k.shape, device=q.device, dtype=q.dtype)
+    scratch = (torch.empty(scratch_size, device=q.device,
+                           dtype=q.dtype if d == 512 else torch.float32)
+               if scratch_size else None)
     strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+    entry = lib.flash_attn_bwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_attn_bwd
     with torch.cuda.device(q.device):
-        err = lib.flash_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                 lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                 dv.data_ptr(), None if scratch is None else scratch.data_ptr(),
-                                 *strides, b, h, n, m, d, dkv_split, dq_split, float(sm_scale),
-                                 torch.cuda.current_stream().cuda_stream)
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), *strides, b, h, n, m, d,
+                    dkv_split, dq_split, float(sm_scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd launch failed: "
                            f"{lib.flash_attn_bwd_error_string(err).decode()}")

@@ -20,6 +20,15 @@ The forward's two products and the backward's five run as 3xTF32 on the
 tensor cores, under the same holds; two launches on the same inputs give
 bit-identical outputs (K1 too), with and without a split key loop.
 
+K2's bf16 kernels (``compute_dtype: bfloat16``) are held against the
+float32 plain version on the same bf16 inputs upcast, by the holds of
+``tests/torch_attention_cases.py`` (BF16_*): the forward within 5e-3
+relative L2 (o is rounded to bf16 once, P where it enters P·V) and at most
+1.5 times the plain bf16 route's error; the backward, fed the float32
+reference's o (in bf16) and lse, within 1e-2 relative L2 for each of dq, dk
+and dv and at most 1.5 times the error of ``flash_attn_bwd_reference`` on
+the bf16 inputs (the same rounding points); both bit for bit on repeat.
+
 Tolerances (K1): count exact; l1 rel 1e-4 and kl rel 1e-3, the contract of
 tests/test_ssg_pallas.py:30-31 (sums taken in another order); the (b, h, w)
 maps ``MAP_RTOL`` with an atol of 1e-6 of the map's largest value; d_sr rtol
@@ -28,7 +37,8 @@ maps ``MAP_RTOL`` with an atol of 1e-6 of the map's largest value; d_sr rtol
 import numpy as np
 import pytest
 import torch
-from torch_attention_cases import CUDA_CASES, TRAIN_CASES, attention_inputs
+from torch_attention_cases import (BF16_BWD_REL_L2, BF16_FWD_REL_L2, BF16_PLAIN_RATIO,
+                                   CUDA_CASES, TRAIN_CASES, attention_inputs)
 from torch_ssg_cases import CASES, MAP_RTOL, case_inputs, grad_atol
 
 from ssl_tpu_torch.ops import attention_cuda, ssg_cuda
@@ -406,3 +416,90 @@ def test_kair_step_on_card(card, tmp_path, monkeypatch):
     for logs in seen:
         for k in ("l_pix", "l_percep", "l_g_gan", "l_selfsim", "l_selfsim_kl", "l_d_real"):
             assert np.isfinite(logs[k]), (k, logs)
+
+
+def _bf16_errors(got, ref, plain):
+    """Relative L2 errors of the kernel's and the plain version's outputs
+    against the float32 reference."""
+    def rel(a, r):
+        return float((a.float() - r).norm() / r.norm())
+    return rel(got, ref), rel(plain, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_k2_bf16_forward_matches_float32_on_card(card, case):
+    """The bf16 forward kernels fwd_plan names (the split and its combine,
+    the d = 512 kernel) at the serving shapes, the packed-qkv strides
+    included: o in bf16 within the BF16_FWD holds, lse against
+    ``attention_lse_reference`` on the bf16 inputs, and bit for bit on repeat."""
+    b, heads, n, m, d, scale, layout, logits = CUDA_CASES[case]
+    q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda",
+                               dtype=torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, plan = attention_cuda.fwd_plan(b, heads, n, m, d, sms, torch.bfloat16)
+    before = dict(attention_cuda.fwd_kernel_launches)
+    o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    launched = {n_: c - before[n_] for n_, c in attention_cuda.fwd_kernel_launches.items()
+                if c != before[n_]}
+    assert launched == {n_: c for n_, c in plan.items() if c}
+    o2, lse2 = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    ref = sdp_attention_reference(q.float(), k.float(), v.float(), scale)
+    plain = sdp_attention_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    err, plain_err = _bf16_errors(o, ref, plain)
+    assert err <= BF16_FWD_REL_L2 and err <= BF16_PLAIN_RATIO * plain_err, (err, plain_err)
+    ref_lse = attention_lse_reference(q, k, scale)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_k2_bf16_backward_matches_float32_on_card(card, case):
+    """The bf16 backward kernels bwd_plan names at the training shapes, fed
+    the float32 reference's o and lse: dq, dk and dv in bf16 within the
+    BF16_BWD holds, and bit for bit on repeat."""
+    b, heads, n, m, d, scale, layout, logits = TRAIN_CASES[case]
+    q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda",
+                               dtype=torch.bfloat16)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    do = torch.randn((b, n, heads, d), generator=torch.Generator(device="cuda").manual_seed(11),
+                     device="cuda").bfloat16()
+    o = sdp_attention_reference(q32, k32, v32, scale)
+    lse = attention_lse_reference(q32, k32, scale)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = attention_cuda.bwd_plan(b, heads, n, m, d, sms, torch.bfloat16)[3]
+    before = dict(attention_cuda.bwd_kernel_launches)
+    got = attention_cuda.flash_attn_bwd_cuda(q, k, v, o.bfloat16(), lse, do, scale)
+    launched = {n_: c - before[n_] for n_, c in attention_cuda.bwd_kernel_launches.items()
+                if c != before[n_]}
+    assert launched == {n_: c for n_, c in plan.items() if c}
+    again = attention_cuda.flash_attn_bwd_cuda(q, k, v, o.bfloat16(), lse, do, scale)
+    ref = flash_attn_bwd_reference(q32, k32, v32, o, lse, do.float(), scale)
+    plain = flash_attn_bwd_reference(q, k, v, o.bfloat16(), lse, do, scale)
+    torch.cuda.synchronize()
+    for name, g, g2, r, p in zip(("dq", "dk", "dv"), got, again, ref, plain):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, g2), name
+        err, plain_err = _bf16_errors(g, r, p)
+        assert err <= BF16_BWD_REL_L2 and err <= BF16_PLAIN_RATIO * plain_err, (name, err,
+                                                                                plain_err)
+
+
+@pytest.mark.cuda
+def test_k2_bf16_autograd_goes_through_the_bf16_kernels(card):
+    """A gradient through an eligible bf16 call: one bf16 forward launch with
+    lse and one bf16 backward call, gradients in bf16, no float32 kernel."""
+    q, k, v = attention_inputs(1, 2, 512, 512, 64, 0.125, "qkv", 8.0, device="cuda",
+                               dtype=torch.bfloat16)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = dict(attention_cuda.fwd_kernel_launches), dict(attention_cuda.bwd_kernel_launches)
+    out = sdp_attention(*leaves, 0.125, use_flash=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and all(t.grad.dtype == torch.bfloat16 for t in leaves)
+    moved = [n_ for counts, was in ((attention_cuda.fwd_kernel_launches, fwd),
+                                    (attention_cuda.bwd_kernel_launches, bwd))
+             for n_, c in counts.items() if c != was[n_]]
+    assert moved and all(n_.endswith("_bf16") for n_ in moved), moved

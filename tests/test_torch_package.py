@@ -124,9 +124,9 @@ def test_unported_options_raise():
                   lambda: jax_build_optimizer({"type": "Lion"}, lambda s: 0.1)):
         with pytest.raises(NotImplementedError):    # refused by both packages
             build()
-    with pytest.raises(NotImplementedError):       # the diffusion tree's bf16 knob
+    with pytest.raises(NotImplementedError):       # a diffusion compute_dtype but bf16 / fp32
         from ssl_tpu_torch.diffusion.vae import AutoencoderKL
-        AutoencoderKL(compute_dtype="bfloat16")
+        AutoencoderKL(compute_dtype="float16")
     with pytest.raises(KeyError):
         build_network({"type": "UNetDiscriminatorSNv1"})
 

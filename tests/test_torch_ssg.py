@@ -149,14 +149,16 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_inputs():
 
 
 def test_bf16_knobs_raise():
-    """The SSG's bf16 knobs are ported (tests/test_torch_bf16.py); the knob
-    that stays unported is the diffusion tree's compute_dtype, and an SSG
-    dtype outside float32 and bfloat16 is refused."""
+    """The SSG's bf16 knobs are ported (tests/test_torch_bf16.py), and so is
+    the diffusion tree's compute_dtype bfloat16
+    (tests/test_torch_diffusion_bf16.py); a dtype outside float32 and
+    bfloat16 stays unported and is refused, by the SSG and by the diffusion
+    nets' compute_dtype (float16, which the JAX package would take)."""
     from ssl_tpu_torch.diffusion.unet import UNetModelDualcondV2
     tssg.check_config(tssg.SSGConfig(search=9, window=5, q_store_dtype="bfloat16",
                                      stream_dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         tssg.check_config(tssg.SSGConfig(stream_dtype="float16"))
     with pytest.raises(NotImplementedError, match="compute_dtype"):
-        UNetModelDualcondV2(compute_dtype="bfloat16")
+        UNetModelDualcondV2(compute_dtype="float16")
 

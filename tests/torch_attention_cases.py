@@ -37,8 +37,10 @@ TRAIN_CASES = {
 TRAIN_MIX_BWD = {"unet_ds1": 5, "struct_ds1": 2, "unet_ds2": 5, "struct_ds2": 2, "vae_mid": 1}
 
 
-def attention_inputs(b, heads, n, m, d, sm_scale, layout, logit_range, seed=0, device="cpu"):
-    """(q, k, v) as float32 (b, seq, heads, d) tensors in the given layout."""
+def attention_inputs(b, heads, n, m, d, sm_scale, layout, logit_range, seed=0, device="cpu",
+                     dtype=torch.float32):
+    """(q, k, v) as (b, seq, heads, d) tensors of ``dtype`` in the given
+    layout: the float32 draws, rounded once where ``dtype`` is bf16."""
     rng = np.random.RandomState(seed)
     if layout == "qkv":
         if n != m:
@@ -51,9 +53,10 @@ def attention_inputs(b, heads, n, m, d, sm_scale, layout, logit_range, seed=0, d
     gain = np.float32((logit_range / top) ** 0.5)
     if layout == "qkv":
         qkv[..., :2, :] *= gain
-        t = torch.from_numpy(qkv).to(device)
+        t = torch.from_numpy(qkv).to(device=device, dtype=dtype)
         return t[..., 0, :], t[..., 1, :], t[..., 2, :]
-    return tuple(torch.from_numpy(a).to(device) for a in (q * gain, k * gain, v))
+    return tuple(torch.from_numpy(a).to(device=device, dtype=dtype)
+                 for a in (q * gain, k * gain, v))
 
 
 # K2 backward's holds on the card (chip_smoke.py BWD_REL_L2, BWD_RTOL,
@@ -99,6 +102,15 @@ def flash_attn_bwd_tf32(q, k, v, o, lse, do, sm_scale: float, passes: int = 3):
 # K2 forward's hold on the card (chip_smoke.py phase_k2): rtol with an atol of
 # FWD_ATOL times the output's largest value.
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
+
+# K2's bf16 holds on the card (chip_smoke.py, tests/test_torch_cuda.py),
+# against the float32 plain version on the same bf16 inputs upcast: the
+# forward's o within BF16_FWD_REL_L2 relative L2, the backward's dq, dk and dv
+# (fed the float32 reference's o and lse) within BF16_BWD_REL_L2, each at most
+# BF16_PLAIN_RATIO times the error of the plain bf16 version on the same
+# reference (the forward: the JAX einsum path in bf16; the backward:
+# flash_attn_bwd_reference on the bf16 inputs).
+BF16_FWD_REL_L2, BF16_BWD_REL_L2, BF16_PLAIN_RATIO = 5e-3, 1e-2, 1.5
 
 
 def flash_attn_fwd_tf32(q, k, v, sm_scale: float, block_k: int = 32, split: int = 1):
