@@ -1421,6 +1421,7 @@ def phase_k2_bwd_bf16():
                          "kernel_ms": {k_.removesuffix("_kernel"): v_ for k_, v_ in split.items()},
                          "launches": {k_: c for k_, c in launches.items() if c},
                          "plain_ms": plain_ms, "library_ms": library_ms, "bounds": bounds, **sums}
+        bound_ms = {k_: max(v_["ops_ms"], v_["bytes_ms"]) for k_, v_ in bounds.items()}
         emit({"phase": "kernel", "kernel": "flash_attn_bwd_bf16", "case": name,
               "b_heads_n_m_d": [b, h, n, m, d], "layout": layout, "sm_scale": scale,
               "logit_range": logit_range, "splits": [dkv_split, dq_split],
@@ -1428,8 +1429,12 @@ def phase_k2_bwd_bf16():
               "bounds": {"rel_l2": BF16_BWD_REL_L2, "plain_ratio": BF16_PLAIN_RATIO},
               "max_abs_err": max_abs, "repeat_bit_for_bit": True, "kernel_ms": kernel_ms,
               "kernels_device_ms": split, "plain_ms": plain_ms, "library_ms": library_ms, **sums,
-              "bound_ms": {k_: max(v_["ops_ms"], v_["bytes_ms"]) for k_, v_ in bounds.items()},
-              "fraction_of_bound": bounds["bwd"]["ops_ms"] / kernel_ms})
+              "bound_ms": bound_ms, "fraction_of_bound": bounds["bwd"]["ops_ms"] / kernel_ms,
+              # each kernel's bound over its device time (dkv and dq; at d = 512 p_ds,
+              # dkv_mm and dq_mm; sum where the plan splits)
+              "fraction_of_bound_by_kernel": {
+                  k_: bound_ms[re.sub(r"^flash_attn_bwd_|_bf16_kernel$", "", k_)] / t_
+                  for k_, t_ in split.items()}})
         del q, k, v, q32, k32, v32, o, lse, do, qt, kt, vt, sdpa_out
         torch.cuda.empty_cache()
     return results
@@ -4014,6 +4019,8 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
                  "max_abs_err": max(res[c]["max_abs_err"] for c in runs),
                  "ms": per_launch(lambda r: r["kernel_ms"][name]),
                  "bound_ms": max(ops, nbytes),
+                 "fraction_of_bound": max(ops, nbytes) / per_launch(
+                     lambda r: r["kernel_ms"][name]),
                  "bound_by": "operations" if ops >= nbytes else "bytes", "cases": sorted(runs)}
         if not sfx:
             entry["fp32_bound_ms"] = max(fp32, nbytes)

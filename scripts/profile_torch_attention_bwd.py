@@ -1,17 +1,24 @@
 """K2's backward at the diffusion training path's shapes, or with ``--fwd``
 its forward at the serving path's shapes, on one CUDA device.
 
-    python3 scripts/profile_torch_attention_bwd.py [--fwd] [--root DIR] [--label NAME] [--iters 10]
+    python3 scripts/profile_torch_attention_bwd.py [--fwd] [--dtype float32|bfloat16]
+        [--root DIR] [--label NAME] [--iters 10] [--cases ...]
 
 For each case of ``tests/torch_attention_cases.py::TRAIN_CASES`` prints one
 JSON line: the device time of every backward kernel (torch.profiler, ms per
 call), their sum, the wrapper's time by CUDA events (the kernels, di's
-reduction and the allocations), the time of SDPA's backward on the same
-inputs (the yardstick; the port never calls it) and the bound by the
-arithmetic the kernels use.  With ``--fwd``, for each case of
-``CUDA_CASES``: the forward kernels' device times, the wrapper's time, SDPA's
-and the plain version's forward, the bound, the largest error against the
-plain version and whether a second launch repeats the first bit for bit.
+reduction and the allocations) and its device time (every CUDA kernel of
+the call, from the profiler), the time of SDPA's backward on the same
+inputs by CUDA events and on the device (the yardstick; the port never
+calls it), and the bound by the arithmetic the kernels use, per kernel
+(``bound_ms``) and for the whole backward, with each kernel's fraction of
+its bound.  ``--dtype bfloat16`` runs the bf16 kernels on the cases'
+inputs rounded to bf16 (the float32 forward's o, rounded, and lse), SDPA's
+backward in bf16 beside them, and the bound with bf16 products and 2-byte
+operands.  With ``--fwd``, for each case of ``CUDA_CASES``: the forward
+kernels' device times, the wrapper's time, SDPA's and the plain version's
+forward, the bound, the largest error against the plain version and
+whether a second launch repeats the first bit for bit.
 ``--root`` imports ``ssl_tpu_torch`` from another checkout (for example an
 earlier commit unpacked with ``git archive``), so that two versions are
 timed in turns on one card.  TF32 is off for the yardstick's and the plain
@@ -23,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +43,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--cases", nargs="*", default=None)
     ap.add_argument("--fwd", action="store_true", help="the forward at the serving shapes")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the backward kernels' input type")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     sys.path.insert(1, os.path.join(ROOT, "tests"))
@@ -56,12 +66,22 @@ def main() -> int:
     name = card()
     if args.fwd:
         return profile_fwd(args, attention_cuda, name)
+    dtype = getattr(torch, args.dtype)
     for case in args.cases or list(TRAIN_CASES):
         b, h, n, m, d, scale, layout, logits = TRAIN_CASES[case]
-        q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logits, device="cuda")
+        q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logits, device="cuda",
+                                   dtype=dtype)
         do = torch.randn((b, n, h, d), generator=torch.Generator(device="cuda").manual_seed(11),
-                         device="cuda")
-        o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+                         device="cuda").to(dtype)
+        if dtype == torch.float32:
+            o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+        else:       # as chip_smoke.py's k2_bwd_bf16 phase: the float32 reference's o and lse
+            from ssl_tpu_torch.ops.attention import (attention_lse_reference,
+                                                     sdp_attention_reference)
+            q32, k32 = q.float(), k.float()
+            o = sdp_attention_reference(q32, k32, v.float(), scale).to(dtype)
+            lse = attention_lse_reference(q32, k32, scale)
+            del q32, k32
 
         def kernel():
             attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
@@ -71,20 +91,52 @@ def main() -> int:
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
         do_t = do.transpose(1, 2)
         wrapper_ms = time_ms(kernel, args.iters)
-        sdpa_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
-                                                      retain_graph=True), args.iters)
-        bounds = k2_bwd_times(b, h, n, m, d)["bwd"]
+
+        def sdpa_bwd():
+            torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t, retain_graph=True)
+
+        sdpa_ms = time_ms(sdpa_bwd, args.iters)
+        # device times, which the host's dispatch does not move: the wrapper's
+        # (the kernels, di's reduction and its copies) and SDPA's backward
+        wrapper_device_ms = device_ms(kernel, args.iters)
+        sdpa_device_ms = device_ms(sdpa_bwd, args.iters)
         plan = getattr(attention_cuda, "bwd_plan", None)      # absent before the redesign
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        splits = plan(b, h, n, m, d, sms)[:2] if plan else None
-        print(json.dumps({"label": args.label, "case": case, "b_heads_n_m_d": [b, h, n, m, d],
+        splits = None
+        if plan:     # an older checkout's plan may take no dtype
+            splits = (plan(b, h, n, m, d, sms, dtype) if dtype != torch.float32
+                      else plan(b, h, n, m, d, sms))[:2]
+        bounds = k2_bwd_times(b, h, n, m, d, splits or (1, 1), args.dtype)
+        bound_ms = {k_: max(v_["ops_ms"], v_["bytes_ms"]) for k_, v_ in bounds.items()}
+        fraction = {k_: bound_ms[re.sub(r"^flash_attn_bwd_|(_bf16)?_kernel$", "", k_)] / t
+                    for k_, t in per_kernel.items()}
+        print(json.dumps({"label": args.label, "case": case, "dtype": args.dtype,
+                          "b_heads_n_m_d": [b, h, n, m, d],
                           "kernels_device_ms": sum(per_kernel.values()),
                           "per_kernel_ms": per_kernel, "wrapper_ms": wrapper_ms,
-                          "sdpa_bwd_ms": sdpa_ms, "bound": bounds, "splits": splits,
+                          "wrapper_device_ms": wrapper_device_ms, "sdpa_bwd_ms": sdpa_ms,
+                          "sdpa_bwd_device_ms": sdpa_device_ms, "bound": bounds["bwd"],
+                          "bound_ms": bound_ms,
+                          "fraction_of_bound": fraction, "splits": splits,
                           "card": name}), flush=True)
         del q, k, v, o, lse, do, qt, kt, vt, sdpa_out
         torch.cuda.empty_cache()
     return 0
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn`` (ms): every CUDA kernel the
+    profiler records over ``iters`` calls, after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / iters
 
 
 def profile_fwd(args, attention_cuda, name) -> int:

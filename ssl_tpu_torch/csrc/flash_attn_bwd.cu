@@ -85,21 +85,35 @@
 // flash_attn_bwd_bf16): upstream's two Pallas backward kernels with bf16
 // operands: P recomputed in fp32 from lse, dV = Pᵀ dO and dP = dO vᵀ on bf16
 // operands, dS = P (dP - di) formed in fp32 and rounded to bf16 for
-// dK = sm_scale dSᵀ q and dQ = sm_scale dS k, all sums in fp32
-// accumulators (mma.sync m16n8k16, bf16_mma.cuh); dq, dk and dv written in
-// bf16 (split parts in fp32, rounded by flash_attn_bwd_sum_bf16_kernel).
-// What bounds it: the five products at the bf16 rate, 2-byte operands.  The
-// float32 kernels' plans with 8 warps of 16 rows at d = 64 and 128, the
-// streamed or resident tile read transposed by ldmatrix.trans for the
-// accumulations; at d = 512 P and dS go to scratch in bf16 (half the float32
-// scratch), where the products that read them round them anyway.
+// dK = sm_scale dSᵀ q and dQ = sm_scale dS k, all sums in fp32 accumulators;
+// dq, dk and dv written in bf16 (split parts in fp32, rounded by
+// flash_attn_bwd_sum_bf16_kernel).
+// At d = 64 and 128 the two kernels are built for Hopper (hopper_wgmma.cuh):
+// wgmma.mma_async on the bf16 tiles as TMA lands them in 128-byte-swizzled
+// shared memory, the logit products with both operands K-major along d, the
+// accumulations with P or dS as the A operand from registers and the
+// streamed or resident tile as an MN-major B (imm-trans-b, which 16-bit
+// types allow and tf32 does not): no transposed copy.  One thread of a
+// producer warpgroup keeps a ring of 3-4 stages full through mbarriers; two
+// consumer warpgroups own 64 rows each.  What bounds them: the seven
+// products at the bf16 rate (8bhnmd in dkv, 6bhnmd in dq) and, close behind,
+// the softmax's exponentials: each kernel forms P once, bhnm exponentials at
+// 16 a clock per SM, about half the products' time.  So at d = 64 the
+// warpgroup's own K and V (dkv) or Q and dO (dq) stay in registers as the
+// logit products' A operands (the products then read only the streamed tile
+// from shared memory), and each tile's softmax goes in two halves of 32
+// columns: the second half's P and dS are formed while the first half's
+// accumulations run.  At d = 512 P and dS go to scratch in bf16 (half the
+// float32 scratch), where the products that read them round them anyway
+// (mma.sync, bf16_mma.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"   // bf16 mma.sync products, ldmatrix fragment loads
-#include "tf32_mma.cuh"   // 3xTF32 mma.sync products, cp.async tile copies
+#include "bf16_mma.cuh"      // bf16 mma.sync products, ldmatrix fragment loads
+#include "hopper_wgmma.cuh"   // TMA, mbarrier rings, setmaxnreg, bf16 wgmma
+#include "tf32_mma.cuh"      // 3xTF32 mma.sync products, cp.async tile copies
 
 namespace {
 
@@ -578,181 +592,449 @@ flash_attn_bwd_dq_mm_kernel(const float* __restrict__ k, const float* __restrict
 
 // ---- bf16, d = 64 and 128: the fused kernels ----------------------------
 //
-// The float32 kernels' plan with bf16 operands (m16n8k16, fp32
-// accumulators), 8 warps of 16 rows: the logit products read 32-bit pairs
-// along d (frag_a_rows / frag_b_rows), the accumulations read the streamed
-// or resident tile transposed by ldmatrix.trans (accumulate_bf16), and Pᵀ,
-// dSᵀ (dS in dq) are formed in fp32 and rounded to bf16 as they are packed
-// into the A fragments.  Outputs are bf16, or the fp32 parts of a split.
+// Warp-specialised for Hopper (hopper_wgmma.cuh): 384 threads, two consumer
+// warpgroups (threads 0-255) and a producer warpgroup (256-383) of which one
+// thread issues every copy.  The producer gives its registers to the
+// consumers (setmaxnreg 24 / 240).  The block's resident rows come in once
+// by TMA; the streamed tiles of BF16_TILE rows (and, in dkv, their lse and di)
+// run through a ring of STAGES buffers: a "full" mbarrier a stage (the
+// producer's arrival and the copies' bytes) and an "empty" one (every
+// consumer thread's arrival once its products have read the stage).  Each
+// consumer warpgroup owns 64 of the block's 128 rows.  Per tile it computes
+// the two logit products (m64n64k16, K-major along d as stored; at d = 64
+// with the warpgroup's resident rows as A operands from registers), forms P
+// and dS in fp32 registers, and accumulates with the rounded P or dS as
+// wgmma's A operand from registers and the streamed or resident tile as an
+// MN-major B (imm-trans-b = 1): no transposed copy.  The softmax goes in two
+// halves of 32 columns, so that the second half's exponentials run beside
+// the first half's accumulations.  Outputs are bf16, or the fp32 parts of a
+// split.
 
-// bytes: K and V [BN][D + 8] bf16, 2 x {q, dO [BM][D + 8]} bf16, 2 x {lse, di [BM]} float
-template <int D, int BN, int BM>
-constexpr size_t dkv_bf16_smem_bytes() {
-  return sizeof(bf16) * ((size_t)2 * BN * (D + 8) + (size_t)2 * 2 * BM * (D + 8)) +
-         sizeof(float) * (size_t)2 * 2 * BM;
+constexpr int BF16_BLOCK = 128, BF16_TILE = 64, BF16_THREADS = 384;
+constexpr int BF16_STAGES_D64 = 4, BF16_STAGES_D128 = 3;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory (bytes) of the two kernels at head width D with STAGES ring
+// stages: 1024 of alignment slack, the resident [128][D] operands (K and V,
+// or Q and dO), the stages' [64][D] operands, dkv's lse and di a stage, and
+// the barriers (full and empty a stage, one for the resident rows).
+template <int D, int STAGES>
+constexpr int dkv_bf16_smem_bytes() {
+  return 1024 + 2 * BF16_BLOCK * D * 2 + STAGES * 2 * BF16_TILE * D * 2 +
+         STAGES * 2 * BF16_TILE * 4 + (2 * STAGES + 1) * 8;
 }
 
-// bytes: Q and dO [BQ][D + 8], 2 x {k, v [BK][D + 8]}, all bf16
-template <int D, int BQ, int BK>
-constexpr size_t dq_bf16_smem_bytes() {
-  return sizeof(bf16) * ((size_t)2 * BQ * (D + 8) + (size_t)2 * 2 * BK * (D + 8));
+template <int D, int STAGES>
+constexpr int dq_bf16_smem_bytes() {
+  return 1024 + 2 * BF16_BLOCK * D * 2 + STAGES * 2 * BF16_TILE * D * 2 + (2 * STAGES + 1) * 8;
 }
 
-template <int D, int BN, int BM, typename OutT>
-__global__ void __launch_bounds__(BN * 2)
-flash_attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// s (64 x 64) = rows 0..63 of a · rows 0..63 of bᵀ over D: a and b are
+// [rows][D] tiles as D / 64 column blocks of a_rows (b_rows) rows.  The descriptors are rebuilt from one
+// opaque base each per call, so that the compiler holds two registers for
+// them, not two a k-step.
+template <int D>
+__device__ __forceinline__ void logits_wg(float (&s)[32], const bf16* a, int a_rows,
+                                          const bf16* b, int b_rows) {
+  uint64_t da = desc_sw128(a, 16, 1024), db = desc_sw128(b, 16, 1024);
+  opaque(da);
+  opaque(db);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / 4, off = (kk % 4) * 32;     // column block, bytes into the row
+    wgmma_ss(s, da + ((c * a_rows * 128 + off) >> 4), db + ((c * b_rows * 128 + off) >> 4),
+             kk > 0);
+  }
+}
+
+// The same with a's rows as the A operands of D / 16 k-steps in registers
+// (``load_a_rows``).
+template <int D>
+__device__ __forceinline__ void logits_wg(float (&s)[32], const uint32_t (&a)[D / 16][4],
+                                          const bf16* b, int b_rows) {
+  uint64_t db = desc_sw128(b, 16, 1024);
+  opaque(db);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_rs<0>(s, a[kk], db + (((kk / 4) * b_rows * 128 + (kk % 4) * 32) >> 4), kk > 0);
+}
+
+// acc (64 x D) += x · y over the 32 contraction rows of half h: x holds the
+// A operands of its two k-steps, y's rows 32h .. 32h + 31 of a [64][D] tile
+// (D / 64 column blocks of 64 rows) are read MN-major.
+template <int D>
+__device__ __forceinline__ void accumulate_half(float (&acc)[D / 64][32], uint32_t (&x)[2][4],
+                                                const bf16* y, int h) {
+  uint64_t dy = desc_sw128(y + 32 * h * 64, BF16_TILE * 128, 1024);
+  opaque(dy);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      wgmma_rs<1>(acc[c], x[kk], dy + ((c * BF16_TILE * 128 + kk * 16 * 128) >> 4), 1);
+}
+
+// Columns 32h .. 32h + 31 of a 64 x 64 accumulator (d[4j + r], column 8j +
+// 2t + r % 2): its entries 16h .. 16h + 15.
+__device__ __forceinline__ float (&half_cols(float (&d)[32], int h))[16] {
+  return *reinterpret_cast<float(*)[16]>(d + 16 * h);
+}
+
+// Pᵀ = exp(sm_scale·Sᵀ - lse) and dSᵀ = Pᵀ (dPᵀ - di) in place over 32 query
+// columns of the dkv kernel's accumulators (this thread's columns 8j + 2t
+// and + 1, j < 4, of the given lse and di).
+__device__ __forceinline__ void p_and_ds_cols(float (&st)[16], float (&dpt)[16],
+                                              const float* s_lse, const float* s_di,
+                                              float scale_log2, int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(s_lse + 8 * j + 2 * t);
+    const float2 dd = *reinterpret_cast<const float2*>(s_di + 8 * j + 2 * t);
+    const float l2[2] = {l.x * LOG2E, l.y * LOG2E}, d2[2] = {dd.x, dd.y};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float p = ex2(fmaf(st[4 * j + r], scale_log2, -l2[r % 2]));
+      st[4 * j + r] = p;
+      dpt[4 * j + r] = p * (dpt[4 * j + r] - d2[r % 2]);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void fence_acc(float (&acc)[D / 64][32]) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) fence_regs(acc[c]);
+}
+
+// Store a warpgroup's 64 x D accumulator times scale into contiguous (b, seq,
+// heads, D) rows: this thread's rows are row and row + 8 of the flattened
+// (b·seq) index, its columns 64c + 8j + 2t and + 1.
+template <int D, typename OutT>
+__device__ __forceinline__ void store_wg(OutT* out, const float (&acc)[D / 64][32],
+                                         long long row, int heads, int hi, float scale, int t) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * c + 8 * j + 2 * t;
+      store2(out + (row * heads + hi) * D + col, acc[c][4 * j] * scale,
+             acc[c][4 * j + 1] * scale);
+      store2(out + ((row + 8) * heads + hi) * D + col, acc[c][4 * j + 2] * scale,
+             acc[c][4 * j + 3] * scale);
+    }
+}
+
+// One block per (b·head, 128 keys[, split]): K and V resident, Q, dO, lse and
+// di tiles of 64 queries streamed.  Consumer warpgroup w owns keys 64w..64w+63:
+// Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, Pᵀ and dSᵀ in registers, dV += Pᵀ dO, dK += dSᵀ Q.
+template <int D, int STAGES, typename OutT>
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+flash_attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
                                const float* __restrict__ lse, const float* __restrict__ di,
-                               OutT* __restrict__ dk, OutT* __restrict__ dv, Strides st, int b,
-                               int heads, int n, int m, int tiles_per_split, float sm_scale) {
-  constexpr int NTHREADS = BN * 2, P = D + 8, NT = BM / 8;
-  constexpr int STAGE = 2 * BM * P;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem_raw);   // [BN][D + 8]
-  bf16* s_v = s_k + BN * P;                         // [BN][D + 8]
-  bf16* ring = s_v + BN * P;                        // 2 x {q [BM][D + 8], dO [BM][D + 8]}
-  float* ring_f = reinterpret_cast<float*>(ring + 2 * STAGE);   // 2 x {lse [BM], di [BM]}
+                               OutT* __restrict__ dk, OutT* __restrict__ dv, int b, int heads,
+                               int n, int m, int tiles_per_split, float sm_scale) {
+  constexpr int BN = BF16_BLOCK, BM = BF16_TILE, CB = D / 64;
+  constexpr int KV_BYTES = BN * D * 2, TILE_BYTES = BM * D * 2;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* base = align1024(smem_tma);
+  bf16* s_k = reinterpret_cast<bf16*>(base);                  // CB blocks of [BN][64]
+  bf16* s_v = reinterpret_cast<bf16*>(base + KV_BYTES);
+  unsigned char* ring = base + 2 * KV_BYTES;                   // STAGES x {q, dO}
+  float* s_vec = reinterpret_cast<float*>(ring + STAGES * 2 * TILE_BYTES);  // STAGES x {lse, di}
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_vec + STAGES * 2 * BM);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_bar = empty + STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x;
   const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
-  const int k0 = blockIdx.x * BN, split = blockIdx.z;
-  const int tile0 = split * tiles_per_split;
-  const bf16* qp = q + bi * st.qb + hi * st.qh;
-  const bf16* gp = dout + bi * st.gb + hi * st.gh;
-  const float* lp = lse + (long long)bh * n;
-  const float* dip = di + (long long)bh * n;
-
-  auto load_stage = [&](int stage, int tile) {
-    bf16* s = ring + stage * STAGE;
-    float* f = ring_f + stage * 2 * BM;
-    const long long q0 = (long long)tile * BM;
-    load_tile_bf16<BM, D, P, NTHREADS>(s, qp + q0 * st.qn, st.qn, tid);
-    load_tile_bf16<BM, D, P, NTHREADS>(s + BM * P, gp + q0 * st.gn, st.gn, tid);
-    load_vec_async<BM, NTHREADS>(f, lp + q0, tid);
-    load_vec_async<BM, NTHREADS>(f + BM, dip + q0, tid);
-  };
-
-  load_tile_bf16<BN, D, P, NTHREADS>(s_k, k + bi * st.kb + hi * st.kh + (long long)k0 * st.kn,
-                                     st.kn, tid);
-  load_tile_bf16<BN, D, P, NTHREADS>(s_v, v + bi * st.vb + hi * st.vh + (long long)k0 * st.vn,
-                                     st.vn, tid);
-  load_stage(0, tile0);
-  cp_async_commit();
-
-  float acc_k[D / 8][1][4], acc_v[D / 8][1][4];
+  const int k0 = blockIdx.x * BN, split = blockIdx.z, tile0 = split * tiles_per_split;
+  if (tid == 0) {
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc_k[c][0][r] = acc_v[c][0][r] = 0.f;
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(kv_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  const bf16* my_k = s_k + 16 * warp * P;     // the warp's 16 keys
-  const bf16* my_v = s_v + 16 * warp * P;
-  for (int it = 0; it < tiles_per_split; ++it) {
-    if (it + 1 < tiles_per_split) load_stage((it + 1) & 1, tile0 + it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();       // this tile (and K, V) have landed
-    __syncthreads();
-    const bf16* s_q = ring + (it & 1) * STAGE;
-    const bf16* s_do = s_q + BM * P;
-    const float* s_lse = ring_f + (it & 1) * 2 * BM;
-    const float* s_di = s_lse + BM;
-
-    float s[NT][1][4], dp[NT][1][4];   // Sᵀ, dPᵀ: rows = the warp's keys, columns = queries
-    logits_bf16<D, NT, 1, P>(my_k, s_q, g, t, s);
-    logits_bf16<D, NT, 1, P>(my_v, s_do, g, t, dp);
+  if (tid >= 256) {   // the producer warpgroup
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      mbar_arrive_expect_tx(kv_bar, 2 * KV_BYTES);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = 8 * j + 2 * t;     // this thread's query columns c and c + 1
-      const float lse2[2] = {s_lse[c], s_lse[c + 1]}, di2[2] = {s_di[c], s_di[c + 1]};
+      for (int c = 0; c < CB; ++c)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        s[j][0][r] = expf(s[j][0][r] * sm_scale - lse2[r % 2]);
-        dp[j][0][r] = s[j][0][r] * (dp[j][0][r] - di2[r % 2]);
+        for (int r = 0; r < BN / 64; ++r) {
+          tma_load_4d(s_k + (c * BN + 64 * r) * 64, &tm_k, kv_bar, 64 * c, hi, k0 + 64 * r, bi);
+          tma_load_4d(s_v + (c * BN + 64 * r) * 64, &tm_v, kv_bar, 64 * c, hi, k0 + 64 * r, bi);
+        }
+      const float* lp = lse + (long long)bh * n;
+      const float* dp = di + (long long)bh * n;
+      for (int it = 0; it < tiles_per_split; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES + 2 * BM * 4);
+        bf16* sq = reinterpret_cast<bf16*>(ring + s * 2 * TILE_BYTES);
+        bf16* sdo = sq + BM * D;
+        const int q0 = (tile0 + it) * BM;
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(sq + c * BM * 64, &tm_q, &full[s], 64 * c, hi, q0, bi);
+          tma_load_4d(sdo + c * BM * 64, &tm_do, &full[s], 64 * c, hi, q0, bi);
+        }
+        bulk_load(s_vec + s * 2 * BM, lp + q0, BM * 4, &full[s]);
+        bulk_load(s_vec + s * 2 * BM + BM, dp + q0, BM * 4, &full[s]);
       }
     }
-    accumulate_bf16<D, NT, 1, P>(acc_v, s, s_do, lane);    // dV += Pᵀ dO
-    accumulate_bf16<D, NT, 1, P>(acc_k, dp, s_q, lane);    // dK += dSᵀ Q
-    __syncthreads();          // every warp is done with this stage before it is refilled
-  }
+  } else {   // the consumer warpgroups
+    setmaxnreg_inc<240>();
+    const int wg = tid / 128, wq = (tid % 128) / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const float scale_log2 = sm_scale * LOG2E;
+    float acc_k[CB][32], acc_v[CB][32];
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_k[c][i] = acc_v[c][i] = 0.f;
+    const bf16* my_k = s_k + 64 * wg * 64;     // this warpgroup's keys in column block 0
+    const bf16* my_v = s_v + 64 * wg * 64;
+    mbar_wait(kv_bar, 0);
+    __syncwarp();
+    // At d = 64 the warpgroup's K and V rows stay in registers as the logit
+    // products' A operands (32 registers), so that those products read only
+    // Q and dO from shared memory; at d = 128 they are read from there.
+    constexpr bool A_REGS = D == 64;
+    uint32_t k_frag[A_REGS ? D / 16 : 1][4], v_frag[A_REGS ? D / 16 : 1][4];
+    if constexpr (A_REGS) {
+      load_a_rows<D>(k_frag, s_k, BN, 64 * wg, wq, lane);
+      load_a_rows<D>(v_frag, s_v, BN, 64 * wg, wq, lane);
+    }
+    for (int it = 0; it < tiles_per_split; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      __syncwarp();
+      const bf16* sq = reinterpret_cast<const bf16*>(ring + s * 2 * TILE_BYTES);
+      const bf16* sdo = sq + BM * D;
+      const float* s_lse = s_vec + s * 2 * BM;
+      const float* s_di = s_lse + BM;
 
-  const long long part = (long long)split * b * m * heads * D;
-  const long long row0 = (long long)bi * m + k0 + 16 * warp;
-  store_rows<D, 1, OutT>(dk + part, acc_k, row0, heads, hi, sm_scale, g, t);
-  store_rows<D, 1, OutT>(dv + part, acc_v, row0, heads, hi, 1.f, g, t);
+      // Sᵀ and dPᵀ (rows = the warpgroup's keys, columns = queries) as
+      // m64n64k16 products in one group; then per half of 32 queries: form Pᵀ
+      // and dSᵀ and issue its share of dV and dK, so that half 1's softmax
+      // runs beside half 0's products.
+      float st[32], dpt[32];
+      uint32_t ap[2][2][4], as[2][2][4];   // per half, its two k-steps
+      fence_regs(st);
+      fence_regs(dpt);
+      if constexpr (A_REGS) {
+        fence_regs(k_frag);
+        fence_regs(v_frag);
+      }
+      wgmma_fence();
+      if constexpr (A_REGS) {
+        logits_wg<D>(st, k_frag, sq, BM);
+        logits_wg<D>(dpt, v_frag, sdo, BM);
+      } else {
+        logits_wg<D>(st, my_k, BN, sq, BM);
+        logits_wg<D>(dpt, my_v, BN, sdo, BM);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if constexpr (A_REGS) {
+        fence_regs(k_frag);
+        fence_regs(v_frag);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float (&sh)[16] = half_cols(st, h), (&dh)[16] = half_cols(dpt, h);
+        fence_regs(sh);
+        fence_regs(dh);
+        p_and_ds_cols(sh, dh, s_lse + 32 * h, s_di + 32 * h, scale_log2, t);
+        pack_a_wg(ap[h], sh);
+        pack_a_wg(as[h], dh);
+        fence_regs(ap[h]);
+        fence_regs(as[h]);
+        if (h == 0) {       // (half 1 accumulates into them while half 0's products run)
+          fence_acc<D>(acc_v);
+          fence_acc<D>(acc_k);
+        }
+        wgmma_fence();
+        accumulate_half<D>(acc_v, ap[h], sdo, h);    // dV += Pᵀ dO
+        accumulate_half<D>(acc_k, as[h], sq, h);     // dK += dSᵀ Q
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        fence_regs(ap[h]);
+        fence_regs(as[h]);
+      }
+      fence_acc<D>(acc_v);
+      fence_acc<D>(acc_k);
+      mbar_arrive(&empty[s]);
+    }
+
+    const long long part = (long long)split * b * m * heads * D;
+    const long long row = (long long)bi * m + k0 + 64 * wg + 16 * wq + g;
+    store_wg<D, OutT>(dk + part, acc_k, row, heads, hi, sm_scale, t);
+    store_wg<D, OutT>(dv + part, acc_v, row, heads, hi, 1.f, t);
+  }
 }
 
-template <int D, int BQ, int BK, typename OutT>
-__global__ void __launch_bounds__(BQ * 2)
-flash_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// One block per (b·head, 128 queries[, split]): Q and dO resident, K and V
+// tiles of 64 keys streamed.  Consumer warpgroup w owns queries 64w..64w+63:
+// S = Q Kᵀ and dP = dO Vᵀ, dS in registers, dQ += dS K.
+template <int D, int STAGES, typename OutT>
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+flash_attn_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
                               const float* __restrict__ lse, const float* __restrict__ di,
-                              OutT* __restrict__ dq, Strides st, int b, int heads, int n, int m,
+                              OutT* __restrict__ dq, int b, int heads, int n, int m,
                               int tiles_per_split, float sm_scale) {
-  constexpr int NTHREADS = BQ * 2, P = D + 8, NT = BK / 8;
-  constexpr int STAGE = 2 * BK * P;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);   // [BQ][D + 8]
-  bf16* s_do = s_q + BQ * P;                        // [BQ][D + 8]
-  bf16* ring = s_do + BQ * P;                       // 2 x {k [BK][D + 8], v [BK][D + 8]}
+  constexpr int BQ = BF16_BLOCK, BK = BF16_TILE, CB = D / 64;
+  constexpr int QD_BYTES = BQ * D * 2, TILE_BYTES = BK * D * 2;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* base = align1024(smem_tma);
+  bf16* s_q = reinterpret_cast<bf16*>(base);                  // CB blocks of [BQ][64]
+  bf16* s_do = reinterpret_cast<bf16*>(base + QD_BYTES);
+  unsigned char* ring = base + 2 * QD_BYTES;                   // STAGES x {k, v}
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * TILE_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qd_bar = empty + STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x;
   const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
-  const int q0 = blockIdx.x * BQ, split = blockIdx.z;
-  const int tile0 = split * tiles_per_split;
-  const bf16* kp = k + bi * st.kb + hi * st.kh;
-  const bf16* vp = v + bi * st.vb + hi * st.vh;
-
-  auto load_stage = [&](int stage, int tile) {
-    bf16* s = ring + stage * STAGE;
-    const long long k0 = (long long)tile * BK;
-    load_tile_bf16<BK, D, P, NTHREADS>(s, kp + k0 * st.kn, st.kn, tid);
-    load_tile_bf16<BK, D, P, NTHREADS>(s + BK * P, vp + k0 * st.vn, st.vn, tid);
-  };
-
-  load_tile_bf16<BQ, D, P, NTHREADS>(s_q, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn,
-                                     st.qn, tid);
-  load_tile_bf16<BQ, D, P, NTHREADS>(
-      s_do, dout + bi * st.gb + hi * st.gh + (long long)q0 * st.gn, st.gn, tid);
-  load_stage(0, tile0);
-  cp_async_commit();
-
-  // the warp's rows: q0 + 16·warp + g and + 8
-  const int r0 = q0 + 16 * warp;
-  float row_lse[2], row_di[2], acc[D / 8][1][4];
+  const int q0 = blockIdx.x * BQ, split = blockIdx.z, tile0 = split * tiles_per_split;
+  if (tid == 0) {
 #pragma unroll
-  for (int h8 = 0; h8 < 2; ++h8) {
-    row_lse[h8] = lse[(long long)bh * n + r0 + g + 8 * h8];
-    row_di[h8] = di[(long long)bh * n + r0 + g + 8 * h8];
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(qd_bar, 1);
+    mbar_init_fence();
   }
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[c][0][r] = 0.f;
+  __syncthreads();
 
-  const bf16* my_q = s_q + 16 * warp * P;
-  const bf16* my_do = s_do + 16 * warp * P;
-  for (int it = 0; it < tiles_per_split; ++it) {
-    if (it + 1 < tiles_per_split) load_stage((it + 1) & 1, tile0 + it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* s_k = ring + (it & 1) * STAGE;
-    const bf16* s_v = s_k + BK * P;
+  if (tid >= 256) {   // the producer warpgroup
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      mbar_arrive_expect_tx(qd_bar, 2 * QD_BYTES);
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+#pragma unroll
+        for (int r = 0; r < BQ / 64; ++r) {
+          tma_load_4d(s_q + (c * BQ + 64 * r) * 64, &tm_q, qd_bar, 64 * c, hi, q0 + 64 * r, bi);
+          tma_load_4d(s_do + (c * BQ + 64 * r) * 64, &tm_do, qd_bar, 64 * c, hi, q0 + 64 * r,
+                      bi);
+        }
+      for (int it = 0; it < tiles_per_split; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+        bf16* sk = reinterpret_cast<bf16*>(ring + s * 2 * TILE_BYTES);
+        bf16* sv = sk + BK * D;
+        const int k0 = (tile0 + it) * BK;
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(sk + c * BK * 64, &tm_k, &full[s], 64 * c, hi, k0, bi);
+          tma_load_4d(sv + c * BK * 64, &tm_v, &full[s], 64 * c, hi, k0, bi);
+        }
+      }
+    }
+  } else {   // the consumer warpgroups
+    setmaxnreg_inc<240>();
+    const int wg = tid / 128, wq = (tid % 128) / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const float scale_log2 = sm_scale * LOG2E;
+    // this thread's rows: r0 and r0 + 8
+    const int r0 = q0 + 64 * wg + 16 * wq + g;
+    const float l2[2] = {lse[(long long)bh * n + r0] * LOG2E,
+                         lse[(long long)bh * n + r0 + 8] * LOG2E};
+    const float d2[2] = {di[(long long)bh * n + r0], di[(long long)bh * n + r0 + 8]};
+    float acc[CB][32];
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    const bf16* my_q = s_q + 64 * wg * 64;     // this warpgroup's queries in column block 0
+    const bf16* my_do = s_do + 64 * wg * 64;
+    mbar_wait(qd_bar, 0);
+    __syncwarp();
+    // At d = 64 the warpgroup's Q and dO rows stay in registers as the logit
+    // products' A operands (32 registers), so that those products read only
+    // K and V from shared memory.
+    constexpr bool A_REGS = D == 64;
+    uint32_t q_frag[A_REGS ? D / 16 : 1][4], do_frag[A_REGS ? D / 16 : 1][4];
+    if constexpr (A_REGS) {
+      load_a_rows<D>(q_frag, s_q, BQ, 64 * wg, wq, lane);
+      load_a_rows<D>(do_frag, s_do, BQ, 64 * wg, wq, lane);
+    }
+    for (int it = 0; it < tiles_per_split; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      __syncwarp();
+      const bf16* sk = reinterpret_cast<const bf16*>(ring + s * 2 * TILE_BYTES);
+      const bf16* sv = sk + BK * D;
+      // S and dP (rows = the warpgroup's queries, columns = keys) as
+      // m64n64k16 products in one group; then per half of 32 keys: form dS
+      // and issue its share of dQ, as in the dkv kernel.
+      float st[32], dpt[32];
+      uint32_t as[2][2][4];   // per half, its two k-steps
+      fence_regs(st);
+      fence_regs(dpt);
+      if constexpr (A_REGS) {
+        fence_regs(q_frag);
+        fence_regs(do_frag);
+      }
+      wgmma_fence();
+      if constexpr (A_REGS) {
+        logits_wg<D>(st, q_frag, sk, BK);
+        logits_wg<D>(dpt, do_frag, sv, BK);
+      } else {
+        logits_wg<D>(st, my_q, BQ, sk, BK);
+        logits_wg<D>(dpt, my_do, BQ, sv, BK);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float (&sh)[16] = half_cols(st, h), (&dh)[16] = half_cols(dpt, h);
+        fence_regs(sh);
+        fence_regs(dh);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)     // dS; rows r0 (i % 4 < 2) and r0 + 8
+          dh[i] = ex2(fmaf(sh[i], scale_log2, -l2[(i % 4) / 2])) * (dh[i] - d2[(i % 4) / 2]);
+        pack_a_wg(as[h], dh);
+        fence_regs(as[h]);
+        if (h == 0) fence_acc<D>(acc);
+        wgmma_fence();
+        accumulate_half<D>(acc, as[h], sk, h);     // dQ += dS K
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) fence_regs(as[h]);
+      fence_acc<D>(acc);
+      if constexpr (A_REGS) {
+        fence_regs(q_frag);
+        fence_regs(do_frag);
+      }
+      mbar_arrive(&empty[s]);
+    }
 
-    float s[NT][1][4], dp[NT][1][4];   // S and dP: rows = the warp's queries, columns = keys
-    logits_bf16<D, NT, 1, P>(my_q, s_k, g, t, s);
-    logits_bf16<D, NT, 1, P>(my_do, s_v, g, t, dp);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        dp[j][0][r] = expf(s[j][0][r] * sm_scale - row_lse[r / 2]) * (dp[j][0][r] - row_di[r / 2]);
-    accumulate_bf16<D, NT, 1, P>(acc, dp, s_k, lane);      // dQ += dS K
-    __syncthreads();
+    const long long part = (long long)split * b * n * heads * D;
+    store_wg<D, OutT>(dq + part, acc, (long long)bi * n + r0, heads, hi, sm_scale, t);
   }
-
-  const long long part = (long long)split * b * n * heads * D;
-  store_rows<D, 1, OutT>(dq + part, acc, (long long)bi * n + r0, heads, hi, sm_scale, g, t);
 }
 
 // out[i] = sum over s of parts[s·count + i], s = 0, 1, ... in order, rounded to bf16.
@@ -1055,43 +1337,49 @@ cudaError_t launch_fused(const Args<float>& a, cudaStream_t stream) {
 }
 
 // bf16: a split writes float parts (the OutT = float instantiation), an
-// unsplit loop bf16 outputs directly.
-template <int D, int BN, int BM, int BQ, int BK>
+// unsplit loop bf16 outputs directly.  q, k, v and dO go in as tensor maps
+// (boxes of 64 columns x 64 rows) over their strided views.
+template <int D, int STAGES>
 cudaError_t launch_fused_bf16(const Args<bf16>& a, cudaStream_t stream) {
-  const size_t smem_dkv = dkv_bf16_smem_bytes<D, BN, BM>();
-  const size_t smem_dq = dq_bf16_smem_bytes<D, BQ, BK>();
-  cudaError_t err = set_smem(flash_attn_bwd_dkv_bf16_kernel<D, BN, BM, float>, smem_dkv);
-  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dkv_bf16_kernel<D, BN, BM, bf16>, smem_dkv);
-  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_bf16_kernel<D, BQ, BK, float>, smem_dq);
-  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_bf16_kernel<D, BQ, BK, bf16>, smem_dq);
+  CUtensorMap tq, tk, tv, tdo;
+  const Strides& st = a.st;
+  cudaError_t err = bf16_tile_map(&tq, a.q, a.b, a.n, a.heads, D, st.qb, st.qn, st.qh, 64);
+  if (err == cudaSuccess) err = bf16_tile_map(&tk, a.k, a.b, a.m, a.heads, D, st.kb, st.kn, st.kh, 64);
+  if (err == cudaSuccess) err = bf16_tile_map(&tv, a.v, a.b, a.m, a.heads, D, st.vb, st.vn, st.vh, 64);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&tdo, a.dout, a.b, a.n, a.heads, D, st.gb, st.gn, st.gh, 64);
+  if (err != cudaSuccess) return err;
+  constexpr int smem_dkv = dkv_bf16_smem_bytes<D, STAGES>();
+  constexpr int smem_dq = dq_bf16_smem_bytes<D, STAGES>();
+  err = set_smem(flash_attn_bwd_dkv_bf16_kernel<D, STAGES, float>, smem_dkv);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dkv_bf16_kernel<D, STAGES, bf16>, smem_dkv);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_bf16_kernel<D, STAGES, float>, smem_dq);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_bf16_kernel<D, STAGES, bf16>, smem_dq);
   if (err != cudaSuccess) return err;
   auto dkv = [&](float* dk_parts, float* dv_parts) {
-    const dim3 grid(a.m / BN, a.b * a.heads, a.dkv_split);
-    const int tiles = a.n / BM / a.dkv_split;
+    const dim3 grid(a.m / BF16_BLOCK, a.b * a.heads, a.dkv_split);
+    const int tiles = a.n / BF16_TILE / a.dkv_split;
     if (a.dkv_split > 1)
-      flash_attn_bwd_dkv_bf16_kernel<D, BN, BM, float><<<grid, BN * 2, smem_dkv, stream>>>(
-          a.q, a.k, a.v, a.dout, a.lse, a.di, dk_parts, dv_parts, a.st, a.b, a.heads, a.n, a.m,
-          tiles, a.sm_scale);
-    else
-      flash_attn_bwd_dkv_bf16_kernel<D, BN, BM, bf16><<<grid, BN * 2, smem_dkv, stream>>>(
-          a.q, a.k, a.v, a.dout, a.lse, a.di, a.dk, a.dv, a.st, a.b, a.heads, a.n, a.m, tiles,
+      flash_attn_bwd_dkv_bf16_kernel<D, STAGES, float><<<grid, BF16_THREADS, smem_dkv, stream>>>(
+          tq, tk, tv, tdo, a.lse, a.di, dk_parts, dv_parts, a.b, a.heads, a.n, a.m, tiles,
           a.sm_scale);
+    else
+      flash_attn_bwd_dkv_bf16_kernel<D, STAGES, bf16><<<grid, BF16_THREADS, smem_dkv, stream>>>(
+          tq, tk, tv, tdo, a.lse, a.di, a.dk, a.dv, a.b, a.heads, a.n, a.m, tiles, a.sm_scale);
     return cudaGetLastError();
   };
   auto dq = [&](float* dq_parts) {
-    const dim3 grid(a.n / BQ, a.b * a.heads, a.dq_split);
-    const int tiles = a.m / BK / a.dq_split;
+    const dim3 grid(a.n / BF16_BLOCK, a.b * a.heads, a.dq_split);
+    const int tiles = a.m / BF16_TILE / a.dq_split;
     if (a.dq_split > 1)
-      flash_attn_bwd_dq_bf16_kernel<D, BQ, BK, float><<<grid, BQ * 2, smem_dq, stream>>>(
-          a.q, a.k, a.v, a.dout, a.lse, a.di, dq_parts, a.st, a.b, a.heads, a.n, a.m, tiles,
-          a.sm_scale);
+      flash_attn_bwd_dq_bf16_kernel<D, STAGES, float><<<grid, BF16_THREADS, smem_dq, stream>>>(
+          tq, tk, tv, tdo, a.lse, a.di, dq_parts, a.b, a.heads, a.n, a.m, tiles, a.sm_scale);
     else
-      flash_attn_bwd_dq_bf16_kernel<D, BQ, BK, bf16><<<grid, BQ * 2, smem_dq, stream>>>(
-          a.q, a.k, a.v, a.dout, a.lse, a.di, a.dq, a.st, a.b, a.heads, a.n, a.m, tiles,
-          a.sm_scale);
+      flash_attn_bwd_dq_bf16_kernel<D, STAGES, bf16><<<grid, BF16_THREADS, smem_dq, stream>>>(
+          tq, tk, tv, tdo, a.lse, a.di, a.dq, a.b, a.heads, a.n, a.m, tiles, a.sm_scale);
     return cudaGetLastError();
   };
-  return launch_split_parts(a, D, BM, BK, BN, BQ, dkv, dq, stream);
+  return launch_split_parts(a, D, BF16_TILE, BF16_TILE, BF16_BLOCK, BF16_BLOCK, dkv, dq, stream);
 }
 
 // d = 512: flash_attn_bwd_p_ds_kernel into scratch as [P | dS], then
@@ -1187,9 +1475,10 @@ int flash_attn_bwd(const float* q, const float* k, const float* v, const float* 
 }
 
 // flash_attn_bwd with bf16 q, k, v, dout, dq, dk and dv (lse and di
-// float32): every stride a multiple of 8 and every base 16-byte aligned.
+// float32): every stride a multiple of 8 and every base 16-byte aligned (at
+// d = 64 and 128 the tensor maps also need strides below 2^39 elements).
 // scratch: d = 512: 2·b·heads·n·m bf16 (P and dS); d = 64 or 128 the float32
-// split parts as flash_attn_bwd's (32-row query and key tiles).
+// split parts as flash_attn_bwd's (64-row query and key tiles).
 int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* di, void* dq, void* dk, void* dv,
                         void* scratch, long long qb, long long qn, long long qh, long long kb,
@@ -1205,10 +1494,22 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
   if (n % 128 != 0 || m % 128 != 0 || dkv_split < 1 || dq_split < 1)
     return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 64: return (int)launch_fused_bf16<64, 128, 32, 128, 32>(a, s);
-    case 128: return (int)launch_fused_bf16<128, 128, 32, 128, 32>(a, s);
+    case 64: return (int)launch_fused_bf16<64, BF16_STAGES_D64>(a, s);
+    case 128: return (int)launch_fused_bf16<128, BF16_STAGES_D128>(a, s);
     case 512: return (int)launch_d512_bf16<512>(a, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 fused kernels' dynamic shared memory a block at head width d
+// (kernel 0: dkv, 1: dq), or -1; the wrapper checks its own plan against it.
+int flash_attn_bwd_bf16_smem_bytes(int d, int kernel) {
+  switch (d) {
+    case 64: return kernel ? dq_bf16_smem_bytes<64, BF16_STAGES_D64>()
+                           : dkv_bf16_smem_bytes<64, BF16_STAGES_D64>();
+    case 128: return kernel ? dq_bf16_smem_bytes<128, BF16_STAGES_D128>()
+                            : dkv_bf16_smem_bytes<128, BF16_STAGES_D128>();
+    default: return -1;
   }
 }
 

@@ -7,7 +7,8 @@ its custom VJP.  The kernel sources are ``ssl_tpu_torch/csrc/flash_attn_fwd.cu``
 with ``flash_attn_fwd_combine`` where the key loop is split) and
 ``ssl_tpu_torch/csrc/flash_attn_bwd.cu`` (``flash_attn_bwd_dkv`` and
 ``flash_attn_bwd_dq`` at d = 64 and 128, with ``flash_attn_bwd_sum`` where
-the loop is split; ``flash_attn_bwd_p_ds``, ``flash_attn_bwd_dkv_mm`` and
+the loop is split; in bf16 these two take q, k, v and dO as TMA tensor maps,
+``bwd_bf16_launch``; ``flash_attn_bwd_p_ds``, ``flash_attn_bwd_dkv_mm`` and
 ``flash_attn_bwd_dq_mm`` at d = 512).  They read q, k, v and dO through
 their (b, seq, heads, d) strides, so the UNet's (b, n, heads·d) projections
 and the head-major packed qkv of ``AttentionBlockQKV`` go in without a copy,
@@ -50,11 +51,21 @@ HEAD_DIMS = (64, 128, 512)
 BWD_BLOCK_ROWS = {64: (128, 128), 128: (128, 128)}
 BWD_STREAM_ROWS = {64: (32, 32), 128: (32, 32)}
 BWD_BLOCKS_PER_SM = {64: (2, 2), 128: (1, 1)}
-# The bf16 kernels own and stream the same rows with 8 warps of 16 rows a
-# block: 169 and 128 registers a thread at d = 64 (dkv, dq), 244 and 168 at
-# d = 128 (ptxas for sm_90a).
-BWD_BLOCKS_PER_SM_BF16 = {64: (1, 2), 128: (1, 1)}
+# The bf16 kernels (wgmma, TMA rings): 128 rows a block in two consumer
+# warpgroups of 64 and a producer warpgroup, 384 threads, tiles of 64 rows
+# streamed through BWD_STAGES_BF16 ring stages; one block an SM: 168
+# registers a thread at launch, the consumers raised to 240 by setmaxnreg
+# (ptxas for sm_90a: up to 229 in use, no spills).
+BWD_BLOCK_ROWS_BF16 = {64: (128, 128), 128: (128, 128)}
+BWD_STREAM_ROWS_BF16 = {64: (64, 64), 128: (64, 64)}
+BWD_BLOCKS_PER_SM_BF16 = {64: (1, 1), 128: (1, 1)}
+BWD_STAGES_BF16 = {64: 4, 128: 3}
 BWD_MAX_SPLIT = 4
+# What one block of an sm_90a card may take of shared memory, and what a TMA
+# tensor map allows: byte strides multiples of 16 below 2^40, box dimensions
+# up to 256, an inner box of at most 128 bytes under the 128-byte swizzle.
+MAX_SMEM_BYTES = 232448
+TMA_MAX_STRIDE, TMA_MAX_BOX, TMA_SWIZZLE_BYTES = 1 << 40, 256, 128
 # The forward's kernels by head width (csrc/flash_attn_fwd.cu): query rows a
 # block owns, keys streamed per tile, and blocks that fit one SM; in float32
 # and in bf16 (8 warps of 16 rows at d = 64 and 128: 128 and 189 registers a
@@ -78,6 +89,8 @@ def _declare_bwd(lib) -> None:
     for entry in (lib.flash_attn_bwd, lib.flash_attn_bwd_bf16):
         entry.argtypes = [p] * 10 + [ll] * 12 + [i] * 7 + [ctypes.c_float, p]
         entry.restype = i
+    lib.flash_attn_bwd_bf16_smem_bytes.argtypes = [i, i]
+    lib.flash_attn_bwd_bf16_smem_bytes.restype = i
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
 
@@ -208,8 +221,10 @@ def bwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int, dtype=torch.f
     if d == 512:
         return 1, 1, 2 * b * heads * n * m, {f"flash_attn_bwd_{k}{sfx}": 1
                                              for k in ("p_ds", "dkv_mm", "dq_mm")}
-    block, rows = BWD_BLOCK_ROWS[d], BWD_STREAM_ROWS[d]
-    per_sm = (BWD_BLOCKS_PER_SM_BF16 if dtype == torch.bfloat16 else BWD_BLOCKS_PER_SM)[d]
+    tables = ((BWD_BLOCK_ROWS_BF16, BWD_STREAM_ROWS_BF16, BWD_BLOCKS_PER_SM_BF16)
+              if dtype == torch.bfloat16 else
+              (BWD_BLOCK_ROWS, BWD_STREAM_ROWS, BWD_BLOCKS_PER_SM))
+    block, rows, per_sm = (t[d] for t in tables)
 
     def split(blocks, tiles, slots):
         s = 1
@@ -224,6 +239,61 @@ def bwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int, dtype=torch.f
     kernels = {f"flash_attn_bwd_dkv{sfx}": 1, f"flash_attn_bwd_dq{sfx}": 1,
                f"flash_attn_bwd_sum{sfx}": 2 * (dkv > 1) + (dq > 1)}
     return dkv, dq, scratch, kernels
+
+
+def bwd_bf16_smem_bytes(d: int) -> tuple[int, int]:
+    """Dynamic shared memory a block of the bf16 dkv and dq kernels takes at
+    head width 64 or 128 (csrc/flash_attn_bwd.cu, ``dkv_bf16_smem_bytes`` and
+    ``dq_bf16_smem_bytes``): 1024 bytes of alignment slack, the resident
+    operands (K and V, or Q and dO: block rows x d bf16 each), each ring
+    stage's two streamed operands (stream rows x d bf16 each; dkv's stage
+    also the tile's lse and di, float32), and 8 bytes a barrier (full and
+    empty a stage, one for the resident rows)."""
+    stages = BWD_STAGES_BF16[d]
+    (kv_rows, q_rows), (q_tile, k_tile) = BWD_BLOCK_ROWS_BF16[d], BWD_STREAM_ROWS_BF16[d]
+    barriers = 8 * (2 * stages + 1)
+    dkv = 1024 + 2 * kv_rows * d * 2 + stages * (2 * q_tile * d * 2 + 2 * q_tile * 4) + barriers
+    dq = 1024 + 2 * q_rows * d * 2 + stages * 2 * k_tile * d * 2 + barriers
+    return dkv, dq
+
+
+def bwd_tile_map(t: torch.Tensor, rows: int) -> dict:
+    """The TMA tensor map the bf16 backward's C entry encodes for a (b, seq,
+    heads, d) bf16 tensor: dims (d, heads, seq, b) innermost first, the byte
+    strides of the outer three, and boxes of 64 columns x 1 head x ``rows``
+    rows x 1 batch under the 128-byte swizzle.  Raises ``ValueError`` where
+    the hardware refuses the map."""
+    b, seq, heads, d = t.shape
+    size = t.element_size()
+    m = {"dims": (d, heads, seq, b), "box": (64, 1, rows, 1),
+         "strides": tuple(size * s for s in (t.stride(2), t.stride(1), t.stride(0))),
+         "base": t.data_ptr(), "swizzle": TMA_SWIZZLE_BYTES}
+    if t.stride(3) != 1 or m["base"] % 16:
+        raise ValueError(f"a tensor map needs unit stride along d and a 16-byte aligned base, "
+                         f"got strides {t.stride()} at {m['base']:#x}")
+    if any(s % 16 or not 0 < s < TMA_MAX_STRIDE for s in m["strides"]):
+        raise ValueError(f"tensor map byte strides {m['strides']} must be multiples of 16 "
+                         f"below 2^40")
+    if max(m["box"]) > TMA_MAX_BOX or m["box"][0] * size > TMA_SWIZZLE_BYTES:
+        raise ValueError(f"tensor map box {m['box']} exceeds {TMA_MAX_BOX} or an inner "
+                         f"{TMA_SWIZZLE_BYTES} bytes")
+    return m
+
+
+def bwd_bf16_launch(q, k, v, do) -> dict:
+    """What the bf16 backward's C entry builds at d = 64 and 128: the tensor
+    maps of q, k, v and dO (``bwd_tile_map``, boxes of the stream rows) and
+    the two kernels' shared memory (``bwd_bf16_smem_bytes``), checked against
+    ``MAX_SMEM_BYTES``."""
+    d = q.shape[3]
+    rows = BWD_STREAM_ROWS_BF16[d][0]
+    smem = bwd_bf16_smem_bytes(d)
+    if max(smem) > MAX_SMEM_BYTES:
+        raise ValueError(f"the bf16 backward at d = {d} needs {smem} bytes of shared memory, "
+                         f"more than {MAX_SMEM_BYTES}")
+    return {"maps": {name: bwd_tile_map(t, rows)
+                     for name, t in (("q", q), ("k", k), ("v", v), ("do", do))},
+            "smem_bytes": smem}
 
 
 def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -253,6 +323,11 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     scratch = (torch.empty(scratch_size, device=q.device,
                            dtype=q.dtype if d == 512 else torch.float32)
                if scratch_size else None)
+    if q.dtype == torch.bfloat16 and d != 512:
+        smem = bwd_bf16_launch(q, k, v, do)["smem_bytes"]
+        if tuple(lib.flash_attn_bwd_bf16_smem_bytes(d, i) for i in (0, 1)) != smem:
+            raise RuntimeError(f"the library's bf16 backward takes other shared memory than "
+                               f"bwd_bf16_smem_bytes({d}) = {smem}")
     strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
     entry = lib.flash_attn_bwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_attn_bwd
     with torch.cuda.device(q.device):

@@ -114,31 +114,47 @@ def test_tf32_rounds_as_cvt_rna():
     assert int((tf32(torch.randn(1000)).view(torch.int32) & 0x1FFF).abs().sum()) == 0
 
 
+# The splits (dkv, dq) bwd_plan gives each training case on an H100 by the
+# kernels' type: the float32 kernels fit two blocks an SM at d = 64 and
+# stream 32-row tiles; the bf16 ones one block an SM and 64-row tiles.
+PLAN_SPLITS = {
+    torch.float32: {"unet_ds1": (1, 1), "struct_ds1": (1, 1), "unet_ds2": (2, 2),
+                    "struct_ds2": (2, 2), "large_logits": (4, 4)},
+    torch.bfloat16: {"unet_ds1": (1, 1), "struct_ds1": (1, 1), "unet_ds2": (1, 1),
+                     "struct_ds2": (2, 2), "large_logits": (4, 4)}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(TRAIN_CASES))
-def test_backward_plan_fills_the_card(case):
+def test_backward_plan_fills_the_card(case, dtype):
     """bwd_plan on an H100's 132 SMs: at d = 64 and 128 the dkv and dq grids,
     with their splits, fill at least 90% of the block slots or cannot split
-    further; at d = 512 the scratch holds P and dS."""
+    further; at d = 512 the scratch holds P and dS (in the kernels' type)."""
     b, h, n, m, d = TRAIN_CASES[case][:5]
-    dkv, dq, scratch, kernels = attention_cuda.bwd_plan(b, h, n, m, d, 132)
+    dkv, dq, scratch, kernels = attention_cuda.bwd_plan(b, h, n, m, d, 132, dtype)
+    sfx = attention_cuda.SUFFIX[dtype]
     if d == 512:
         assert (dkv, dq, scratch) == (1, 1, 2 * b * h * n * m)
-        assert set(kernels) == {"flash_attn_bwd_p_ds", "flash_attn_bwd_dkv_mm",
-                                "flash_attn_bwd_dq_mm"}
+        assert set(kernels) == {f"flash_attn_bwd_{k}{sfx}" for k in ("p_ds", "dkv_mm", "dq_mm")}
         return
-    block, rows = attention_cuda.BWD_BLOCK_ROWS[d], attention_cuda.BWD_STREAM_ROWS[d]
+    if dtype == torch.bfloat16:
+        block, rows, per_sm = (attention_cuda.BWD_BLOCK_ROWS_BF16[d],
+                               attention_cuda.BWD_STREAM_ROWS_BF16[d],
+                               attention_cuda.BWD_BLOCKS_PER_SM_BF16[d])
+    else:
+        block, rows, per_sm = (attention_cuda.BWD_BLOCK_ROWS[d], attention_cuda.BWD_STREAM_ROWS[d],
+                               attention_cuda.BWD_BLOCKS_PER_SM[d])
     for f, (split, blocks, tiles) in enumerate(((dkv, m // block[0] * b * h, n // rows[0]),
                                                 (dq, n // block[1] * b * h, m // rows[1]))):
-        slots = attention_cuda.BWD_BLOCKS_PER_SM[d][f] * 132
+        slots = per_sm[f] * 132
         assert tiles % split == 0
         assert (blocks * split >= 0.9 * slots or split == attention_cuda.BWD_MAX_SPLIT
                 or tiles % (2 * split))
         assert split == 1 or blocks * split // 2 < 0.9 * slots
     assert scratch == ((2 * dkv * b * m * h * d if dkv > 1 else 0)
                        + (dq * b * n * h * d if dq > 1 else 0))
-    assert kernels["flash_attn_bwd_sum"] == 2 * (dkv > 1) + (dq > 1)
-    assert (dkv, dq) == {"unet_ds1": (1, 1), "struct_ds1": (1, 1), "unet_ds2": (2, 2),
-                         "struct_ds2": (2, 2), "large_logits": (4, 4)}[case]
+    assert kernels[f"flash_attn_bwd_sum{sfx}"] == 2 * (dkv > 1) + (dq > 1)
+    assert (dkv, dq) == PLAN_SPLITS[dtype][case]
 
 
 @pytest.mark.parametrize("logits", [8.0, 50.0])

@@ -1,0 +1,80 @@
+"""K2's bf16 backward launch geometry (ssl_tpu_torch/ops/attention_cuda.py::
+bwd_bf16_launch), on the CPU.
+
+The kernels cannot run here, but what the wrapper hands the C entry can be
+checked: the TMA tensor maps of q, k, v and dO over their strided (b, seq,
+heads, d) views, in the UNet's projection layout and the packed qkv layout
+of the struct-cond encoder, at every d = 64 and 128 training case, and the
+two kernels' shared memory.  The card checks that the library agrees (the
+wrapper compares ``flash_attn_bwd_bf16_smem_bytes`` with
+``bwd_bf16_smem_bytes`` at every launch) and that the maps encode."""
+
+import pytest
+import torch
+
+from ssl_tpu_torch.ops import attention_cuda
+from ssl_tpu_torch.ops.attention_cuda import (MAX_SMEM_BYTES, TMA_MAX_BOX, TMA_MAX_STRIDE,
+                                              TMA_SWIZZLE_BYTES, bwd_bf16_launch,
+                                              bwd_bf16_smem_bytes, bwd_tile_map)
+from torch_attention_cases import TRAIN_CASES
+
+CASES = [(c, layout) for c, (b, h, n, m, d, *_) in sorted(TRAIN_CASES.items()) if d != 512
+         for layout in ("proj", "qkv") if layout == "proj" or n == m]
+
+
+def _views(b, h, n, m, d, layout):
+    """q, k, v and dO as the wrapper hands them on: bf16 views in ``layout``
+    (no data: the geometry reads shapes, strides and bases), dO contiguous."""
+    bf16 = torch.bfloat16
+    if layout == "qkv":
+        qkv = torch.empty((b, n, h, 3, d), dtype=bf16)
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    else:
+        q, k, v = (torch.empty((b, s, h, d), dtype=bf16) for s in (n, m, m))
+    do = torch.empty((b, n, h, d), dtype=bf16)
+    return tuple(attention_cuda._aligned(t) for t in (q, k, v, do))
+
+
+@pytest.mark.parametrize("case,layout", CASES)
+def test_bf16_backward_tensor_maps_fit_tma(case, layout):
+    b, h, n, m, d = TRAIN_CASES[case][:5]
+    q, k, v, do = _views(b, h, n, m, d, layout)
+    launch = bwd_bf16_launch(q, k, v, do)
+    rows = attention_cuda.BWD_STREAM_ROWS_BF16[d][0]
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        tmap = launch["maps"][name]
+        seq = n if name in ("q", "do") else m
+        assert tmap["dims"] == (d, h, seq, b)
+        assert tmap["strides"] == tuple(2 * s for s in (t.stride(2), t.stride(1), t.stride(0)))
+        assert all(s % 16 == 0 and 0 < s < TMA_MAX_STRIDE for s in tmap["strides"])
+        assert tmap["base"] % 16 == 0
+        assert tmap["box"] == (64, 1, rows, 1)
+        assert max(tmap["box"]) <= TMA_MAX_BOX
+        assert tmap["box"][0] * 2 <= TMA_SWIZZLE_BYTES == tmap["swizzle"]
+        # the box rows tile every sequence, and d is whole 64-column boxes
+        assert seq % rows == 0 and d % tmap["box"][0] == 0
+    if layout == "qkv":      # the packed views go in without a copy: k and v 2d and 4d bytes on
+        assert launch["maps"]["k"]["base"] - launch["maps"]["q"]["base"] == 2 * d
+        assert launch["maps"]["q"]["strides"][0] == 2 * 3 * d
+    assert all(s <= MAX_SMEM_BYTES for s in launch["smem_bytes"])
+
+
+@pytest.mark.parametrize("d,stages", [(64, 4), (128, 3)])
+def test_bf16_backward_shared_memory_by_layout(d, stages):
+    """Alignment slack, the resident 128 x d operands, the ring's 64 x d
+    operands (and dkv's lse and di a stage), 8 bytes a barrier."""
+    assert attention_cuda.BWD_STAGES_BF16[d] == stages
+    resident, ring = 2 * 128 * d * 2, stages * 2 * 64 * d * 2
+    barriers = 8 * (2 * stages + 1)
+    assert bwd_bf16_smem_bytes(d) == (1024 + resident + ring + stages * 2 * 64 * 4 + barriers,
+                                      1024 + resident + ring + barriers)
+
+
+def test_bf16_tile_map_refuses_what_tma_cannot_take():
+    rows = torch.empty((1, 128, 2, 68), dtype=torch.bfloat16)[..., :64]   # 136-byte rows
+    with pytest.raises(ValueError, match="multiples of 16"):
+        bwd_tile_map(rows, 64)
+    with pytest.raises(ValueError, match="box"):
+        bwd_tile_map(torch.empty((1, 512, 1, 64), dtype=torch.bfloat16), 512)
+    with pytest.raises(ValueError, match="unit stride"):
+        bwd_tile_map(torch.empty((1, 128, 1, 64), dtype=torch.bfloat16).transpose(1, 3), 64)
