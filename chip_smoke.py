@@ -1087,8 +1087,9 @@ def phase_k2_bf16():
     L2 and at most BF16_PLAIN_RATIO times the plain bf16 route's error; lse
     against ``attention_lse_reference`` on the bf16 inputs (rtol and atol
     1e-5); a second launch bit for bit.  Times as ``phase_k2``'s, the
-    library yardstick SDPA on the bf16 inputs, the bounds with bf16
-    products and operands."""
+    library yardstick SDPA on the bf16 inputs (by CUDA events, which also
+    count the host's dispatch, and by device time from the profiler), the
+    bounds with bf16 products and operands."""
     import torch
     import torch.nn.functional as F
     from torch_attention_cases import (BF16_FWD_REL_L2, BF16_PLAIN_RATIO, CUDA_CASES,
@@ -1138,6 +1139,7 @@ def phase_k2_bf16():
         kernel_ms = time_ms(kernel, 20)
         plain_ms = time_ms(lambda: sdp_attention_reference(q, k, v, scale), 20)
         library_ms = time_ms(library, 20)
+        library_device = device_ms(library, 10)
         bound = k2_times(b, h, n, m, d, "bfloat16")
         bound_ms = max(bound["ops_ms"], bound["bytes_ms"])
         combine = {}
@@ -1150,7 +1152,8 @@ def phase_k2_bf16():
             del parts
         results[name] = {"max_abs_err": max_abs, "rel_l2": err, "plain_rel_l2": plain_err,
                          "ms": kernel_ms, "device_ms": device, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "split": split,
+                         "library_ms": library_ms, "library_device_ms": library_device,
+                         "split": split,
                          "launches": {k_: c for k_, c in plan.items() if c}, **bound, **combine}
         emit({"phase": "kernel", "kernel": "flash_attn_fwd_bf16", "case": name,
               "b_heads_n_m_d": [b, h, n, m, d], "layout": layout, "sm_scale": scale,
@@ -1160,7 +1163,7 @@ def phase_k2_bf16():
               "max_abs_err": max_abs, "lse_max_abs_err": lse_err, "repeat_bit_for_bit": True,
               "kernel_ms": kernel_ms, "kernels_device_ms": device,
               "device_ms": sum(device.values()), "plain_ms": plain_ms, "library_ms": library_ms,
-              **combine, "bound_ms": bound_ms,
+              "library_device_ms": library_device, **combine, "bound_ms": bound_ms,
               "bound_by": "operations" if bound["ops_ms"] >= bound["bytes_ms"] else "bytes",
               "fraction_of_bound": bound_ms / sum(device.values())})
         del q, k, v, got, ref, plain
@@ -1200,6 +1203,21 @@ def kernel_launch_counts() -> dict:
     return {"ssg_loss_fwd_kernel": ssg_cuda.launches,
             **{f"{k}_kernel": n for k, n in attention_cuda.fwd_kernel_launches.items()},
             **{f"{k}_kernel": n for k, n in attention_cuda.bwd_kernel_launches.items()}}
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn`` (ms): every CUDA kernel the
+    profiler records over ``iters`` calls, after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / iters
 
 
 def kernel_device_ms(fn, prefix: str, iters: int = 5) -> dict:
@@ -4060,7 +4078,9 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
             ops, nbytes = mean(lambda r: r["ops_ms"]), mean(lambda r: r["bytes_ms"])
             plain, library = mean(lambda r: r["plain_ms"]), mean(lambda r: r["library_ms"])
         by_path = {path: counts.get(name, 0) for path, counts in paths[sfx].items()}
-        extra = {"rel_l2_vs_float32": max(res[c]["rel_l2"] for c in mix)} if sfx else {}
+        extra = {"rel_l2_vs_float32": max(res[c]["rel_l2"] for c in mix),
+                 "library_device_ms": None if library is None else
+                 mean(lambda r: r["library_device_ms"])} if sfx else {}
         return {"name": name, "route": "cuda", "source": "ssl_tpu_torch/csrc/flash_attn_fwd.cu",
                 "replaces": "ssl_tpu/ops/attention.py:28" + (bf16_note if sfx else ""),
                 "launches": sum(by_path.values()), "launches_by_path": by_path, **extra,
@@ -4071,7 +4091,9 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
                 "cases": sorted(mix),
                 "times_are": "mean per launch over one serving request's mix of shapes; ms is "
                              "the kernel's device time (profiler), wrapper_ms the call's (CUDA "
-                             "events); max_abs_err is the whole forward's"}
+                             "events); library_ms is SDPA's by CUDA events and, in bf16, "
+                             "library_device_ms its device time (profiler); max_abs_err is the "
+                             "whole forward's"}
 
     return [*(fwd_entry(f, sfx) for sfx in ("", "_bf16")
               for f in ("fwd", "fwd_d512", "fwd_combine")),

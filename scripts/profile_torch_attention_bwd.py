@@ -16,8 +16,10 @@ its bound.  ``--dtype bfloat16`` runs the bf16 kernels on the cases'
 inputs rounded to bf16 (the float32 forward's o, rounded, and lse), SDPA's
 backward in bf16 beside them, and the bound with bf16 products and 2-byte
 operands.  With ``--fwd``, for each case of ``CUDA_CASES``: the forward
-kernels' device times, the wrapper's time, SDPA's and the plain version's
-forward, the bound, the largest error against the plain version and
+kernels' device times, the wrapper's time, SDPA's forward by CUDA events and
+on the device, the plain version's time, the bound and the kernels' fraction
+of it, the error (against the plain version; with ``--dtype bfloat16`` the
+relative L2 error against the float32 plain version and its hold), and
 whether a second launch repeats the first bit for bit.
 ``--root`` imports ``ssl_tpu_torch`` from another checkout (for example an
 earlier commit unpacked with ``git archive``), so that two versions are
@@ -44,7 +46,7 @@ def main() -> int:
     ap.add_argument("--cases", nargs="*", default=None)
     ap.add_argument("--fwd", action="store_true", help="the forward at the serving shapes")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
-                    help="the backward kernels' input type")
+                    help="the kernels' input type")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     sys.path.insert(1, os.path.join(ROOT, "tests"))
@@ -53,7 +55,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import card, k2_bwd_times, kernel_device_ms, time_ms
+    from chip_smoke import card, device_ms, k2_bwd_times, kernel_device_ms, time_ms
     from torch_attention_cases import TRAIN_CASES, attention_inputs
     sys.path.insert(0, os.path.abspath(args.root))      # this checkout's ssl_tpu_torch
     from ssl_tpu_torch.ops import attention_cuda
@@ -124,55 +126,66 @@ def main() -> int:
     return 0
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device time of one call of ``fn`` (ms): every CUDA kernel the
-    profiler records over ``iters`` calls, after a warm-up call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3 / iters
-
-
 def profile_fwd(args, attention_cuda, name) -> int:
-    """The forward's lines (``--fwd``)."""
+    """The forward's lines (``--fwd``): in float32, the error is the largest
+    against the plain version and the hold its elementwise one; in bf16
+    (``--dtype bfloat16``) the relative L2 error against the float32 plain
+    version on the same inputs upcast, held by BF16_FWD_REL_L2 and
+    BF16_PLAIN_RATIO times the plain bf16 route's error."""
     import torch
     import torch.nn.functional as F
-    from chip_smoke import k2_times, kernel_device_ms, time_ms
-    from torch_attention_cases import CUDA_CASES, attention_inputs
+    from chip_smoke import device_ms, k2_times, kernel_device_ms, rel_l2, time_ms
+    from torch_attention_cases import (BF16_FWD_REL_L2, BF16_PLAIN_RATIO, CUDA_CASES,
+                                       attention_inputs)
     from ssl_tpu_torch.ops.attention import sdp_attention_reference
+    dtype = getattr(torch, args.dtype)
     plan = getattr(attention_cuda, "fwd_plan", None)      # absent before the redesign
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for case in args.cases or list(CUDA_CASES):
         b, h, n, m, d, scale, layout, logits = CUDA_CASES[case]
-        q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logits, device="cuda")
+        q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logits, device="cuda",
+                                   dtype=dtype)
 
         def kernel():
             return attention_cuda.flash_attn_fwd_cuda(q, k, v, scale)
 
         got, again = kernel(), kernel()
-        ref = sdp_attention_reference(q, k, v, scale)
+        ref = sdp_attention_reference(q.float(), k.float(), v.float(), scale)
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        within = bool(((got - ref).abs() <= 1e-5 * float(ref.abs().max()) + 1e-4 * ref.abs()).all())
+        err = float((got.float() - ref).abs().max())
+        if dtype == torch.float32:
+            errors = {"max_abs_err": err}
+            within = bool(((got - ref).abs() <= 1e-5 * float(ref.abs().max())
+                           + 1e-4 * ref.abs()).all())
+        else:
+            rel, plain_rel = rel_l2(got, ref), rel_l2(sdp_attention_reference(q, k, v, scale), ref)
+            errors = {"max_abs_err": err, "rel_l2_vs_float32": rel,
+                      "plain_bf16_rel_l2_vs_float32": plain_rel}
+            within = rel <= BF16_FWD_REL_L2 and rel <= BF16_PLAIN_RATIO * plain_rel
         per_kernel = kernel_device_ms(kernel, "flash_attn_fwd", args.iters)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
         wrapper_ms = time_ms(kernel, args.iters)
-        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
-                          args.iters)
+        sdpa_ms = time_ms(sdpa, args.iters)
+        sdpa_device_ms = device_ms(sdpa, args.iters)
         plain_ms = time_ms(lambda: sdp_attention_reference(q, k, v, scale), args.iters)
-        bound = k2_times(b, h, n, m, d)
-        print(json.dumps({"label": args.label, "case": case, "b_heads_n_m_d": [b, h, n, m, d],
-                          "kernels_device_ms": sum(per_kernel.values()),
+        bound = k2_times(b, h, n, m, d, args.dtype)
+        bound_ms = max(bound["ops_ms"], bound["bytes_ms"])
+        split = None
+        if plan:     # an older checkout's plan may take no dtype
+            split = (plan(b, h, n, m, d, sms, dtype) if dtype != torch.float32
+                     else plan(b, h, n, m, d, sms))[0]
+        total = sum(per_kernel.values())
+        print(json.dumps({"label": args.label, "case": case, "dtype": args.dtype,
+                          "b_heads_n_m_d": [b, h, n, m, d], "kernels_device_ms": total,
                           "per_kernel_ms": per_kernel, "wrapper_ms": wrapper_ms,
-                          "sdpa_ms": sdpa_ms, "plain_ms": plain_ms, "bound": bound,
-                          "split": plan(b, h, n, m, d, sms)[0] if plan else None,
-                          "max_abs_err": err, "within_hold": within,
+                          "sdpa_ms": sdpa_ms, "sdpa_device_ms": sdpa_device_ms,
+                          "plain_ms": plain_ms, "bound": bound, "bound_ms": bound_ms,
+                          "fraction_of_bound": bound_ms / total, "split": split, **errors,
+                          "within_hold": within,
                           "repeat_bit_for_bit": bool(torch.equal(got, again)), "card": name}),
               flush=True)
         del q, k, v, got, again, ref

@@ -12,10 +12,7 @@
 // row-major) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
 // a3 = (g+8, 2t+8..); B (16 x 8, column-major) b0 = (2t..2t+1, g),
 // b1 = (2t+8.., g); the accumulator C (16 x 8) c0, c1 = (g, 2t..2t+1),
-// c2, c3 = (g+8, 2t..).  So the accumulators of two adjacent 16 x 8 logit
-// tiles, packed to bf16 pairs, are the A fragment of the next product
-// (``pack_a``): P or dS go from the softmax into P·V (dV, dK, dQ) without
-// touching shared memory.
+// c2, c3 = (g+8, 2t..).
 //
 // Operands whose contraction index runs along a shared-memory row (Q and K
 // for the logits, contracting over d) are read as 32-bit pairs
@@ -66,24 +63,8 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
 
 // ---- end of PTX helpers --------------------------------------------------
 
-// (lo, hi) rounded to nearest even as one register, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of k-step jj from the accumulators of column tiles 2jj and
-// 2jj + 1 (16 rows x 8 columns each), rounded to bf16.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
 }
 
 // The A fragment of rows 0..15 and columns kk..kk+15 of a row-major tile of
@@ -125,31 +106,6 @@ __device__ __forceinline__ void frag_b_trans(uint32_t (&b)[4], const bf16* s, in
                                              int lane) {
   const int mi = lane >> 3, r = lane & 7;
   ldmatrix_x4_trans(b, s + (k0 + (mi & 1) * 8 + r) * P + c0 + (mi >> 1) * 8);
-}
-
-// acc (16·RW x D) += x (16·RW x NT·8 accumulator fragments, rounded to bf16)
-// · y (NT·8 rows of pitch P, D columns), with x's column tiles paired into
-// the k-steps of m16n8k16.
-template <int D, int NT, int RW, int P>
-__device__ __forceinline__ void accumulate_bf16(float (&acc)[D / 8][RW][4],
-                                                const float (&x)[NT][RW][4], const bf16* y,
-                                                int lane) {
-#pragma unroll
-  for (int jj = 0; jj < NT / 2; ++jj) {
-    uint32_t a[RW][4];
-#pragma unroll
-    for (int i = 0; i < RW; ++i) pack_a(a[i], x[2 * jj][i], x[2 * jj + 1][i]);
-#pragma unroll
-    for (int c = 0; c < D / 8; c += 2) {
-      uint32_t b[4];
-      frag_b_trans<P>(b, y, 16 * jj, 8 * c, lane);
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        mma_bf16(acc[c][i], a[i], b[0], b[1]);
-        mma_bf16(acc[c + 1][i], a[i], b[2], b[3]);
-      }
-    }
-  }
 }
 
 // s (16·RW rows x NT·8 columns) += rows of a (16·RW rows of pitch P) times

@@ -62,22 +62,29 @@
 // flash_attn_fwd_d512_bf16_kernel, flash_attn_fwd_combine_bf16_kernel,
 // entry flash_attn_fwd_bf16): upstream's Pallas kernel with bf16 q, k and v,
 // whose roundings it keeps: S = q kᵀ on bf16 operands into fp32
-// accumulators (mma.sync m16n8k16, bf16_mma.cuh), the online softmax and the
-// row sum in fp32, P rounded to bf16 for P·V (fp32 accumulators), o rounded
-// to bf16 once at the end; lse and split parts stay fp32.  What bounds it:
-// the products at the bf16 rate (989 TFLOP/s, one mma per product where the
-// float32 kernels issue three plus the splits), 2-byte operands.  The same
-// plans with 8 warps of 16 rows and 64-key tiles at d = 64 and 128 (the
-// accumulators of two adjacent 8-key tiles are the A fragment of P·V, V's
-// fragments by ldmatrix.trans), and the d = 512 kernel's 32 x 32 tiles with
+// accumulators, the online softmax and the row sum in fp32, P rounded to
+// bf16 for P·V (fp32 accumulators), o rounded to bf16 once at the end; lse
+// and split parts stay fp32.  At d = 64 and 128 the kernel is built for
+// Hopper (hopper_wgmma.cuh; below): wgmma on TMA-loaded, 128-byte-swizzled
+// tiles, a producer thread, two consumer warpgroups of 64 query rows and one
+// block an SM (up to 171 registers a consumer thread at d = 64, 219 at
+// d = 128, no spills).  What bounds it: the products at the bf16 rate (989
+// TFLOP/s) and, as long at d = 64, the softmax's exponentials (b·h·n·m of
+// them at 16 a clock per SM), which the two warpgroups take in turns beside
+// the other's products.  At 4096 tokens it reaches ~57% of that bound; what
+// holds it there is each warpgroup's chain (the issue of its 16 register-A
+// wgmma, which stalls while the products run, the softmax, the packing of P)
+// more than any unit's rate.  The d = 512 kernel keeps the float32 d = 512
+// plan with bf16 operands on mma.sync m16n8k16 (bf16_mma.cuh): 32 x 32 tiles,
 // P rounded to bf16 in shared memory (~123 KB).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"   // bf16 mma.sync products, ldmatrix fragment loads
-#include "tf32_mma.cuh"   // 3xTF32 mma.sync products, cp.async tile copies
+#include "bf16_mma.cuh"      // bf16 mma.sync products, ldmatrix fragment loads
+#include "hopper_wgmma.cuh"   // TMA, mbarrier rings, setmaxnreg, bf16 wgmma
+#include "tf32_mma.cuh"      // 3xTF32 mma.sync products, cp.async tile copies
 
 namespace {
 
@@ -510,87 +517,334 @@ flash_attn_fwd_d512_kernel(const float* __restrict__ q, const float* __restrict_
                               64 * warp, warp == 0, g, t);
 }
 
-// ---- bf16, d = 64 and 128 ------------------------------------------------
+// ---- bf16, d = 64 and 128: wgmma on TMA-loaded tiles --------------------
+//
+// Warp-specialised for Hopper (hopper_wgmma.cuh), as the bf16 backward: one
+// block of 384 threads per (128 queries, b·head[, split]), one block an SM.
+// The producer warpgroup (threads 256-383) gives its registers to the
+// consumers (setmaxnreg 24 / 240), and one of its threads issues every copy:
+// Q once, then the key loop's K and V tiles of 128 keys through a ring of 4
+// stages at d = 64, 2 at d = 128, each with a "full" mbarrier (the
+// producer's arrival and the copies' bytes) and an "empty" one (every
+// consumer thread's arrival once its products have read the stage).  Two
+// consumer warpgroups own 64 query rows each, their Q rows held as wgmma A
+// operands in registers.
+// Per key tile j a warpgroup issues S_j = Q K_jᵀ (m64n64k16, the key tile
+// K-major along d as stored) and, in the same batch, O += P_{j-1} V_{j-1}
+// (P rounded to bf16 as the A operand from registers, the value tile read
+// MN-major: no transposed copy, no P in shared memory); S_j's softmax runs
+// in fp32 while that product does, in units of log2 (P = ex2(s·c - m) with
+// c = sm_scale·log2 e, the row sum over the unrounded P); then O is rescaled
+// in registers and P_j packed.  The exponentials (16 a clock per SM) take as
+// long as the products at d = 64, so the two warpgroups take turns at them
+// (named barriers 1 and 2): one's exponentials run while the other's
+// products, row max and packing do.  ptxas moves register arithmetic across
+// a barrier freely, so the turn is pinned at both ends: the exponentials
+// read a shared word loaded after the bar.sync, and a shared store of the
+// row sum, which needs every exponential, precedes the bar.arrive.
 
-// bytes of shared memory: Q [BQ][D + 8], then 2 x {k [BK][D + 8], v [BK][D + 8]}
-template <int D, int BQ, int BK>
-constexpr size_t fwd_bf16_smem_bytes() {
-  return sizeof(bf16) * ((size_t)BQ * (D + 8) + (size_t)2 * 2 * BK * (D + 8));
+constexpr int FB_BQ = 128, FB_BK = 128, FB_THREADS = 384;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+template <int D>
+constexpr int FB_STAGES = D == 64 ? 4 : 2;
+
+// Shared memory (bytes) at head width D: 1024 of alignment slack, Q
+// ([128][D]), the ring stages' K and V ([128][D] each), the barriers (full
+// and empty a stage, one for Q), and the turns' words: the 1.0 read after
+// each bar.sync and one row-sum slot a consumer thread.
+template <int D>
+constexpr int fwd_bf16_smem_bytes() {
+  return 1024 + FB_BQ * D * 2 + FB_STAGES<D> * 2 * FB_BK * D * 2 +
+         (2 * FB_STAGES<D> + 1) * 8 + 4 * (1 + 256);
 }
 
-// The float32 kernel's plan with bf16 operands: one block per (query tile of
-// BQ = 128, b·head[, split]), 8 warps of 16 rows; Q stays in shared memory,
-// K and V tiles of BK = 64 keys stream through a two-stage cp.async ring.
-// Per key tile the warp's logits (16 x 64) accumulate in fp32 registers from
-// bf16 Q and K fragments, the online softmax runs on them in fp32 (the row
-// sum from the fp32 probabilities), the output is rescaled, and P, rounded to
-// bf16 as two adjacent tiles' accumulators packed into an A fragment, goes
-// into P·V with V's fragments read by ldmatrix.trans.  o is rounded to bf16
-// once, at the end (or the fp32 parts of a split go to scratch).
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(BQ * 2)
-flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                           float* __restrict__ lse, Parts parts, Strides st, int b, int heads,
-                           int n, int tiles_per_split, float sm_scale) {
-  constexpr int NTHREADS = BQ * 2, P = D + 8, NT = BK / 8, NC = D / 8;
-  constexpr int STAGE = 2 * BK * P;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);   // [BQ][D + 8]
-  bf16* ring = s_q + BQ * P;                        // 2 x {k [BK][D + 8], v [BK][D + 8]}
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+// Named barrier ``id`` (1 or 2; 0 is __syncthreads) over ``count`` threads:
+// wait for it, or arrive without waiting.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ float ld_shared(const float* p) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(smem_u32(p)) : "memory");
+  return x;
+}
+__device__ __forceinline__ void st_shared(float* p, float x) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(smem_u32(p)), "f"(x) : "memory");
+}
+
+// s (64 x 128) = the warpgroup's Q rows (the A operands of D / 16 k-steps in
+// registers, ``load_a_rows``) · the key tile's rowsᵀ over D, as two
+// accumulators of 64 keys: the tile ``kt`` ([128][D] as D / 64 column blocks
+// of 128 rows) K-major along d.
+template <int D>
+__device__ __forceinline__ void logits_fwd(float (&s)[2][32], const uint32_t (&q)[D / 16][4],
+                                           const bf16* kt) {
+  uint64_t dk = desc_sw128(kt, 16, 1024);
+  opaque(dk);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+      wgmma_rs<0>(s[nb], q[kk],
+                  dk + (((kk / 4) * FB_BK * 128 + nb * 64 * 128 + (kk % 4) * 32) >> 4), kk > 0);
+}
+
+// o (64 x D) += p (64 x 128: the A operands of 8 k-steps) · the value tile
+// ``vt`` ([128][D] as D / 64 column blocks of 128 rows) read MN-major.
+template <int D>
+__device__ __forceinline__ void accumulate_pv(float (&o)[D / 64][32], const uint32_t (&p)[8][4],
+                                              const bf16* vt) {
+  uint64_t dv = desc_sw128(vt, FB_BK * 128, 1024);
+  opaque(dv);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      wgmma_rs<1>(o[c], p[kk], dv + ((c * FB_BK * 128 + kk * 16 * 128) >> 4), 1);
+}
+
+// The online softmax's first half over one key tile of S (entry i of a
+// 64-key accumulator is row g + 8·((i % 4) / 2) of the warp's 16): each
+// row's running max m of s·c (in four independent parts a row, for short
+// chains), and alpha = 2^(m_old - m), the rescale of what came before.  NEG:
+// c < 0, where the max of s·c is c times the min of s.
+template <bool NEG>
+__device__ __forceinline__ void row_max_fwd(const float (&s)[2][32], float (&row_m)[2],
+                                            float (&alpha)[2], float c) {
+  float mx[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mx[h][q] = NEG ? INFINITY : -INFINITY;
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float& m = mx[(i % 4) / 2][(i / 4) % 4];
+      m = NEG ? fminf(m, s[nb][i]) : fmaxf(m, s[nb][i]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float m = NEG ? fminf(fminf(mx[h][0], mx[h][1]), fminf(mx[h][2], mx[h][3]))
+                  : fmaxf(fmaxf(mx[h][0], mx[h][1]), fmaxf(mx[h][2], mx[h][3]));
+#pragma unroll
+    for (int lane_mask = 1; lane_mask < 4; lane_mask <<= 1) {
+      const float o = __shfl_xor_sync(0xffffffffu, m, lane_mask);
+      m = NEG ? fminf(m, o) : fmaxf(m, o);
+    }
+    const float m_new = fmaxf(row_m[h], m * c);
+    alpha[h] = ex2(row_m[h] - m_new);
+    row_m[h] = m_new;
+  }
+}
+
+// Its second half: s becomes P = 2^(s·c - m), and row_l, this thread's share
+// of the running row sum (the quad's four shares are added at the end),
+// becomes alpha·row_l plus the tile's P (in four parts a row).
+__device__ __forceinline__ void exp_sum_fwd(float (&s)[2][32], const float (&row_m)[2],
+                                            float (&row_l)[2], const float (&alpha)[2], float c) {
+  float sum[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sum[h][q] = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[nb][i] = ex2(fmaf(s[nb][i], c, -row_m[(i % 4) / 2]));
+      sum[(i % 4) / 2][(i / 4) % 4] += s[nb][i];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    row_l[h] = row_l[h] * alpha[h] + ((sum[h][0] + sum[h][1]) + (sum[h][2] + sum[h][3]));
+}
+
+// acc *= alpha by row, skipped where every row of the warp keeps its max
+// (alpha = 1: the product would change nothing).
+template <int CB>
+__device__ __forceinline__ void rescale(float (&acc)[CB][32], const float (&alpha)[2]) {
+  if (__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) return;
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i % 4) / 2];
+}
+
+// P (the softmax's s, rounded to bf16) as the A operands of P·V's k-steps:
+// k-step 4·nb + kk is key block nb's columns 16kk .. 16kk + 15.
+__device__ __forceinline__ void pack_p(uint32_t (&p)[8][4], const float (&s)[2][32]) {
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[4 * nb + kk][i] = pack_bf16x2(s[nb][8 * kk + 2 * i], s[nb][8 * kk + 2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&x)[N][32]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(x[i]);
+}
+
+template <int D, bool NEG>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+flash_attn_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                           float* __restrict__ lse, Parts parts, int b, int heads, int n,
+                           int tiles_per_split, float sm_scale) {
+  constexpr int CB = D / 64, STAGES = FB_STAGES<D>;
+  constexpr int Q_BYTES = FB_BQ * D * 2, TILE_BYTES = FB_BK * D * 2;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* base = align1024(smem_tma);
+  bf16* s_q = reinterpret_cast<bf16*>(base);                  // CB blocks of [128][64]
+  unsigned char* ring = base + Q_BYTES;                        // STAGES x {k, v}
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * TILE_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_bar = empty + STAGES;
+  float* s_turn = reinterpret_cast<float*>(q_bar + 1);          // [1 + 256]
+
+  const int tid = threadIdx.x;
   const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
-  const int q0 = blockIdx.x * BQ, split = blockIdx.z;
-  const int tile0 = split * tiles_per_split;
-  const bf16* kp = k + bi * st.kb + hi * st.kh;
-  const bf16* vp = v + bi * st.vb + hi * st.vh;
+  const int q0 = blockIdx.x * FB_BQ, split = blockIdx.z, tile0 = split * tiles_per_split;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(q_bar, 1);
+    s_turn[0] = 1.f;
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  auto load_stage = [&](int stage, int tile) {
-    bf16* s = ring + stage * STAGE;
-    const long long k0 = (long long)tile * BK;
-    load_tile_bf16<BK, D, P, NTHREADS>(s, kp + k0 * st.kn, st.kn, tid);
-    load_tile_bf16<BK, D, P, NTHREADS>(s + BK * P, vp + k0 * st.vn, st.vn, tid);
+  if (tid >= 256) {   // the producer warpgroup
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      mbar_arrive_expect_tx(q_bar, Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        tma_load_4d(s_q + c * FB_BQ * 64, &tm_q, q_bar, 64 * c, hi, q0, bi);
+      for (int it = 0; it < tiles_per_split; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+        bf16* sk = reinterpret_cast<bf16*>(ring + s * 2 * TILE_BYTES);
+        bf16* sv = sk + FB_BK * D;
+        const int k0 = (tile0 + it) * FB_BK;
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(sk + c * FB_BK * 64, &tm_k, &full[s], 64 * c, hi, k0, bi);
+          tma_load_4d(sv + c * FB_BK * 64, &tm_v, &full[s], 64 * c, hi, k0, bi);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups
+  setmaxnreg_inc<240>();
+  const int wg = tid / 128, wq = (tid % 128) / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int last = tiles_per_split - 1;
+  const float scale_log2 = sm_scale * LOG2E;
+  float acc[CB][32], row_m[2] = {-INFINITY, -INFINITY}, row_l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  auto key_tile = [&](int it) {
+    return reinterpret_cast<const bf16*>(ring + (it % STAGES) * 2 * TILE_BYTES);
+  };
+  mbar_wait(q_bar, 0);
+  __syncwarp();
+  uint32_t q_frag[D / 16][4];
+  load_a_rows<D>(q_frag, s_q, FB_BQ, 64 * wg, wq, lane);
+  float s[2][32];
+  uint32_t p[8][4];
+
+  // Tile it's softmax, the exponentials in this warpgroup's turn.  Turns
+  // alternate from warpgroup 0, which warpgroup 1's first arrival lets
+  // start; warpgroup 1 does not arrive after its last (so that every
+  // arrival meets a wait).
+  auto softmax = [&](int it) {
+    row_max_fwd<NEG>(s, row_m, alpha, scale_log2);
+    bar_sync(1 + wg, 256);
+    const float one = ld_shared(s_turn);
+    exp_sum_fwd(s, {row_m[0] * one, row_m[1] * one}, row_l, alpha, scale_log2);
+    st_shared(s_turn + 1 + tid, row_l[0] + row_l[1]);
+    if (wg == 0 || it < last) bar_arrive(2 - wg, 256);
+  };
+  auto issue_logits = [&](int it) {
+    mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+    __syncwarp();
+    fence_all(s);
+    fence_regs(q_frag);
+    wgmma_fence();
+    logits_fwd<D>(s, q_frag, key_tile(it));
+    wgmma_commit();
+  };
+  auto after_logits = [&] {
+    fence_all(s);
+    fence_regs(q_frag);
   };
 
-  load_tile_bf16<BQ, D, P, NTHREADS>(s_q, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn,
-                                     st.qn, tid);
-  load_stage(0, tile0);
-  cp_async_commit();
-
-  float acc[NC][1][4], row_m[1][2] = {{-INFINITY, -INFINITY}}, row_l[1][2] = {{0.f, 0.f}};
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[c][0][r] = 0.f;
-
-  const int r0 = 16 * warp;   // the warp's first row in the tile
-  for (int it = 0; it < tiles_per_split; ++it) {
-    if (it + 1 < tiles_per_split) load_stage((it + 1) & 1, tile0 + it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();       // this tile (and Q) have landed
-    __syncthreads();
-    const bf16* s_k = ring + (it & 1) * STAGE;
-    const bf16* s_v = s_k + BK * P;
-
-    float s[NT][1][4], alpha[1][2];
-    logits_bf16<D, NT, 1, P>(s_q + r0 * P, s_k, g, t, s);
-    online_softmax<NT, 1>(s, row_m, row_l, alpha, sm_scale);
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[c][0][r] *= alpha[0][r / 2];
-    accumulate_bf16<D, NT, 1, P>(acc, s, s_v, lane);    // += this tile's P·V
-    __syncthreads();          // every warp is done with this stage before it is refilled
+  if (wg == 1) bar_arrive(1, 256);
+  issue_logits(0);
+  wgmma_wait<0>();
+  after_logits();
+  softmax(0);
+  pack_p(p, s);
+  for (int it = 1; it <= last; ++it) {
+    fence_regs(p);
+    fence_all(acc);
+    issue_logits(it);                                          // S_it, then
+    accumulate_pv<D>(acc, p, key_tile(it - 1) + FB_BK * D);   // O += P_{it-1} V_{it-1}
+    wgmma_commit();
+    wgmma_wait<1>();
+    after_logits();
+    softmax(it);
+    wgmma_wait<0>();
+    fence_regs(p);
+    fence_all(acc);
+    mbar_arrive(&empty[(it - 1) % STAGES]);
+    rescale<CB>(acc, alpha);
+    pack_p(p, s);
   }
+  fence_regs(p);
+  fence_all(acc);
+  wgmma_fence();
+  accumulate_pv<D>(acc, p, key_tile(last) + FB_BK * D);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(p);
+  fence_all(acc);
+  mbar_arrive(&empty[last % STAGES]);
 
 #pragma unroll
-  for (int h8 = 0; h8 < 2; ++h8) {        // the quad's shares of the row sum
-    row_l[0][h8] += __shfl_xor_sync(0xffffffffu, row_l[0][h8], 1);
-    row_l[0][h8] += __shfl_xor_sync(0xffffffffu, row_l[0][h8], 2);
+  for (int h = 0; h < 2; ++h) {        // the quad's shares of the row sum
+    row_l[h] += __shfl_xor_sync(0xffffffffu, row_l[h], 1);
+    row_l[h] += __shfl_xor_sync(0xffffffffu, row_l[h], 2);
   }
-  write_rows<D, NC, 1, bf16>(acc, row_m, row_l, o, lse, parts, split, b, heads, n, bi, hi,
-                             q0 + r0, 0, true, g, t);
+  // the accumulators in write_rows' layout (entry 32c + 4j + r of acc is
+  // column 8·(8c + j) + 2t + r % 2), the row max in natural-log units
+  const float m_nat[1][2] = {{row_m[0] * LN2, row_m[1] * LN2}};
+  const float l_rows[1][2] = {{row_l[0], row_l[1]}};
+  write_rows<D, D / 8, 1, bf16>(reinterpret_cast<const float(&)[D / 8][1][4]>(acc), m_nat,
+                                l_rows, o, lse, parts, split, b, heads, n, bi, hi,
+                                q0 + 64 * wg + 16 * wq, 0, true, g, t);
 }
 
 // ---- bf16, d = 512 -------------------------------------------------------
@@ -876,10 +1130,31 @@ cudaError_t launch_d512(const Args<float>& a, cudaStream_t stream) {
                       sizeof(float) * d512_smem_floats<D>(), D, a, stream);
 }
 
-template <int D, int BQ, int BK>
-cudaError_t launch_fused_bf16(const Args<bf16>& a, cudaStream_t stream) {
-  return launch_split(flash_attn_fwd_bf16_kernel<D, BQ, BK>, BQ, BK, BQ * 2,
-                      fwd_bf16_smem_bytes<D, BQ, BK>(), D, a, stream);
+// q, k and v go in as tensor maps over their strided views (boxes of 64
+// columns x 128 rows); a split writes float parts, which the combine merges.
+template <int D>
+cudaError_t launch_wgmma_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  const int tiles = a.m / FB_BK;
+  if (a.n % FB_BQ || a.m % FB_BK || tiles % a.split) return cudaErrorInvalidValue;
+  if (a.split > 1 && a.scratch == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  const Strides& st = a.st;
+  cudaError_t err = bf16_tile_map(&tq, a.q, a.b, a.n, a.heads, D, st.qb, st.qn, st.qh, FB_BQ);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&tk, a.k, a.b, a.m, a.heads, D, st.kb, st.kn, st.kh, FB_BK);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&tv, a.v, a.b, a.m, a.heads, D, st.vb, st.vn, st.vh, FB_BK);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = fwd_bf16_smem_bytes<D>();
+  const auto kernel = a.sm_scale < 0 ? flash_attn_fwd_bf16_kernel<D, true>
+                                     : flash_attn_fwd_bf16_kernel<D, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const Parts parts = parts_of(a, D);
+  kernel<<<dim3(a.n / FB_BQ, a.b * a.heads, a.split), FB_THREADS, smem, stream>>>(
+      tq, tk, tv, a.o, a.lse, parts, a.b, a.heads, a.n, tiles / a.split, a.sm_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return a.split > 1 ? launch_combine(a, parts, D, stream) : cudaSuccess;
 }
 
 template <int D>
@@ -920,8 +1195,9 @@ int flash_attn_fwd(const float* q, const float* k, const float* v, float* o, flo
 }
 
 // flash_attn_fwd with bf16 q, k, v and o (lse and scratch float32): every
-// stride a multiple of 8 and every base 16-byte aligned; split divides m/64
-// at d = 64 and 128, m/32 at d = 512.
+// stride a multiple of 8 and every base 16-byte aligned (at d = 64 and 128
+// the tensor maps also need strides below 2^39 elements); split divides
+// m/128 at d = 64 and 128, m/32 at d = 512.
 int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                         float* scratch, long long qb, long long qn, long long qh, long long kb,
                         long long kn, long long kh, long long vb, long long vn, long long vh,
@@ -934,10 +1210,20 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o, fl
   const cudaStream_t s = (cudaStream_t)stream;
   if (n % 128 != 0 || m % 128 != 0 || split < 1) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 64: return (int)launch_fused_bf16<64, 128, 64>(a, s);
-    case 128: return (int)launch_fused_bf16<128, 128, 64>(a, s);
+    case 64: return (int)launch_wgmma_bf16<64>(a, s);
+    case 128: return (int)launch_wgmma_bf16<128>(a, s);
     case 512: return (int)launch_d512_bf16<512>(a, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 wgmma kernel's dynamic shared memory a block at head width d (64
+// or 128), or -1; the wrapper checks its own plan against it.
+int flash_attn_fwd_bf16_smem_bytes(int d) {
+  switch (d) {
+    case 64: return fwd_bf16_smem_bytes<64>();
+    case 128: return fwd_bf16_smem_bytes<128>();
+    default: return -1;
   }
 }
 

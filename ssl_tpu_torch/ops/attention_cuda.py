@@ -4,7 +4,8 @@ Replaces the Pallas TPU flash attention that ``ssl_tpu/ops/attention.py``
 (``sdp_attention``, flash branch :32-39) calls, and the two Pallas kernels of
 its custom VJP.  The kernel sources are ``ssl_tpu_torch/csrc/flash_attn_fwd.cu``
 (``flash_attn_fwd`` at d = 64 and 128, ``flash_attn_fwd_d512`` at d = 512,
-with ``flash_attn_fwd_combine`` where the key loop is split) and
+with ``flash_attn_fwd_combine`` where the key loop is split; in bf16 at d =
+64 and 128 it takes q, k and v as TMA tensor maps, ``fwd_bf16_launch``) and
 ``ssl_tpu_torch/csrc/flash_attn_bwd.cu`` (``flash_attn_bwd_dkv`` and
 ``flash_attn_bwd_dq`` at d = 64 and 128, with ``flash_attn_bwd_sum`` where
 the loop is split; in bf16 these two take q, k, v and dO as TMA tensor maps,
@@ -68,10 +69,14 @@ MAX_SMEM_BYTES = 232448
 TMA_MAX_STRIDE, TMA_MAX_BOX, TMA_SWIZZLE_BYTES = 1 << 40, 256, 128
 # The forward's kernels by head width (csrc/flash_attn_fwd.cu): query rows a
 # block owns, keys streamed per tile, and blocks that fit one SM; in float32
-# and in bf16 (8 warps of 16 rows at d = 64 and 128: 128 and 189 registers a
-# thread).
+# and in bf16.  The bf16 kernel at d = 64 and 128 runs wgmma on TMA-loaded
+# tiles: 384 threads (two consumer warpgroups of 64 query rows and a
+# producer), key tiles through FWD_STAGES_BF16 ring stages, one block an SM:
+# 168 registers a thread at launch, the consumers raised to 240 by setmaxnreg
+# (up to 171 in use at d = 64, 219 at d = 128, no spills).
 FWD_TILES = {64: (128, 32, 2), 128: (128, 32, 1), 512: (32, 32, 1)}
-FWD_TILES_BF16 = {64: (128, 64, 2), 128: (128, 64, 1), 512: (32, 32, 1)}
+FWD_TILES_BF16 = {64: (128, 128, 1), 128: (128, 128, 1), 512: (32, 32, 1)}
+FWD_STAGES_BF16 = {64: 4, 128: 2}
 FWD_MAX_SPLIT = 8
 
 
@@ -80,6 +85,8 @@ def _declare_fwd(lib) -> None:
     for entry in (lib.flash_attn_fwd, lib.flash_attn_fwd_bf16):
         entry.argtypes = [p] * 6 + [ll] * 9 + [i] * 6 + [ctypes.c_float, p]
         entry.restype = i
+    lib.flash_attn_fwd_bf16_smem_bytes.argtypes = [i]
+    lib.flash_attn_fwd_bf16_smem_bytes.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
@@ -167,6 +174,35 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+def fwd_bf16_smem_bytes(d: int) -> int:
+    """Dynamic shared memory a block of the bf16 forward takes at head width
+    64 or 128 (csrc/flash_attn_fwd.cu, ``fwd_bf16_smem_bytes``): 1024 bytes of
+    alignment slack, Q (query rows x d bf16), each ring stage's K and V tiles
+    (key rows x d bf16 each), 8 bytes a barrier (full and empty a stage, one
+    for Q), and the warpgroups' turns: one float read after each turn's wait
+    and a row-sum slot for each of the 256 consumer threads."""
+    rows, keys, _ = FWD_TILES_BF16[d]
+    stages = FWD_STAGES_BF16[d]
+    return (1024 + rows * d * 2 + stages * 2 * keys * d * 2 + 8 * (2 * stages + 1)
+            + 4 * (1 + 256))
+
+
+def fwd_bf16_launch(q, k, v) -> dict:
+    """What the bf16 forward's C entry builds at d = 64 and 128: the tensor
+    maps of q (boxes of the plan's query rows) and of k and v (its key rows),
+    ``bwd_tile_map``'s geometry, and the kernel's shared memory
+    (``fwd_bf16_smem_bytes``), checked against ``MAX_SMEM_BYTES``."""
+    d = q.shape[3]
+    rows, keys, _ = FWD_TILES_BF16[d]
+    smem = fwd_bf16_smem_bytes(d)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"the bf16 forward at d = {d} needs {smem} bytes of shared memory, "
+                         f"more than {MAX_SMEM_BYTES}")
+    return {"maps": {"q": bwd_tile_map(q, rows), "k": bwd_tile_map(k, keys),
+                     "v": bwd_tile_map(v, keys)},
+            "smem_bytes": smem}
+
+
 def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
                         return_lse: bool = False):
     """Launch K2's forward on CUDA tensors; returns what
@@ -189,6 +225,11 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_sc
     lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32) if return_lse else None
     scratch = (torch.empty(scratch_floats, device=q.device, dtype=torch.float32)
                if scratch_floats else None)
+    if q.dtype == torch.bfloat16 and d != 512:
+        smem = fwd_bf16_launch(q, k, v)["smem_bytes"]
+        if lib.flash_attn_fwd_bf16_smem_bytes(d) != smem:
+            raise RuntimeError(f"the library's bf16 forward takes other shared memory than "
+                               f"fwd_bf16_smem_bytes({d}) = {smem}")
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     entry = lib.flash_attn_fwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_attn_fwd
     with torch.cuda.device(q.device):     # the C entry launches on the current device

@@ -1,13 +1,15 @@
-"""K2's bf16 backward launch geometry (ssl_tpu_torch/ops/attention_cuda.py::
-bwd_bf16_launch), on the CPU.
+"""K2's bf16 launch geometry (ssl_tpu_torch/ops/attention_cuda.py::
+bwd_bf16_launch and fwd_bf16_launch), on the CPU.
 
 The kernels cannot run here, but what the wrapper hands the C entry can be
 checked: the TMA tensor maps of q, k, v and dO over their strided (b, seq,
 heads, d) views, in the UNet's projection layout and the packed qkv layout
-of the struct-cond encoder, at every d = 64 and 128 training case, and the
-two kernels' shared memory.  The card checks that the library agrees (the
-wrapper compares ``flash_attn_bwd_bf16_smem_bytes`` with
-``bwd_bf16_smem_bytes`` at every launch) and that the maps encode."""
+of the struct-cond encoder, at every d = 64 and 128 training case (and, for
+the forward, every serving case), and the kernels' shared memory.  The card
+checks that the library agrees (the wrapper compares
+``flash_attn_bwd_bf16_smem_bytes`` and ``flash_attn_fwd_bf16_smem_bytes``
+with ``bwd_bf16_smem_bytes`` and ``fwd_bf16_smem_bytes`` at every launch)
+and that the maps encode."""
 
 import pytest
 import torch
@@ -15,11 +17,15 @@ import torch
 from ssl_tpu_torch.ops import attention_cuda
 from ssl_tpu_torch.ops.attention_cuda import (MAX_SMEM_BYTES, TMA_MAX_BOX, TMA_MAX_STRIDE,
                                               TMA_SWIZZLE_BYTES, bwd_bf16_launch,
-                                              bwd_bf16_smem_bytes, bwd_tile_map)
-from torch_attention_cases import TRAIN_CASES
+                                              bwd_bf16_smem_bytes, bwd_tile_map, fwd_bf16_launch,
+                                              fwd_bf16_smem_bytes)
+from torch_attention_cases import CUDA_CASES, TRAIN_CASES
 
 CASES = [(c, layout) for c, (b, h, n, m, d, *_) in sorted(TRAIN_CASES.items()) if d != 512
          for layout in ("proj", "qkv") if layout == "proj" or n == m]
+FWD_CASES = [(path, c, layout) for path, cases in (("serve", CUDA_CASES), ("train", TRAIN_CASES))
+             for c, (b, h, n, m, d, *_) in sorted(cases.items()) if d != 512
+             for layout in ("proj", "qkv") if layout == "proj" or n == m]
 
 
 def _views(b, h, n, m, d, layout):
@@ -68,6 +74,50 @@ def test_bf16_backward_shared_memory_by_layout(d, stages):
     barriers = 8 * (2 * stages + 1)
     assert bwd_bf16_smem_bytes(d) == (1024 + resident + ring + stages * 2 * 64 * 4 + barriers,
                                       1024 + resident + ring + barriers)
+
+
+def _check_map(tmap, t, seq, rows):
+    """A map of ``t`` (bf16, d columns) as the hardware takes it, its boxes
+    ``rows`` rows, tiling ``seq`` and d."""
+    b, _, h, d = t.shape
+    assert tmap["dims"] == (d, h, seq, b)
+    assert tmap["strides"] == tuple(2 * s for s in (t.stride(2), t.stride(1), t.stride(0)))
+    assert all(s % 16 == 0 and 0 < s < TMA_MAX_STRIDE for s in tmap["strides"])
+    assert tmap["base"] % 16 == 0
+    assert tmap["box"] == (64, 1, rows, 1)
+    assert max(tmap["box"]) <= TMA_MAX_BOX
+    assert tmap["box"][0] * 2 <= TMA_SWIZZLE_BYTES == tmap["swizzle"]
+    assert seq % rows == 0 and d % tmap["box"][0] == 0
+
+
+@pytest.mark.parametrize("path,case,layout", FWD_CASES)
+def test_bf16_forward_tensor_maps_fit_tma(path, case, layout):
+    """The forward's maps: q in boxes of the plan's query rows, k and v in
+    boxes of its key rows, at every d = 64 and 128 serving and training case."""
+    b, h, n, m, d = (CUDA_CASES if path == "serve" else TRAIN_CASES)[case][:5]
+    q, k, v, _ = _views(b, h, n, m, d, layout)
+    launch = fwd_bf16_launch(q, k, v)
+    rows, keys, per_sm = attention_cuda.FWD_TILES_BF16[d]
+    assert per_sm == 1
+    for name, t, seq, box in (("q", q, n, rows), ("k", k, m, keys), ("v", v, m, keys)):
+        _check_map(launch["maps"][name], t, seq, box)
+    if layout == "qkv":      # the packed views go in without a copy
+        assert launch["maps"]["v"]["base"] - launch["maps"]["k"]["base"] == 2 * d
+        assert launch["maps"]["k"]["strides"][0] == 2 * 3 * d
+    assert launch["smem_bytes"] <= MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("d,stages", [(64, 4), (128, 2)])
+def test_bf16_forward_shared_memory_by_layout(d, stages):
+    """Alignment slack, the resident 128 x d Q, the ring's 128 x d K and V
+    tiles, 8 bytes a barrier, and the turns' words (one float and 256
+    row-sum slots)."""
+    assert attention_cuda.FWD_STAGES_BF16[d] == stages
+    assert attention_cuda.FWD_TILES_BF16[d][:2] == (128, 128)
+    q_tile, ring = 128 * d * 2, stages * 2 * 128 * d * 2
+    barriers = 8 * (2 * stages + 1)
+    assert fwd_bf16_smem_bytes(d) == 1024 + q_tile + ring + barriers + 4 * 257
+    assert fwd_bf16_smem_bytes(d) <= MAX_SMEM_BYTES
 
 
 def test_bf16_tile_map_refuses_what_tma_cannot_take():

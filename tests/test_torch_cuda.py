@@ -456,6 +456,25 @@ def test_k2_bf16_forward_matches_float32_on_card(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_k2_bf16_forward_takes_any_scale_on_card(card, d, scale):
+    """The bf16 forward at d = 64 and 128 with a negative scale (there the
+    row max of the scaled logits is the scale times the min) and a zero one
+    (every probability equal): o within BF16_FWD_REL_L2 of float32, lse
+    against ``attention_lse_reference``."""
+    q, k, v = attention_inputs(1, 2, 512, 512, d, 0.125, "proj", 8.0, device="cuda",
+                               dtype=torch.bfloat16)
+    o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    ref = sdp_attention_reference(q.float(), k.float(), v.float(), scale)
+    torch.cuda.synchronize()
+    err = float((o.float() - ref).norm() / ref.norm())
+    assert err <= BF16_FWD_REL_L2, err
+    ref_lse = attention_lse_reference(q, k, scale)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(TRAIN_CASES))
 def test_k2_bf16_backward_matches_float32_on_card(card, case):
     """The bf16 backward kernels bwd_plan names at the training shapes, fed
