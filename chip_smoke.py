@@ -52,7 +52,12 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            1e-2 and at most 1.5x ``flash_attn_bwd_reference`` on the bf16
            inputs, each bit for bit on repeat; times with SDPA in bf16 as
            the yardstick and bounds with bf16 products at 989 TFLOP/s and
-           2-byte operands.  K2's holds and times run before K1's.
+           2-byte operands.  Then the two bf16 kernels of the VAE's head
+           (d = 512: the forward, and the backward's P and dS) at vae_mid
+           with b = 1 and b = 2, each held there by the bf16 holds above
+           (the backward fed the forward kernel's own o and lse) and timed
+           beside its bound and SDPA's device time.  K2's holds and times
+           run before K1's.
 3. diffusion  the StableSR-SSL model of options/diffusion/ssl_base.yml at
            full width with model.use_flash_attention on, random weights from
            seeds; every layer the init leaves at 0 is drawn from a seeded
@@ -1169,6 +1174,101 @@ def phase_k2_bf16():
         del q, k, v, got, ref, plain
         torch.cuda.empty_cache()
     return results
+
+
+def phase_k2_d512_bf16():
+    """The two bf16 kernels of the VAE's single head (d = 512),
+    flash_attn_fwd_d512_bf16 and flash_attn_bwd_p_ds_bf16, at vae_mid by
+    batch: b = 1 (serving; the forward's key loop split in two) and b = 2
+    (training; unsplit, o and lse written by the kernel itself).  Held at
+    both: o against the float32 plain version on the bf16 inputs upcast
+    within BF16_FWD_REL_L2 and at most BF16_PLAIN_RATIO times the plain bf16
+    route's error, lse against ``attention_lse_reference`` (rtol and atol
+    1e-5), both bit for bit on a second launch; the backward, fed the forward
+    kernel's own o and lse, dq, dk and dv against the float32
+    ``flash_attn_bwd_reference`` within BF16_BWD_REL_L2 and at most
+    BF16_PLAIN_RATIO times the plain bf16 backward's error on the same o and
+    lse.  Then each kernel's device time (profiler, ms a launch) beside its
+    bound and SDPA's device time on the same bf16 inputs (its forward, or its
+    whole backward)."""
+    import torch
+    import torch.nn.functional as F
+    from torch_attention_cases import (BF16_BWD_REL_L2, BF16_FWD_REL_L2, BF16_PLAIN_RATIO,
+                                       CUDA_CASES, TRAIN_CASES, attention_inputs)
+    from ssl_tpu_torch.ops import attention_cuda
+    from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_reference,
+                                             sdp_attention_reference)
+
+    bf16 = torch.bfloat16
+    for path, cases in (("serve", CUDA_CASES), ("train", TRAIN_CASES)):
+        b, h, n, m, d, scale, layout, logit_range = cases["vae_mid"]
+        case = f"vae_mid_{path}"
+        q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logit_range, device="cuda",
+                                   dtype=bf16)
+        do = torch.randn((b, n, h, d), generator=torch.Generator(device="cuda").manual_seed(11),
+                         device="cuda").to(bf16)
+        o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+        o2, lse2 = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        ref_o, ref_lse = sdp_attention_reference(q32, k32, v32, scale), attention_lse_reference(
+            q32, k32, scale)
+        plain = sdp_attention_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        if o.dtype != bf16 or not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            fail(f"K2 bf16 {case}: o is {o.dtype}, or a second launch differs from the first")
+        fwd_err, plain_err = rel_l2(o, ref_o), rel_l2(plain, ref_o)
+        if fwd_err > BF16_FWD_REL_L2 or fwd_err > BF16_PLAIN_RATIO * plain_err:
+            fail(f"K2 bf16 {case}: relative L2 {fwd_err} against float32 (bound "
+                 f"{BF16_FWD_REL_L2}; the plain bf16 route's {plain_err})")
+        lse_err = check_close(f"K2 bf16 {case} lse", lse, attention_lse_reference(q, k, scale),
+                              1e-5, 1e-5)
+        del o2, lse2, plain
+        got = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+        ref = flash_attn_bwd_reference(q32, k32, v32, ref_o, ref_lse, do.float(), scale)
+        plain = flash_attn_bwd_reference(q, k, v, o, lse, do, scale)
+        rel, plain_rel = {}, {}
+        for g_name, g, r, p_ in zip(("dq", "dk", "dv"), got, ref, plain):
+            rel[g_name], plain_rel[g_name] = rel_l2(g, r), rel_l2(p_, r)
+            if rel[g_name] > BF16_BWD_REL_L2 or rel[g_name] > BF16_PLAIN_RATIO * plain_rel[g_name]:
+                fail(f"K2 bf16 bwd {case} {g_name}: relative L2 {rel[g_name]} against float32 "
+                     f"(bound {BF16_BWD_REL_L2}; the plain bf16 backward's {plain_rel[g_name]})")
+        emit({"phase": "kernel", "kernel": "flash_attn_d512_bf16", "case": case,
+              "b_heads_n_m_d": [b, h, n, m, d], "rel_l2_vs_float32": fwd_err,
+              "plain_bf16_rel_l2_vs_float32": plain_err, "lse_max_abs_err": lse_err,
+              "repeat_bit_for_bit": True, "bwd_on_own_o_lse_rel_l2_vs_float32": rel,
+              "plain_bf16_bwd_rel_l2_vs_float32": plain_rel,
+              "bounds": {"fwd_rel_l2": BF16_FWD_REL_L2, "bwd_rel_l2": BF16_BWD_REL_L2,
+                         "plain_ratio": BF16_PLAIN_RATIO}})
+        del got, ref, plain, ref_o, ref_lse, q32, k32, v32
+        fwd = kernel_device_ms(lambda: attention_cuda.flash_attn_fwd_cuda(q, k, v, scale,
+                                                                          return_lse=True),
+                               "flash_attn_fwd", 10)
+        bwd = kernel_device_ms(lambda: attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do,
+                                                                          scale),
+                               "flash_attn_bwd", 5)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        with torch.no_grad():
+            sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                                 10)
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        do_t = do.transpose(1, 2)
+        sdpa_bwd = device_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                                         retain_graph=True), 5)
+        f_bound = k2_times(b, h, n, m, d, "bfloat16")
+        p_bound = k2_bwd_times(b, h, n, m, d, (1, 1), "bfloat16")["p_ds"]
+        for kernel, ms, bound, sdpa in (
+                ("flash_attn_fwd_d512_bf16", fwd["flash_attn_fwd_d512_bf16_kernel"], f_bound,
+                 {"sdpa_fwd_device_ms": sdpa_fwd}),
+                ("flash_attn_bwd_p_ds_bf16", bwd["flash_attn_bwd_p_ds_bf16_kernel"], p_bound,
+                 {"sdpa_bwd_device_ms": sdpa_bwd})):
+            bound_ms = max(bound["ops_ms"], bound["bytes_ms"])
+            emit({"phase": "kernel", "kernel": kernel, "case": case,
+                  "b_heads_n_m_d": [b, h, n, m, d], "device_ms": ms, "bound_ms": bound_ms,
+                  "bound_by": "operations" if bound["ops_ms"] >= bound["bytes_ms"] else "bytes",
+                  "fraction_of_bound": bound_ms / ms, **sdpa,
+                  "kernels_device_ms": fwd if kernel.startswith("flash_attn_fwd") else bwd})
+        del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, do_t
+        torch.cuda.empty_cache()
 
 
 def k2_bwd_times(b, h, n, m, d, splits=(1, 1), dtype="float32"):
@@ -4233,6 +4333,7 @@ def main() -> int:
     k2_bwd = run("k2_bwd", phase_k2_bwd)
     k2_16 = run("k2_bf16", phase_k2_bf16)
     k2_bwd_16 = run("k2_bwd_bf16", phase_k2_bwd_bf16)
+    run("k2_d512_bf16", phase_k2_d512_bf16)
     k1 = run("kernel", phase_kernel)
     model, state = run("diffusion", phase_diffusion)
     run("e2e", phase_e2e, model, state)

@@ -2,7 +2,7 @@
 its forward at the serving path's shapes, on one CUDA device.
 
     python3 scripts/profile_torch_attention_bwd.py [--fwd] [--dtype float32|bfloat16]
-        [--root DIR] [--label NAME] [--iters 10] [--cases ...]
+        [--root DIR] [--label NAME] [--iters 10] [--cases ...] [--shapes serve|train]
 
 For each case of ``tests/torch_attention_cases.py::TRAIN_CASES`` prints one
 JSON line: the device time of every backward kernel (torch.profiler, ms per
@@ -20,7 +20,10 @@ kernels' device times, the wrapper's time, SDPA's forward by CUDA events and
 on the device, the plain version's time, the bound and the kernels' fraction
 of it, the error (against the plain version; with ``--dtype bfloat16`` the
 relative L2 error against the float32 plain version and its hold), and
-whether a second launch repeats the first bit for bit.
+whether a second launch repeats the first bit for bit.  ``--shapes`` takes
+the cases of the other path instead (``train``: the forward at the training
+batch, as the mini-step runs it; ``serve``: the backward at the serving
+batch).
 ``--root`` imports ``ssl_tpu_torch`` from another checkout (for example an
 earlier commit unpacked with ``git archive``), so that two versions are
 timed in turns on one card.  TF32 is off for the yardstick's and the plain
@@ -47,6 +50,9 @@ def main() -> int:
     ap.add_argument("--fwd", action="store_true", help="the forward at the serving shapes")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                     help="the kernels' input type")
+    ap.add_argument("--shapes", default=None, choices=("serve", "train"),
+                    help="the serving (CUDA_CASES) or training (TRAIN_CASES) shapes; by "
+                         "default serve with --fwd, else train")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     sys.path.insert(1, os.path.join(ROOT, "tests"))
@@ -56,7 +62,7 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import card, device_ms, k2_bwd_times, kernel_device_ms, time_ms
-    from torch_attention_cases import TRAIN_CASES, attention_inputs
+    from torch_attention_cases import CUDA_CASES, TRAIN_CASES, attention_inputs
     sys.path.insert(0, os.path.abspath(args.root))      # this checkout's ssl_tpu_torch
     from ssl_tpu_torch.ops import attention_cuda
     if not attention_cuda.__file__.startswith(os.path.abspath(args.root)):
@@ -69,8 +75,9 @@ def main() -> int:
     if args.fwd:
         return profile_fwd(args, attention_cuda, name)
     dtype = getattr(torch, args.dtype)
-    for case in args.cases or list(TRAIN_CASES):
-        b, h, n, m, d, scale, layout, logits = TRAIN_CASES[case]
+    cases = CUDA_CASES if args.shapes == "serve" else TRAIN_CASES
+    for case in args.cases or list(cases):
+        b, h, n, m, d, scale, layout, logits = cases[case]
         q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logits, device="cuda",
                                    dtype=dtype)
         do = torch.randn((b, n, h, d), generator=torch.Generator(device="cuda").manual_seed(11),
@@ -136,13 +143,14 @@ def profile_fwd(args, attention_cuda, name) -> int:
     import torch.nn.functional as F
     from chip_smoke import device_ms, k2_times, kernel_device_ms, rel_l2, time_ms
     from torch_attention_cases import (BF16_FWD_REL_L2, BF16_PLAIN_RATIO, CUDA_CASES,
-                                       attention_inputs)
+                                       TRAIN_CASES, attention_inputs)
     from ssl_tpu_torch.ops.attention import sdp_attention_reference
     dtype = getattr(torch, args.dtype)
     plan = getattr(attention_cuda, "fwd_plan", None)      # absent before the redesign
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for case in args.cases or list(CUDA_CASES):
-        b, h, n, m, d, scale, layout, logits = CUDA_CASES[case]
+    cases = TRAIN_CASES if args.shapes == "train" else CUDA_CASES
+    for case in args.cases or list(cases):
+        b, h, n, m, d, scale, layout, logits = cases[case]
         q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logits, device="cuda",
                                    dtype=dtype)
 

@@ -1,6 +1,7 @@
 // bf16 products on mma.sync, ldmatrix fragment loads and cp.async tile copies
-// for Hopper (sm_90a), shared by K2's bf16 forward (flash_attn_fwd.cu) and
-// backward (flash_attn_bwd.cu).
+// for Hopper (sm_90a): the d = 512 bf16 backward's two products from P and dS
+// (flash_attn_bwd.cu, mm_tile_bf16); and the bf16 type, which K2's bf16
+// forward (flash_attn_fwd.cu) takes from here too.
 //
 // A product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: bf16
 // operands, fp32 accumulators (what upstream's Pallas kernel does with bf16
@@ -14,11 +15,10 @@
 // b1 = (2t+8.., g); the accumulator C (16 x 8) c0, c1 = (g, 2t..2t+1),
 // c2, c3 = (g+8, 2t..).
 //
-// Operands whose contraction index runs along a shared-memory row (Q and K
-// for the logits, contracting over d) are read as 32-bit pairs
-// (``frag_a_rows`` / ``frag_b_rows``).  Operands contracted along the
-// sequence, stored with the sequence across rows (V in P·V; dO, Q and K in
-// the backward's dV, dK and dQ), are read transposed by
+// An A operand whose contraction index runs along a shared-memory row (dS in
+// dQ = dS k) is read as 32-bit pairs (``frag_a_rows``).  Operands contracted
+// along the sequence, stored with the sequence across rows (P and dS in dV and
+// dK; dO, q and k), are read transposed by
 // ldmatrix.sync.aligned.m8n8.x4.trans (``frag_b_trans`` / ``frag_a_trans``).
 // Rows are padded to a pitch of W + 8 bf16 (W a multiple of 16): the
 // 32-bit reads hit 32 banks (pitch ≡ 4 words mod 32) and the eight 16-byte
@@ -88,16 +88,6 @@ __device__ __forceinline__ void frag_a_trans(uint32_t (&a)[4], const bf16* s, in
   ldmatrix_x4_trans(a, s + (kk + (mi >> 1) * 8 + r) * P + i0 + (mi & 1) * 8);
 }
 
-// The B fragment of output columns given by rows n..n+7 of a row-major tile
-// (pitch P) and contraction kk..kk+15 along the row: B(kk, n) = s[n·P + kk].
-template <int P>
-__device__ __forceinline__ void frag_b_rows(uint32_t& b0, uint32_t& b1, const bf16* s, int kk,
-                                            int g, int t) {
-  const bf16* r = s + g * P + kk + 2 * t;
-  b0 = ld32(r);
-  b1 = ld32(r + 8);
-}
-
 // The B fragments of output columns c0..c0+7 (b[0], b[1]) and c0+8..c0+15
 // (b[2], b[3]) over contraction rows k0..k0+15 of B(k, c) = s[k·P + c] (the
 // contraction index across rows), by ldmatrix.trans.
@@ -106,39 +96,6 @@ __device__ __forceinline__ void frag_b_trans(uint32_t (&b)[4], const bf16* s, in
                                              int lane) {
   const int mi = lane >> 3, r = lane & 7;
   ldmatrix_x4_trans(b, s + (k0 + (mi & 1) * 8 + r) * P + c0 + (mi >> 1) * 8);
-}
-
-// s (16·RW rows x NT·8 columns) += rows of a (16·RW rows of pitch P) times
-// rows of b (NT·8 rows of pitch P)ᵀ, contracting over K columns.
-template <int K, int NT, int RW, int P>
-__device__ __forceinline__ void mma_rows_bf16(const bf16* a, const bf16* b, int g, int t,
-                                              float (&s)[NT][RW][4]) {
-#pragma unroll 2
-  for (int kk = 0; kk < K; kk += 16) {
-    uint32_t fa[RW][4];
-#pragma unroll
-    for (int i = 0; i < RW; ++i) frag_a_rows<P>(fa[i], a + 16 * i * P, kk, g, t);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t b0, b1;
-      frag_b_rows<P>(b0, b1, b + 8 * j * P, kk, g, t);
-#pragma unroll
-      for (int i = 0; i < RW; ++i) mma_bf16(s[j][i], fa[i], b0, b1);
-    }
-  }
-}
-
-// s = rows of a times rows of bᵀ (``mma_rows_bf16`` from 0).
-template <int K, int NT, int RW, int P>
-__device__ __forceinline__ void logits_bf16(const bf16* a, const bf16* b, int g, int t,
-                                            float (&s)[NT][RW][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < RW; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[j][i][r] = 0.f;
-  mma_rows_bf16<K, NT, RW, P>(a, b, g, t, s);
 }
 
 // ROWS x COLS bf16 of a row-major global slice (row stride rs elements,

@@ -104,8 +104,14 @@
 // from shared memory), and each tile's softmax goes in two halves of 32
 // columns: the second half's P and dS are formed while the first half's
 // accumulations run.  At d = 512 P and dS go to scratch in bf16 (half the
-// float32 scratch), where the products that read them round them anyway
-// (mma.sync, bf16_mma.cuh).
+// float32 scratch), where the products that read them round them anyway.
+// flash_attn_bwd_p_ds_bf16_kernel, which forms them, is built for Hopper as
+// well (below): it is bound by its two logit products, but the plan it
+// replaced (128 x 64 tiles on mma.sync, a cp.async ring) read q, dO, k and v
+// 4·b·h·n·m·d·(1/128 + 1/64) bytes through L2 and sat near the L2's rate;
+// 128 x 128 tiles on wgmma, in pairs of blocks that share q and dO by TMA
+// multicast, read half of that.  dkv_mm and dq_mm stay 128 x 128 mma.sync
+// tiles (bf16_mma.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1056,85 +1062,203 @@ __global__ void flash_attn_bwd_sum_bf16_kernel(const float4* __restrict__ parts,
   }
 }
 
-// ---- bf16, d = 512: P and dS through bf16 scratch -----------------------
+// ---- bf16, d = 512: P and dS on wgmma, tiles multicast across a cluster --
+//
+// flash_attn_bwd_p_ds_bf16_kernel: tiles of 128 queries x 128 keys of one
+// b·head, in blocks of 384 threads: a producer warpgroup (threads 256-383;
+// setmaxnreg 40 / 232) and two consumer warpgroups of 64 query rows.  Each
+// consumer runs S = q kᵀ and dP = dO vᵀ as m64n128k16 products, both operands
+// K-major along d as stored (64 + 64 accumulators a thread), over a ring of
+// PD_STAGES stages of 64-column chunks of d: a stage holds the chunk of the
+// tile's 128 rows of q, dO, k and v (four TMA boxes of 128 x 64, 64 KB).
+// Then P = exp(sm_scale·S - lse) and dS = P (dP - di) in fp32, rounded to
+// bf16, each staged through shared memory and written as 16-byte pieces
+// along the rows of the (b·h, n, m) scratch, which dkv_mm and dq_mm read.
+// What bounds it: the two products, 4·b·h·n·m·d operations (~70 µs at b = 2
+// and 4096 tokens at the bf16 rate), and the bytes of q, dO, k and v that
+// each tile reads, 4·b·h·n·m·d·(1/BQ + 1/BK) through L2 (1.07 GB at b = 2;
+// the plan it replaced, 128 x 64 tiles on mma.sync, read 1.61 GB and sat near
+// the L2's rate).  Blocks go in pairs along the keys (where the key tiles come
+// in pairs) that take tiles together: the two blocks of a query tile share
+// its q and dO chunks, one loading q and the other dO, each with multicast
+// to both, which cuts the L2 traffic by a quarter; a stage is refilled once
+// both blocks have read it.  (Clusters of 2 x 2, sharing k and v across
+// query tiles too, halve it, but the card holds 30 such clusters at once,
+// 120 of its 132 SMs: no faster, PERF.md.)  The grid is persistent (as many
+// pairs as the card holds at once, each walking the pairs of tiles in turn),
+// so that the next tile's chunks load while this tile's P and dS are formed
+// and stored.
 
-constexpr int PDSB_P = PDS_KC + 8;
-constexpr int PDSB_STAGE = 2 * (PDS_BM + PDS_BN) * PDSB_P;
-constexpr int MMB_PA = MM_KC + 8, MMB_PT = MM_BM + 8;   // pitches: [i][k] and [k][i or j]
-constexpr int MMB_STAGE = MM_BM * MMB_PA + MM_KC * MMB_PT;
+constexpr int PD_BQ = 128, PD_BK = 128, PD_THREADS = 384, PD_STAGES = 3;
+constexpr int PD_BOX = 128 * 64 * 2;           // bytes of one 128-row, 64-column box
+constexpr int PD_OUT = PD_BQ * PD_BK * 2;      // bytes of a staged P or dS tile
 
-// P and dS of 128 queries x 64 keys, as flash_attn_bwd_p_ds_kernel, from bf16
-// operands in fp32 accumulators; written rounded to bf16, the operands of
-// the two products that follow.
-template <int D>
-__global__ void __launch_bounds__(256)
-flash_attn_bwd_p_ds_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                                const float* __restrict__ lse, const float* __restrict__ di,
-                                bf16* __restrict__ p_out, bf16* __restrict__ ds_out, Strides st,
-                                int heads, int n, int m, float sm_scale) {
-  constexpr int P = PDSB_P, NCHUNK = D / PDS_KC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wr = warp / 2, wc = warp % 2;
-  const int bh = blockIdx.z, bi = bh / heads, hi = bh % heads;
-  const int q0 = blockIdx.y * PDS_BM, k0 = blockIdx.x * PDS_BN;
-  const bf16* qp = q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn;
-  const bf16* gp = dout + bi * st.gb + hi * st.gh + (long long)q0 * st.gn;
-  const bf16* kp = k + bi * st.kb + hi * st.kh + (long long)k0 * st.kn;
-  const bf16* vp = v + bi * st.vb + hi * st.vh + (long long)k0 * st.vn;
+// Shared memory (bytes): 1024 of alignment slack, the ring (q, dO, k and v
+// boxes a stage), the staged output tile and the ring's barriers (full and
+// empty a stage).
+constexpr int p_ds_bf16_smem_bytes() {
+  return 1024 + PD_STAGES * 4 * PD_BOX + PD_OUT + 2 * PD_STAGES * 8;
+}
 
-  auto load_stage = [&](int stage, int chunk) {
-    bf16* s = smem + stage * PDSB_STAGE;
-    const int c0 = chunk * PDS_KC;
-    load_tile_bf16<PDS_BM, PDS_KC, P, 256>(s, qp + c0, st.qn, tid);
-    load_tile_bf16<PDS_BM, PDS_KC, P, 256>(s + PDS_BM * P, gp + c0, st.gn, tid);
-    load_tile_bf16<PDS_BN, PDS_KC, P, 256>(s + 2 * PDS_BM * P, kp + c0, st.kn, tid);
-    load_tile_bf16<PDS_BN, PDS_KC, P, 256>(s + (2 * PDS_BM + PDS_BN) * P, vp + c0, st.vn, tid);
-  };
+// Blocks a cluster at m keys (a multiple of 128): 2 where the 128-key tiles
+// come in pairs, else 1.
+inline int p_ds_cluster(int m) { return (m / PD_BK) % 2 == 0 ? 2 : 1; }
 
-  float s[4][2][4], dp[4][2][4];   // [column tile j][row tile i]
+// Stores the 128 x 128 tile ``x`` (a consumer thread's 64 accumulators of
+// its warpgroup's rows, rounded to bf16) to rows q0 .. of ``out`` (an n x m
+// matrix), keys k0 ..: through ``stage`` ([128][128] bf16, 16-byte chunk c
+// of row r at chunk c ^ (r % 8)), then 16-byte pieces along the rows.
+__device__ __forceinline__ void store_tile(const float (&x)[64], unsigned char* stage,
+                                           bf16* __restrict__ out, long long m, int q0, int k0,
+                                           int wg, int wq, int g, int t, int tid) {
+  bar_sync(1, 256);   // the stage's last reader is done
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int h = 0; h < 2; ++h) {
+    const int row = 64 * wg + 16 * wq + g + 8 * h;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[j][i][r] = dp[j][i][r] = 0.f;
-
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < NCHUNK; ++it) {
-    if (it + 1 < NCHUNK) load_stage((it + 1) & 1, it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* s_q = smem + (it & 1) * PDSB_STAGE + wr * 32 * P;
-    const bf16* s_do = s_q + PDS_BM * P;
-    const bf16* s_k = smem + (it & 1) * PDSB_STAGE + 2 * PDS_BM * P + wc * 32 * P;
-    const bf16* s_v = s_k + PDS_BN * P;
-    mma_rows_bf16<PDS_KC, 4, 2, P>(s_q, s_k, g, t, s);
-    mma_rows_bf16<PDS_KC, 4, 2, P>(s_do, s_v, g, t, dp);
-    __syncthreads();
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(stage + row * 256 + ((j ^ (row & 7)) << 4) + 4 * t) =
+          pack_bf16x2(x[4 * j + 2 * h], x[4 * j + 2 * h + 1]);
   }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int h8 = 0; h8 < 2; ++h8) {
-      const int row = q0 + wr * 32 + 16 * i + g + 8 * h8;
-      const float l = lse[(long long)bh * n + row], d = di[(long long)bh * n + row];
-      const long long base = ((long long)bh * n + row) * m + k0 + wc * 32 + 2 * t;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p0 = expf(s[j][i][2 * h8] * sm_scale - l);
-        const float p1 = expf(s[j][i][2 * h8 + 1] * sm_scale - l);
-        store2(p_out + base + 8 * j, p0, p1);
-        store2(ds_out + base + 8 * j, p0 * (dp[j][i][2 * h8] - d), p1 * (dp[j][i][2 * h8 + 1] - d));
-      }
-    }
+  bar_sync(1, 256);
+  for (int e = tid; e < PD_BQ * PD_BK / 8; e += 256) {
+    const int r = e / (PD_BK / 8), c = e % (PD_BK / 8);
+    *reinterpret_cast<uint4*>(out + (q0 + r) * m + k0 + 8 * c) =
+        *reinterpret_cast<const uint4*>(stage + r * 256 + ((c ^ (r & 7)) << 4));
   }
 }
+
+template <int D>
+__global__ void __launch_bounds__(PD_THREADS, 1)
+flash_attn_bwd_p_ds_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const float* __restrict__ lse, const float* __restrict__ di,
+                                bf16* __restrict__ p_out, bf16* __restrict__ ds_out, int heads,
+                                int n, int m, float sm_scale, int cluster, int tiles) {
+  constexpr int NCHUNK = D / 64, STAGE = 4 * PD_BOX;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* ring = align1024(smem_tma);   // PD_STAGES x {q, dO, k, v}
+  unsigned char* stage_out = ring + PD_STAGES * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage_out + PD_OUT);
+  uint64_t* empty = full + PD_STAGES;
+
+  // The cluster tiles (``cluster`` key tiles of one query tile and b·head)
+  // in turn: this block's cluster takes cluster tiles cl, cl + clusters, ...;
+  // in each, this block (rank x) takes key tile kt·cluster + x.
+  const int tid = threadIdx.x, x = blockIdx.x % cluster;
+  const int cl = blockIdx.x / cluster, clusters = gridDim.x / cluster;
+  const int kts = m / (PD_BK * cluster), qts = n / PD_BQ;
+  auto tile_of = [&](int w, int& bh, int& q0, int& k0) {
+    k0 = ((w % kts) * cluster + x) * PD_BK;
+    q0 = (w / kts % qts) * PD_BQ;
+    bh = w / (kts * qts);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < PD_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8 * cluster);   // every consumer warp of the cluster
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();   // every block's barriers exist before a load or arrival reaches them
+
+  if (tid >= 256) {   // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid == 256) {
+      // q and dO are shared by the cluster: block 0 loads q, the last dO
+      const uint16_t all = (uint16_t)((1u << cluster) - 1);
+      int u = 0;   // chunks loaded so far
+      for (int w = cl; w < tiles; w += clusters) {
+        int bh, q0, k0;
+        tile_of(w, bh, q0, k0);
+        const int bi = bh / heads, hi = bh % heads;
+        for (int c = 0; c < NCHUNK; ++c, ++u) {
+          const int s = u % PD_STAGES;
+          if (u >= PD_STAGES) mbar_wait(&empty[s], (u / PD_STAGES - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], STAGE);
+          unsigned char* st = ring + s * STAGE;
+          if (x == 0) tma_load_4d_multicast(st, &tm_q, &full[s], 64 * c, hi, q0, bi, all);
+          if (x == cluster - 1)
+            tma_load_4d_multicast(st + PD_BOX, &tm_do, &full[s], 64 * c, hi, q0, bi, all);
+          tma_load_4d(st + 2 * PD_BOX, &tm_k, &full[s], 64 * c, hi, k0, bi);
+          tma_load_4d(st + 3 * PD_BOX, &tm_v, &full[s], 64 * c, hi, k0, bi);
+        }
+      }
+    }
+  } else {   // the consumer warpgroups
+    setmaxnreg_inc<232>();
+    const int wg = tid / 128, wq = (tid % 128) / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const float scale_log2 = sm_scale * LOG2E;
+    // a consumer warp's arrival on a stage's empty barrier in every block (lane r on block r's)
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane < cluster) mbar_arrive_cluster(&empty[s], lane);
+    };
+    int u = 0;   // chunks consumed so far
+    for (int w = cl; w < tiles; w += clusters) {
+      int bh, q0, k0;
+      tile_of(w, bh, q0, k0);
+      float s[64], dp[64];
+      for (int c = 0; c < NCHUNK; ++c, ++u) {
+        mbar_wait(&full[u % PD_STAGES], (u / PD_STAGES) & 1);
+        __syncwarp();
+        const unsigned char* st = ring + (u % PD_STAGES) * STAGE;
+        // q and dO: this warpgroup's 64 rows (1024-byte aligned); k and v: all 128
+        uint64_t dq = desc_sw128(st + 64 * wg * 128, 16, 1024);
+        uint64_t dg = desc_sw128(st + PD_BOX + 64 * wg * 128, 16, 1024);
+        uint64_t dk = desc_sw128(st + 2 * PD_BOX, 16, 1024);
+        uint64_t dv = desc_sw128(st + 3 * PD_BOX, 16, 1024);
+        opaque(dq);
+        opaque(dg);
+        opaque(dk);
+        opaque(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {   // k-step kk starts 32 bytes into the rows
+          wgmma_ss_n128<0>(s, dq + 2 * kk, dk + 2 * kk, c > 0 || kk > 0);
+          wgmma_ss_n128<0>(dp, dg + 2 * kk, dv + 2 * kk, c > 0 || kk > 0);
+        }
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait<1>();
+          release((u - 1) % PD_STAGES);   // chunk c - 1 is read
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      release((u - 1) % PD_STAGES);
+
+      // P and dS in place (entry 4j + r of an accumulator: row 16wq + g +
+      // 8·(r / 2) of the warpgroup's, key 8j + 2t + r % 2)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long at = (long long)bh * n + q0 + 64 * wg + 16 * wq + g + 8 * h;
+        const float l2 = lse[at] * LOG2E, dd = di[at];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            s[i] = ex2(fmaf(s[i], scale_log2, -l2));
+            dp[i] = s[i] * (dp[i] - dd);
+          }
+      }
+      const long long mat = (long long)bh * n * m;
+      store_tile(s, stage_out, p_out + mat, m, q0, k0, wg, wq, g, t, tid);
+      store_tile(dp, stage_out, ds_out + mat, m, q0, k0, wg, wq, g, t, tid);
+    }
+  }
+  cluster_sync();   // no block leaves while another may still arrive on its barriers
+}
+
+// ---- bf16, d = 512: dK, dV and dQ from P and dS in bf16 scratch ----------
+
+constexpr int MMB_PA = MM_KC + 8, MMB_PT = MM_BM + 8;   // pitches: [i][k] and [k][i or j]
+constexpr int MMB_STAGE = MM_BM * MMB_PA + MM_KC * MMB_PT;
 
 // out (rows, D) = alpha A B over k < kdim in bf16 operands, as mm_tile: one
 // 128 x 128 tile per block, 8 warps of 64 x 32, a three-stage ring of 32-deep
@@ -1409,22 +1533,48 @@ cudaError_t launch_d512(const Args<float>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the same in bf16: P and dS in bf16 scratch
-template <int D>
+// the same in bf16: P and dS in bf16 scratch, the p_ds kernel on TMA tensor
+// maps of q, k, v and dO (boxes of 64 columns x 128 rows) in clusters of
+// p_ds_cluster(m) blocks, as many as fit the card at once
 cudaError_t launch_d512_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  constexpr int D = 512;
   if (a.scratch == nullptr || a.dkv_split != 1 || a.dq_split != 1) return cudaErrorInvalidValue;
+  if (a.n % PD_BQ || a.m % PD_BK) return cudaErrorInvalidValue;
   bf16* p = static_cast<bf16*>(a.scratch);
   bf16* ds = p + (long long)a.b * a.heads * a.n * a.m;
-  const size_t smem_pds = sizeof(bf16) * 2 * PDSB_STAGE;
+  CUtensorMap tq, tk, tv, tdo;
+  const Strides& st = a.st;
+  cudaError_t err = bf16_tile_map(&tq, a.q, a.b, a.n, a.heads, D, st.qb, st.qn, st.qh, PD_BQ);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&tk, a.k, a.b, a.m, a.heads, D, st.kb, st.kn, st.kh, PD_BK);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&tv, a.v, a.b, a.m, a.heads, D, st.vb, st.vn, st.vh, PD_BK);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&tdo, a.dout, a.b, a.n, a.heads, D, st.gb, st.gn, st.gh, PD_BQ);
+  if (err != cudaSuccess) return err;
+  constexpr int smem_pds = p_ds_bf16_smem_bytes();
   const size_t smem_mm = sizeof(bf16) * MM_STAGES * MMB_STAGE;
-  cudaError_t err = set_smem(flash_attn_bwd_p_ds_bf16_kernel<D>, smem_pds);
+  err = set_smem(flash_attn_bwd_p_ds_bf16_kernel<D>, smem_pds);
   if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dkv_mm_bf16_kernel<D>, smem_mm);
   if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_mm_bf16_kernel<D>, smem_mm);
   if (err != cudaSuccess) return err;
-  flash_attn_bwd_p_ds_bf16_kernel<D>
-      <<<dim3(a.m / PDS_BN, a.n / PDS_BM, a.b * a.heads), 256, smem_pds, stream>>>(
-          a.q, a.k, a.v, a.dout, a.lse, a.di, p, ds, a.st, a.heads, a.n, a.m, a.sm_scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const float* lse = a.lse;
+  const float* di = a.di;
+  int heads = a.heads, n = a.n, m = a.m, cluster = p_ds_cluster(a.m);
+  int tiles = (m / (PD_BK * cluster)) * (n / PD_BQ) * a.b * a.heads;
+  float sm_scale = a.sm_scale;
+  // as many clusters as the card holds at once, at most one a cluster tile
+  const void* kernel = reinterpret_cast<const void*>(flash_attn_bwd_p_ds_bf16_kernel<D>);
+  int clusters = 0;
+  if ((err = max_clusters(kernel, PD_THREADS, smem_pds, cluster, &clusters)) != cudaSuccess)
+    return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  clusters = clusters < tiles ? clusters : tiles;
+  void* args[] = {&tq, &tk, &tv, &tdo, &lse, &di, &p, &ds, &heads, &n, &m, &sm_scale, &cluster,
+                  &tiles};
+  err = launch_cluster(kernel, dim3(cluster * clusters), PD_THREADS, smem_pds, cluster, args,
+                       stream);
+  if (err != cudaSuccess) return err;
   flash_attn_bwd_dkv_mm_bf16_kernel<D>
       <<<dim3(D / MM_BN, a.m / MM_BM, 2 * a.b * a.heads), 256, smem_mm, stream>>>(
           a.q, a.dout, p, ds, a.dk, a.dv, a.st, a.heads, a.n, a.m, a.sm_scale);
@@ -1475,8 +1625,8 @@ int flash_attn_bwd(const float* q, const float* k, const float* v, const float* 
 }
 
 // flash_attn_bwd with bf16 q, k, v, dout, dq, dk and dv (lse and di
-// float32): every stride a multiple of 8 and every base 16-byte aligned (at
-// d = 64 and 128 the tensor maps also need strides below 2^39 elements).
+// float32): every stride a multiple of 8 and every base 16-byte aligned (the
+// tensor maps also need strides below 2^39 elements).
 // scratch: d = 512: 2·b·heads·n·m bf16 (P and dS); d = 64 or 128 the float32
 // split parts as flash_attn_bwd's (64-row query and key tiles).
 int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -1496,21 +1646,27 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
   switch (d) {
     case 64: return (int)launch_fused_bf16<64, BF16_STAGES_D64>(a, s);
     case 128: return (int)launch_fused_bf16<128, BF16_STAGES_D128>(a, s);
-    case 512: return (int)launch_d512_bf16<512>(a, s);
+    case 512: return (int)launch_d512_bf16(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The bf16 fused kernels' dynamic shared memory a block at head width d
-// (kernel 0: dkv, 1: dq), or -1; the wrapper checks its own plan against it.
+// The bf16 wgmma kernels' dynamic shared memory a block at head width d
+// (kernel 0: dkv, or p_ds at d = 512; 1: dq), or -1; the wrapper checks its
+// own plan against it.
 int flash_attn_bwd_bf16_smem_bytes(int d, int kernel) {
   switch (d) {
     case 64: return kernel ? dq_bf16_smem_bytes<64, BF16_STAGES_D64>()
                            : dkv_bf16_smem_bytes<64, BF16_STAGES_D64>();
     case 128: return kernel ? dq_bf16_smem_bytes<128, BF16_STAGES_D128>()
                             : dkv_bf16_smem_bytes<128, BF16_STAGES_D128>();
+    case 512: return kernel ? -1 : p_ds_bf16_smem_bytes();
     default: return -1;
   }
 }
+
+// Blocks a cluster of the bf16 backward's kernels at head width d and m keys
+// (1: no cluster); the wrapper checks its own plan against it.
+int flash_attn_bwd_bf16_cluster(int d, int m) { return d == 512 ? p_ds_cluster(m) : 1; }
 
 }  // extern "C"

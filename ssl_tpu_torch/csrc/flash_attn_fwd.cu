@@ -74,15 +74,18 @@
 // the other's products.  At 4096 tokens it reaches ~57% of that bound; what
 // holds it there is each warpgroup's chain (the issue of its 16 register-A
 // wgmma, which stalls while the products run, the softmax, the packing of P)
-// more than any unit's rate.  The d = 512 kernel keeps the float32 d = 512
-// plan with bf16 operands on mma.sync m16n8k16 (bf16_mma.cuh): 32 x 32 tiles,
-// P rounded to bf16 in shared memory (~123 KB).
+// more than any unit's rate.  The d = 512 kernel is built for Hopper too
+// (below): what bounds it is the products, but the float32 plan it replaced
+// (32-query blocks on mma.sync) streamed all of K and V through each block
+// and sat at the L2's rate; 64-query blocks whose two warpgroups split the
+// output columns, wgmma, and K and V tiles multicast to clusters of 2 such
+// blocks move 4x fewer bytes through L2.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"      // bf16 mma.sync products, ldmatrix fragment loads
+#include "bf16_mma.cuh"      // the bf16 type
 #include "hopper_wgmma.cuh"   // TMA, mbarrier rings, setmaxnreg, bf16 wgmma
 #include "tf32_mma.cuh"      // 3xTF32 mma.sync products, cp.async tile copies
 
@@ -563,11 +566,8 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// Named barrier ``id`` (1 or 2; 0 is __syncthreads) over ``count`` threads:
-// wait for it, or arrive without waiting.
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
+// Arrive at named barrier ``id`` (1 or 2; 0 is __syncthreads) over ``count``
+// threads without waiting (``bar_sync``, hopper_wgmma.cuh, waits).
 __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
@@ -847,167 +847,275 @@ flash_attn_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 q0 + 64 * wg + 16 * wq, 0, true, g, t);
 }
 
-// ---- bf16, d = 512 -------------------------------------------------------
+// ---- bf16, d = 512: wgmma over K and V tiles multicast across a cluster --
+//
+// The VAE's single head.  One block of 384 threads per (64 queries, b·head[,
+// split]): a producer warpgroup (threads 256-383; setmaxnreg 40 / 232) and two
+// consumer warpgroups that own the same 64 query rows.  A 64 x 512 fp32 output
+// does not fit one warpgroup's registers, so the consumers split the output
+// columns: warpgroup w keeps columns 256w .. 256w + 255 (128 accumulators a
+// thread).  Q (64 x 512) lands once by TMA and stays in shared memory as the
+// logits' K-major A operand.  Per key tile of 64:
+//   * warpgroup w computes S for keys 32w .. 32w + 31 over all of d
+//     (m64n32k16, the key tile K-major as stored), so no partial logits are
+//     added; each row's max over the warpgroup's keys goes to shared memory,
+//     one named barrier, and both take the max of the two;
+//   * each forms its half of P = 2^(s·c - m) (c = sm_scale·log2 e, the row sum
+//     over the unrounded fp32 P, its own share until the end) and writes it,
+//     rounded to bf16, into a shared [64][64] tile (two, alternating), then
+//     fence.proxy.async and a second named barrier hand it to both;
+//   * O += P V as m64n256k16 with P the shared A operand and the warpgroup's
+//     256 columns of the value tile read MN-major (imm-trans-b), issued beside
+//     the next tile's S.
+// At the end the two warpgroups' row sums are added in order, o is rounded to
+// bf16 once and lse = m + log l in fp32 (a split writes fp32 parts).  No
+// atomics: two launches repeat bit for bit.
+//
+// What bounds it: the products, 4·b·h·n·m·d operations, ~35 µs at b·h = 1 and
+// 4096 tokens at the bf16 rate.  The float32 plan it replaced (32 queries a
+// block, mma.sync) streamed all of K and V through every block, 4·b·h·n·m·d /
+// 32 bytes through L2 (1.07 GB at b·h = 1), and sat at the L2's rate.  Here
+// a block takes 64 queries, and blocks go in clusters of 2 along the
+// queries: each block's producer loads half of the column blocks of each K
+// and V tile and multicasts them to the pair, so a tile crosses L2 once for
+// 128 queries, 4·b·h·n·m·d / 128 bytes.  (Clusters of 4 move half that, but
+// the card holds 30 of them at once, not the 32 that 128 blocks make: two
+// waves.)  K and V have one slot each (Q 64 KB, K 64 KB, V 64 KB and P 16
+// KB fill ~210 KB), filled by two producer threads.  The K slot is two halves
+// along d (column blocks 0-3 and 4-7), each with its own barriers and its
+// own commit group of S's k-steps, so that K_{j+1}'s first half loads while
+// S_j's second half runs; the rest of K_{j+1} while P_{j-1} V_{j-1} and tile
+// j's softmax run; V_j while the next logits do.  A slot is free once both
+// blocks' consumer warps have arrived on its empty barrier.  The exponentials (b·h·n·m at 16 a clock per SM) are ~1/8 of the
+// products' time at d = 512, so the warpgroups take them together (no
+// turns).
 
-constexpr int WB_PP = W_BK + 8;   // pitch of P in bf16
+constexpr int FD_D = 512, FD_BQ = 64, FD_BK = 64, FD_THREADS = 384;
+constexpr int FD_CLUSTER = 2;      // blocks a cluster (n is a multiple of 128: tiles in pairs)
+constexpr int FD_CB = FD_D / 64;   // 64-column blocks of a row
 
-template <int D>
-constexpr size_t d512_bf16_smem_bytes() {
-  return sizeof(bf16) * ((size_t)(W_BQ + 2 * W_BK) * (D + 8) + (size_t)W_BQ * WB_PP) +
-         sizeof(float) * ((size_t)4 * W_BQ * W_PS + (size_t)3 * W_BQ);
+// Shared memory (bytes): 1024 of alignment slack, Q ([64][512]), one K and
+// one V tile ([64][512] each), P twice ([64][64]), each row's max and sum by
+// warpgroup ([2][64] floats each), and seven barriers (full and empty for
+// each half of K and for V, and Q's).
+constexpr int fwd_d512_bf16_smem_bytes() {
+  return 1024 + FD_BQ * FD_D * 2 + 2 * FD_BK * FD_D * 2 + 2 * FD_BQ * FD_BK * 2 +
+         2 * 2 * FD_BQ * 4 + 7 * 8;
 }
 
-// The float32 d = 512 kernel's plan with bf16 operands: 32 queries x 32 keys
-// a tile, the logits by quarter of d in fp32 accumulators, the four parts
-// added in order and the softmax in fp32 in shared memory, P rounded to bf16
-// there, and P·V with warp w owning output columns 64w .. 64w + 63 (V's
-// fragments by ldmatrix.trans); ~123 KB of shared memory.
-template <int D>
-__global__ void __launch_bounds__(W_THREADS)
-flash_attn_fwd_d512_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, bf16* __restrict__ o,
-                                float* __restrict__ lse, Parts parts, Strides st, int b,
-                                int heads, int n, int tiles_per_split, float sm_scale) {
-  constexpr int P = D + 8, DQ = D / 4, NC = D / 64;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);   // [32][D + 8]
-  bf16* s_k = s_q + W_BQ * P;                       // [32][D + 8] the key tile
-  bf16* s_v = s_k + W_BK * P;                       // [32][D + 8] the value tile
-  bf16* s_p = s_v + W_BK * P;                       // [32][WB_PP] P
-  float* s_part = reinterpret_cast<float*>(s_p + W_BQ * WB_PP);   // [4][32][W_PS]
-  float* s_alpha = s_part + 4 * W_BQ * W_PS;        // [32] each row's rescale
-  float* s_m = s_alpha + W_BQ;                      // [32] row max, at the end
-  float* s_l = s_m + W_BQ;                          // [32] row sum, at the end
+template <bool NEG>
+__global__ void __launch_bounds__(FD_THREADS, 1)
+flash_attn_fwd_d512_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                                float* __restrict__ lse, Parts parts, int b, int heads, int n,
+                                int tiles_per_split, float sm_scale) {
+  constexpr int BLOCK = FD_BK * 64;   // elements of a [64][64] column block
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* base = align1024(smem_tma);
+  bf16* s_q = reinterpret_cast<bf16*>(base);      // FD_CB blocks of [64][64]
+  bf16* s_k = s_q + FD_BQ * FD_D;
+  bf16* s_v = s_k + FD_BK * FD_D;
+  bf16* s_p = s_v + FD_BK * FD_D;                 // 2 x [64][64]
+  float* s_max = reinterpret_cast<float*>(s_p + 2 * FD_BQ * FD_BK);   // [2][64]
+  float* s_sum = s_max + 2 * FD_BQ;                                   // [2][64]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(s_sum + 2 * FD_BQ);   // [2]: by half of d
+  uint64_t *empty_k = full_k + 2, *full_v = full_k + 4, *empty_v = full_k + 5, *q_bar = full_k + 6;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x;
   const int bh = blockIdx.y, bi = bh / heads, hi = bh % heads;
-  const int q0 = blockIdx.x * W_BQ, split = blockIdx.z;
-  const int tile0 = split * tiles_per_split;
-  const bf16* kp = k + bi * st.kb + hi * st.kh;
-  const bf16* vp = v + bi * st.vb + hi * st.vh;
-  const int dq = warp & 3, kh = warp >> 2;           // logits: quarter of d, half of the keys
-  const int sr = tid >> 3, sc = (tid & 7) * 4;       // softmax: row and 4 columns
+  const int q0 = blockIdx.x * FD_BQ, split = blockIdx.z, tile0 = split * tiles_per_split;
+  if (tid == 0) {
+    for (int h = 0; h < 2; ++h) {
+      mbar_init(&full_k[h], 1);
+      mbar_init(&empty_k[h], 8 * FD_CLUSTER);   // every consumer warp of the cluster
+    }
+    mbar_init(full_v, 1);
+    mbar_init(empty_v, 8 * FD_CLUSTER);
+    mbar_init(q_bar, 1);
+    mbar_init_fence();
+  }
+  cluster_sync();   // every block's barriers exist before a load or arrival reaches them
 
-  load_tile_bf16<W_BQ, D, P, W_THREADS>(
-      s_q, q + bi * st.qb + hi * st.qh + (long long)q0 * st.qn, st.qn, tid);
-  load_tile_bf16<W_BK, D, P, W_THREADS>(s_k, kp + (long long)tile0 * W_BK * st.kn, st.kn, tid);
-  cp_async_commit();
-
-  float acc[NC][2][4];
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[c][i][r] = 0.f;
-  float row_m = -INFINITY, row_l = 0.f;   // of softmax row sr, the same in its 8 threads
-
-  for (int it = 0; it < tiles_per_split; ++it) {
-    const long long k0 = (long long)(tile0 + it) * W_BK;
-    load_tile_bf16<W_BK, D, P, W_THREADS>(s_v, vp + k0 * st.vn, st.vn, tid);
-    cp_async_commit();
-    cp_async_wait<1>();       // the key tile (and Q) have landed
-    __syncthreads();
-
-    // this warp's quarter of d for 32 queries x 16 keys
-    float s[2][2][4];
-    logits_bf16<DQ, 2, 2, P>(s_q + dq * DQ, s_k + 16 * kh * P + dq * DQ, g, t, s);
-    float* part = s_part + dq * W_BQ * W_PS;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = 16 * kh + 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(part + (16 * i + g) * W_PS + col) =
-            make_float2(s[j][i][0], s[j][i][1]);
-        *reinterpret_cast<float2*>(part + (16 * i + g + 8) * W_PS + col) =
-            make_float2(s[j][i][2], s[j][i][3]);
+  if (tid >= 256) {   // the producer warpgroup: K (and Q) from thread 256, V from 288
+    setmaxnreg_dec<40>();
+    if (tid == 256 || tid == 288) {
+      const bool is_k = tid == 256;
+      const int pieces = is_k ? 2 : 1, blocks = FD_CB / pieces;   // K by half of d
+      const uint32_t rank = cluster_ctarank();
+      const uint16_t mask = (1u << FD_CLUSTER) - 1;
+      uint64_t* full = is_k ? full_k : full_v;
+      uint64_t* empty = is_k ? empty_k : empty_v;
+      bf16* dst = is_k ? s_k : s_v;
+      if (is_k) {
+        mbar_arrive_expect_tx(q_bar, FD_BQ * FD_D * 2);
+        for (int c = 0; c < FD_CB; ++c)
+          tma_load_4d(s_q + c * FD_BQ * 64, &tm_q, q_bar, 64 * c, hi, q0, bi);
       }
-    __syncthreads();          // the parts are complete and the key tile is free
-    if (it + 1 < tiles_per_split)
-      load_tile_bf16<W_BK, D, P, W_THREADS>(s_k, kp + (k0 + W_BK) * st.kn, st.kn, tid);
-    cp_async_commit();
-
-    // softmax: the four parts in order, 8 threads per row
-    float x[4];
-    {
-      const int at = sr * W_PS + sc;
-      const float4 p0 = *reinterpret_cast<const float4*>(s_part + at);
-      const float4 p1 = *reinterpret_cast<const float4*>(s_part + W_BQ * W_PS + at);
-      const float4 p2 = *reinterpret_cast<const float4*>(s_part + 2 * W_BQ * W_PS + at);
-      const float4 p3 = *reinterpret_cast<const float4*>(s_part + 3 * W_BQ * W_PS + at);
-      x[0] = (((p0.x + p1.x) + p2.x) + p3.x) * sm_scale;
-      x[1] = (((p0.y + p1.y) + p2.y) + p3.y) * sm_scale;
-      x[2] = (((p0.z + p1.z) + p2.z) + p3.z) * sm_scale;
-      x[3] = (((p0.w + p1.w) + p2.w) + p3.w) * sm_scale;
-    }
-    float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(row_m, mx);
-    const float alpha = expf(row_m - m_new);
-    row_m = m_new;
-    float sum = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      x[e] = expf(x[e] - m_new);
-      sum += x[e];
-    }
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    row_l = row_l * alpha + sum;
-    store2(s_p + sr * WB_PP + sc, x[0], x[1]);
-    store2(s_p + sr * WB_PP + sc + 2, x[2], x[3]);
-    if ((tid & 7) == 0) s_alpha[sr] = alpha;
-    cp_async_wait<1>();       // the value tile has landed (the next key tile may not have)
-    __syncthreads();
-
-    // rescale, then P·V for columns 64·warp .. 64·warp + 63 of all 32 rows
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float a0 = s_alpha[16 * i + g], a1 = s_alpha[16 * i + g + 8];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        acc[c][i][0] *= a0;
-        acc[c][i][1] *= a0;
-        acc[c][i][2] *= a1;
-        acc[c][i][3] *= a1;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < W_BK; kk += 16) {
-      uint32_t fa[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) frag_a_rows<WB_PP>(fa[i], s_p + 16 * i * WB_PP, kk, g, t);
-#pragma unroll
-      for (int c = 0; c < NC; c += 2) {
-        uint32_t fb[4];
-        frag_b_trans<P>(fb, s_v, kk, 64 * warp + 8 * c, lane);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[c][i], fa[i], fb[0], fb[1]);
-          mma_bf16(acc[c + 1][i], fa[i], fb[2], fb[3]);
+      for (int it = 0; it < tiles_per_split; ++it) {
+        const int k0 = (tile0 + it) * FD_BK;
+        for (int h = 0; h < pieces; ++h) {
+          if (it > 0) mbar_wait(&empty[h], (it - 1) & 1);
+          mbar_arrive_expect_tx(&full[h], blocks * BLOCK * 2);
+          for (int c = h * blocks + rank; c < (h + 1) * blocks; c += FD_CLUSTER)
+            tma_load_4d_multicast(dst + c * BLOCK, is_k ? &tm_k : &tm_v, &full[h], 64 * c, hi, k0,
+                                  bi, mask);
         }
       }
     }
-    __syncthreads();          // the value tile, P and the rescales are free
-  }
+  } else {   // the consumer warpgroups
+    setmaxnreg_inc<232>();
+    const int wg = tid / 128, wq = (tid % 128) / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int r0 = 16 * wq + g;   // this thread's rows: r0 and r0 + 8
+    const int last = tiles_per_split - 1;
+    const float c = sm_scale * LOG2E;
+    float acc[128], s[16], row_m[2] = {-INFINITY, -INFINITY}, row_l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 
-  if ((tid & 7) == 0) {
-    s_m[sr] = row_m;
-    s_l[sr] = row_l;
-  }
-  __syncthreads();
-  float ms[2][2], ls[2][2];
+    // a consumer warp's arrival on a slot's empty barrier in every block
+    // (lane r on block r's)
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane < FD_CLUSTER) mbar_arrive_cluster(bar, lane);
+    };
+    // S = Q · (this warpgroup's 32 keys of K tile it)ᵀ over d, each half of d
+    // its own commit group
+    auto issue_s = [&](int it) {
+      uint64_t dq = desc_sw128(s_q, 16, 1024), dk = desc_sw128(s_k + 32 * wg * 64, 16, 1024);
+      opaque(dq);
+      opaque(dk);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+      for (int h = 0; h < 2; ++h) {
+        mbar_wait(&full_k[h], it & 1);
+        __syncwarp();
 #pragma unroll
-    for (int h8 = 0; h8 < 2; ++h8) {
-      ms[i][h8] = s_m[16 * i + g + 8 * h8];
-      ls[i][h8] = s_l[16 * i + g + 8 * h8];
+        for (int kk = 16 * h; kk < 16 * h + 16; ++kk) {
+          const int off = ((kk / 4) * BLOCK * 2 + (kk % 4) * 32) >> 4;   // Q, K: 64-row blocks
+          wgmma_ss_n32<0>(s, dq + off, dk + off, kk > 0);
+        }
+        wgmma_commit();
+      }
+    };
+    // O += P_it · (this warpgroup's 256 columns of V tile it)
+    auto issue_pv = [&](int it) {
+      mbar_wait(full_v, it & 1);
+      __syncwarp();
+      uint64_t dp = desc_sw128(s_p + (it & 1) * FD_BQ * FD_BK, 16, 1024);
+      uint64_t dv = desc_sw128(s_v + 4 * wg * BLOCK, BLOCK * 2, 1024);
+      opaque(dp);
+      opaque(dv);
+#pragma unroll
+      for (int kk = 0; kk < FD_BK / 16; ++kk)
+        wgmma_ss_n256<1>(acc, dp + ((kk * 32) >> 4), dv + ((kk * 16 * 128) >> 4), 1);
+    };
+    // tile it's softmax over this warpgroup's keys (entry i of s is row r0 +
+    // 8·((i % 4) / 2), key 32wg + 8·(i / 4) + 2t + i % 2), P into buffer it % 2
+    auto softmax = [&](int it) {
+      float pm[2] = {NEG ? INFINITY : -INFINITY, NEG ? INFINITY : -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        pm[(i % 4) / 2] = NEG ? fminf(pm[(i % 4) / 2], s[i]) : fmaxf(pm[(i % 4) / 2], s[i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int lane_mask = 1; lane_mask < 4; lane_mask <<= 1) {
+          const float x = __shfl_xor_sync(0xffffffffu, pm[h], lane_mask);
+          pm[h] = NEG ? fminf(pm[h], x) : fmaxf(pm[h], x);
+        }
+      if (t == 0) {
+        s_max[64 * wg + r0] = pm[0] * c;
+        s_max[64 * wg + r0 + 8] = pm[1] * c;
+      }
+      bar_sync(1, 256);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(row_m[h], fmaxf(pm[h] * c, s_max[64 * (1 - wg) + r0 + 8 * h]));
+        alpha[h] = ex2(row_m[h] - m_new);
+        row_m[h] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        s[i] = ex2(fmaf(s[i], c, -row_m[(i % 4) / 2]));
+        sum[(i % 4) / 2] += s[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) row_l[h] = row_l[h] * alpha[h] + sum[h];
+      // [64 rows][64 keys] under the 128-byte swizzle: key chunk 4wg + j of row r at chunk
+      // (4wg + j) ^ (r % 8)
+      unsigned char* pb = reinterpret_cast<unsigned char*>(s_p + (it & 1) * FD_BQ * FD_BK);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * h;
+          *reinterpret_cast<uint32_t*>(pb + row * 128 + (((4 * wg + j) ^ (row & 7)) << 4) +
+                                       4 * t) = pack_bf16x2(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
+        }
+      fence_proxy_async();
+    };
+
+    mbar_wait(q_bar, 0);
+    __syncwarp();
+    fence_regs(s);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<1>();
+    if (last > 0) release(&empty_k[0]);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (last > 0) release(&empty_k[1]);
+    softmax(0);
+    bar_sync(2, 256);   // both halves of P_0 are in place
+    for (int it = 1; it <= last; ++it) {
+      fence_regs(s);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_s(it);          // S_it (two groups), then
+      issue_pv(it - 1);     // O += P_{it-1} V_{it-1}
+      wgmma_commit();
+      wgmma_wait<2>();
+      if (it < last) release(&empty_k[0]);
+      wgmma_wait<1>();
+      fence_regs(s);
+      if (it < last) release(&empty_k[1]);
+      softmax(it);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(empty_v);
+      if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] *= alpha[(i % 4) / 2];
+      }
+      bar_sync(2, 256);     // both halves of P_it are in place, P_{it-1} is free
     }
-  write_rows<D, NC, 2, bf16>(acc, ms, ls, o, lse, parts, split, b, heads, n, bi, hi, q0,
-                             64 * warp, warp == 0, g, t);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_pv(last);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // the row sums: the quad's shares, then the two warpgroups' in order
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row_l[h] += __shfl_xor_sync(0xffffffffu, row_l[h], 1);
+      row_l[h] += __shfl_xor_sync(0xffffffffu, row_l[h], 2);
+    }
+    if (t == 0) {
+      s_sum[64 * wg + r0] = row_l[0];
+      s_sum[64 * wg + r0 + 8] = row_l[1];
+    }
+    bar_sync(1, 256);
+    const float l_rows[1][2] = {{s_sum[r0] + s_sum[64 + r0], s_sum[r0 + 8] + s_sum[64 + r0 + 8]}};
+    const float m_nat[1][2] = {{row_m[0] * LN2, row_m[1] * LN2}};
+    // the accumulators in write_rows' layout (entry 4j + r: column 8j + 2t + r % 2)
+    write_rows<FD_D, 32, 1, bf16>(reinterpret_cast<const float(&)[32][1][4]>(acc), m_nat, l_rows,
+                                  o, lse, parts, split, b, heads, n, bi, hi, q0 + 16 * wq,
+                                  256 * wg, wg == 0, g, t);
+  }
+  cluster_sync();   // no block leaves while another may still arrive on its barriers
 }
 
 // ---- the parts of a split key loop ---------------------------------------
@@ -1130,37 +1238,39 @@ cudaError_t launch_d512(const Args<float>& a, cudaStream_t stream) {
                       sizeof(float) * d512_smem_floats<D>(), D, a, stream);
 }
 
-// q, k and v go in as tensor maps over their strided views (boxes of 64
-// columns x 128 rows); a split writes float parts, which the combine merges.
-template <int D>
-cudaError_t launch_wgmma_bf16(const Args<bf16>& a, cudaStream_t stream) {
-  const int tiles = a.m / FB_BK;
-  if (a.n % FB_BQ || a.m % FB_BK || tiles % a.split) return cudaErrorInvalidValue;
+// The bf16 kernels (``pos``, and ``neg`` for a negative scale) over tensor
+// maps of q, k and v's strided views (boxes of 64 columns x bq query or bk
+// key rows), blocks of bq queries in clusters of ``cluster`` along the
+// queries (1: a plain grid); a split writes float parts, which the combine
+// merges.
+template <typename K>
+cudaError_t launch_bf16(K pos, K neg, int d, int bq, int bk, int threads, int smem, int cluster,
+                        const Args<bf16>& a, cudaStream_t stream) {
+  const int tiles = a.m / bk;
+  if (a.n % (bq * cluster) || a.m % bk || tiles % a.split) return cudaErrorInvalidValue;
   if (a.split > 1 && a.scratch == nullptr) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   const Strides& st = a.st;
-  cudaError_t err = bf16_tile_map(&tq, a.q, a.b, a.n, a.heads, D, st.qb, st.qn, st.qh, FB_BQ);
+  cudaError_t err = bf16_tile_map(&tq, a.q, a.b, a.n, a.heads, d, st.qb, st.qn, st.qh, bq);
   if (err == cudaSuccess)
-    err = bf16_tile_map(&tk, a.k, a.b, a.m, a.heads, D, st.kb, st.kn, st.kh, FB_BK);
+    err = bf16_tile_map(&tk, a.k, a.b, a.m, a.heads, d, st.kb, st.kn, st.kh, bk);
   if (err == cudaSuccess)
-    err = bf16_tile_map(&tv, a.v, a.b, a.m, a.heads, D, st.vb, st.vn, st.vh, FB_BK);
+    err = bf16_tile_map(&tv, a.v, a.b, a.m, a.heads, d, st.vb, st.vn, st.vh, bk);
   if (err != cudaSuccess) return err;
-  constexpr int smem = fwd_bf16_smem_bytes<D>();
-  const auto kernel = a.sm_scale < 0 ? flash_attn_fwd_bf16_kernel<D, true>
-                                     : flash_attn_fwd_bf16_kernel<D, false>;
+  const K kernel = a.sm_scale < 0 ? neg : pos;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const Parts parts = parts_of(a, D);
-  kernel<<<dim3(a.n / FB_BQ, a.b * a.heads, a.split), FB_THREADS, smem, stream>>>(
-      tq, tk, tv, a.o, a.lse, parts, a.b, a.heads, a.n, tiles / a.split, a.sm_scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return a.split > 1 ? launch_combine(a, parts, D, stream) : cudaSuccess;
-}
-
-template <int D>
-cudaError_t launch_d512_bf16(const Args<bf16>& a, cudaStream_t stream) {
-  return launch_split(flash_attn_fwd_d512_bf16_kernel<D>, W_BQ, W_BK, W_THREADS,
-                      d512_bf16_smem_bytes<D>(), D, a, stream);
+  Parts parts = parts_of(a, d);
+  bf16* o = a.o;
+  float* lse = a.lse;
+  int b = a.b, heads = a.heads, n = a.n, per_split = tiles / a.split;
+  float sm_scale = a.sm_scale;
+  void* args[] = {&tq, &tk, &tv, &o, &lse, &parts, &b, &heads, &n, &per_split, &sm_scale};
+  err = launch_cluster(reinterpret_cast<const void*>(kernel),
+                       dim3(a.n / bq, a.b * a.heads, a.split), threads, smem, cluster, args,
+                       stream);
+  if (err != cudaSuccess) return err;
+  return a.split > 1 ? launch_combine(a, parts, d, stream) : cudaSuccess;
 }
 
 }  // namespace
@@ -1195,9 +1305,8 @@ int flash_attn_fwd(const float* q, const float* k, const float* v, float* o, flo
 }
 
 // flash_attn_fwd with bf16 q, k, v and o (lse and scratch float32): every
-// stride a multiple of 8 and every base 16-byte aligned (at d = 64 and 128
-// the tensor maps also need strides below 2^39 elements); split divides
-// m/128 at d = 64 and 128, m/32 at d = 512.
+// stride a multiple of 8 and every base 16-byte aligned, below 2^39 elements
+// (the tensor maps); split divides m/128 at d = 64 and 128, m/64 at d = 512.
 int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                         float* scratch, long long qb, long long qn, long long qh, long long kb,
                         long long kn, long long kh, long long vb, long long vn, long long vh,
@@ -1210,21 +1319,35 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o, fl
   const cudaStream_t s = (cudaStream_t)stream;
   if (n % 128 != 0 || m % 128 != 0 || split < 1) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 64: return (int)launch_wgmma_bf16<64>(a, s);
-    case 128: return (int)launch_wgmma_bf16<128>(a, s);
-    case 512: return (int)launch_d512_bf16<512>(a, s);
+    case 64:
+      return (int)launch_bf16(flash_attn_fwd_bf16_kernel<64, false>,
+                              flash_attn_fwd_bf16_kernel<64, true>, 64, FB_BQ, FB_BK, FB_THREADS,
+                              fwd_bf16_smem_bytes<64>(), 1, a, s);
+    case 128:
+      return (int)launch_bf16(flash_attn_fwd_bf16_kernel<128, false>,
+                              flash_attn_fwd_bf16_kernel<128, true>, 128, FB_BQ, FB_BK,
+                              FB_THREADS, fwd_bf16_smem_bytes<128>(), 1, a, s);
+    case 512:
+      return (int)launch_bf16(flash_attn_fwd_d512_bf16_kernel<false>,
+                              flash_attn_fwd_d512_bf16_kernel<true>, FD_D, FD_BQ, FD_BK,
+                              FD_THREADS, fwd_d512_bf16_smem_bytes(), FD_CLUSTER, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The bf16 wgmma kernel's dynamic shared memory a block at head width d (64
-// or 128), or -1; the wrapper checks its own plan against it.
+// The bf16 kernel's dynamic shared memory a block at head width d (64, 128
+// or 512), or -1; the wrapper checks its own plan against it.
 int flash_attn_fwd_bf16_smem_bytes(int d) {
   switch (d) {
     case 64: return fwd_bf16_smem_bytes<64>();
     case 128: return fwd_bf16_smem_bytes<128>();
+    case 512: return fwd_d512_bf16_smem_bytes();
     default: return -1;
   }
 }
+
+// Blocks a cluster of the bf16 kernel at head width d (1: no cluster); the
+// wrapper checks its own plan against it.
+int flash_attn_fwd_bf16_cluster(int d) { return d == 512 ? FD_CLUSTER : 1; }
 
 }  // extern "C"

@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: TMA tile
 // loads into 128-byte-swizzled shared memory, mbarrier rings between a
-// producer thread and consumer warpgroups, setmaxnreg, and wgmma.mma_async on
-// bf16 operands with fp32 accumulators.  Used by K2's bf16 backward
-// (flash_attn_bwd.cu).
+// producer thread and consumer warpgroups, setmaxnreg, wgmma.mma_async on
+// bf16 operands with fp32 accumulators (m64nNk16 at N = 32, 64, 128 and 256),
+// and thread block clusters: TMA loads multicast to several blocks, arrivals
+// on another block's mbarrier, the cluster barrier and cluster launches.
+// Used by K2's bf16 kernels, forward (flash_attn_fwd.cu) and backward
+// (flash_attn_bwd.cu); the clusters by the two d = 512 kernels.
 //
 // Shared-memory tiles.  A TMA box of 64 bf16 columns (128 bytes) x R rows
 // lands as R rows of 128 bytes under CU_TENSOR_MAP_SWIZZLE_128B: in each
@@ -36,7 +39,8 @@
 // softmax into dV, dK and dQ without touching shared memory.
 //
 // The host side encodes the tensor maps (``bf16_tile_map``) with the
-// driver's cuTensorMapEncodeTiled, found through the runtime.
+// driver's cuTensorMapEncodeTiled, found through the runtime, and launches
+// clustered grids through cudaLaunchKernelExC (``launch_cluster``).
 //
 // Everything here lives in an anonymous namespace: each source that includes
 // it is built into its own library.
@@ -204,6 +208,151 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(TRANS_B));
 }
 
+// d (64 x N) = A (64 x 16) · B (16 x N) + (accumulate ? d : 0) at N = 32, 128
+// and 256 (N / 2 accumulators a thread, d[4j + r] at row 16w + g + 8·(r / 2),
+// column 8j + 2t + r % 2), A K-major and B K-major (TRANS_B = 0) or MN-major
+// (TRANS_B = 1), both in shared memory.
+#define WGMMA_OUT8(d, i)                                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : WGMMA_OUT8(d, 0), WGMMA_OUT8(d, 8)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : WGMMA_OUT8(d, 0), WGMMA_OUT8(d, 8), WGMMA_OUT8(d, 16), WGMMA_OUT8(d, 24),
+        WGMMA_OUT8(d, 32), WGMMA_OUT8(d, 40), WGMMA_OUT8(d, 48), WGMMA_OUT8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : WGMMA_OUT8(d, 0), WGMMA_OUT8(d, 8), WGMMA_OUT8(d, 16), WGMMA_OUT8(d, 24),
+        WGMMA_OUT8(d, 32), WGMMA_OUT8(d, 40), WGMMA_OUT8(d, 48), WGMMA_OUT8(d, 56),
+        WGMMA_OUT8(d, 64), WGMMA_OUT8(d, 72), WGMMA_OUT8(d, 80), WGMMA_OUT8(d, 88),
+        WGMMA_OUT8(d, 96), WGMMA_OUT8(d, 104), WGMMA_OUT8(d, 112), WGMMA_OUT8(d, 120)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+#undef WGMMA_OUT8
+
+// ---- clusters: multicast loads, remote arrivals, the cluster barrier ----
+//
+// A cluster of blocks on neighbouring SMs (launched with
+// cudaLaunchAttributeClusterDimension) shares its tiles: one block's TMA
+// load lands at the same shared-memory offset in every block of ``mask``
+// (bit r: the block of %cluster_ctarank r) and completes on the mbarrier at
+// the same offset in each, so a tile that several blocks read crosses L2
+// once.  A ring slot that such loads refill is free only once every block
+// of the cluster has read it: each consumer warp arrives on the slot's
+// "empty" barrier in every block, lane r on block r's
+// (``mbar_arrive_cluster``), and each block's producer waits on its own.  A block's "full" barrier counts its
+// own producer's arrival and the bytes of the whole tile, whoever loads
+// them (a remote load may complete bytes before the local expect_tx; the
+// pending arrival keeps the phase open).
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of the cluster: arrive, then wait for all the others
+// (release / acquire: shared-memory writes before it are seen after it).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// One arrival on the mbarrier at ``bar``'s offset in the block of rank
+// ``cta``.  Release at the block's scope, as CUTLASS's cluster barriers
+// arrive: what it orders is this thread's reads of a slot, which wgmma has
+// finished.  With a release at the cluster's scope, four arrivals in a row
+// stretched the forward's softmax and P·V phase from ~830 cycles a key tile
+// to ~9,000 (H100).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// tma_load_4d into every block of ``mask``: the box lands at ``dst``'s offset
+// and completes on the barrier at ``bar``'s offset in each.
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1, int c2,
+                                                      int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "h"(mask)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory stores (an operand written
+// by threads) before later async-proxy reads of them (wgmma, TMA stores);
+// then a barrier hands the operand to the warpgroups that read it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier ``id`` (0 is __syncthreads) over ``count`` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 
 // Four 8 x 8 bf16 matrices: lanes 8i .. 8i+7 give the addresses of matrix i's
 // rows (16 bytes each); r[i] receives matrix i's elements (g, 2t), (g, 2t+1).
@@ -316,6 +465,47 @@ inline cudaError_t bf16_tile_map(CUtensorMap* map, const void* base, int b, int 
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launches a kernel on ``grid`` in clusters of ``cluster`` blocks along x, of
+// ``threads`` with ``smem`` bytes of dynamic shared memory; ``args`` point at
+// its arguments; a cluster of 1 is a plain launch.  A cluster the card cannot
+// place is refused here.
+inline cudaError_t launch_cluster(const void* kernel, dim3 grid, int threads, int smem,
+                                  int cluster, void** args, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelExC(&cfg, kernel, args);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// How many clusters of ``cluster`` blocks of ``threads`` with ``smem`` bytes
+// of dynamic shared memory the card runs at once, into ``*clusters`` (the
+// kernel's shared-memory attribute must be set already).
+inline cudaError_t max_clusters(const void* kernel, int threads, int smem, int cluster,
+                                int* clusters) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 }  // namespace

@@ -4,13 +4,13 @@ Replaces the Pallas TPU flash attention that ``ssl_tpu/ops/attention.py``
 (``sdp_attention``, flash branch :32-39) calls, and the two Pallas kernels of
 its custom VJP.  The kernel sources are ``ssl_tpu_torch/csrc/flash_attn_fwd.cu``
 (``flash_attn_fwd`` at d = 64 and 128, ``flash_attn_fwd_d512`` at d = 512,
-with ``flash_attn_fwd_combine`` where the key loop is split; in bf16 at d =
-64 and 128 it takes q, k and v as TMA tensor maps, ``fwd_bf16_launch``) and
+with ``flash_attn_fwd_combine`` where the key loop is split; in bf16 both
+take q, k and v as TMA tensor maps, ``fwd_bf16_launch``) and
 ``ssl_tpu_torch/csrc/flash_attn_bwd.cu`` (``flash_attn_bwd_dkv`` and
 ``flash_attn_bwd_dq`` at d = 64 and 128, with ``flash_attn_bwd_sum`` where
-the loop is split; in bf16 these two take q, k, v and dO as TMA tensor maps,
-``bwd_bf16_launch``; ``flash_attn_bwd_p_ds``, ``flash_attn_bwd_dkv_mm`` and
-``flash_attn_bwd_dq_mm`` at d = 512).  They read q, k, v and dO through
+the loop is split; ``flash_attn_bwd_p_ds``, ``flash_attn_bwd_dkv_mm`` and
+``flash_attn_bwd_dq_mm`` at d = 512; in bf16 dkv, dq and p_ds take q, k, v
+and dO as TMA tensor maps, ``bwd_bf16_launch``).  They read q, k, v and dO through
 their (b, seq, heads, d) strides, so the UNet's (b, n, heads·d) projections
 and the head-major packed qkv of ``AttentionBlockQKV`` go in without a copy,
 and write contiguous (b, seq, heads, d) outputs.  Callers route through
@@ -62,6 +62,16 @@ BWD_STREAM_ROWS_BF16 = {64: (64, 64), 128: (64, 64)}
 BWD_BLOCKS_PER_SM_BF16 = {64: (1, 1), 128: (1, 1)}
 BWD_STAGES_BF16 = {64: 4, 128: 3}
 BWD_MAX_SPLIT = 4
+# The bf16 p_ds kernel at d = 512 (wgmma, TMA ring, clusters): tiles of 128
+# queries x 128 keys (two consumer warpgroups of 64 query rows, a producer,
+# 384 threads, one block an SM), d streamed in 64-column chunks of q, dO, k
+# and v through P_DS_STAGES_BF16 ring stages; blocks in clusters of up to
+# P_DS_CLUSTER_BF16 key tiles of one query tile, which share its q and dO
+# (``p_ds_cluster``), as many as the card holds at once, each walking its
+# share of the tiles.
+P_DS_TILE_BF16 = (128, 128)
+P_DS_STAGES_BF16 = 3
+P_DS_CLUSTER_BF16 = 2
 # What one block of an sm_90a card may take of shared memory, and what a TMA
 # tensor map allows: byte strides multiples of 16 below 2^40, box dimensions
 # up to 256, an inner box of at most 128 bytes under the 128-byte swizzle.
@@ -73,10 +83,16 @@ TMA_MAX_STRIDE, TMA_MAX_BOX, TMA_SWIZZLE_BYTES = 1 << 40, 256, 128
 # tiles: 384 threads (two consumer warpgroups of 64 query rows and a
 # producer), key tiles through FWD_STAGES_BF16 ring stages, one block an SM:
 # 168 registers a thread at launch, the consumers raised to 240 by setmaxnreg
-# (up to 171 in use at d = 64, 219 at d = 128, no spills).
+# (up to 171 in use at d = 64, 219 at d = 128, no spills).  At d = 512 a
+# block is 64 query rows whose two consumer warpgroups split the output
+# columns, key tiles of 64 in one K and one V slot, and blocks go in clusters
+# of FWD_CLUSTER_BF16 along the queries, which share every K and V tile
+# (an H100 holds 30 clusters of 4 such blocks at once, too few for the 128
+# blocks of vae_mid).
 FWD_TILES = {64: (128, 32, 2), 128: (128, 32, 1), 512: (32, 32, 1)}
-FWD_TILES_BF16 = {64: (128, 128, 1), 128: (128, 128, 1), 512: (32, 32, 1)}
+FWD_TILES_BF16 = {64: (128, 128, 1), 128: (128, 128, 1), 512: (64, 64, 1)}
 FWD_STAGES_BF16 = {64: 4, 128: 2}
+FWD_CLUSTER_BF16 = {512: 2}
 FWD_MAX_SPLIT = 8
 
 
@@ -87,6 +103,8 @@ def _declare_fwd(lib) -> None:
         entry.restype = i
     lib.flash_attn_fwd_bf16_smem_bytes.argtypes = [i]
     lib.flash_attn_fwd_bf16_smem_bytes.restype = i
+    lib.flash_attn_fwd_bf16_cluster.argtypes = [i]
+    lib.flash_attn_fwd_bf16_cluster.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
@@ -98,6 +116,8 @@ def _declare_bwd(lib) -> None:
         entry.restype = i
     lib.flash_attn_bwd_bf16_smem_bytes.argtypes = [i, i]
     lib.flash_attn_bwd_bf16_smem_bytes.restype = i
+    lib.flash_attn_bwd_bf16_cluster.argtypes = [i, i]
+    lib.flash_attn_bwd_bf16_cluster.restype = i
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
 
@@ -176,22 +196,31 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def fwd_bf16_smem_bytes(d: int) -> int:
     """Dynamic shared memory a block of the bf16 forward takes at head width
-    64 or 128 (csrc/flash_attn_fwd.cu, ``fwd_bf16_smem_bytes``): 1024 bytes of
-    alignment slack, Q (query rows x d bf16), each ring stage's K and V tiles
-    (key rows x d bf16 each), 8 bytes a barrier (full and empty a stage, one
-    for Q), and the warpgroups' turns: one float read after each turn's wait
-    and a row-sum slot for each of the 256 consumer threads."""
+    d (csrc/flash_attn_fwd.cu, ``fwd_bf16_smem_bytes`` and
+    ``fwd_d512_bf16_smem_bytes``): 1024 bytes of alignment slack, Q (query
+    rows x d bf16), the K and V tiles (key rows x d bf16 each) of each ring
+    stage, and 8 bytes a barrier; at d = 64 and 128 full and empty a stage
+    and one for Q, and the warpgroups' turns: one float read after each
+    turn's wait and a row-sum slot for each of the 256 consumer threads; at
+    d = 512 one stage (full and empty for each half of K and for V, and Q's:
+    seven barriers), P twice (query rows x key rows bf16), and each row's max
+    and sum by warpgroup (2 x query rows floats each)."""
     rows, keys, _ = FWD_TILES_BF16[d]
+    if d == 512:
+        return 1024 + rows * d * 2 + 2 * keys * d * 2 + 2 * rows * keys * 2 + 4 * 4 * rows + 8 * 7
     stages = FWD_STAGES_BF16[d]
     return (1024 + rows * d * 2 + stages * 2 * keys * d * 2 + 8 * (2 * stages + 1)
             + 4 * (1 + 256))
 
 
 def fwd_bf16_launch(q, k, v) -> dict:
-    """What the bf16 forward's C entry builds at d = 64 and 128: the tensor
-    maps of q (boxes of the plan's query rows) and of k and v (its key rows),
-    ``bwd_tile_map``'s geometry, and the kernel's shared memory
-    (``fwd_bf16_smem_bytes``), checked against ``MAX_SMEM_BYTES``."""
+    """What the bf16 forward's C entry builds: the tensor maps of q (boxes of
+    the plan's query rows) and of k and v (its key rows), ``bwd_tile_map``'s
+    geometry, the kernel's shared memory (``fwd_bf16_smem_bytes``), checked
+    against ``MAX_SMEM_BYTES``, and its cluster: at d = 512
+    ``FWD_CLUSTER_BF16`` query tiles share each K and V tile (n is a multiple
+    of 128, so the 64-row tiles come in pairs); 1 (no cluster) at d = 64
+    and 128."""
     d = q.shape[3]
     rows, keys, _ = FWD_TILES_BF16[d]
     smem = fwd_bf16_smem_bytes(d)
@@ -200,7 +229,7 @@ def fwd_bf16_launch(q, k, v) -> dict:
                          f"more than {MAX_SMEM_BYTES}")
     return {"maps": {"q": bwd_tile_map(q, rows), "k": bwd_tile_map(k, keys),
                      "v": bwd_tile_map(v, keys)},
-            "smem_bytes": smem}
+            "smem_bytes": smem, "cluster": FWD_CLUSTER_BF16.get(d, 1)}
 
 
 def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
@@ -225,11 +254,14 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_sc
     lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32) if return_lse else None
     scratch = (torch.empty(scratch_floats, device=q.device, dtype=torch.float32)
                if scratch_floats else None)
-    if q.dtype == torch.bfloat16 and d != 512:
-        smem = fwd_bf16_launch(q, k, v)["smem_bytes"]
-        if lib.flash_attn_fwd_bf16_smem_bytes(d) != smem:
+    if q.dtype == torch.bfloat16:
+        launch = fwd_bf16_launch(q, k, v)
+        if lib.flash_attn_fwd_bf16_smem_bytes(d) != launch["smem_bytes"]:
             raise RuntimeError(f"the library's bf16 forward takes other shared memory than "
-                               f"fwd_bf16_smem_bytes({d}) = {smem}")
+                               f"fwd_bf16_smem_bytes({d}) = {launch['smem_bytes']}")
+        if lib.flash_attn_fwd_bf16_cluster(d) != launch["cluster"]:
+            raise RuntimeError(f"the library's bf16 forward takes other clusters than the "
+                               f"plan's {launch['cluster']} at d = {d}")
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     entry = lib.flash_attn_fwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_attn_fwd
     with torch.cuda.device(q.device):     # the C entry launches on the current device
@@ -321,20 +353,42 @@ def bwd_tile_map(t: torch.Tensor, rows: int) -> dict:
     return m
 
 
+def p_ds_bf16_smem_bytes() -> int:
+    """Dynamic shared memory a block of the bf16 p_ds kernel takes at d = 512
+    (csrc/flash_attn_bwd.cu, ``p_ds_bf16_smem_bytes``): 1024 bytes of
+    alignment slack, each ring stage's 64-column chunks of q, dO (query rows
+    each), k and v (key rows each) in bf16, a tile of P or dS (rows x keys
+    bf16) staged for its stores, and 8 bytes a barrier (full and empty a
+    stage)."""
+    rows, keys = P_DS_TILE_BF16
+    return (1024 + P_DS_STAGES_BF16 * 2 * (rows + keys) * 64 * 2 + rows * keys * 2
+            + 8 * 2 * P_DS_STAGES_BF16)
+
+
+def p_ds_cluster(m: int) -> int:
+    """Blocks a cluster of the bf16 p_ds kernel at m keys: ``P_DS_CLUSTER_BF16``
+    where its key tiles come in pairs, else 1."""
+    return P_DS_CLUSTER_BF16 if (m // P_DS_TILE_BF16[1]) % P_DS_CLUSTER_BF16 == 0 else 1
+
+
 def bwd_bf16_launch(q, k, v, do) -> dict:
-    """What the bf16 backward's C entry builds at d = 64 and 128: the tensor
-    maps of q, k, v and dO (``bwd_tile_map``, boxes of the stream rows) and
-    the two kernels' shared memory (``bwd_bf16_smem_bytes``), checked against
-    ``MAX_SMEM_BYTES``."""
-    d = q.shape[3]
-    rows = BWD_STREAM_ROWS_BF16[d][0]
-    smem = bwd_bf16_smem_bytes(d)
+    """What the bf16 backward's C entry builds: the tensor maps of q, k, v and
+    dO (``bwd_tile_map``; boxes of the stream rows at d = 64 and 128, of the
+    p_ds tiles' rows at d = 512), the wgmma kernels' shared memory
+    (``bwd_bf16_smem_bytes``, or at d = 512 ``p_ds_bf16_smem_bytes``), checked
+    against ``MAX_SMEM_BYTES``, and the cluster: 1 at d = 64 and 128,
+    ``p_ds_cluster(m)`` key tiles at d = 512."""
+    d, m = q.shape[3], k.shape[1]
+    if d == 512:
+        rows, smem, cluster = P_DS_TILE_BF16[0], (p_ds_bf16_smem_bytes(),), p_ds_cluster(m)
+    else:
+        rows, smem, cluster = BWD_STREAM_ROWS_BF16[d][0], bwd_bf16_smem_bytes(d), 1
     if max(smem) > MAX_SMEM_BYTES:
         raise ValueError(f"the bf16 backward at d = {d} needs {smem} bytes of shared memory, "
                          f"more than {MAX_SMEM_BYTES}")
     return {"maps": {name: bwd_tile_map(t, rows)
                      for name, t in (("q", q), ("k", k), ("v", v), ("do", do))},
-            "smem_bytes": smem}
+            "smem_bytes": smem, "cluster": cluster}
 
 
 def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -364,11 +418,15 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     scratch = (torch.empty(scratch_size, device=q.device,
                            dtype=q.dtype if d == 512 else torch.float32)
                if scratch_size else None)
-    if q.dtype == torch.bfloat16 and d != 512:
-        smem = bwd_bf16_launch(q, k, v, do)["smem_bytes"]
-        if tuple(lib.flash_attn_bwd_bf16_smem_bytes(d, i) for i in (0, 1)) != smem:
+    if q.dtype == torch.bfloat16:
+        launch = bwd_bf16_launch(q, k, v, do)
+        smem = launch["smem_bytes"]
+        if tuple(lib.flash_attn_bwd_bf16_smem_bytes(d, i) for i in range(len(smem))) != smem:
             raise RuntimeError(f"the library's bf16 backward takes other shared memory than "
-                               f"bwd_bf16_smem_bytes({d}) = {smem}")
+                               f"the plan's {smem} at d = {d}")
+        if lib.flash_attn_bwd_bf16_cluster(d, m) != launch["cluster"]:
+            raise RuntimeError(f"the library's bf16 backward takes other clusters than the "
+                               f"plan's {launch['cluster']} at d = {d}")
     strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
     entry = lib.flash_attn_bwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_attn_bwd
     with torch.cuda.device(q.device):

@@ -5,11 +5,13 @@ The kernels cannot run here, but what the wrapper hands the C entry can be
 checked: the TMA tensor maps of q, k, v and dO over their strided (b, seq,
 heads, d) views, in the UNet's projection layout and the packed qkv layout
 of the struct-cond encoder, at every d = 64 and 128 training case (and, for
-the forward, every serving case), and the kernels' shared memory.  The card
-checks that the library agrees (the wrapper compares
-``flash_attn_bwd_bf16_smem_bytes`` and ``flash_attn_fwd_bf16_smem_bytes``
-with ``bwd_bf16_smem_bytes`` and ``fwd_bf16_smem_bytes`` at every launch)
-and that the maps encode."""
+the forward, every serving case), and the kernels' shared memory; at d = 512
+(the VAE's single head, vae_mid at b = 1 and 2) also the clusters that share
+the K and V tiles (forward) and the q, dO, k and v chunks (p_ds), and the
+kernels ``fwd_plan`` and ``bwd_plan`` name.  The card checks that the
+library agrees (the wrapper compares ``flash_attn_bwd_bf16_smem_bytes``,
+``flash_attn_fwd_bf16_smem_bytes`` and the ``*_cluster`` entries with the
+plan at every launch) and that the maps encode."""
 
 import pytest
 import torch
@@ -23,6 +25,8 @@ from torch_attention_cases import CUDA_CASES, TRAIN_CASES
 
 CASES = [(c, layout) for c, (b, h, n, m, d, *_) in sorted(TRAIN_CASES.items()) if d != 512
          for layout in ("proj", "qkv") if layout == "proj" or n == m]
+# vae_mid by its batch: b = 1 serving, b = 2 training (the proj layout)
+D512_CASES = {"serve": CUDA_CASES["vae_mid"], "train": TRAIN_CASES["vae_mid"]}
 FWD_CASES = [(path, c, layout) for path, cases in (("serve", CUDA_CASES), ("train", TRAIN_CASES))
              for c, (b, h, n, m, d, *_) in sorted(cases.items()) if d != 512
              for layout in ("proj", "qkv") if layout == "proj" or n == m]
@@ -128,3 +132,62 @@ def test_bf16_tile_map_refuses_what_tma_cannot_take():
         bwd_tile_map(torch.empty((1, 512, 1, 64), dtype=torch.bfloat16), 512)
     with pytest.raises(ValueError, match="unit stride"):
         bwd_tile_map(torch.empty((1, 128, 1, 64), dtype=torch.bfloat16).transpose(1, 3), 64)
+
+
+@pytest.mark.parametrize("path", sorted(D512_CASES))
+def test_bf16_d512_forward_geometry(path):
+    """The d = 512 forward at vae_mid: maps in boxes of 64 query and key rows,
+    ~210 KB of shared memory, clusters of 2 query tiles that divide the grid,
+    and ``fwd_plan``'s key split: 2 with one combine at b = 1 (64 query tiles
+    would fill under 90% of 132 SMs), none at b = 2."""
+    b, h, n, m, d = D512_CASES[path][:5]
+    q, k, v, _ = _views(b, h, n, m, d, "proj")
+    launch = fwd_bf16_launch(q, k, v)
+    rows, keys, per_sm = attention_cuda.FWD_TILES_BF16[d]
+    assert (rows, keys, per_sm) == (64, 64, 1)
+    for name, t, seq, box in (("q", q, n, rows), ("k", k, m, keys), ("v", v, m, keys)):
+        _check_map(launch["maps"][name], t, seq, box)
+    assert launch["smem_bytes"] == fwd_bf16_smem_bytes(512) <= MAX_SMEM_BYTES
+    assert launch["cluster"] == 2 and (n // rows) % launch["cluster"] == 0
+    split, scratch, kernels = attention_cuda.fwd_plan(b, h, n, m, d, 132, torch.bfloat16)
+    assert (m // keys) % split == 0
+    assert (n // rows) * b * h * split <= 132      # one wave of blocks
+    if b == 1:
+        assert (split, scratch) == (2, 2 * b * h * n * (d + 2))
+        assert kernels == {"flash_attn_fwd_d512_bf16": 1, "flash_attn_fwd_combine_bf16": 1}
+    else:
+        assert (split, scratch) == (1, 0)
+        assert kernels == {"flash_attn_fwd_d512_bf16": 1, "flash_attn_fwd_combine_bf16": 0}
+
+
+@pytest.mark.parametrize("path", sorted(D512_CASES))
+def test_bf16_d512_backward_geometry(path):
+    """The d = 512 backward at vae_mid: p_ds's maps in boxes of 128 rows of
+    q, k, v and dO, its ring of three 64 KB stages and a staged 128 x 128 bf16
+    tile within ``MAX_SMEM_BYTES``, clusters of 2 key tiles that divide its
+    128 x 128 tiles, and ``bwd_plan``'s
+    three kernels, once each, over b·h·n·m bf16 of P and of dS."""
+    b, h, n, m, d = D512_CASES[path][:5]
+    q, k, v, do = _views(b, h, n, m, d, "proj")
+    launch = bwd_bf16_launch(q, k, v, do)
+    rows, keys = attention_cuda.P_DS_TILE_BF16
+    for name, t, seq in (("q", q, n), ("k", k, m), ("v", v, m), ("do", do, n)):
+        _check_map(launch["maps"][name], t, seq, rows)
+    assert launch["smem_bytes"] == (attention_cuda.p_ds_bf16_smem_bytes(),)
+    smem = launch["smem_bytes"][0]
+    assert smem == 1024 + 3 * 4 * 128 * 64 * 2 + 128 * 128 * 2 + 8 * 6 <= MAX_SMEM_BYTES
+    assert launch["cluster"] == 2 and (m // keys) % launch["cluster"] == 0
+    assert attention_cuda.bwd_plan(b, h, n, m, d, 132, torch.bfloat16) == (
+        1, 1, 2 * b * h * n * m, {"flash_attn_bwd_p_ds_bf16": 1,
+                                  "flash_attn_bwd_dkv_mm_bf16": 1,
+                                  "flash_attn_bwd_dq_mm_bf16": 1})
+
+
+@pytest.mark.parametrize("n,m,fwd,bwd", [(384, 256, 2, 2), (512, 384, 2, 1), (128, 128, 2, 1)])
+def test_bf16_d512_clusters_divide_odd_tile_counts(n, m, fwd, bwd):
+    """n and m are only multiples of 128: the forward's pairs of 64-query
+    tiles always divide n, and where p_ds's 128-key tiles do not come in
+    pairs its clusters shrink to one block."""
+    q, k, v, do = _views(1, 2, n, m, 512, "proj")
+    assert fwd_bf16_launch(q, k, v)["cluster"] == fwd
+    assert bwd_bf16_launch(q, k, v, do)["cluster"] == bwd

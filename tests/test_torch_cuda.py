@@ -456,12 +456,12 @@ def test_k2_bf16_forward_matches_float32_on_card(card, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 512])
 @pytest.mark.parametrize("scale", [-0.125, 0.0])
 def test_k2_bf16_forward_takes_any_scale_on_card(card, d, scale):
-    """The bf16 forward at d = 64 and 128 with a negative scale (there the
-    row max of the scaled logits is the scale times the min) and a zero one
-    (every probability equal): o within BF16_FWD_REL_L2 of float32, lse
+    """The bf16 forward at d = 64, 128 and 512 with a negative scale (there
+    the row max of the scaled logits is the scale times the min) and a zero
+    one (every probability equal): o within BF16_FWD_REL_L2 of float32, lse
     against ``attention_lse_reference``."""
     q, k, v = attention_inputs(1, 2, 512, 512, d, 0.125, "proj", 8.0, device="cuda",
                                dtype=torch.bfloat16)
@@ -474,13 +474,10 @@ def test_k2_bf16_forward_takes_any_scale_on_card(card, d, scale):
     np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
-def test_k2_bf16_backward_matches_float32_on_card(card, case):
-    """The bf16 backward kernels bwd_plan names at the training shapes, fed
-    the float32 reference's o and lse: dq, dk and dv in bf16 within the
-    BF16_BWD holds, and bit for bit on repeat."""
-    b, heads, n, m, d, scale, layout, logits = TRAIN_CASES[case]
+def _check_bf16_backward(b, heads, n, m, d, scale, layout, logits):
+    """The bf16 backward kernels bwd_plan names, fed the float32 reference's
+    o and lse: the plan's launches, dq, dk and dv in bf16 within the BF16_BWD
+    holds, and bit for bit on repeat."""
     q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda",
                                dtype=torch.bfloat16)
     q32, k32, v32 = (t.float() for t in (q, k, v))
@@ -507,6 +504,22 @@ def test_k2_bf16_backward_matches_float32_on_card(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_k2_bf16_backward_matches_float32_on_card(card, case):
+    """The bf16 backward at the training shapes (``_check_bf16_backward``)."""
+    _check_bf16_backward(*TRAIN_CASES[case])
+
+
+@pytest.mark.cuda
+def test_k2_bf16_d512_backward_odd_key_tiles_on_card(card):
+    """The bf16 backward at d = 512 with an odd count of 128-key tiles, where
+    p_ds runs unclustered (its own q and dO loads, no multicast), held as at
+    the training shapes (``_check_bf16_backward``)."""
+    assert attention_cuda.p_ds_cluster(384) == 1
+    _check_bf16_backward(1, 1, 512, 384, 512, 512 ** -0.5, "proj", 8.0)
+
+
+@pytest.mark.cuda
 def test_k2_bf16_autograd_goes_through_the_bf16_kernels(card):
     """A gradient through an eligible bf16 call: one bf16 forward launch with
     lse and one bf16 backward call, gradients in bf16, no float32 kernel."""
@@ -522,3 +535,51 @@ def test_k2_bf16_autograd_goes_through_the_bf16_kernels(card):
                                     (attention_cuda.bwd_kernel_launches, bwd))
              for n_, c in counts.items() if c != was[n_]]
     assert moved and all(n_.endswith("_bf16") for n_ in moved), moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["serve", "train"])
+def test_k2_bf16_d512_repeats_bit_for_bit(card, path):
+    """vae_mid in bf16 at b = 1 (serving: the split key loop and its combine)
+    and b = 2 (training): the forward's o and lse and the backward's dq, dk
+    and dv (p_ds's P and dS through scratch) repeat bit for bit: no atomics,
+    the clusters' shared tiles summed in a fixed order."""
+    b, heads, n, m, d, scale, layout, logits = (CUDA_CASES if path == "serve"
+                                                else TRAIN_CASES)["vae_mid"]
+    q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda",
+                               dtype=torch.bfloat16)
+    do = torch.randn((b, n, heads, d), generator=torch.Generator(device="cuda").manual_seed(11),
+                     device="cuda").bfloat16()
+    first = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    second = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    grads = [attention_cuda.flash_attn_bwd_cuda(q, k, v, *first, do, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("o", "lse", "dq", "dk", "dv"), (*first, *grads[0]),
+                           (*second, *grads[1])):
+        assert torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+def test_k2_bf16_d512_raises_instead_of_falling_back(card):
+    """The d = 512 bf16 kernels take what the plan takes or raise: a sequence
+    that is no multiple of 128, mixed types or a gradient of another type
+    never reach the plain version, and no kernel is counted."""
+    q, k, v = attention_inputs(1, 1, 512, 512, 512, 512 ** -0.5, "proj", 8.0, device="cuda",
+                               dtype=torch.bfloat16)
+    fwd, bwd = dict(attention_cuda.fwd_kernel_launches), dict(attention_cuda.bwd_kernel_launches)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        attention_cuda.flash_attn_fwd_cuda(q[:, :192], k, v, 512 ** -0.5)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        attention_cuda.flash_attn_fwd_cuda(q, k.float(), v, 512 ** -0.5)
+    o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, 512 ** -0.5, return_lse=True)
+    do32 = torch.zeros_like(o, dtype=torch.float32)
+    with pytest.raises(TypeError, match="do must be"):
+        attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do32, 512 ** -0.5)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        attention_cuda.flash_attn_bwd_cuda(q, k[:, :320], v[:, :320], o, lse, o, 512 ** -0.5)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = attention_cuda.fwd_plan(1, 1, 512, 512, 512, sms, torch.bfloat16)[2]
+    assert {n_: c - fwd[n_] for n_, c in attention_cuda.fwd_kernel_launches.items()
+            if c != fwd[n_]} == {n_: c for n_, c in plan.items() if c}   # the one good call
+    assert attention_cuda.bwd_kernel_launches == bwd

@@ -370,7 +370,7 @@ def test_bf16_config_plumbing():
 # The bf16 splits fwd_plan and bwd_plan give on 132 SMs, by (path, case)
 FWD_SPLITS_BF16 = {
     ("serve", "unet_ds1"): 1, ("serve", "struct_ds1"): 1, ("serve", "unet_ds2"): 2,
-    ("serve", "struct_ds2"): 4, ("serve", "vae_mid"): 1, ("serve", "large_logits"): 8,
+    ("serve", "struct_ds2"): 4, ("serve", "vae_mid"): 2, ("serve", "large_logits"): 8,
     ("train", "unet_ds1"): 1, ("train", "struct_ds1"): 1, ("train", "unet_ds2"): 1,
     ("train", "struct_ds2"): 2, ("train", "vae_mid"): 1, ("train", "large_logits"): 8,
 }
@@ -381,10 +381,11 @@ BWD_SPLITS_BF16 = {"unet_ds1": (1, 1), "struct_ds1": (1, 1), "unet_ds2": (1, 1),
 @pytest.mark.parametrize("path,case", sorted(FWD_SPLITS_BF16))
 def test_bf16_launch_geometry(path, case):
     """fwd_plan and bwd_plan for bf16 inputs: the bf16 kernels by name, the
-    forward's occupancy at d = 64 and 128 (one block of 384 threads an SM,
-    128-key tiles) and the backward's (one block of 384 threads an SM, 64-row
-    tiles), grids that fill at least 90% of 132 SMs' slots or cannot split
-    further, and at d = 512 the P and dS scratch in the inputs' type."""
+    forward's occupancy (one block of 384 threads an SM; 128 queries and
+    128-key tiles at d = 64 and 128, 64 and 64 at d = 512) and the backward's
+    (one block of 384 threads an SM, 64-row tiles), grids that fill at least
+    90% of 132 SMs' slots or cannot split further, and at d = 512 the P and
+    dS scratch in the inputs' type."""
     b, h, n, m, d = (CUDA_CASES if path == "serve" else TRAIN_CASES)[case][:5]
     split, scratch, kernels = attention_cuda.fwd_plan(b, h, n, m, d, 132, torch.bfloat16)
     rows, keys, per_sm = attention_cuda.FWD_TILES_BF16[d]
