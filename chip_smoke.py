@@ -1190,11 +1190,12 @@ def phase_k2_d512_bf16():
     BF16_PLAIN_RATIO times the plain bf16 backward's error on the same o and
     lse.  Then each kernel's device time (profiler, ms a launch) beside its
     bound and SDPA's device time on the same bf16 inputs (its forward, or its
-    whole backward)."""
+    whole backward).  Last, the backward's two products alone (dkv_mm and
+    dq_mm, ``hold_mm_products``) at vae_mid b = 2 and at MM_ODD_CASE."""
     import torch
     import torch.nn.functional as F
     from torch_attention_cases import (BF16_BWD_REL_L2, BF16_FWD_REL_L2, BF16_PLAIN_RATIO,
-                                       CUDA_CASES, TRAIN_CASES, attention_inputs)
+                                       CUDA_CASES, MM_ODD_CASE, TRAIN_CASES, attention_inputs)
     from ssl_tpu_torch.ops import attention_cuda
     from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_reference,
                                              sdp_attention_reference)
@@ -1269,6 +1270,114 @@ def phase_k2_d512_bf16():
                   "kernels_device_ms": fwd if kernel.startswith("flash_attn_fwd") else bwd})
         del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, do_t
         torch.cuda.empty_cache()
+    for case, shape in (("vae_mid_train", TRAIN_CASES["vae_mid"]), ("odd_key_tiles", MM_ODD_CASE)):
+        hold_mm_products(case, *shape)
+
+
+def mm_library_ms(p_ds, q, k, do, scale) -> dict:
+    """cuBLAS's device time (profiler, ms a call) for the functions of dkv_mm
+    (dV and dK: two ``torch.baddbmm`` calls) and dq_mm (dQ: one) on the
+    scratch ``p_ds`` and q, k and dO in their type (``mm_library_calls``),
+    with bf16's reduced-precision reduction off; TF32 is off in the kernel
+    phases.  A yardstick only: the port never calls it."""
+    import torch
+    from torch_attention_cases import mm_library_calls
+    calls = mm_library_calls(p_ds, q, k, do, scale)
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return {"dkv_mm": device_ms(lambda: (calls["dv"](), calls["dk"]()), 5),
+                "dq_mm": device_ms(calls["dq"], 5)}
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def hold_mm_products(case, b, h, n, m, d, scale, layout, logit_range):
+    """The bf16 d = 512 backward's two products alone
+    (``flash_attn_bwd_mm_cuda``) on the plain p_ds's bf16 scratch of P and dS
+    (fed the float32 reference's o, in bf16, and lse): one launch of each a
+    call; dq, dk and dv within MM_REL_L2 relative L2 of the float64 products
+    of the same bf16 values and at most MM_LIBRARY_RATIO times the error of
+    cuBLAS's bf16 products (``mm_library_calls``, float32 sums); bit for bit
+    on a second launch.  Then each kernel's device time (profiler, ms a
+    launch) beside its bound and cuBLAS's device time for its function
+    (``mm_library_ms``)."""
+    import torch
+    from torch_attention_cases import (MM_LIBRARY_RATIO, MM_REL_L2, attention_inputs,
+                                       mm_library_calls)
+    from ssl_tpu_torch.ops import attention_cuda
+    from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_mm_reference,
+                                             flash_attn_bwd_p_ds_reference,
+                                             sdp_attention_reference)
+
+    bf16 = torch.bfloat16
+    q, k, v = attention_inputs(b, h, n, m, d, scale, layout, logit_range, device="cuda",
+                               dtype=bf16)
+    do = torch.randn((b, n, h, d), generator=torch.Generator(device="cuda").manual_seed(11),
+                     device="cuda").to(bf16)
+    q32, k32 = q.float(), k.float()
+    o = sdp_attention_reference(q32, k32, v.float(), scale).to(bf16)
+    p_ds = flash_attn_bwd_p_ds_reference(q, k, v, o, attention_lse_reference(q32, k32, scale), do,
+                                         scale)
+    del q32, k32, o, v
+    before = dict(attention_cuda.bwd_kernel_launches)
+    got = attention_cuda.flash_attn_bwd_mm_cuda(p_ds, q, k, do, scale)
+    launched = {k_: c - before[k_] for k_, c in attention_cuda.bwd_kernel_launches.items()
+                if c != before[k_]}
+    if launched != dict.fromkeys(attention_cuda.MM_KERNELS_BF16, 1):
+        fail(f"K2 bf16 products {case}: one call launched {launched}")
+    again = attention_cuda.flash_attn_bwd_mm_cuda(p_ds, q, k, do, scale)
+    exact = flash_attn_bwd_mm_reference(p_ds.double(), q.double(), k.double(), do.double(), scale)
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        library = {name: call() for name, call in mm_library_calls(p_ds, q, k, do, scale).items()}
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    torch.cuda.synchronize()
+    rel, lib_rel = {}, {}
+    for name, g, g2, e in zip(("dq", "dk", "dv"), got, again, exact):
+        if g.dtype != bf16 or not torch.equal(g, g2):
+            fail(f"K2 bf16 products {case} {name}: {g.dtype}, or a second launch differs")
+        rel[name], lib_rel[name] = rel_l2(g, e), rel_l2(library[name], e)
+        if rel[name] > MM_REL_L2 or rel[name] > MM_LIBRARY_RATIO * lib_rel[name]:
+            fail(f"K2 bf16 products {case} {name}: relative L2 {rel[name]} against float64 "
+                 f"(bound {MM_REL_L2}; cuBLAS's {lib_rel[name]}, ratio {MM_LIBRARY_RATIO})")
+    del got, again, exact, library
+    times = kernel_device_ms(lambda: attention_cuda.flash_attn_bwd_mm_cuda(p_ds, q, k, do, scale),
+                             "flash_attn_bwd", 10)
+    library_ms = mm_library_ms(p_ds, q, k, do, scale)
+    bounds = k2_bwd_times(b, h, n, m, d, (1, 1), "bfloat16")
+    for kernel, key in zip(attention_cuda.MM_KERNELS_BF16, ("dkv_mm", "dq_mm")):
+        bound = bounds[key]
+        bound_ms = max(bound["ops_ms"], bound["bytes_ms"])
+        ms = times[f"{kernel}_kernel"]
+        emit({"phase": "kernel", "kernel": kernel, "case": case, "b_heads_n_m_d": [b, h, n, m, d],
+              "device_ms": ms, "bound_ms": bound_ms,
+              "bound_by": "operations" if bound["ops_ms"] >= bound["bytes_ms"] else "bytes",
+              "fraction_of_bound": bound_ms / ms, "library_ms": library_ms[key],
+              "library_is": "cuBLAS, one torch.baddbmm(beta=0, alpha=scale) a product, device "
+                            "time (profiler)",
+              "rel_l2_vs_float64": rel, "library_rel_l2_vs_float64": lib_rel,
+              "repeat_bit_for_bit": True,
+              "bounds": {"rel_l2": MM_REL_L2, "library_ratio": MM_LIBRARY_RATIO}})
+    del q, k, do, p_ds
+    torch.cuda.empty_cache()
+
+
+def mm_products_times(q, k, v, o, lse, do, scale, iters: int) -> dict:
+    """At d = 512, the function of dkv_mm and dq_mm alone on the P/dS
+    scratch that the plain p_ds forms from these inputs: cuBLAS's device time
+    by kernel (``mm_library_ms``) and the plain dkv_mm and dq_mm together
+    (``flash_attn_bwd_mm_reference``, CUDA events)."""
+    from ssl_tpu_torch.ops.attention import (flash_attn_bwd_mm_reference,
+                                             flash_attn_bwd_p_ds_reference)
+    p_ds = flash_attn_bwd_p_ds_reference(q, k, v, o, lse, do, scale)
+    return {"mm_library_ms": mm_library_ms(p_ds, q, k, do, scale),
+            "mm_plain_ms": time_ms(lambda: flash_attn_bwd_mm_reference(p_ds, q, k, do, scale),
+                                   iters)}
 
 
 def k2_bwd_times(b, h, n, m, d, splits=(1, 1), dtype="float32"):
@@ -1438,6 +1547,7 @@ def phase_k2_bwd():
             sums = {"sum_plain_ms": time_ms(ordered, iters),
                     "sum_library_ms": time_ms(lambda: parts.sum(0), iters)}
             del parts
+        sums.update(mm_products_times(q, k, v, o, lse, do, scale, iters) if d == 512 else {})
         results[name] = {"max_abs_err": max(errs.values()), "ms": kernel_ms,
                          "kernel_ms": {k_.removesuffix("_kernel"): v_ for k_, v_ in split.items()},
                          "launches": {k_: c for k_, c in launches.items() if c},
@@ -1535,6 +1645,7 @@ def phase_k2_bwd_bf16():
             sums = {"sum_plain_ms": time_ms(ordered, iters),
                     "sum_library_ms": time_ms(lambda: parts.sum(0).to(bf16), iters)}
             del parts
+        sums.update(mm_products_times(q, k, v, o, lse, do, scale, iters) if d == 512 else {})
         results[name] = {"max_abs_err": max_abs, "rel_l2": rel, "ms": kernel_ms,
                          "kernel_ms": {k_.removesuffix("_kernel"): v_ for k_, v_ in split.items()},
                          "launches": {k_: c for k_, c in launches.items() if c},
@@ -4148,6 +4259,15 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
                          times_are="mean per launch over one training mini-step's mix of shapes; "
                                    "plain_ms (an in-order loop) and library_ms (torch.sum) add "
                                    f"one output's split parts; max_abs_err is {what}")
+        elif f.endswith("_mm"):
+            entry.update(plain_ms=call_mean("mm_plain_ms"),
+                         library_ms=per_launch(lambda r: r["mm_library_ms"][f]),
+                         times_are="mean per launch over one training mini-step's mix of shapes; "
+                                   "library_ms is cuBLAS's device time for this kernel's "
+                                   "products (one torch.baddbmm each, TF32 and bf16 "
+                                   "reduced-precision reduction off) on the P/dS scratch; "
+                                   "plain_ms the plain dkv_mm and dq_mm together; max_abs_err is "
+                                   f"{what}")
         else:
             entry.update(plain_ms=call_mean("plain_ms"), library_ms=call_mean("library_ms"),
                          times_are="mean per launch over one training mini-step's mix of shapes; "

@@ -12,7 +12,11 @@ the call, from the profiler), the time of SDPA's backward on the same
 inputs by CUDA events and on the device (the yardstick; the port never
 calls it), and the bound by the arithmetic the kernels use, per kernel
 (``bound_ms``) and for the whole backward, with each kernel's fraction of
-its bound.  ``--dtype bfloat16`` runs the bf16 kernels on the cases'
+its bound.  At d = 512 also cuBLAS's device time for the function of each of
+the two products' kernels, dkv_mm (dV and dK) and dq_mm (dQ): one
+``torch.baddbmm`` a product on a scratch-shaped tensor in the kernels' type
+(``mm_library_device_ms``; bf16's reduced-precision reduction off).
+``--dtype bfloat16`` runs the bf16 kernels on the cases'
 inputs rounded to bf16 (the float32 forward's o, rounded, and lse), SDPA's
 backward in bf16 beside them, and the bound with bf16 products and 2-byte
 operands.  With ``--fwd``, for each case of ``CUDA_CASES``: the forward
@@ -61,7 +65,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import card, device_ms, k2_bwd_times, kernel_device_ms, time_ms
+    from chip_smoke import card, device_ms, k2_bwd_times, kernel_device_ms, mm_library_ms, time_ms
     from torch_attention_cases import CUDA_CASES, TRAIN_CASES, attention_inputs
     sys.path.insert(0, os.path.abspath(args.root))      # this checkout's ssl_tpu_torch
     from ssl_tpu_torch.ops import attention_cuda
@@ -115,6 +119,12 @@ def main() -> int:
         if plan:     # an older checkout's plan may take no dtype
             splits = (plan(b, h, n, m, d, sms, dtype) if dtype != torch.float32
                       else plan(b, h, n, m, d, sms))[:2]
+        mm_library = None
+        if d == 512:      # the products' function alone, on a scratch of P and dS's shape
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            p_ds = torch.rand((2, b, h, n, m), generator=gen, device="cuda").to(dtype)
+            mm_library = mm_library_ms(p_ds, q, k, do, scale)
+            del p_ds
         bounds = k2_bwd_times(b, h, n, m, d, splits or (1, 1), args.dtype)
         bound_ms = {k_: max(v_["ops_ms"], v_["bytes_ms"]) for k_, v_ in bounds.items()}
         fraction = {k_: bound_ms[re.sub(r"^flash_attn_bwd_|(_bf16)?_kernel$", "", k_)] / t
@@ -124,7 +134,8 @@ def main() -> int:
                           "kernels_device_ms": sum(per_kernel.values()),
                           "per_kernel_ms": per_kernel, "wrapper_ms": wrapper_ms,
                           "wrapper_device_ms": wrapper_device_ms, "sdpa_bwd_ms": sdpa_ms,
-                          "sdpa_bwd_device_ms": sdpa_device_ms, "bound": bounds["bwd"],
+                          "sdpa_bwd_device_ms": sdpa_device_ms,
+                          "mm_library_device_ms": mm_library, "bound": bounds["bwd"],
                           "bound_ms": bound_ms,
                           "fraction_of_bound": fraction, "splits": splits,
                           "card": name}), flush=True)

@@ -110,15 +110,16 @@
 // replaced (128 x 64 tiles on mma.sync, a cp.async ring) read q, dO, k and v
 // 4·b·h·n·m·d·(1/128 + 1/64) bytes through L2 and sat near the L2's rate;
 // 128 x 128 tiles on wgmma, in pairs of blocks that share q and dO by TMA
-// multicast, read half of that.  dkv_mm and dq_mm stay 128 x 128 mma.sync
-// tiles (bf16_mma.cuh).
+// multicast, read half of that.  dkv_mm and dq_mm, the plain products over
+// the scratch, run wgmma too (below): 128 x 256 output tiles on a
+// persistent grid, Pᵀ and dSᵀ read as stored through the A operand's
+// transpose bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"      // bf16 mma.sync products, ldmatrix fragment loads
-#include "hopper_wgmma.cuh"   // TMA, mbarrier rings, setmaxnreg, bf16 wgmma
+#include "hopper_wgmma.cuh"   // the bf16 type, TMA, mbarrier rings, setmaxnreg, bf16 wgmma
 #include "tf32_mma.cuh"      // 3xTF32 mma.sync products, cp.async tile copies
 
 namespace {
@@ -1255,123 +1256,213 @@ flash_attn_bwd_p_ds_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   cluster_sync();   // no block leaves while another may still arrive on its barriers
 }
 
-// ---- bf16, d = 512: dK, dV and dQ from P and dS in bf16 scratch ----------
+// ---- bf16, d = 512: dK, dV and dQ from P and dS on wgmma -----------------
+//
+// flash_attn_bwd_dkv_mm_bf16_kernel (dV = Pᵀ dO and dK = sm_scale dSᵀ q, one
+// launch) and flash_attn_bwd_dq_mm_bf16_kernel (dQ = sm_scale dS k): plain
+// batched products over the bf16 [P | dS] scratch that p_ds writes, in
+// output tiles of 128 rows (keys, or queries in dq) x 256 columns of d, in
+// blocks of 384 threads: a producer warpgroup (threads 256-383; setmaxnreg
+// 40 / 232) and two consumer warpgroups of 64 output rows, each running
+// m64n256k16 (128 fp32 accumulators a thread) over a ring of MMW_STAGES
+// stages of 64-deep chunks of the contraction (queries in dkv, keys in dq).
+// A stage holds the tile's A chunk (two 64 x 64 boxes of the scratch, 16 KB)
+// and B chunk (four 64 x 64 boxes of dO, q or k, 32 KB), all as TMA lands
+// them under the 128-byte swizzle.  The operands are read as stored: Pᵀ and
+// dSᵀ are the scratch's rows read MN-major (imm-trans-a = 1, which 16-bit
+// types allow), dS in dq K-major, and dO, q and k MN-major (imm-trans-b = 1):
+// no transposed copy.  The epilogue scales, rounds to bf16 once and stages
+// the tile a 64-column block at a time through shared memory, then writes
+// 16-byte pieces along the rows of the (b, seq, heads, d) output.
+// What bounds them: the products, 4·b·h·n·m·d (dkv) and 2·b·h·n·m·d (dq)
+// operations at the bf16 rate, ~70 and ~35 µs at b = 2 and 4096 tokens.
+// Four stages keep two to three chunks in flight while one is multiplied;
+// three were 10% slower.  The grid is persistent (one block an SM, each
+// walking the tiles in turn), so that one tile's epilogue runs beside the
+// next tile's loads; the two column blocks of a row tile come next to each
+// other in the walk, so they read the same scratch strip at about the same
+// time (P and dS, 128 MB at b = 2, do not fit the 50 MB L2).  (Pairs of
+// blocks sharing the B chunk by TMA multicast were 2-4% slower: the pair
+// waits for its slower block.  The plan this replaced: 128 x 128 tiles of
+// mma.sync with ldmatrix fragment loads and a cp.async ring filled by the
+// computing warps, at 24-28% of the bound.)
 
-constexpr int MMB_PA = MM_KC + 8, MMB_PT = MM_BM + 8;   // pitches: [i][k] and [k][i or j]
-constexpr int MMB_STAGE = MM_BM * MMB_PA + MM_KC * MMB_PT;
+constexpr int MMW_BM = 128, MMW_BN = 256, MMW_KC = 64, MMW_STAGES = 4, MMW_THREADS = 384;
+constexpr int MMW_BOX = 64 * 64 * 2;                  // bytes of one 64-row, 64-column box
+constexpr int MMW_A = 2 * MMW_BOX, MMW_STAGE = MMW_A + 4 * MMW_BOX;   // A, then B, a stage
+constexpr int MMW_OUT = MMW_BM * 64 * 2;              // a staged 128 x 64 bf16 output block
 
-// out (rows, D) = alpha A B over k < kdim in bf16 operands, as mm_tile: one
-// 128 x 128 tile per block, 8 warps of 64 x 32, a three-stage ring of 32-deep
-// chunks.  A(i, kk) is a[i·lda + kk] when A_KCONTIG (32-bit fragment reads),
-// else a[kk·lda + i] (ldmatrix.trans); B(kk, j) = b[kk·ldb + j]
-// (ldmatrix.trans); out(i, j) = out[i·ostride + j], rounded to bf16.
-template <bool A_KCONTIG>
-__device__ __forceinline__ void mm_tile_bf16(const bf16* __restrict__ a, long long lda,
-                                             const bf16* __restrict__ b, long long ldb,
-                                             bf16* __restrict__ out, long long ostride, int kdim,
-                                             float alpha) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wr = warp / 4, wc = warp % 4;
-  const int i0 = blockIdx.y * MM_BM, j0 = blockIdx.x * MM_BN;
-  const int nchunk = kdim / MM_KC;
+// Shared memory (bytes): 1024 of alignment slack, the ring, the staged
+// output block and the ring's barriers (full and empty a stage).
+constexpr int mm_bf16_smem_bytes() {
+  return 1024 + MMW_STAGES * MMW_STAGE + MMW_OUT + 2 * MMW_STAGES * 8;
+}
 
-  auto load_stage = [&](int stage, int chunk) {
-    bf16* s = smem + stage * MMB_STAGE;
-    const long long c0 = (long long)chunk * MM_KC;
-    if (A_KCONTIG)
-      load_tile_bf16<MM_BM, MM_KC, MMB_PA, 256>(s, a + i0 * lda + c0, lda, tid);
-    else
-      load_tile_bf16<MM_KC, MM_BM, MMB_PT, 256>(s, a + c0 * lda + i0, lda, tid);
-    load_tile_bf16<MM_KC, MM_BN, MMB_PT, 256>(s + MM_BM * MMB_PA, b + c0 * ldb + j0, ldb, tid);
+// How dkv_mm (dq = false) or dq_mm runs at b·heads bh, n queries and m keys
+// on a card of ``sms`` SMs: its tile, ring stages, shared memory, tiles and
+// grid (one block an SM, at most one a tile).  The wrapper checks its own
+// plan against it (flash_attn_bwd_bf16_mm_geometry).
+struct MmPlan {
+  int rows, cols, stages, smem, tiles, grid;
+};
+
+inline MmPlan mm_plan(bool dq, int bh, int n, int m, int sms) {
+  const int tiles = (dq ? 1 : 2) * bh * ((dq ? n : m) / MMW_BM) * (512 / MMW_BN);
+  return {MMW_BM, MMW_BN, MMW_STAGES, mm_bf16_smem_bytes(), tiles, tiles < sms ? tiles : sms};
+}
+
+// out (rows x 512 per matrix) = scale · A B over the contraction, for one of
+// the matrices: dkv (TRANS_A) has 2·bh of them, dV = Pᵀ dO for mat < bh and
+// dK = sm_scale dSᵀ q after; dq has bh, dQ = sm_scale dS k.  The scratch
+// map tm_s views [P | dS] as (2·bh, n, 1, m) (boxes of 64 columns x 64
+// rows): A of matrix mat is scratch matrix mat (dkv) or bh + mat (dq).
+// tm_b0 / tm_b1 (dO / q, or k twice) are (b, seq, heads, 512) maps with boxes
+// of 64 columns x 64 rows; out0 / out1 (dv / dk, or dq twice) contiguous (b,
+// rows, heads, 512).
+template <bool TRANS_A>
+__device__ __forceinline__ void mm_bf16(const CUtensorMap* tm_s, const CUtensorMap* tm_b0,
+                                        const CUtensorMap* tm_b1, bf16* __restrict__ out0,
+                                        bf16* __restrict__ out1, float scale0, float scale1,
+                                        int bh, int heads, int n, int m, int tiles) {
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* ring = align1024(smem_tma);    // MMW_STAGES x {A, B}
+  unsigned char* stage_out = ring + MMW_STAGES * MMW_STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage_out + MMW_OUT);
+  uint64_t* empty = full + MMW_STAGES;
+
+  // Tile w: column block w % 2 of row tile (w / 2) % rts of matrix w / (2·rts);
+  // this block takes tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+  const int tid = threadIdx.x;
+  const int rows = TRANS_A ? m : n, nchunk = (TRANS_A ? n : m) / MMW_KC;
+  const int rts = rows / MMW_BM, cbs = 512 / MMW_BN;
+  auto tile_of = [&](int w, int& mat, int& r0, int& c0) {
+    c0 = (w % cbs) * MMW_BN;
+    r0 = (w / cbs % rts) * MMW_BM;
+    mat = w / (cbs * rts);
   };
-
-  float acc[4][4][4];   // [column tile j][row tile i]
+  if (tid == 0) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[j][i][r] = 0.f;
-
-#pragma unroll
-  for (int c = 0; c < MM_STAGES - 1; ++c) {
-    if (c < nchunk) load_stage(c, c);
-    cp_async_commit();
+    for (int s = 0; s < MMW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // every consumer warp
+    }
+    mbar_init_fence();
   }
-  for (int it = 0; it < nchunk; ++it) {
-    if (it + MM_STAGES - 1 < nchunk) load_stage((it + MM_STAGES - 1) % MM_STAGES,
-                                                it + MM_STAGES - 1);
-    cp_async_commit();
-    cp_async_wait<MM_STAGES - 1>();
-    __syncthreads();
-    const bf16* s_a = smem + (it % MM_STAGES) * MMB_STAGE;
-    const bf16* s_b = s_a + MM_BM * MMB_PA;
+  __syncthreads();
+
+  if (tid >= 256) {   // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid == 256) {
+      int u = 0;   // chunks loaded so far
+      for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
+        int mat, r0, c0;
+        tile_of(w, mat, r0, c0);
+        const int b_bh = mat % bh, bi = b_bh / heads, hi = b_bh % heads;
+        const int smat = TRANS_A ? mat : bh + mat;
+        const CUtensorMap* tm_b = mat >= bh ? tm_b1 : tm_b0;
+        for (int c = 0; c < nchunk; ++c, ++u) {
+          const int s = u % MMW_STAGES;
+          if (u >= MMW_STAGES) mbar_wait(&empty[s], (u / MMW_STAGES - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], MMW_STAGE);
+          unsigned char* st = ring + s * MMW_STAGE;
 #pragma unroll
-    for (int kk = 0; kk < MM_KC; kk += 16) {
-      uint32_t fa[4][4];
+          for (int h = 0; h < 2; ++h) {   // the A boxes of the two warpgroups' 64 rows
+            if (TRANS_A)   // 64 keys (columns of P or dS) x 64 queries (rows): Pᵀ MN-major
+              tma_load_4d(st + h * MMW_BOX, tm_s, &full[s], r0 + 64 * h, 0, MMW_KC * c, smat);
+            else           // 64 keys x 64 queries of dS: K-major
+              tma_load_4d(st + h * MMW_BOX, tm_s, &full[s], MMW_KC * c, 0, r0 + 64 * h, smat);
+          }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wr * 64 + 16 * i;
-        if (A_KCONTIG)
-          frag_a_rows<MMB_PA>(fa[i], s_a + r * MMB_PA, kk, g, t);
-        else
-          frag_a_trans<MMB_PT>(fa[i], s_a, r, kk, lane);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t fb[4];
-        frag_b_trans<MMB_PT>(fb, s_b, kk, wc * 32 + 8 * j, lane);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          mma_bf16(acc[j][i], fa[i], fb[0], fb[1]);
-          mma_bf16(acc[j + 1][i], fa[i], fb[2], fb[3]);
+          for (int i = 0; i < 4; ++i)   // B's four 64-column boxes
+            tma_load_4d(st + MMW_A + i * MMW_BOX, tm_b, &full[s], c0 + 64 * i, hi, MMW_KC * c,
+                        bi);
         }
       }
     }
-    __syncthreads();
-  }
+  } else {   // the consumer warpgroups
+    setmaxnreg_inc<232>();
+    const int wg = tid / 128, wq = (tid % 128) / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    // a consumer warp's arrival on a stage's empty barrier
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    };
+    int u = 0;   // chunks consumed so far
+    for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
+      int mat, r0, c0;
+      tile_of(w, mat, r0, c0);
+      float acc[128];
+      for (int c = 0; c < nchunk; ++c, ++u) {
+        mbar_wait(&full[u % MMW_STAGES], (u / MMW_STAGES) & 1);
+        __syncwarp();
+        const unsigned char* st = ring + (u % MMW_STAGES) * MMW_STAGE;
+        // A: this warpgroup's box (64 rows MN-major, or 64 rows K-major); B: all four
+        uint64_t da = desc_sw128(st + wg * MMW_BOX, TRANS_A ? MMW_BOX : 16, 1024);
+        uint64_t db = desc_sw128(st + MMW_A, MMW_BOX, 1024);
+        opaque(da);
+        opaque(db);
+        wgmma_fence();
+        // k-step kk: 16 rows further (MN-major A, and B), 32 bytes into the rows (K-major A)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n256<1, TRANS_A ? 1 : 0>(acc, da + ((TRANS_A ? kk * 2048 : kk * 32) >> 4),
+                                            db + ((kk * 2048) >> 4), c > 0 || kk > 0);
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait<1>();
+          release((u - 1) % MMW_STAGES);   // chunk c - 1 is read
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release((u - 1) % MMW_STAGES);
 
+      // the epilogue: scale, round to bf16, and through stage_out ([128][64]
+      // bf16, 16-byte chunk ch of row r at chunk ch ^ (r % 8)) a 64-column
+      // block at a time; entry 4j + r of acc is row 16wq + g + 8·(r / 2) of
+      // the warpgroup's, column 8j + 2t + r % 2
+      const int b_bh = mat % bh, bi = b_bh / heads, hi = b_bh % heads;
+      const float scale = mat >= bh ? scale1 : scale0;
+      const long long pitch = (long long)heads * 512;
+      bf16* out = (mat >= bh ? out1 : out0) + ((long long)bi * rows * heads + hi) * 512 + c0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = i0 + wr * 64 + 16 * i + g;
+      for (int cb = 0; cb < MMW_BN / 64; ++cb) {
+        bar_sync(1, 256);   // the staged block's last reader is done
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = j0 + wc * 32 + 8 * j + 2 * t;
-      store2(out + r * ostride + col, acc[j][i][0] * alpha, acc[j][i][1] * alpha);
-      store2(out + (r + 8) * ostride + col, acc[j][i][2] * alpha, acc[j][i][3] * alpha);
+        for (int h = 0; h < 2; ++h) {
+          const int row = 64 * wg + 16 * wq + g + 8 * h;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int i = 32 * cb + 4 * j + 2 * h;
+            *reinterpret_cast<uint32_t*>(stage_out + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t) =
+                pack_bf16x2(acc[i] * scale, acc[i + 1] * scale);
+          }
+        }
+        bar_sync(1, 256);
+        for (int e = tid; e < MMW_BM * 8; e += 256) {
+          const int r = e / 8, ch = e % 8;
+          *reinterpret_cast<uint4*>(out + (r0 + r) * pitch + 64 * cb + 8 * ch) =
+              *reinterpret_cast<const uint4*>(stage_out + r * 128 + ((ch ^ (r & 7)) << 4));
+        }
+      }
     }
   }
 }
 
-// dV = Pᵀ dO (blockIdx.z even) and dK = sm_scale dSᵀ q (odd) for b·head z / 2.
-template <int D>
-__global__ void __launch_bounds__(256)
-flash_attn_bwd_dkv_mm_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ dout,
-                                  const bf16* __restrict__ p, const bf16* __restrict__ ds,
-                                  bf16* __restrict__ dk, bf16* __restrict__ dv, Strides st,
-                                  int heads, int n, int m, float sm_scale) {
-  const int bh = blockIdx.z / 2, bi = bh / heads, hi = bh % heads;
-  const long long out = ((long long)bi * m * heads + hi) * D;
-  if (blockIdx.z % 2 == 0)
-    mm_tile_bf16<false>(p + (long long)bh * n * m, m, dout + bi * st.gb + hi * st.gh, st.gn,
-                        dv + out, (long long)heads * D, n, 1.f);
-  else
-    mm_tile_bf16<false>(ds + (long long)bh * n * m, m, q + bi * st.qb + hi * st.qh, st.qn,
-                        dk + out, (long long)heads * D, n, sm_scale);
+__global__ void __launch_bounds__(MMW_THREADS, 1)
+flash_attn_bwd_dkv_mm_bf16_kernel(const __grid_constant__ CUtensorMap tm_s,
+                                  const __grid_constant__ CUtensorMap tm_do,
+                                  const __grid_constant__ CUtensorMap tm_q, bf16* __restrict__ dv,
+                                  bf16* __restrict__ dk, float sm_scale, int bh, int heads, int n,
+                                  int m, int tiles) {
+  mm_bf16<true>(&tm_s, &tm_do, &tm_q, dv, dk, 1.f, sm_scale, bh, heads, n, m, tiles);
 }
 
-// dQ = sm_scale dS k for b·head blockIdx.z.
-template <int D>
-__global__ void __launch_bounds__(256)
-flash_attn_bwd_dq_mm_bf16_kernel(const bf16* __restrict__ k, const bf16* __restrict__ ds,
-                                 bf16* __restrict__ dq, Strides st, int heads, int n, int m,
-                                 float sm_scale) {
-  const int bh = blockIdx.z, bi = bh / heads, hi = bh % heads;
-  mm_tile_bf16<true>(ds + (long long)bh * n * m, m, k + bi * st.kb + hi * st.kh, st.kn,
-                     dq + ((long long)bi * n * heads + hi) * D, (long long)heads * D, m,
-                     sm_scale);
+__global__ void __launch_bounds__(MMW_THREADS, 1)
+flash_attn_bwd_dq_mm_bf16_kernel(const __grid_constant__ CUtensorMap tm_s,
+                                 const __grid_constant__ CUtensorMap tm_k, bf16* __restrict__ dq,
+                                 float sm_scale, int bh, int heads, int n, int m, int tiles) {
+  mm_bf16<false>(&tm_s, &tm_k, &tm_k, dq, dq, sm_scale, sm_scale, bh, heads, n, m, tiles);
 }
 
 // ---- launches ------------------------------------------------------------
@@ -1533,9 +1624,46 @@ cudaError_t launch_d512(const Args<float>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The card's SM count (current device).
+inline cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err
+                            : cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// bf16, d = 512: dkv_mm, then dq_mm, on the [P | dS] scratch (2·b·heads·n·m
+// bf16) as mm_plan says, on TMA tensor maps of the scratch and of dO, q and k
+// (boxes of 64 columns x 64 rows).
+cudaError_t launch_mm_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  constexpr int D = 512;
+  if (a.scratch == nullptr || a.n % MMW_BM || a.m % MMW_BM) return cudaErrorInvalidValue;
+  const int bh = a.b * a.heads, heads = a.heads, n = a.n, m = a.m;
+  int sms = 0;
+  CUtensorMap ts, tdo, tq, tk;
+  const Strides& st = a.st;
+  cudaError_t err = bf16_tile_map(&ts, a.scratch, 2 * bh, n, 1, m, (long long)n * m, m, m, 64);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&tdo, a.dout, a.b, n, heads, D, st.gb, st.gn, st.gh, 64);
+  if (err == cudaSuccess) err = bf16_tile_map(&tq, a.q, a.b, n, heads, D, st.qb, st.qn, st.qh, 64);
+  if (err == cudaSuccess) err = bf16_tile_map(&tk, a.k, a.b, m, heads, D, st.kb, st.kn, st.kh, 64);
+  if (err == cudaSuccess) err = device_sms(&sms);
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dkv_mm_bf16_kernel, mm_bf16_smem_bytes());
+  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_mm_bf16_kernel, mm_bf16_smem_bytes());
+  if (err != cudaSuccess) return err;
+  const MmPlan kv = mm_plan(false, bh, n, m, sms), qp = mm_plan(true, bh, n, m, sms);
+  flash_attn_bwd_dkv_mm_bf16_kernel<<<kv.grid, MMW_THREADS, kv.smem, stream>>>(
+      ts, tdo, tq, a.dv, a.dk, a.sm_scale, bh, heads, n, m, kv.tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_attn_bwd_dq_mm_bf16_kernel<<<qp.grid, MMW_THREADS, qp.smem, stream>>>(
+      ts, tk, a.dq, a.sm_scale, bh, heads, n, m, qp.tiles);
+  return cudaGetLastError();
+}
+
 // the same in bf16: P and dS in bf16 scratch, the p_ds kernel on TMA tensor
 // maps of q, k, v and dO (boxes of 64 columns x 128 rows) in clusters of
-// p_ds_cluster(m) blocks, as many as fit the card at once
+// p_ds_cluster(m) blocks, as many as fit the card at once; then dkv_mm and
+// dq_mm (launch_mm_bf16)
 cudaError_t launch_d512_bf16(const Args<bf16>& a, cudaStream_t stream) {
   constexpr int D = 512;
   if (a.scratch == nullptr || a.dkv_split != 1 || a.dq_split != 1) return cudaErrorInvalidValue;
@@ -1553,11 +1681,7 @@ cudaError_t launch_d512_bf16(const Args<bf16>& a, cudaStream_t stream) {
     err = bf16_tile_map(&tdo, a.dout, a.b, a.n, a.heads, D, st.gb, st.gn, st.gh, PD_BQ);
   if (err != cudaSuccess) return err;
   constexpr int smem_pds = p_ds_bf16_smem_bytes();
-  const size_t smem_mm = sizeof(bf16) * MM_STAGES * MMB_STAGE;
-  err = set_smem(flash_attn_bwd_p_ds_bf16_kernel<D>, smem_pds);
-  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dkv_mm_bf16_kernel<D>, smem_mm);
-  if (err == cudaSuccess) err = set_smem(flash_attn_bwd_dq_mm_bf16_kernel<D>, smem_mm);
-  if (err != cudaSuccess) return err;
+  if ((err = set_smem(flash_attn_bwd_p_ds_bf16_kernel<D>, smem_pds)) != cudaSuccess) return err;
   const float* lse = a.lse;
   const float* di = a.di;
   int heads = a.heads, n = a.n, m = a.m, cluster = p_ds_cluster(a.m);
@@ -1574,15 +1698,7 @@ cudaError_t launch_d512_bf16(const Args<bf16>& a, cudaStream_t stream) {
                   &tiles};
   err = launch_cluster(kernel, dim3(cluster * clusters), PD_THREADS, smem_pds, cluster, args,
                        stream);
-  if (err != cudaSuccess) return err;
-  flash_attn_bwd_dkv_mm_bf16_kernel<D>
-      <<<dim3(D / MM_BN, a.m / MM_BM, 2 * a.b * a.heads), 256, smem_mm, stream>>>(
-          a.q, a.dout, p, ds, a.dk, a.dv, a.st, a.heads, a.n, a.m, a.sm_scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_attn_bwd_dq_mm_bf16_kernel<D>
-      <<<dim3(D / MM_BN, a.n / MM_BM, a.b * a.heads), 256, smem_mm, stream>>>(
-          a.k, ds, a.dq, a.st, a.heads, a.n, a.m, a.sm_scale);
-  return cudaGetLastError();
+  return err != cudaSuccess ? err : launch_mm_bf16(a, stream);
 }
 
 }  // namespace
@@ -1649,6 +1765,38 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void*
     case 512: return (int)launch_d512_bf16(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// flash_attn_bwd_bf16's last two kernels alone at d = 512, dkv_mm and
+// dq_mm, on a given scratch [P | dS] (2·b·heads·n·m bf16, P and dS each
+// contiguous (b, heads, n, m)): dq, dk and dv from q, k and dout as
+// flash_attn_bwd_bf16 takes them.  Returns the first launch error.
+int flash_attn_bwd_mm_bf16(const void* q, const void* k, const void* dout, const void* scratch,
+                           void* dq, void* dk, void* dv, long long qb, long long qn, long long qh,
+                           long long kb, long long kn, long long kh, long long gb, long long gn,
+                           long long gh, int b, int heads, int n, int m, int d, float sm_scale,
+                           void* stream) {
+  if (d != 512 || n % 128 != 0 || m % 128 != 0) return (int)cudaErrorInvalidValue;
+  const Args<bf16> a{static_cast<const bf16*>(q), static_cast<const bf16*>(k), nullptr,
+                     static_cast<const bf16*>(dout), nullptr, nullptr, static_cast<bf16*>(dq),
+                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), const_cast<void*>(scratch),
+                     Strides{qb, qn, qh, kb, kn, kh, 0, 0, 0, gb, gn, gh},
+                     b, heads, n, m, 1, 1, sm_scale};
+  return (int)launch_mm_bf16(a, (cudaStream_t)stream);
+}
+
+// How the bf16 dkv_mm (kernel 0) or dq_mm (1) runs at d = 512 on the current
+// device: tile rows and columns, ring stages, shared memory and grid into
+// out[0..4] (mm_plan); returns an error code.  The wrapper checks its own
+// plan against it.
+int flash_attn_bwd_bf16_mm_geometry(int kernel, int b, int heads, int n, int m, int* out) {
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const MmPlan p = mm_plan(kernel == 1, b * heads, n, m, sms);
+  const int v[5] = {p.rows, p.cols, p.stages, p.smem, p.grid};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
 }
 
 // The bf16 wgmma kernels' dynamic shared memory a block at head width d

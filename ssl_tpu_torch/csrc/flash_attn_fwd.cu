@@ -85,8 +85,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"      // the bf16 type
-#include "hopper_wgmma.cuh"   // TMA, mbarrier rings, setmaxnreg, bf16 wgmma
+#include "hopper_wgmma.cuh"   // the bf16 type, TMA, mbarrier rings, setmaxnreg, bf16 wgmma
 #include "tf32_mma.cuh"      // 3xTF32 mma.sync products, cp.async tile copies
 
 namespace {

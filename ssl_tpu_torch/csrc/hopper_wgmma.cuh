@@ -5,7 +5,7 @@
 // and thread block clusters: TMA loads multicast to several blocks, arrivals
 // on another block's mbarrier, the cluster barrier and cluster launches.
 // Used by K2's bf16 kernels, forward (flash_attn_fwd.cu) and backward
-// (flash_attn_bwd.cu); the clusters by the two d = 512 kernels.
+// (flash_attn_bwd.cu); the clusters by the d = 512 forward and P/dS kernels.
 //
 // Shared-memory tiles.  A TMA box of 64 bf16 columns (128 bytes) x R rows
 // lands as R rows of 128 bytes under CU_TENSOR_MAP_SWIZZLE_128B: in each
@@ -22,7 +22,8 @@
 //     leading offset is unused; k-step kk of 16 starts 32·kk bytes into the
 //     row (the swizzle is applied by the hardware to the summed address).
 //   * MN-major operand (the contraction index across rows: dO and Q in dV,
-//     dK, K in dQ, read with imm-trans-b = 1): 8 contraction rows per
+//     dK, K in dQ, read with imm-trans-b = 1; Pᵀ and dSᵀ as stored in dV and
+//     dK at d = 512, read with imm-trans-a = 1): 8 contraction rows per
 //     1024-byte group (SBO = 1024), 64-column blocks LBO apart; k-step kk of
 //     16 starts 16 rows = 2048 bytes further.
 //
@@ -53,6 +54,8 @@
 #include <stdint.h>
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
 
 // ---- PTX helpers ---------------------------------------------------------
 
@@ -210,8 +213,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 
 // d (64 x N) = A (64 x 16) · B (16 x N) + (accumulate ? d : 0) at N = 32, 128
 // and 256 (N / 2 accumulators a thread, d[4j + r] at row 16w + g + 8·(r / 2),
-// column 8j + 2t + r % 2), A K-major and B K-major (TRANS_B = 0) or MN-major
-// (TRANS_B = 1), both in shared memory.
+// column 8j + 2t + r % 2), B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1),
+// A K-major or, at N = 256, MN-major (TRANS_A = 1), both in shared memory.
 #define WGMMA_OUT8(d, i)                                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -253,7 +256,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
                                               int accumulate) {
   asm volatile(
@@ -272,13 +275,13 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, 
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
+      "%128, %129, p, 1, 1, %132, %131;\n"
       "}\n"
       : WGMMA_OUT8(d, 0), WGMMA_OUT8(d, 8), WGMMA_OUT8(d, 16), WGMMA_OUT8(d, 24),
         WGMMA_OUT8(d, 32), WGMMA_OUT8(d, 40), WGMMA_OUT8(d, 48), WGMMA_OUT8(d, 56),
         WGMMA_OUT8(d, 64), WGMMA_OUT8(d, 72), WGMMA_OUT8(d, 80), WGMMA_OUT8(d, 88),
         WGMMA_OUT8(d, 96), WGMMA_OUT8(d, 104), WGMMA_OUT8(d, 112), WGMMA_OUT8(d, 120)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 #undef WGMMA_OUT8

@@ -14,9 +14,11 @@ autograd through it), which the JAX package takes for the same shapes.
 Beside the kernels stand their plain contracts: ``attention_lse_reference``
 (the forward's per-row log-sum-exp) and ``flash_attn_bwd_reference`` (the
 backward's recompute formula), on float32 or bf16 inputs; in bf16 with the
-kernels' rounding points and float32 arithmetic between them.  The CPU tests
-and ``chip_smoke.py`` hold the kernels against them; no path on a card calls
-them."""
+kernels' rounding points and float32 arithmetic between them.  At d = 512
+the backward runs in two halves through a P/dS scratch, and each half has
+its own: ``flash_attn_bwd_p_ds_reference`` and
+``flash_attn_bwd_mm_reference``.  The CPU tests and ``chip_smoke.py`` hold
+the kernels against them; no path on a card calls them."""
 
 from __future__ import annotations
 
@@ -70,6 +72,33 @@ def flash_attn_bwd_reference(q, k, v, o, lse, do, sm_scale: float):
     di = (o32 * do32).sum(-1).transpose(1, 2)
     ds = operand(p * (dp - di[..., None]))
     dv = torch.einsum("bhnm,bnhd->bmhd", operand(p), do32)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q32) * sm_scale
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k32) * sm_scale
+    return tuple(g.to(q.dtype) for g in (dq, dk, dv))
+
+
+def flash_attn_bwd_p_ds_reference(q, k, v, o, lse, do, sm_scale: float) -> torch.Tensor:
+    """The plain version of the d = 512 backward's first kernel: P and dS of
+    ``flash_attn_bwd_reference``, formed in float32 and stacked as the
+    scratch holds them, a (2, b, heads, n, m) tensor in q's type."""
+    q32, k32, v32, o32, do32 = (t.float() for t in (q, k, v, o, do))
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", q32, k32) * sm_scale - lse[..., None])
+    dp = torch.einsum("bnhd,bmhd->bhnm", do32, v32)
+    di = (o32 * do32).sum(-1).transpose(1, 2)
+    return torch.stack((p, p * (dp - di[..., None]))).to(q.dtype)
+
+
+def flash_attn_bwd_mm_reference(p_ds, q, k, do, sm_scale: float):
+    """The plain version of the d = 512 backward's two products, dkv_mm and
+    dq_mm: (dq, dk, dv) in q's type from the scratch ``p_ds`` (2, b, heads, n,
+    m) of P and dS:
+        dV = Pᵀ dO    dK = sm_scale dSᵀ q    dQ = sm_scale dS k
+    each product of the operands as given summed in float32 (float64 for
+    float64 inputs) and scaled, then rounded to q's type once."""
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    p, ds = p_ds.to(acc)
+    q32, k32, do32 = (t.to(acc) for t in (q, k, do))
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, do32)
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, q32) * sm_scale
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, k32) * sm_scale
     return tuple(g.to(q.dtype) for g in (dq, dk, dv))

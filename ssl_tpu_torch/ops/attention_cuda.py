@@ -10,10 +10,12 @@ take q, k and v as TMA tensor maps, ``fwd_bf16_launch``) and
 ``flash_attn_bwd_dq`` at d = 64 and 128, with ``flash_attn_bwd_sum`` where
 the loop is split; ``flash_attn_bwd_p_ds``, ``flash_attn_bwd_dkv_mm`` and
 ``flash_attn_bwd_dq_mm`` at d = 512; in bf16 dkv, dq and p_ds take q, k, v
-and dO as TMA tensor maps, ``bwd_bf16_launch``).  They read q, k, v and dO through
-their (b, seq, heads, d) strides, so the UNet's (b, n, heads·d) projections
-and the head-major packed qkv of ``AttentionBlockQKV`` go in without a copy,
-and write contiguous (b, seq, heads, d) outputs.  Callers route through
+and dO as TMA tensor maps, and dkv_mm and dq_mm the P/dS scratch too,
+``bwd_bf16_launch``; ``flash_attn_bwd_mm_cuda`` launches those two alone).
+They read q, k, v and dO through their (b, seq, heads, d) strides, so the
+UNet's (b, n, heads·d) projections and the head-major packed qkv of
+``AttentionBlockQKV`` go in without a copy, and write contiguous (b, seq,
+heads, d) outputs.  Callers route through
 ``ops/attention.py::sdp_attention``, which checks eligibility and holds the
 autograd function."""
 
@@ -72,6 +74,16 @@ BWD_MAX_SPLIT = 4
 P_DS_TILE_BF16 = (128, 128)
 P_DS_STAGES_BF16 = 3
 P_DS_CLUSTER_BF16 = 2
+# The bf16 dkv_mm and dq_mm kernels at d = 512 (wgmma, TMA ring): output
+# tiles of 128 rows (keys in dkv_mm, queries in dq_mm) x 256 columns of d
+# (two consumer warpgroups of 64 rows, a producer, 384 threads, one block
+# an SM), the contraction streamed in 64-deep chunks (two 64 x 64 boxes of
+# the scratch and four of dO, q or k) through MM_STAGES_BF16 ring stages, on
+# a persistent grid whose blocks walk the tiles in turn
+# (``mm_bf16_geometry``).
+MM_TILE_BF16 = (128, 256)
+MM_STAGES_BF16 = 4
+MM_KERNELS_BF16 = ("flash_attn_bwd_dkv_mm_bf16", "flash_attn_bwd_dq_mm_bf16")
 # What one block of an sm_90a card may take of shared memory, and what a TMA
 # tensor map allows: byte strides multiples of 16 below 2^40, box dimensions
 # up to 256, an inner box of at most 128 bytes under the 128-byte swizzle.
@@ -118,6 +130,10 @@ def _declare_bwd(lib) -> None:
     lib.flash_attn_bwd_bf16_smem_bytes.restype = i
     lib.flash_attn_bwd_bf16_cluster.argtypes = [i, i]
     lib.flash_attn_bwd_bf16_cluster.restype = i
+    lib.flash_attn_bwd_mm_bf16.argtypes = [p] * 7 + [ll] * 9 + [i] * 5 + [ctypes.c_float, p]
+    lib.flash_attn_bwd_mm_bf16.restype = i
+    lib.flash_attn_bwd_bf16_mm_geometry.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attn_bwd_bf16_mm_geometry.restype = i
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
 
@@ -371,14 +387,41 @@ def p_ds_cluster(m: int) -> int:
     return P_DS_CLUSTER_BF16 if (m // P_DS_TILE_BF16[1]) % P_DS_CLUSTER_BF16 == 0 else 1
 
 
-def bwd_bf16_launch(q, k, v, do) -> dict:
-    """What the bf16 backward's C entry builds: the tensor maps of q, k, v and
-    dO (``bwd_tile_map``; boxes of the stream rows at d = 64 and 128, of the
-    p_ds tiles' rows at d = 512), the wgmma kernels' shared memory
-    (``bwd_bf16_smem_bytes``, or at d = 512 ``p_ds_bf16_smem_bytes``), checked
-    against ``MAX_SMEM_BYTES``, and the cluster: 1 at d = 64 and 128,
-    ``p_ds_cluster(m)`` key tiles at d = 512."""
-    d, m = q.shape[3], k.shape[1]
+def mm_bf16_smem_bytes() -> int:
+    """Dynamic shared memory a block of the bf16 dkv_mm or dq_mm kernel takes
+    (csrc/flash_attn_bwd.cu, ``mm_bf16_smem_bytes``): 1024 bytes of
+    alignment slack, each ring stage's A chunk (tile rows x 64 bf16) and B
+    chunk (64 x tile columns bf16), a staged 128 x 64 bf16 block of the
+    output, and 8 bytes a barrier (full and empty a stage)."""
+    rows, cols = MM_TILE_BF16
+    return 1024 + MM_STAGES_BF16 * (rows + cols) * 64 * 2 + rows * 64 * 2 + 8 * 2 * MM_STAGES_BF16
+
+
+def mm_bf16_geometry(kernel: str, b: int, heads: int, n: int, m: int, sms: int) -> dict:
+    """How ``kernel`` (one of ``MM_KERNELS_BF16``) runs at d = 512 on a card of
+    ``sms`` SMs (csrc/flash_attn_bwd.cu, ``mm_plan``): its tile (rows of the
+    output: keys in dkv_mm, queries in dq_mm; columns of d), ring stages,
+    shared memory and grid: one block an SM, at most one a tile (dkv_mm's
+    tiles cover dV and dK)."""
+    rows, cols = MM_TILE_BF16
+    dq = kernel == MM_KERNELS_BF16[1]
+    tiles = (1 if dq else 2) * b * heads * ((n if dq else m) // rows) * (512 // cols)
+    return {"tile": MM_TILE_BF16, "stages": MM_STAGES_BF16, "smem_bytes": mm_bf16_smem_bytes(),
+            "grid": min(tiles, sms)}
+
+
+def bwd_bf16_launch(q, k, v, do, sms: int) -> dict:
+    """What the bf16 backward's C entry builds on a card of ``sms`` SMs: the
+    tensor maps of q, k, v and dO (``bwd_tile_map``; boxes of the stream rows
+    at d = 64 and 128, of the p_ds tiles' rows at d = 512), the wgmma
+    kernels' shared memory (``bwd_bf16_smem_bytes``, or at d = 512
+    ``p_ds_bf16_smem_bytes``), checked against ``MAX_SMEM_BYTES``, and the
+    cluster: 1 at d = 64 and 128, ``p_ds_cluster(m)`` key tiles at d = 512.
+    At d = 512 also what dkv_mm and dq_mm take (``mm``): the map of the
+    [P | dS] scratch, viewed as (2·b·heads, n, 1, m), and of q, k and dO, all
+    in boxes of 64 rows, and ``mm_bf16_geometry`` by kernel."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
     if d == 512:
         rows, smem, cluster = P_DS_TILE_BF16[0], (p_ds_bf16_smem_bytes(),), p_ds_cluster(m)
     else:
@@ -386,9 +429,35 @@ def bwd_bf16_launch(q, k, v, do) -> dict:
     if max(smem) > MAX_SMEM_BYTES:
         raise ValueError(f"the bf16 backward at d = {d} needs {smem} bytes of shared memory, "
                          f"more than {MAX_SMEM_BYTES}")
-    return {"maps": {name: bwd_tile_map(t, rows)
-                     for name, t in (("q", q), ("k", k), ("v", v), ("do", do))},
-            "smem_bytes": smem, "cluster": cluster}
+    launch = {"maps": {name: bwd_tile_map(t, rows)
+                       for name, t in (("q", q), ("k", k), ("v", v), ("do", do))},
+              "smem_bytes": smem, "cluster": cluster}
+    if d == 512:
+        scratch = torch.empty((2 * b * h, n, 1, m), dtype=torch.bfloat16, device="meta")
+        launch["mm"] = {"maps": {name: bwd_tile_map(t, 64) for name, t in
+                                 (("scratch", scratch), ("q", q), ("k", k), ("do", do))},
+                        **{kernel: mm_bf16_geometry(kernel, b, h, n, m, sms)
+                           for kernel in MM_KERNELS_BF16}}
+        if mm_bf16_smem_bytes() > MAX_SMEM_BYTES:
+            raise ValueError(f"the bf16 dkv_mm and dq_mm need {mm_bf16_smem_bytes()} bytes of "
+                             f"shared memory, more than {MAX_SMEM_BYTES}")
+    return launch
+
+
+def _check_mm_geometry(lib, b, h, n, m, sms) -> None:
+    """Raises unless the library runs dkv_mm and dq_mm as ``mm_bf16_geometry``
+    plans them on this card."""
+    for i, kernel in enumerate(MM_KERNELS_BF16):
+        plan = mm_bf16_geometry(kernel, b, h, n, m, sms)
+        out = (ctypes.c_int * 5)()
+        err = lib.flash_attn_bwd_bf16_mm_geometry(i, b, h, n, m, out)
+        if err != 0:
+            raise RuntimeError(f"flash_attn_bwd_bf16_mm_geometry failed: "
+                               f"{lib.flash_attn_bwd_error_string(err).decode()}")
+        want = (*plan["tile"], plan["stages"], plan["smem_bytes"], plan["grid"])
+        if tuple(out) != want:
+            raise RuntimeError(f"the library runs {kernel} as (rows, columns, stages, shared "
+                               f"memory, grid) {tuple(out)}, the plan {want}")
 
 
 def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -419,7 +488,7 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                            dtype=q.dtype if d == 512 else torch.float32)
                if scratch_size else None)
     if q.dtype == torch.bfloat16:
-        launch = bwd_bf16_launch(q, k, v, do)
+        launch = bwd_bf16_launch(q, k, v, do, sms)
         smem = launch["smem_bytes"]
         if tuple(lib.flash_attn_bwd_bf16_smem_bytes(d, i) for i in range(len(smem))) != smem:
             raise RuntimeError(f"the library's bf16 backward takes other shared memory than "
@@ -427,6 +496,9 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         if lib.flash_attn_bwd_bf16_cluster(d, m) != launch["cluster"]:
             raise RuntimeError(f"the library's bf16 backward takes other clusters than the "
                                f"plan's {launch['cluster']} at d = {d}")
+        if d == 512:
+            with torch.cuda.device(q.device):
+                _check_mm_geometry(lib, b, h, n, m, sms)
     strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
     entry = lib.flash_attn_bwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_attn_bwd
     with torch.cuda.device(q.device):
@@ -440,4 +512,51 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     bwd_launches += 1
     for name, count in kernels.items():
         bwd_kernel_launches[name] += count
+    return dq, dk, dv
+
+
+def flash_attn_bwd_mm_cuda(p_ds: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                           do: torch.Tensor, sm_scale: float):
+    """Launch only the last two kernels of K2's bf16 backward at d = 512,
+    dkv_mm and dq_mm, on a given scratch ``p_ds``: P and dS as the p_ds kernel
+    writes them, a contiguous (2, b, heads, n, m) bf16 tensor on q's device.
+    Returns (dq, dk, dv) in bf16 from bf16 (b, seq, heads, 512) q, k and dO,
+    what ``ops/attention.py::flash_attn_bwd_mm_reference`` computes: dV = Pᵀ
+    dO, dK = sm_scale dSᵀ q and dQ = sm_scale dS k, summed in float32 and
+    rounded once.  Counts one launch of each kernel."""
+    if not q.is_cuda:
+        raise ValueError("flash_attn_bwd_mm_cuda takes CUDA tensors")
+    check_inputs(q, k, k)
+    if tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must be {tuple(q.shape)} {q.dtype} on {q.device}, got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    if q.dtype != torch.bfloat16 or d != 512:
+        raise ValueError(f"the products alone run at d = 512 in bf16, got d = {d}, {q.dtype}")
+    if (tuple(p_ds.shape) != (2, b, h, n, m) or p_ds.dtype != torch.bfloat16
+            or p_ds.device != q.device or not p_ds.is_contiguous()):
+        raise ValueError(f"p_ds must be a contiguous (2, {b}, {h}, {n}, {m}) bf16 tensor on "
+                         f"{q.device}, got {tuple(p_ds.shape)} {p_ds.dtype} on {p_ds.device}")
+    q, k, do = (_aligned(t) for t in (q, k, do))
+    lib = load_library("flash_attn_bwd", _declare_bwd)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    bwd_bf16_launch(q, k, k, do, sms)      # raises where a tensor map would not encode
+    dq = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype)
+    dk = torch.empty(k.shape, device=q.device, dtype=q.dtype)
+    dv = torch.empty(k.shape, device=q.device, dtype=q.dtype)
+    strides = [s for t in (q, k, do) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        _check_mm_geometry(lib, b, h, n, m, sms)
+        err = lib.flash_attn_bwd_mm_bf16(q.data_ptr(), k.data_ptr(), do.data_ptr(),
+                                         p_ds.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                         dv.data_ptr(), *strides, b, h, n, m, d, float(sm_scale),
+                                         torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd_mm_bf16 launch failed: "
+                           f"{lib.flash_attn_bwd_error_string(err).decode()}")
+    for name in MM_KERNELS_BF16:
+        bwd_kernel_launches[name] += 1
     return dq, dk, dv

@@ -157,6 +157,37 @@ def test_backward_plan_fills_the_card(case, dtype):
     assert (dkv, dq) == PLAN_SPLITS[dtype][case]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("layout,n,m", [("proj", 256, 384), ("qkv", 256, 256)])
+def test_d512_halves_compose_to_the_backward_reference(dtype, layout, n, m):
+    """The d = 512 backward's two halves, the plain p_ds (P and dS into the
+    scratch) and the plain dkv_mm and dq_mm products on it, give
+    ``flash_attn_bwd_reference``'s dq, dk and dv bit for bit, in float32 and
+    with bf16's rounding points (P and dS rounded in the scratch, the
+    gradients once); that function is held against ``jax.vjp`` above.
+    Small widths: the composition does not depend on d."""
+    b, h, d = 2, 2, 16
+    scale = d ** -0.5
+    q, k, v = attention_inputs(b, h, n, m, d, scale, layout, 8.0, seed=3, dtype=dtype)
+    do = _do(b, n, h, d).to(dtype)
+    o = attention.sdp_attention_reference(q.float(), k.float(), v.float(), scale).to(dtype)
+    lse = attention.attention_lse_reference(q, k, scale)
+    p_ds = attention.flash_attn_bwd_p_ds_reference(q, k, v, o, lse, do, scale)
+    assert p_ds.shape == (2, b, h, n, m) and p_ds.dtype == dtype
+    got = attention.flash_attn_bwd_mm_reference(p_ds, q, k, do, scale)
+    want = attention.flash_attn_bwd_reference(q, k, v, o, lse, do, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape and float(w.abs().max()) > 0
+        assert torch.equal(g, w)
+    # in float64 the products are the exact sums of the same values
+    exact = attention.flash_attn_bwd_mm_reference(p_ds.double(), q.double(), k.double(),
+                                                  do.double(), scale)
+    for g, e in zip(got, exact):
+        assert e.dtype == torch.float64
+        assert float((g.double() - e).norm() / e.norm()) < (3e-3 if dtype == torch.bfloat16
+                                                             else 1e-6)
+
+
 @pytest.mark.parametrize("logits", [8.0, 50.0])
 def test_lse_matches_jax_logsumexp(logits):
     q, k, _ = attention_inputs(1, 2, 256, 384, 32, 32 ** -0.5, "proj", logits, seed=3)

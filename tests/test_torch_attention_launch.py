@@ -7,21 +7,27 @@ heads, d) views, in the UNet's projection layout and the packed qkv layout
 of the struct-cond encoder, at every d = 64 and 128 training case (and, for
 the forward, every serving case), and the kernels' shared memory; at d = 512
 (the VAE's single head, vae_mid at b = 1 and 2) also the clusters that share
-the K and V tiles (forward) and the q, dO, k and v chunks (p_ds), and the
+the K and V tiles (forward) and the q, dO, k and v chunks (p_ds), the
+geometry of dkv_mm and dq_mm (tiles, ring, shared memory, persistent grid,
+the map of the P/dS scratch), and the
 kernels ``fwd_plan`` and ``bwd_plan`` name.  The card checks that the
 library agrees (the wrapper compares ``flash_attn_bwd_bf16_smem_bytes``,
-``flash_attn_fwd_bf16_smem_bytes`` and the ``*_cluster`` entries with the
-plan at every launch) and that the maps encode."""
+``flash_attn_fwd_bf16_smem_bytes``, ``flash_attn_bwd_bf16_mm_geometry`` and
+the ``*_cluster`` entries with the plan at every launch) and that the maps
+encode."""
 
 import pytest
 import torch
 
 from ssl_tpu_torch.ops import attention_cuda
-from ssl_tpu_torch.ops.attention_cuda import (MAX_SMEM_BYTES, TMA_MAX_BOX, TMA_MAX_STRIDE,
-                                              TMA_SWIZZLE_BYTES, bwd_bf16_launch,
+from ssl_tpu_torch.ops.attention_cuda import (MAX_SMEM_BYTES, MM_KERNELS_BF16, TMA_MAX_BOX,
+                                              TMA_MAX_STRIDE, TMA_SWIZZLE_BYTES, bwd_bf16_launch,
                                               bwd_bf16_smem_bytes, bwd_tile_map, fwd_bf16_launch,
-                                              fwd_bf16_smem_bytes)
+                                              fwd_bf16_smem_bytes, mm_bf16_geometry,
+                                              mm_bf16_smem_bytes)
 from torch_attention_cases import CUDA_CASES, TRAIN_CASES
+
+SMS = 132       # an H100 SXM's streaming multiprocessors
 
 CASES = [(c, layout) for c, (b, h, n, m, d, *_) in sorted(TRAIN_CASES.items()) if d != 512
          for layout in ("proj", "qkv") if layout == "proj" or n == m]
@@ -49,7 +55,7 @@ def _views(b, h, n, m, d, layout):
 def test_bf16_backward_tensor_maps_fit_tma(case, layout):
     b, h, n, m, d = TRAIN_CASES[case][:5]
     q, k, v, do = _views(b, h, n, m, d, layout)
-    launch = bwd_bf16_launch(q, k, v, do)
+    launch = bwd_bf16_launch(q, k, v, do, SMS)
     rows = attention_cuda.BWD_STREAM_ROWS_BF16[d][0]
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         tmap = launch["maps"][name]
@@ -166,10 +172,12 @@ def test_bf16_d512_backward_geometry(path):
     q, k, v and dO, its ring of three 64 KB stages and a staged 128 x 128 bf16
     tile within ``MAX_SMEM_BYTES``, clusters of 2 key tiles that divide its
     128 x 128 tiles, and ``bwd_plan``'s
-    three kernels, once each, over b·h·n·m bf16 of P and of dS."""
+    three kernels, once each, over b·h·n·m bf16 of P and of dS.  dkv_mm and
+    dq_mm (``_check_mm``): 128 x 256 tiles and a grid of one block an SM
+    (vae_mid b = 2: 256 and 128 tiles for 132 SMs), at most one a tile."""
     b, h, n, m, d = D512_CASES[path][:5]
     q, k, v, do = _views(b, h, n, m, d, "proj")
-    launch = bwd_bf16_launch(q, k, v, do)
+    launch = bwd_bf16_launch(q, k, v, do, SMS)
     rows, keys = attention_cuda.P_DS_TILE_BF16
     for name, t, seq in (("q", q, n), ("k", k, m), ("v", v, m), ("do", do, n)):
         _check_map(launch["maps"][name], t, seq, rows)
@@ -177,6 +185,9 @@ def test_bf16_d512_backward_geometry(path):
     smem = launch["smem_bytes"][0]
     assert smem == 1024 + 3 * 4 * 128 * 64 * 2 + 128 * 128 * 2 + 8 * 6 <= MAX_SMEM_BYTES
     assert launch["cluster"] == 2 and (m // keys) % launch["cluster"] == 0
+    _check_mm(launch, q, k, do)
+    assert [launch["mm"][kernel]["grid"] for kernel in MM_KERNELS_BF16] == (
+        [132, 128] if b == 2 else [128, 64])
     assert attention_cuda.bwd_plan(b, h, n, m, d, 132, torch.bfloat16) == (
         1, 1, 2 * b * h * n * m, {"flash_attn_bwd_p_ds_bf16": 1,
                                   "flash_attn_bwd_dkv_mm_bf16": 1,
@@ -187,7 +198,52 @@ def test_bf16_d512_backward_geometry(path):
 def test_bf16_d512_clusters_divide_odd_tile_counts(n, m, fwd, bwd):
     """n and m are only multiples of 128: the forward's pairs of 64-query
     tiles always divide n, and where p_ds's 128-key tiles do not come in
-    pairs its clusters shrink to one block."""
+    pairs its clusters shrink to one block; dkv_mm's and dq_mm's tiles divide
+    them too (``_check_mm``)."""
     q, k, v, do = _views(1, 2, n, m, 512, "proj")
     assert fwd_bf16_launch(q, k, v)["cluster"] == fwd
-    assert bwd_bf16_launch(q, k, v, do)["cluster"] == bwd
+    launch = bwd_bf16_launch(q, k, v, do, SMS)
+    assert launch["cluster"] == bwd
+    _check_mm(launch, q, k, do)
+
+
+def _check_mm(launch, q, k, do):
+    """dkv_mm's and dq_mm's geometry in ``launch`` for q, k and dO: tiles that
+    divide their output rows (m keys, n queries) and d, whole 64-row chunks
+    of the contraction, shared memory within ``MAX_SMEM_BYTES``, a grid of
+    one block an SM and at most one a tile; the maps of q, k, dO and of the
+    scratch viewed as (2·b·h, n, 1, m), all in 64-row boxes."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    mm = launch["mm"]
+    scratch = torch.empty((2 * b * h, n, 1, m), dtype=torch.bfloat16, device="meta")
+    for name, t, seq in (("scratch", scratch, n), ("q", q, n), ("k", k, m), ("do", do, n)):
+        _check_map(mm["maps"][name], t, seq, 64)
+    assert mm["maps"]["scratch"]["dims"] == (m, 1, n, 2 * b * h)
+    assert mm["maps"]["scratch"]["strides"] == (2 * m, 2 * m, 2 * n * m)
+    for kernel, rows, depth in zip(MM_KERNELS_BF16, (m, n), (n, m)):
+        g = mm[kernel]
+        assert g == mm_bf16_geometry(kernel, b, h, n, m, SMS)
+        tile_rows, tile_cols = g["tile"]
+        assert rows % tile_rows == 0 and d % tile_cols == 0 and depth % 64 == 0
+        assert g["smem_bytes"] == mm_bf16_smem_bytes() <= MAX_SMEM_BYTES
+        tiles = (2 if kernel.startswith("flash_attn_bwd_dkv") else 1) * b * h * (
+            rows // tile_rows) * (d // tile_cols)
+        assert g["grid"] == min(SMS, tiles)
+
+
+def test_bf16_mm_shared_memory_by_layout():
+    """dkv_mm and dq_mm: alignment slack, four stages of a 16 KB A chunk (two
+    64 x 64 boxes of the scratch) and a 32 KB B chunk (four of dO, q or k), a
+    staged 128 x 64 output block, 8 bytes a barrier."""
+    assert attention_cuda.MM_STAGES_BF16 == 4 and attention_cuda.MM_TILE_BF16 == (128, 256)
+    assert mm_bf16_smem_bytes() == 1024 + 4 * (16384 + 32768) + 16384 + 8 * 8 <= MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("b,n,m,grids", [(2, 4096, 4096, (132, 128)), (1, 4096, 4096, (128, 64)),
+                                         (1, 512, 384, (12, 8)), (1, 128, 128, (4, 2))])
+def test_bf16_mm_grid_is_persistent_and_whole(b, n, m, grids):
+    """The grids of dkv_mm and dq_mm: one block an SM, fewer where there are
+    fewer tiles (the blocks walk the tiles in turn)."""
+    for kernel, grid in zip(MM_KERNELS_BF16, grids):
+        assert mm_bf16_geometry(kernel, b, 1, n, m, SMS)["grid"] == grid

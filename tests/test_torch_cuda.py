@@ -28,6 +28,9 @@ relative L2 (o is rounded to bf16 once, P where it enters P·V) and at most
 reference's o (in bf16) and lse, within 1e-2 relative L2 for each of dq, dk
 and dv and at most 1.5 times the error of ``flash_attn_bwd_reference`` on
 the bf16 inputs (the same rounding points); both bit for bit on repeat.
+The d = 512 backward's two products (dkv_mm, dq_mm) are also held alone on
+a bf16 P/dS scratch: within 2e-3 relative L2 of the float64 products of the
+same bf16 values and at most 1.1 times cuBLAS's error on them (MM_*).
 
 Tolerances (K1): count exact; l1 rel 1e-4 and kl rel 1e-3, the contract of
 tests/test_ssg_pallas.py:30-31 (sums taken in another order); the (b, h, w)
@@ -38,11 +41,13 @@ import numpy as np
 import pytest
 import torch
 from torch_attention_cases import (BF16_BWD_REL_L2, BF16_FWD_REL_L2, BF16_PLAIN_RATIO,
-                                   CUDA_CASES, TRAIN_CASES, attention_inputs)
+                                   CUDA_CASES, MM_LIBRARY_RATIO, MM_ODD_CASE, MM_REL_L2,
+                                   TRAIN_CASES, attention_inputs, mm_library_calls)
 from torch_ssg_cases import CASES, MAP_RTOL, case_inputs, grad_atol
 
 from ssl_tpu_torch.ops import attention_cuda, ssg_cuda
-from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_reference,
+from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_mm_reference,
+                                         flash_attn_bwd_p_ds_reference, flash_attn_bwd_reference,
                                          sdp_attention, sdp_attention_reference)
 from ssl_tpu_torch.ops.ssg import SSGConfig, ssl_loss_dense_bwd, ssl_loss_sums_reference
 
@@ -517,6 +522,46 @@ def test_k2_bf16_d512_backward_odd_key_tiles_on_card(card):
     the training shapes (``_check_bf16_backward``)."""
     assert attention_cuda.p_ds_cluster(384) == 1
     _check_bf16_backward(1, 1, 512, 384, 512, 512 ** -0.5, "proj", 8.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["vae_mid", "odd_key_tiles"])
+def test_k2_bf16_d512_products_match_float64_on_card(card, shape):
+    """dkv_mm and dq_mm alone (``flash_attn_bwd_mm_cuda``) at vae_mid's
+    training batch and at MM_ODD_CASE (odd tile counts), on the plain
+    p_ds's bf16 scratch: one launch of each a call, dq, dk and dv in bf16
+    within MM_REL_L2 of the float64 products of the same bf16 values and at
+    most MM_LIBRARY_RATIO times the error of cuBLAS's bf16 products (float32
+    sums, ``mm_library_calls``), and bit for bit on a second launch."""
+    b, heads, n, m, d, scale, layout, logits = (TRAIN_CASES["vae_mid"] if shape == "vae_mid"
+                                                else MM_ODD_CASE)
+    q, k, v = attention_inputs(b, heads, n, m, d, scale, layout, logits, device="cuda",
+                               dtype=torch.bfloat16)
+    do = torch.randn((b, n, heads, d), generator=torch.Generator(device="cuda").manual_seed(11),
+                     device="cuda").bfloat16()
+    q32, k32 = q.float(), k.float()
+    o = sdp_attention_reference(q32, k32, v.float(), scale).bfloat16()
+    p_ds = flash_attn_bwd_p_ds_reference(q, k, v, o, attention_lse_reference(q32, k32, scale),
+                                         do, scale)
+    before = dict(attention_cuda.bwd_kernel_launches)
+    got = attention_cuda.flash_attn_bwd_mm_cuda(p_ds, q, k, do, scale)
+    launched = {n_: c - before[n_] for n_, c in attention_cuda.bwd_kernel_launches.items()
+                if c != before[n_]}
+    assert launched == dict.fromkeys(attention_cuda.MM_KERNELS_BF16, 1)
+    again = attention_cuda.flash_attn_bwd_mm_cuda(p_ds, q, k, do, scale)
+    exact = flash_attn_bwd_mm_reference(p_ds.double(), q.double(), k.double(), do.double(), scale)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        library = {name: call() for name, call in mm_library_calls(p_ds, q, k, do, scale).items()}
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    torch.cuda.synchronize()
+    for name, g, g2, e in zip(("dq", "dk", "dv"), got, again, exact):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, g2), name
+        err = float((g.double() - e).norm() / e.norm())
+        lib_err = float((library[name].double() - e).norm() / e.norm())
+        assert err <= MM_REL_L2 and err <= MM_LIBRARY_RATIO * lib_err, (name, err, lib_err)
 
 
 @pytest.mark.cuda

@@ -112,6 +112,41 @@ FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
 # flash_attn_bwd_reference on the bf16 inputs).
 BF16_FWD_REL_L2, BF16_BWD_REL_L2, BF16_PLAIN_RATIO = 5e-3, 1e-2, 1.5
 
+# The hold of the bf16 d = 512 backward's two products alone (dkv_mm and
+# dq_mm, chip_smoke.py, tests/test_torch_cuda.py): on a given bf16 scratch of
+# P and dS and bf16 q, k and dO, each of dq, dk and dv within MM_REL_L2
+# relative L2 of the float64 products of the same bf16 values and at most
+# MM_LIBRARY_RATIO times cuBLAS's error (``mm_library_calls``) on them.  Both
+# sum in float32 and round to bf16 once, which alone costs ~1.7e-3.
+MM_REL_L2, MM_LIBRARY_RATIO = 2e-3, 1.1
+# The second d = 512 shape the products are held at besides vae_mid's
+# training batch: an odd count of 128-key tiles (dkv_mm's rows) and 12 tiles
+# of dkv_mm, 8 of dq_mm, each block of the grid taking one.
+MM_ODD_CASE = (1, 1, 512, 384, 512, 512 ** -0.5, "proj", 8.0)
+
+
+def mm_library_calls(p_ds, q, k, do, sm_scale: float) -> dict:
+    """The yardstick of the d = 512 backward's products: for each of dq, dk
+    and dv a call of one ``torch.baddbmm(..., beta=0, alpha=scale)`` (cuBLAS)
+    on the (b·heads, n, m) views of the scratch ``p_ds`` (2, b, heads, n, m)
+    and (b·heads, seq, d) views of q, k and dO, in their type, returning the
+    gradient as a (b, seq, heads, d) view.  For bf16 the caller turns
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    off, so that the sums stay in float32 as the kernels keep them; for
+    float32, TF32.  The port never calls it."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    p, ds = (x.reshape(b * h, n, m) for x in p_ds)
+    qh, kh, doh = (t.transpose(1, 2).reshape(b * h, -1, d) for t in (q, k, do))
+
+    def call(a, bm, seq, alpha):
+        out = torch.empty((b * h, seq, d), device=q.device, dtype=q.dtype)
+        return lambda: torch.baddbmm(out, a, bm, beta=0, alpha=alpha).view(
+            b, h, seq, d).transpose(1, 2)
+
+    return {"dq": call(ds, kh, n, sm_scale), "dk": call(ds.transpose(1, 2), qh, m, sm_scale),
+            "dv": call(p.transpose(1, 2), doh, m, 1.0)}
+
 
 def flash_attn_fwd_tf32(q, k, v, sm_scale: float, block_k: int = 32, split: int = 1):
     """The forward's arithmetic (csrc/flash_attn_fwd.cu): key tiles of
