@@ -18,7 +18,11 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            and the ESRGAN
            step's own inputs (bench.py's uniform images, on which every off-centre q is
            0), at bench.py's step's (b24, 3x128^2) in float32 and in K1's
-           bf16 stream + store mode (the stored route), and at BSRGAN-SSL's
+           bf16 stream + store mode (the stored route: the walk, which
+           writes the q stack, then the stream over it; the stack held
+           alone against its plain version, its one-ulp bf16 flips
+           counted, and the stream alone on the walk's stack, each bit for
+           bit on a repeat; the call's peak memory), and at BSRGAN-SSL's
            shape with the bf16 knobs (the batched route: K1's stream mode);
            forward outputs and d_sr through the autograd function, with
            the L1 subgradient's ties (and, with the bf16 store, q at a bf16
@@ -56,8 +60,11 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            (d = 512: the forward, and the backward's P and dS) at vae_mid
            with b = 1 and b = 2, each held there by the bf16 holds above
            (the backward fed the forward kernel's own o and lse) and timed
-           beside its bound and SDPA's device time.  K2's holds and times
-           run before K1's.
+           beside its bound and SDPA's device time.  At each serving shape
+           where the bf16 forward splits its key loop, its combine
+           (flash_attn_fwd_combine_bf16) alone on seeded parts against its
+           plain version, bit for bit on a repeat, timed beside its bound
+           and its per-launch floor.  K2's holds and times run before K1's.
 3. diffusion  the StableSR-SSL model of options/diffusion/ssl_base.yml at
            full width with model.use_flash_attention on, random weights from
            seeds; every layer the init leaves at 0 is drawn from a seeded
@@ -184,7 +191,8 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            with flax's init variance (std ~9: the inverse maps within 1e-4 of
            a float64 run, ``hold_k1_wide``)
 16. kernels one line per ported kernel (K1's float32 and bf16 stream + store
-           modes each, K2's float32 and bf16 kernels each), launches on its
+           modes each, the bf16 store's stream kernel, K2's float32 and bf16
+           kernels each), launches on its
            main paths, error against the plain
            version, times and the bound
 
@@ -879,7 +887,9 @@ def phase_kernel():
     and ``bench_bf16`` bench.py's step in float32 and at its bf16 defaults
     (K1's stream + store mode on the stored route), ``kair_BSRGANSSL_bf16``
     BSRGAN-SSL's shape with those knobs (the batched route: K1's stream
-    mode).  Each case takes the route ``dense_route`` gives its shape."""
+    mode).  Each case takes the route ``dense_route`` gives its shape; in
+    the bf16 store modes the walk's stack and the stream are also held
+    alone (``hold_k1_stack``)."""
     import torch
     from ssl_tpu_torch.losses.ssl_loss import dense_route
     from ssl_tpu_torch.ops import ssg_cuda
@@ -911,17 +921,21 @@ def phase_kernel():
         if not all(torch.equal(x, y) for x, y in zip(first, again)):
             fail(f"K1 {name}: a second launch differs from the first")
         del first, again
+        stack_hold = (hold_k1_stack(name, sr, gt, mask, cfg, map_rtol)
+                      if ssg_cuda.k1_modes(cfg)[1] else None)
         iters = 50 if sr.numel() < 1e5 else 20
         t = k1_times(sr, gt, mask, cfg, iters, stored)
         mode = k1_mode_name(cfg)
         results[name] = {"max_abs_err": max(errs.values()), "ms": t["kernel_ms"], "mode": mode,
-                         "stored": stored,
-                         **{k: t[k] for k in ("device_ms", "plain_ms", "bwd_ms", "bound_ms",
-                                              "bound_by")}}
+                         "stored": stored, "stack_hold": stack_hold,
+                         **{k: t[k] for k in ("device_ms", "kernels_device_ms", "call_peak_gb",
+                                              "plain_ms", "bwd_ms", "bound_ms", "bound_by")},
+                         **({"stream": t["stream"]} if "stream" in t else {})}
         emit({"phase": "kernel", "kernel": "ssg_loss_fwd", "case": name, "mode": mode,
               "route": "stored" if stored else "batched",
               "shape": list(sr.shape), "search": cfg.search, "window": cfg.window,
               "sigma": cfg.sigma, "max_abs_err": errs, "ties": ties, "repeat_bit_for_bit": True,
+              **({"stack_hold": stack_hold} if stack_hold else {}),
               **{k: v for k, v in t.items() if k != "bound_by"},
               "launches_so_far": ssg_cuda.launches})
         del sr, gt, mask
@@ -942,29 +956,125 @@ def k1_mode_name(cfg) -> str:
 
 def k1_times(sr, gt, mask, cfg, iters: int, stored: bool = False) -> dict:
     """K1 on these inputs: the wrapper's ms (CUDA events over ``iters``
-    launches), the kernel alone (profiler), the plain forward and the plain
-    backward (CUDA events), the bytes and operations its function needs and
-    the least time they allow on the card."""
+    launches), the kernels alone (profiler: with the bf16 store the walk and
+    the stream, ``kernels_device_ms``, and their sum), the call's peak device
+    memory above its inputs (with the bf16 store: the q stack), the plain
+    forward and the plain backward (CUDA events), the bytes and operations
+    its function needs and the least time they allow on the card (the
+    function's, whatever the design moves: the stack is this design's own
+    traffic).  With the bf16 store also the stream alone: its plain
+    version's time on the same stack, and its own bound (the stack read once,
+    the maps and mask read and written once: bytes)."""
     import torch
     from ssl_tpu_torch.ops import ssg_cuda
-    from ssl_tpu_torch.ops.ssg import ssl_loss_dense_bwd, ssl_loss_sums_reference
+    from ssl_tpu_torch.ops.ssg import (q_stream_reference, ssl_loss_dense_bwd,
+                                       ssl_loss_sums_reference)
     one = torch.ones((), device="cuda")
-    kernel_ms = time_ms(lambda: ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg), iters)
-    device_ms = sum(kernel_device_ms(lambda: ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg),
-                                     "ssg_loss_fwd", 5).values())
+
+    def call():
+        return ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg)
+    kernel_ms = time_ms(call, iters)
+    by_kernel = kernel_device_ms(call, "ssg_loss_fwd", 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    maps = call()
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     plain_ms = time_ms(lambda: ssl_loss_sums_reference(sr, gt, mask, cfg), 2)
-    maps = ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg)
     bwd_ms = time_ms(lambda: ssl_loss_dense_bwd(sr, gt, mask, maps[3], maps[4], one, one,
                                                 cfg, maps[5], maps[6], stored=stored), 2)
     b, c, h, w = sr.shape
     nbytes = 4 * (2 * b * c * h * w + b * h * w) + 4 * (4 * b * h * w + 3)
     ops = k1_operations(b, c, h, w, cfg.search, cfg.generalization)
     bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S)
-    return {"kernel_ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bwd_ms": bwd_ms, "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
-            "fraction_of_bound": bound_ms / device_ms,
-            "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S > ops / PEAK_FP32_PER_S
+    device_ms = sum(by_kernel.values())
+    out = {"kernel_ms": kernel_ms, "device_ms": device_ms, "kernels_device_ms": by_kernel,
+           "call_peak_gb": peak_gb, "plain_ms": plain_ms, "bwd_ms": bwd_ms, "bytes": nbytes,
+           "operations": ops, "bound_ms": bound_ms, "fraction_of_bound": bound_ms / device_ms,
+           "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S > ops / PEAK_FP32_PER_S
+           else "operations"}
+    if ssg_cuda.k1_modes(cfg)[1]:
+        stack, inv_sr, inv_gt = ssg_cuda.q_stack_cuda(sr, gt, cfg)
+        stream_bytes = stack.numel() * 2 + 4 * (5 * b * h * w)
+        # per pixel-offset: decode 2, x and y 2, |x - y| and its masked sum 3,
+        # the kl term 7 with two logs, a_map 2, b_map 2
+        stream_ops = 18.0 * (stack.numel() // 2)
+        out["stream"] = {
+            "plain_ms": time_ms(lambda: q_stream_reference(stack, inv_sr, inv_gt, mask), 2),
+            "bytes": stream_bytes, "operations": stream_ops,
+            "bound_ms": 1e3 * max(stream_bytes / PEAK_BYTES_PER_S, stream_ops / PEAK_FP32_PER_S),
+            "bound_by": "bytes" if stream_bytes / PEAK_BYTES_PER_S > stream_ops / PEAK_FP32_PER_S
             else "operations"}
+        del stack
+    return out
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 values at |v| (2^(e - 7) in the binade [2^e,
+    2^(e+1)), 2^-133 among the subnormals), in float64: below 2^-126 a
+    float32 exp2 on the card flushes to 0."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(v.double().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def hold_k1_stack(name, sr, gt, mask, cfg, map_rtol) -> dict:
+    """K1's two kernels of the bf16 store held alone (``cfg.q_store_dtype``
+    bfloat16): the walk's stack (``ssg_cuda.q_stack_cuda``) against
+    ``q_stack_reference`` on the card, every value within one bf16 ulp
+    (``bf16_ulp`` of the larger of the two first values, of the larger of
+    q_sr and q_gt for the difference, whose own ulp is no larger: a float32 q
+    one ulp apart may round to the neighbouring bf16 value), the values that
+    differ counted (a one-ulp flip each); its inverse
+    maps within ``map_rtol`` (atol 1e-6 of the largest value); then the
+    stream (``q_stream_cuda``) on the walk's own stack and maps against
+    ``q_stream_reference`` on the same: the count exact, l1 rel 1e-4 and kl
+    rel 1e-3 (sums in another order), a_map and b_map within rtol 1e-5 (atol
+    1e-6 of the largest value: x and y are the same floats, only the order
+    of the sums over the offsets differs); each kernel's second launch bit
+    for bit.  fail() at the first disagreement; returns what it measured."""
+    import torch
+    from ssl_tpu_torch.ops import ssg_cuda
+    from ssl_tpu_torch.ops.ssg import q_stack_reference, q_stream_reference
+    stack, inv_sr, inv_gt = ssg_cuda.q_stack_cuda(sr, gt, cfg)
+    again = ssg_cuda.q_stack_cuda(sr, gt, cfg)
+    if not all(torch.equal(x, y) for x, y in zip((stack, inv_sr, inv_gt), again)):
+        fail(f"K1 walk {name}: a second launch differs from the first")
+    del again
+    ref, ref_sr, ref_gt = q_stack_reference(sr, gt, cfg)
+    got_f, ref_f = stack.float(), ref.float()
+    q_sr = ref_f[..., 0]
+    q_top = torch.maximum(q_sr, torch.clamp(q_sr - ref_f[..., 1], min=0.0))
+    diff = (got_f - ref_f).abs()
+    over = ((diff[..., 0] > bf16_ulp(torch.maximum(q_sr.abs(), got_f[..., 0].abs())))
+            | (diff[..., 1] > bf16_ulp(q_top)))
+    if bool(over.any()):
+        i = int(over.flatten().nonzero()[0])
+        fail(f"K1 walk {name}: {int(over.sum())} stack values more than one bf16 ulp off the "
+             f"plain version's; first at pixel-offset {i}: "
+             f"{got_f.reshape(-1, 2)[i].tolist()} vs {ref_f.reshape(-1, 2)[i].tolist()}")
+    flips = (diff > 0).sum(dim=tuple(range(diff.dim() - 1)))
+    errs = {"stack_max_abs": float(diff.max())}
+    for key, got, want in (("inv_sr", inv_sr, ref_sr), ("inv_gt", inv_gt, ref_gt)):
+        errs[key] = check_close(f"K1 walk {name} {key}", got, want, map_rtol,
+                                1e-6 * float(want.abs().max()))
+    del ref, got_f, ref_f, q_sr, q_top, diff, over
+    got = ssg_cuda.q_stream_cuda(stack, inv_sr, inv_gt, mask)
+    again = ssg_cuda.q_stream_cuda(stack, inv_sr, inv_gt, mask)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"K1 stream {name}: a second launch differs from the first")
+    want = q_stream_reference(stack, inv_sr, inv_gt, mask)
+    if float(got[2]) != float(want[2]):
+        fail(f"K1 stream {name}: count {float(got[2])} vs {float(want[2])}")
+    errs["stream_l1"] = check_close(f"K1 stream {name} l1", got[0], want[0], 1e-4)
+    errs["stream_kl"] = check_close(f"K1 stream {name} kl", got[1], want[1], 1e-3)
+    for i, key in ((3, "stream_a_map"), (4, "stream_b_map")):
+        errs[key] = check_close(f"K1 stream {name} {key}", got[i], want[i], 1e-5,
+                                1e-6 * float(want[i].abs().max()))
+    return {"max_abs_err": errs, "stack_values": stack.numel(),
+            "stack_one_ulp_flips": {"q_sr": int(flips[0]), "q_sr_minus_q_gt": int(flips[1])},
+            "stack_flip_share": float(flips.sum()) / stack.numel(),
+            "repeat_bit_for_bit": True}
 
 
 def k2_bound(products: float, elementwise: float, nbytes: float, dtype: str = "float32") -> dict:
@@ -1153,7 +1263,8 @@ def phase_k2_bf16():
                       torch.randn((b, h, n), device="cuda"), torch.rand((b, h, n), device="cuda"))
                      for _ in range(split)]
             combine = {"combine_plain_ms": time_ms(lambda: combine_parts(parts)[0].to(bf16), 20),
-                       "combine_bounds": k2_combine_times(b, h, n, d, split, "bfloat16")}
+                       "combine_bounds": k2_combine_times(b, h, n, d, split, "bfloat16"),
+                       "combine_alone": hold_combine_bf16(name, b, h, n, d, split)}
             del parts
         results[name] = {"max_abs_err": max_abs, "rel_l2": err, "plain_rel_l2": plain_err,
                          "ms": kernel_ms, "device_ms": device, "plain_ms": plain_ms,
@@ -1174,6 +1285,52 @@ def phase_k2_bf16():
         del q, k, v, got, ref, plain
         torch.cuda.empty_cache()
     return results
+
+
+def hold_combine_bf16(name, b, h, n, d, split) -> dict:
+    """``flash_attn_fwd_combine_bf16`` alone (``attention_cuda.
+    flash_attn_fwd_combine_cuda``) on seeded parts of a split bf16 forward at
+    this shape: o within a bf16 rounding of the plain version's float32 o
+    (``flash_attn_fwd_combine_reference``: rtol 2^-8 + 1e-5, atol 1e-6 of the
+    largest value), lse within rtol and atol 1e-5, a second launch bit for
+    bit; its device time (profiler) beside the plain version's and the bound,
+    and the same kernel's device time at the smallest shape it takes (b = h =
+    1, n = 128, d = 64, 2 parts), which is its per-launch floor on this card."""
+    import torch
+    from ssl_tpu_torch.ops import attention_cuda
+    from ssl_tpu_torch.ops.attention import flash_attn_fwd_combine_reference
+
+    def parts_of(b_, h_, n_, d_, split_, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return (torch.randn((split_, b_, n_, h_, d_), generator=gen, device="cuda"),
+                4 * torch.randn((split_, b_, h_, n_), generator=gen, device="cuda"),
+                0.5 + torch.rand((split_, b_, h_, n_), generator=gen, device="cuda"))
+
+    o_parts, m_parts, l_parts = parts_of(b, h, n, d, split, 17)
+    got, lse = attention_cuda.flash_attn_fwd_combine_cuda(o_parts, m_parts, l_parts)
+    again, lse2 = attention_cuda.flash_attn_fwd_combine_cuda(o_parts, m_parts, l_parts)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(lse, lse2)):
+        fail(f"flash_attn_fwd_combine_bf16 {name}: a second launch differs from the first")
+    ref, ref_lse = flash_attn_fwd_combine_reference(o_parts, m_parts, l_parts, torch.float32)
+    errs = {"o": check_close(f"flash_attn_fwd_combine_bf16 {name} o", got, ref, 2.0 ** -8 + 1e-5,
+                             1e-6 * float(ref.abs().max())),
+            "lse": check_close(f"flash_attn_fwd_combine_bf16 {name} lse", lse, ref_lse, 1e-5,
+                               1e-5)}
+
+    def kernel():
+        return attention_cuda.flash_attn_fwd_combine_cuda(o_parts, m_parts, l_parts)
+    device = kernel_device_ms(kernel, "flash_attn_fwd_combine", 20)
+    plain_ms = time_ms(lambda: flash_attn_fwd_combine_reference(o_parts, m_parts, l_parts), 20)
+    tiny = parts_of(1, 1, 128, 64, 2, 18)
+    floor = kernel_device_ms(lambda: attention_cuda.flash_attn_fwd_combine_cuda(*tiny),
+                             "flash_attn_fwd_combine", 20)
+    bounds = k2_combine_times(b, h, n, d, split, "bfloat16")
+    bound_ms = max(bounds["ops_ms"], bounds["bytes_ms"])
+    ms = sum(device.values())
+    return {"max_abs_err": errs, "repeat_bit_for_bit": True, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "fraction_of_bound": bound_ms / ms,
+            "floor_ms": sum(floor.values()), "floor_shape": [1, 1, 128, 64, 2]}
 
 
 def phase_k2_d512_bf16():
@@ -1410,6 +1567,8 @@ def kernel_launch_counts() -> dict:
     by the kernels' names in a profiler trace."""
     from ssl_tpu_torch.ops import attention_cuda, ssg_cuda
     return {"ssg_loss_fwd_kernel": ssg_cuda.launches,
+            # absent from a checkout before the stream kernel (scripts' --root)
+            "ssg_loss_fwd_stream_kernel": getattr(ssg_cuda, "stream_launches", 0),
             **{f"{k}_kernel": n for k, n in attention_cuda.fwd_kernel_launches.items()},
             **{f"{k}_kernel": n for k, n in attention_cuda.bwd_kernel_launches.items()}}
 
@@ -2410,7 +2569,8 @@ def phase_bench(device: str = "cuda"):
     EMA moved, K1 once a step in the mode of the run (stream + store on the
     stored route in bf16, float32 in float32) and never the plain forward.
     The runs go in turns (BENCH_TURNS) on the same two models, each with its
-    own warm-up step.  Returns the K1 launches by mode name and the runs."""
+    own warm-up step.  Returns the K1 launches by mode name (and the bf16
+    store's stream kernel's under ``stream_kernel``) and the runs."""
     import gc
 
     import numpy as np
@@ -2466,7 +2626,7 @@ def phase_bench(device: str = "cuda"):
     for turn, dt in enumerate(BENCH_TURNS):
         model, state, stored, mode, _ = models[dt]
         torch.cuda.reset_peak_memory_stats()
-        ssg_cuda.launches, ssg_cuda.launches_by_mode = 0, {}
+        ssg_cuda.launches, ssg_cuda.launches_by_mode, ssg_cuda.stream_launches = 0, {}, 0
         ssg_cuda.ssl_loss_sums_reference = counted_plain
         try:
             state, logs = model.train_step(state, batch)          # warm-up
@@ -2480,17 +2640,21 @@ def phase_bench(device: str = "cuda"):
             ssg_cuda.ssl_loss_sums_reference = plain
         models[dt][1] = state
         by_mode = {K1_MODE_NAMES[m]: n for m, n in ssg_cuda.launches_by_mode.items()}
-        if by_mode != {mode: BENCH_STEPS + 1} or plain_on_card:
-            fail(f"bench {dt}: K1 launched {by_mode} in {BENCH_STEPS + 1} steps, expected "
-                 f"{mode} once a step; the plain forward on the card at {plain_on_card}")
+        streamed = ssg_cuda.stream_launches
+        if by_mode != {mode: BENCH_STEPS + 1} or plain_on_card or streamed != (
+                BENCH_STEPS + 1 if mode.endswith("store") else 0):
+            fail(f"bench {dt}: K1 launched {by_mode} and its stream kernel {streamed} times in "
+                 f"{BENCH_STEPS + 1} steps, expected {mode} once a step (the stream too with "
+                 f"the bf16 store); the plain forward on the card at {plain_on_card}")
         values = {k: float(logs[k]) for k in RC_LOSSES}
         if not all(np.isfinite(v) for v in values.values()):
             fail(f"bench {dt}: non-finite loss: {values}")
         launches_by[mode] = launches_by.get(mode, 0) + by_mode[mode]
+        launches_by["stream_kernel"] = launches_by.get("stream_kernel", 0) + streamed
         run = {"turn": turn, "ms_per_step": 1e3 * step_s, "imgs_per_s": BENCH_B / step_s,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "k1_mode": mode,
-               "k1_launches": by_mode[mode], "ssg_route": "stored" if stored else "batched",
-               "losses": values}
+               "k1_launches": by_mode[mode], "k1_stream_launches": streamed,
+               "ssg_route": "stored" if stored else "batched", "losses": values}
         runs.setdefault(dt, []).append(run)
         emit({"phase": "bench", "dtype": dt, **run})
     for dt, (model, state, _, _, before) in models.items():
@@ -2510,7 +2674,8 @@ def phase_bench(device: str = "cuda"):
           "bf16_speedup": ms["float32"] / ms["bfloat16"],
           "bf16_vs_float32_of_scale": held, "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "k1": "float32 window sums (running sums in double), csrc/ssg_loss_fwd.cu",
+          "k1": "float32 window sums (running sums in double), csrc/ssg_loss_fwd.cu; with the "
+                "bf16 store the walk, then the stream over its q stack",
           "bench_matmul_precision": "bench.py's JAX global; no counterpart: cuDNN TF32 as the "
                                     "port's training runs",
           "card": card() if device == "cuda" else None})
@@ -4294,6 +4459,8 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
             ops, nbytes = (mean(lambda r, kind=kind: r["combine_bounds"][kind])
                            for kind in ("ops_ms", "bytes_ms"))
             plain, library = mean(lambda r: r["combine_plain_ms"]), None
+            if sfx:       # the kernel alone on seeded parts (hold_combine_bf16), by case
+                alone = {c: res[c]["combine_alone"] for c in mix}
         else:
             ops, nbytes = mean(lambda r: r["ops_ms"]), mean(lambda r: r["bytes_ms"])
             plain, library = mean(lambda r: r["plain_ms"]), mean(lambda r: r["library_ms"])
@@ -4301,6 +4468,9 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
         extra = {"rel_l2_vs_float32": max(res[c]["rel_l2"] for c in mix),
                  "library_device_ms": None if library is None else
                  mean(lambda r: r["library_device_ms"])} if sfx else {}
+        if sfx and f == "fwd_combine":
+            extra.update(alone_by_case=alone,
+                         floor_ms=max(a["floor_ms"] for a in alone.values()))
         return {"name": name, "route": "cuda", "source": "ssl_tpu_torch/csrc/flash_attn_fwd.cu",
                 "replaces": "ssl_tpu/ops/attention.py:28" + (bf16_note if sfx else ""),
                 "launches": sum(by_path.values()), "launches_by_path": by_path, **extra,
@@ -4409,16 +4579,39 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
                   "bf16_stream_store": mode_entry("bench_bf16", bf16_launches),
                   "bf16_stream": mode_entry("kair_BSRGANSSL_bf16", 0)}},
         {"name": "ssg_loss_fwd", "mode": "bf16_stream_store", "route": "cuda",
-         "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu (template STREAM16, STORE16)",
+         "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu (template STREAM16, STORE16: the walk)",
          "replaces": "ssl_tpu/ops/ssg_pallas.py:41 (with ssl_tpu/ops/ssg.py:61,71's bf16 "
                      "knobs, ssl_tpu/ops/ssg.py:490-526)",
          "launches": bf16_launches, "launches_by_path": {"bench_bf16": bf16_launches},
          "max_abs_err": bf16["max_abs_err"], "ms": bf16["device_ms"], "wrapper_ms": bf16["ms"],
+         "walk_ms": bf16["kernels_device_ms"]["ssg_loss_fwd_kernel"],
+         "stream_ms": bf16["kernels_device_ms"]["ssg_loss_fwd_stream_kernel"],
+         "call_peak_gb": bf16["call_peak_gb"],
          "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
          "bound_by": bf16["bound_by"], "library_ms": None,
-         "times_are": "b24 3x128^2, bench.py's step on the stored route; ms is the kernel's "
-                      "device time (profiler), wrapper_ms the call's (CUDA events); plain_ms "
-                      "the plain version in the same mode"},
+         "stack_hold": bf16["stack_hold"],
+         "times_are": "b24 3x128^2, bench.py's step on the stored route; ms is the device time "
+                      "(profiler) of K1's two kernels together, the walk (walk_ms) and the "
+                      "stream (stream_ms), against the function's bound; wrapper_ms the "
+                      "call's (CUDA events); call_peak_gb the call's peak device memory above "
+                      "its inputs (the q stack); plain_ms the plain version in the same mode"},
+        {"name": "ssg_loss_fwd_stream", "mode": "bf16_stream_store", "route": "cuda",
+         "source": "ssl_tpu_torch/csrc/ssg_loss_fwd.cu (ssg_loss_fwd_stream_kernel)",
+         "replaces": "ssl_tpu/ops/ssg_pallas.py:41's second sweep, as the stored route takes it "
+                     "from its q stack (ssl_tpu/ops/ssg.py:600 _ssl_loss_dense_core_stored, "
+                     "_q_decode :520)",
+         "launches": bench_launches["stream_kernel"],
+         "launches_by_path": {"bench_bf16": bench_launches["stream_kernel"]},
+         "max_abs_err": max(v for k, v in bf16["stack_hold"]["max_abs_err"].items()
+                            if k.startswith("stream")),
+         "ms": bf16["kernels_device_ms"]["ssg_loss_fwd_stream_kernel"],
+         "plain_ms": bf16["stream"]["plain_ms"], "bound_ms": bf16["stream"]["bound_ms"],
+         "bound_by": bf16["stream"]["bound_by"], "library_ms": None,
+         "times_are": "b24 3x128^2 on the walk's stack; ms the kernel's device time (profiler); "
+                      "plain_ms q_stream_reference on the same stack; bound_ms the stream's own "
+                      "inputs and outputs (the stack read once is this design's traffic, not "
+                      "the function's: K1's bound is the entry above's); max_abs_err against "
+                      "the plain stream on the same stack"},
         *k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths)]}
 
 

@@ -3,6 +3,7 @@ its forward at the serving path's shapes, on one CUDA device.
 
     python3 scripts/profile_torch_attention_bwd.py [--fwd] [--dtype float32|bfloat16]
         [--root DIR] [--label NAME] [--iters 10] [--cases ...] [--shapes serve|train]
+        [--save DIR [--against LABEL]]
 
 For each case of ``tests/torch_attention_cases.py::TRAIN_CASES`` prints one
 JSON line: the device time of every backward kernel (torch.profiler, ms per
@@ -24,7 +25,10 @@ kernels' device times, the wrapper's time, SDPA's forward by CUDA events and
 on the device, the plain version's time, the bound and the kernels' fraction
 of it, the error (against the plain version; with ``--dtype bfloat16`` the
 relative L2 error against the float32 plain version and its hold), and
-whether a second launch repeats the first bit for bit.  ``--shapes`` takes
+whether a second launch repeats the first bit for bit; with ``--save DIR``
+it writes each case's o and lse to ``DIR/<label>-<case>.pt``, and with
+``--against LABEL`` compares them bit for bit with what a run labelled
+LABEL saved there.  ``--shapes`` takes
 the cases of the other path instead (``train``: the forward at the training
 batch, as the mini-step runs it; ``serve``: the backward at the serving
 batch).
@@ -57,6 +61,9 @@ def main() -> int:
     ap.add_argument("--shapes", default=None, choices=("serve", "train"),
                     help="the serving (CUDA_CASES) or training (TRAIN_CASES) shapes; by "
                          "default serve with --fwd, else train")
+    ap.add_argument("--save", default=None, help="with --fwd: directory for o and lse")
+    ap.add_argument("--against", default=None,
+                    help="with --save: label of an earlier run whose o and lse must be equal")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     sys.path.insert(1, os.path.join(ROOT, "tests"))
@@ -171,6 +178,15 @@ def profile_fwd(args, attention_cuda, name) -> int:
         got, again = kernel(), kernel()
         ref = sdp_attention_reference(q.float(), k.float(), v.float(), scale)
         torch.cuda.synchronize()
+        same = None
+        if args.save:
+            os.makedirs(args.save, exist_ok=True)
+            saved = [t.cpu() for t in attention_cuda.flash_attn_fwd_cuda(q, k, v, scale,
+                                                                         return_lse=True)]
+            torch.save(saved, os.path.join(args.save, f"{args.label}-{case}.pt"))
+            if args.against:
+                theirs = torch.load(os.path.join(args.save, f"{args.against}-{case}.pt"))
+                same = all(torch.equal(x, y) for x, y in zip(saved, theirs))
         err = float((got.float() - ref).abs().max())
         if dtype == torch.float32:
             errors = {"max_abs_err": err}
@@ -205,7 +221,10 @@ def profile_fwd(args, attention_cuda, name) -> int:
                           "plain_ms": plain_ms, "bound": bound, "bound_ms": bound_ms,
                           "fraction_of_bound": bound_ms / total, "split": split, **errors,
                           "within_hold": within,
-                          "repeat_bit_for_bit": bool(torch.equal(got, again)), "card": name}),
+                          "repeat_bit_for_bit": bool(torch.equal(got, again)),
+                          **({"bit_for_bit_vs_" + args.against: same} if same is not None
+                             else {}),
+                          "card": name}),
               flush=True)
         del q, k, v, got, again, ref
         torch.cuda.empty_cache()

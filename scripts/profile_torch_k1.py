@@ -2,6 +2,7 @@
 
     python3 scripts/profile_torch_k1.py [--root DIR] [--label NAME] [--iters 10]
         [--modes float32,stream,store,both] [--shapes esrgan_train,...]
+        [--save DIR [--against LABEL]]
 
 At each training path's shape (``SHAPES``: the ESRGAN step's (16, 3, 128,
 128), the diffusion mini-step's (2, 3, 512, 512), RealESRGAN-SSL's
@@ -10,15 +11,20 @@ recipes' and bench.py's (24, 3, 128, 128)), at search 25 / window 9 /
 sigma 0.004 on chip_smoke.py's smooth images with a mask of density 0.25,
 and in each of K1's modes (``--modes``: ``float32``; ``stream``, ``store``
 and ``both`` for the bf16 stream, the bf16 q store and both), prints one JSON
-line: the kernel's device time (torch.profiler, ms per call), the wrapper's
-time by CUDA events (the reflect padding, the kernel and the sum of the
-per-block partials), the bound (chip_smoke.py::k1_operations at the fp32
-rate), the largest relative error of l1, kl and the inverse maps against
+line: the kernels' device time (torch.profiler, ms per call; with the bf16
+q store the walk and the stream, each in ``per_kernel_ms``), the wrapper's
+time by CUDA events (the reflect padding, the kernels and the sum of the
+per-block partials), the call's peak device memory above its inputs (with
+the bf16 store: the q stack), the bound (chip_smoke.py::k1_operations at the
+fp32 rate), the largest relative error of l1, kl and the inverse maps against
 the plain version, and whether a second launch repeats the first bit for
 bit.  ``--root`` imports ``ssl_tpu_torch`` from another checkout (for
 example an earlier commit unpacked with ``git archive``), so that two
-versions are timed in turns on one card.  Needs a CUDA device; imports
-nothing of JAX.
+versions are timed in turns on one card.  ``--save DIR`` writes each case's
+seven outputs to ``DIR/<label>-<shape>-<mode>.pt``; with ``--against
+LABEL`` each case is also compared, bit for bit, with the outputs that a
+run labelled LABEL saved there.  Needs a CUDA device; imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -45,6 +51,9 @@ def main() -> int:
     ap.add_argument("--no-check", action="store_true", help="skip the plain version")
     ap.add_argument("--modes", default="float32", help="comma-separated keys of MODES")
     ap.add_argument("--shapes", default=",".join(SHAPES), help="comma-separated keys of SHAPES")
+    ap.add_argument("--save", default=None, help="directory for each case's outputs")
+    ap.add_argument("--against", default=None,
+                    help="label of an earlier run whose saved outputs each case must equal")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -73,9 +82,23 @@ def main() -> int:
         def kernel():
             return ssg_cuda.ssg_loss_fwd_cuda(sr, gt, mask, cfg)
 
-        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = kernel()
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        again = kernel()
         torch.cuda.synchronize()
         repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        same = None
+        if args.save:
+            os.makedirs(args.save, exist_ok=True)
+            torch.save([t.cpu() for t in got],
+                       os.path.join(args.save, f"{args.label}-{shape}-{mode}.pt"))
+            if args.against:
+                theirs = torch.load(os.path.join(args.save, f"{args.against}-{shape}-{mode}.pt"))
+                same = all(torch.equal(x.cpu(), y) for x, y in zip(got, theirs))
         errs = None
         if not args.no_check:
             ref = ssl_loss_sums_reference(sr, gt, mask, cfg)
@@ -90,9 +113,14 @@ def main() -> int:
         bound_ms = 1e3 * max(ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S)
         print(json.dumps({"label": args.label, "shape": shape, "mode": mode,
                           "b_c_h_w": [b, 3, h, h],
-                          "kernel_device_ms": sum(device_ms.values()), "wrapper_ms": wrapper_ms,
+                          "kernel_device_ms": sum(device_ms.values()),
+                          "per_kernel_ms": device_ms, "wrapper_ms": wrapper_ms,
+                          "call_peak_gb": peak_gb,
                           "bound_ms": bound_ms, "operations": ops, "max_rel_err": errs,
-                          "repeat_bit_for_bit": repeat, "card": name}), flush=True)
+                          "repeat_bit_for_bit": repeat,
+                          **({"bit_for_bit_vs_" + args.against: same} if same is not None
+                             else {}),
+                          "card": name}), flush=True)
         del sr, gt, mask, got, again
         torch.cuda.empty_cache()
     return 0

@@ -79,7 +79,10 @@
 // (32-query blocks on mma.sync) streamed all of K and V through each block
 // and sat at the L2's rate; 64-query blocks whose two warpgroups split the
 // output columns, wgmma, and K and V tiles multicast to clusters of 2 such
-// blocks move 4x fewer bytes through L2.
+// blocks move 4x fewer bytes through L2.  The bf16 combine is bound by
+// bytes (each part read once, o and lse written once): it takes a row's
+// split weights once and shares them by shuffle, and moves 16 bytes a load
+// and a store (flash_attn_fwd_combine_bf16_kernel, below).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1166,11 +1169,72 @@ __global__ void flash_attn_fwd_combine_kernel(Parts parts, float* __restrict__ o
   combine_rows<float>(parts, o, lse, b, heads, n, d, nsplit);
 }
 
-// the same, writing a bf16 o
-__global__ void flash_attn_fwd_combine_bf16_kernel(Parts parts, bf16* __restrict__ o,
-                                                   float* __restrict__ lse, int b, int heads,
-                                                   int n, int d, int nsplit) {
-  combine_rows<bf16>(parts, o, lse, b, heads, n, d, nsplit);
+// The same function writing a bf16 o, redesigned for the bf16 forward's
+// parts (at most CB_MAX_SPLIT): a row is CB_LANES(D) neighbouring lanes of a
+// warp, 8 columns a lane per chunk (CB_CHUNKS(D) chunks: 1 at d = 64 and
+// 128, 2 at d = 512, where a row takes a whole warp), one row a lane group,
+// blocks of CB_THREADS sized to the rows (no grid-stride loop).  Lane s of
+// a row loads split s's row max and sum and takes its weight e^(m_s - M)
+// once; M comes from a butterfly max over the row's lanes (max is exact in
+// any order), and every lane reads the weights by shuffle, in split order.
+// Each lane reads its columns of each part as two 16-byte loads a chunk and
+// writes them as one 16-byte bf16 store.  The arithmetic of each element
+// and its order over the splits are those of combine_rows, so o and lse are
+// bit for bit the same as its.
+constexpr int CB_THREADS = 256, CB_MAX_SPLIT = 8;
+template <int D>
+constexpr int CB_LANES = D / 8 < 32 ? D / 8 : 32;
+template <int D>
+constexpr int CB_CHUNKS = D / (8 * CB_LANES<D>);
+
+template <int D>
+__global__ void __launch_bounds__(CB_THREADS)
+flash_attn_fwd_combine_bf16_kernel(Parts parts, bf16* __restrict__ o, float* __restrict__ lse,
+                                   int b, int heads, int n, int nsplit) {
+  constexpr int G = CB_LANES<D>, CH = CB_CHUNKS<D>;
+  const int lane = threadIdx.x & 31, g = lane % G, base = lane - g;
+  const long long rows = (long long)b * n * heads;
+  const long long r = (long long)blockIdx.x * (CB_THREADS / G) + threadIdx.x / G;
+  const bool live = r < rows;     // rows % (CB_THREADS / G) == 0 (n % 128 == 0): all live
+  const int hi = (int)(r % heads), i = (int)((r / heads) % n), bi = (int)(r / heads / n);
+  const long long stats = (long long)b * heads * n, srow = ((long long)bi * heads + hi) * n + i;
+  float m_g = -INFINITY, l_g = 0.f;
+  if (live && g < nsplit) {
+    m_g = parts.m[g * stats + srow];
+    l_g = parts.l[g * stats + srow];
+  }
+  float mx = m_g;
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float w_g = g < nsplit ? expf(m_g - mx) : 0.f;
+  float l = 0.f;
+  float acc[CH][8] = {};
+  const long long part = rows * D;
+  const float* src = parts.o + r * D + 8 * g;
+  for (int s = 0; s < nsplit; ++s) {
+    const float w = __shfl_sync(0xffffffffu, w_g, base + s);
+    l += w * __shfl_sync(0xffffffffu, l_g, base + s);
+    if (!live) continue;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float4 x0 = *reinterpret_cast<const float4*>(src + s * part + 8 * G * c);
+      const float4 x1 = *reinterpret_cast<const float4*>(src + s * part + 8 * G * c + 4);
+      const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[c][j] = fmaf(w, x[j], acc[c][j]);
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    uint4 packed;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      h2[j] = __floats2bfloat162_rn(acc[c][2 * j] / l, acc[c][2 * j + 1] / l);
+    *reinterpret_cast<uint4*>(o + r * D + 8 * g + 8 * G * c) = packed;
+  }
+  if (lse != nullptr && g == 0) lse[srow] = mx + logf(l);
 }
 
 // ---- launches ------------------------------------------------------------
@@ -1195,17 +1259,39 @@ Parts parts_of(const Args<T>& a, int d) {
   return Parts{a.scratch, a.scratch + po, a.scratch + po + ps};
 }
 
+template <int D>
+cudaError_t launch_combine_bf16(const Parts& parts, bf16* o, float* lse, int b, int heads,
+                                int n, int nsplit, cudaStream_t stream) {
+  const long long rows = (long long)b * n * heads, per_block = CB_THREADS / CB_LANES<D>;
+  flash_attn_fwd_combine_bf16_kernel<D>
+      <<<(unsigned)((rows + per_block - 1) / per_block), CB_THREADS, 0, stream>>>(
+          parts, o, lse, b, heads, n, nsplit);
+  return cudaGetLastError();
+}
+
+// the bf16 combine at head width d (64, 128 or 512), 1 < nsplit <= CB_MAX_SPLIT
+cudaError_t combine_bf16(const Parts& parts, bf16* o, float* lse, int b, int heads, int n, int d,
+                         int nsplit, cudaStream_t stream) {
+  if (nsplit < 1 || nsplit > CB_MAX_SPLIT) return cudaErrorInvalidValue;
+  switch (d) {
+    case 64: return launch_combine_bf16<64>(parts, o, lse, b, heads, n, nsplit, stream);
+    case 128: return launch_combine_bf16<128>(parts, o, lse, b, heads, n, nsplit, stream);
+    case 512: return launch_combine_bf16<512>(parts, o, lse, b, heads, n, nsplit, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_combine(const Args<T>& a, const Parts& parts, int d, cudaStream_t stream) {
-  const long long work = (long long)a.b * a.n * a.heads * (d / 4);
-  const int blocks = (int)(work / 256 < 1056 ? (work + 255) / 256 : 1056);
-  if constexpr (sizeof(T) == sizeof(float))
+  if constexpr (sizeof(T) == sizeof(float)) {
+    const long long work = (long long)a.b * a.n * a.heads * (d / 4);
+    const int blocks = (int)(work / 256 < 1056 ? (work + 255) / 256 : 1056);
     flash_attn_fwd_combine_kernel<<<blocks, 256, 0, stream>>>(parts, a.o, a.lse, a.b, a.heads,
                                                               a.n, d, a.split);
-  else
-    flash_attn_fwd_combine_bf16_kernel<<<blocks, 256, 0, stream>>>(parts, a.o, a.lse, a.b,
-                                                                   a.heads, a.n, d, a.split);
-  return cudaGetLastError();
+    return cudaGetLastError();
+  } else {
+    return combine_bf16(parts, a.o, a.lse, a.b, a.heads, a.n, d, a.split, stream);
+  }
 }
 
 // the main kernel on its grid, then, with a split, the combine
@@ -1348,5 +1434,20 @@ int flash_attn_fwd_bf16_smem_bytes(int d) {
 // Blocks a cluster of the bf16 kernel at head width d (1: no cluster); the
 // wrapper checks its own plan against it.
 int flash_attn_fwd_bf16_cluster(int d) { return d == 512 ? FD_CLUSTER : 1; }
+
+// flash_attn_fwd_combine_bf16 alone: the split parts of a bf16 forward,
+// o_parts (split, b, n, heads, d) and its row maxima m and sums l (split, b,
+// heads, n), all float32, merged in order into the bf16 o (b, n, heads, d)
+// and, unless null, the float32 lse (b, heads, n); all contiguous on the
+// current device, 16-byte aligned, n a multiple of 128, d 64, 128 or 512,
+// 1 <= split <= 8.  Returns cudaGetLastError() after the launch.
+int flash_attn_fwd_combine_bf16(const float* o_parts, const float* m, const float* l, void* o,
+                                float* lse, int b, int heads, int n, int d, int split,
+                                void* stream) {
+  if (n % 128 != 0) return (int)cudaErrorInvalidValue;
+  const Parts parts{const_cast<float*>(o_parts), const_cast<float*>(m), const_cast<float*>(l)};
+  return (int)combine_bf16(parts, static_cast<bf16*>(o), lse, b, heads, n, d, split,
+                           (cudaStream_t)stream);
+}
 
 }  // extern "C"

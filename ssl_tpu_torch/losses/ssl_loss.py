@@ -82,14 +82,19 @@ def ssl_setting_from_opt(opt: dict, train_opt: dict | None = None) -> SSLSetting
                       kl_weight=float(kl_w), kl_softmax=kl_sm, impl=impl, strategy=strategy)
 
 
+def q_store_bytes(b: int, h: int, w: int, cfg: SSGConfig) -> int:
+    """Bytes of the stored route's q stack: search^2 x 2b x h x w values of
+    ``q_store_dtype``."""
+    return cfg.search * cfg.search * 2 * b * h * w * (2 if cfg.q_store_dtype == BF16 else 4)
+
+
 def dense_route(b: int, h: int, w: int, cfg: SSGConfig) -> tuple:
     """The route of ``ssl_tpu/losses/ssl_loss.py``'s dense path: the stored
-    q stack when search^2 x 2b x h x w values of ``q_store_dtype`` fit in
-    ``SSG_STORE_BYTES`` (default 2 GiB), else the batched sweeps, where the
-    store knob has no effect.  Returns (stored, the config of that route)."""
-    itemsize = 2 if cfg.q_store_dtype == BF16 else 4
-    store_bytes = cfg.search * cfg.search * 2 * b * h * w * itemsize
-    stored = store_bytes <= int(os.environ.get("SSG_STORE_BYTES", str(2 * 1024 ** 3)))
+    q stack when its ``q_store_bytes`` fit in ``SSG_STORE_BYTES`` (default 2
+    GiB), else the batched sweeps, where the store knob has no effect.
+    Returns (stored, the config of that route)."""
+    stored = q_store_bytes(b, h, w, cfg) <= int(os.environ.get("SSG_STORE_BYTES",
+                                                               str(2 * 1024 ** 3)))
     return stored, cfg if stored else cfg._replace(q_store_dtype="float32")
 
 

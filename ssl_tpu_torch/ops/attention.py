@@ -77,6 +77,22 @@ def flash_attn_bwd_reference(q, k, v, o, lse, do, sm_scale: float):
     return tuple(g.to(q.dtype) for g in (dq, dk, dv))
 
 
+def flash_attn_fwd_combine_reference(o_parts, m_parts, l_parts, dtype=torch.bfloat16):
+    """The plain version of ``flash_attn_fwd_combine[_bf16]``: the parts of a
+    split key loop, each part's unnormalised output o_parts[s] (b, n, heads,
+    d) with its row max m_parts[s] and row sum l_parts[s] (b, heads, n),
+    merged in order: o = sum_s e^(m_s - M) o_s / L, lse = M + log L, with M
+    the largest m_s and L = sum_s e^(m_s - M) l_s.  Returns (o in ``dtype``,
+    lse in float32)."""
+    top = m_parts.amax(0)
+    o, total = 0.0, 0.0
+    for acc, m_, l_ in zip(o_parts, m_parts, l_parts):
+        w = torch.exp(m_ - top)
+        total = total + w * l_
+        o = o + w.transpose(1, 2)[..., None] * acc
+    return (o / total.transpose(1, 2)[..., None]).to(dtype), top + torch.log(total)
+
+
 def flash_attn_bwd_p_ds_reference(q, k, v, o, lse, do, sm_scale: float) -> torch.Tensor:
     """The plain version of the d = 512 backward's first kernel: P and dS of
     ``flash_attn_bwd_reference``, formed in float32 and stacked as the

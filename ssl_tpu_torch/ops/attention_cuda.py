@@ -117,6 +117,8 @@ def _declare_fwd(lib) -> None:
     lib.flash_attn_fwd_bf16_smem_bytes.restype = i
     lib.flash_attn_fwd_bf16_cluster.argtypes = [i]
     lib.flash_attn_fwd_bf16_cluster.restype = i
+    lib.flash_attn_fwd_combine_bf16.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.flash_attn_fwd_combine_bf16.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
@@ -292,6 +294,41 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_sc
     for name, count in kernels.items():
         fwd_kernel_launches[name] += count
     return (out, lse) if return_lse else out
+
+
+def flash_attn_fwd_combine_cuda(o_parts: torch.Tensor, m_parts: torch.Tensor,
+                                l_parts: torch.Tensor):
+    """Launch ``flash_attn_fwd_combine_bf16`` alone on the parts of a split
+    bf16 forward: o_parts (split, b, n, heads, d), m_parts and l_parts (split,
+    b, heads, n), contiguous float32 on one CUDA device, 2 <= split <=
+    ``FWD_MAX_SPLIT``.  Returns what ``ops/attention.py::
+    flash_attn_fwd_combine_reference`` does: (o in bf16, lse in float32)."""
+    if not o_parts.is_cuda:
+        raise ValueError("flash_attn_fwd_combine_cuda takes CUDA tensors")
+    split, b, n, h, d = o_parts.shape
+    for name, t, shape in (("o_parts", o_parts, (split, b, n, h, d)),
+                           ("m_parts", m_parts, (split, b, h, n)),
+                           ("l_parts", l_parts, (split, b, h, n))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != o_parts.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {shape} float32 tensor on "
+                             f"{o_parts.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if d not in HEAD_DIMS or n % 128 or not 2 <= split <= FWD_MAX_SPLIT:
+        raise ValueError(f"the combine takes d in {HEAD_DIMS}, n a multiple of 128 and 2-"
+                         f"{FWD_MAX_SPLIT} parts, got d = {d}, n = {n}, {split} parts")
+    lib = load_library("flash_attn_fwd", _declare_fwd)
+    out = torch.empty((b, n, h, d), device=o_parts.device, dtype=torch.bfloat16)
+    lse = torch.empty((b, h, n), device=o_parts.device, dtype=torch.float32)
+    with torch.cuda.device(o_parts.device):
+        err = lib.flash_attn_fwd_combine_bf16(o_parts.data_ptr(), m_parts.data_ptr(),
+                                              l_parts.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                                              b, h, n, d, split,
+                                              torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd_combine_bf16 launch failed: "
+                           f"{lib.flash_attn_error_string(err).decode()}")
+    fwd_kernel_launches["flash_attn_fwd_combine_bf16"] += 1
+    return out, lse
 
 
 def bwd_plan(b: int, heads: int, n: int, m: int, d: int, sms: int, dtype=torch.float32):

@@ -16,8 +16,10 @@ sum |x - y| and sum y (log y - log x) (clamp 1e-10) between the normalized
 rows of SR and GT.
 
 This module holds the plain version of the K1 kernel
-(``ssl_loss_sums_reference``, the semantics of ``_ssl_loss_dense_core``) and
-the analytic backward (``ssl_loss_dense_bwd``).  The plain forward serves CPU
+(``ssl_loss_sums_reference``, the semantics of ``_ssl_loss_dense_core``; with
+the bf16 q store, of its two kernels: ``q_stack_reference`` for the walk and
+``q_stream_reference`` for the stream) and the analytic backward
+(``ssl_loss_dense_bwd``).  The plain forward serves CPU
 tensors and is what the CUDA kernel in ``ssl_tpu_torch/csrc/ssg_loss_fwd.cu``
 is held against; the backward is plain PyTorch on every device, as the JAX
 package runs its backward in XLA outside any Pallas kernel.
@@ -195,6 +197,71 @@ def _q_maps(ctx: _Context, s: int, cfg: SSGConfig, norm: float, b: int):
     return q[:b], q[b:]
 
 
+def _offset_terms(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
+    """One offset's share of the loss sums and maps from its normalized rows:
+    sum mask |x - y|, sum mask y (log y - log x) (clamp 1e-10), sign(x - y) x
+    and y [x > 1e-10]."""
+    l1 = torch.sum(mask * torch.abs(x - y))
+    xs = torch.clamp(x, min=1e-10)
+    ys = torch.clamp(y, min=1e-10)
+    kl = torch.sum(mask * (ys * (torch.log(ys) - torch.log(xs))))
+    return l1, kl, torch.sign(x - y) * x, y * (x > 1e-10)
+
+
+def q_stack_reference(sr: torch.Tensor, gt: torch.Tensor, cfg: SSGConfig = SSGConfig()):
+    """Plain version of K1's walk (the bf16 q store's sweep 1): the q stack
+    and the inverse maps.
+
+    sr, gt: (b, c, h, w) float32.  Returns ``(stack, inv_sr, inv_gt)``: the
+    stack a (search^2, b, h, w, 2) bf16 tensor, offset-major, holding at each
+    pixel-offset bf16(q_sr) and bf16(q_sr - q_gt), the difference taken in
+    float32 (``ssl_tpu/ops/ssg.py::_q_stack``'s encoding); inv_sr and inv_gt
+    1 / (sum_d q_d + 1e-10) of the float32 q before any rounding (ones without
+    ``generalization``).  The store knob is taken as bf16 whatever ``cfg``
+    says; ``stream_dtype`` applies."""
+    check_config(cfg)
+    b, c, h, w = sr.shape
+    norm = c * float(cfg.window) ** 2
+    ctx = _context(torch.cat([sr, gt.detach()], dim=0), cfg)
+    stack = torch.empty((cfg.search ** 2, b, h, w, 2), dtype=torch.bfloat16, device=sr.device)
+    r_sr = sr.new_zeros((b, h, w))
+    r_gt = sr.new_zeros((b, h, w))
+    for s in range(cfg.search ** 2):
+        q_sr, q_gt = _q_maps(ctx, s, cfg, norm, b)
+        r_sr = r_sr + q_sr
+        r_gt = r_gt + q_gt
+        stack[s, ..., 0] = q_sr
+        stack[s, ..., 1] = q_sr - q_gt
+    if not cfg.generalization:
+        return stack, sr.new_ones((b, h, w)), sr.new_ones((b, h, w))
+    return stack, 1.0 / (r_sr + 1e-10), 1.0 / (r_gt + 1e-10)
+
+
+def q_stream_reference(stack: torch.Tensor, inv_sr: torch.Tensor, inv_gt: torch.Tensor,
+                       mask: torch.Tensor):
+    """Plain version of K1's stream (the bf16 q store's sweep 2) over the
+    walk's ``stack`` (``q_stack_reference``): each pixel-offset decoded as
+    q_sr' = its first value, q_gt' = max(q_sr' - its second, 0)
+    (``_q_decode``), x = q_sr' inv_sr, y = q_gt' inv_gt.  Returns
+    ``(l1_sum, kl_sum, count, a_map, b_map)`` as ``ssl_loss_sums_reference``
+    gives them, in its order of summation, so that the walk's and the
+    stream's plain versions together equal it in the bf16 store modes."""
+    mask = mask.to(inv_sr.dtype)
+    l1_sum = inv_sr.new_zeros(())
+    kl_sum = inv_sr.new_zeros(())
+    a_map = inv_sr.new_zeros(inv_sr.shape)
+    b_map = inv_sr.new_zeros(inv_sr.shape)
+    for pair in stack:
+        first = pair[..., 0].to(inv_sr.dtype)
+        q_gt = torch.clamp(first - pair[..., 1].to(inv_sr.dtype), min=0.0)
+        l1, kl, a, b = _offset_terms(first * inv_sr, q_gt * inv_gt, mask)
+        l1_sum = l1_sum + l1
+        kl_sum = kl_sum + kl
+        a_map = a_map + a
+        b_map = b_map + b
+    return l1_sum, kl_sum, torch.sum(mask), a_map, b_map
+
+
 def ssl_loss_sums_reference(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
                             cfg: SSGConfig = SSGConfig()):
     """Plain version of the fused SSL-loss forward (K1).
@@ -234,14 +301,11 @@ def ssl_loss_sums_reference(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tens
     b_map = sr.new_zeros((b, h, w))
     for s in range(n2):
         q_sr, q_gt = _q_decode(*_q_maps(ctx, s, cfg, norm, b), cfg)
-        x = q_sr * inv_sr
-        y = q_gt * inv_gt
-        l1_sum = l1_sum + torch.sum(mask * torch.abs(x - y))
-        xs = torch.clamp(x, min=1e-10)
-        ys = torch.clamp(y, min=1e-10)
-        kl_sum = kl_sum + torch.sum(mask * (ys * (torch.log(ys) - torch.log(xs))))
-        a_map = a_map + torch.sign(x - y) * x
-        b_map = b_map + y * (x > 1e-10)
+        l1, kl, a, b_ = _offset_terms(q_sr * inv_sr, q_gt * inv_gt, mask)
+        l1_sum = l1_sum + l1
+        kl_sum = kl_sum + kl
+        a_map = a_map + a
+        b_map = b_map + b_
     return l1_sum, kl_sum, count, inv_sr, inv_gt, a_map, b_map
 
 

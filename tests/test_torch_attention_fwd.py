@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from ssl_tpu.ops import attention as jattn
-from ssl_tpu_torch.ops import attention_cuda
+from ssl_tpu_torch.ops import attention, attention_cuda
 from torch_attention_cases import (CUDA_CASES, FWD_ATOL, FWD_RTOL, TRAIN_CASES, attention_inputs,
                                    flash_attn_fwd_tf32)
 
@@ -46,6 +46,38 @@ def test_split_and_combine_equal_the_unsplit_model(split):
     np.testing.assert_allclose(o_s.numpy(), o.numpy(), rtol=1e-5,
                                atol=1e-6 * float(o.abs().max()))
     np.testing.assert_allclose(lse_s.numpy(), lse.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d,split", [(64, 2), (128, 4), (512, 2), (64, 8)])
+def test_combine_reference_merges_split_parts_into_attention(d, split):
+    """``flash_attn_fwd_combine_reference``, the plain version of
+    ``flash_attn_fwd_combine_bf16``, on parts made as the bf16 forward makes
+    them (per key chunk: the row max m_s of the scaled logits, the
+    unnormalised P·V and the row sum, all float32) at the head widths and
+    splits of the bf16 serving plan, at the serving cases' logits (up to
+    8): o in float32 against ssl_tpu's ``sdp_attention`` within the forward
+    hold (FWD_RTOL, FWD_ATOL of the largest value), lse against
+    ``jax.nn.logsumexp`` (1e-5), and in bf16 that o rounded once, bit for
+    bit."""
+    b, h, n, m, scale = 1, 2, 128, 128 * split, d ** -0.5
+    q, k, v = attention_inputs(b, h, n, m, d, scale, "proj", 8.0, seed=d + split)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+    parts = []
+    for s_ in range(split):
+        chunk = logits[..., 128 * s_:128 * (s_ + 1)]
+        top = chunk.amax(-1)
+        p = torch.exp(chunk - top[..., None])
+        parts.append((torch.einsum("bhnm,bmhd->bnhd", p, v[:, 128 * s_:128 * (s_ + 1)]), top,
+                      p.sum(-1)))
+    o_parts, m_parts, l_parts = (torch.stack(t) for t in zip(*parts))
+    o, lse = attention.flash_attn_fwd_combine_reference(o_parts, m_parts, l_parts, torch.float32)
+    ref = np.asarray(jattn.sdp_attention(*(t.numpy() for t in (q, k, v)), scale, use_flash=True))
+    np.testing.assert_allclose(o.numpy(), ref, rtol=FWD_RTOL, atol=FWD_ATOL * np.abs(ref).max())
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(logits.numpy(), -1)),
+                               rtol=1e-5, atol=1e-5)
+    o16, lse16 = attention.flash_attn_fwd_combine_reference(o_parts, m_parts, l_parts)
+    assert o16.dtype == torch.bfloat16 and torch.equal(o16, o.to(torch.bfloat16))
+    assert torch.equal(lse16, lse)
 
 
 # The splits fwd_plan gives on 132 SMs, by (path, case)

@@ -287,6 +287,36 @@ def test_k2_forward_paths_match_plain(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cuda_case", ["small"], indirect=True)
+def test_k1_store_kernels_alone_match_plain_on_card(cuda_case, stream):
+    """With the bf16 q store, K1's walk and stream alone
+    (``chip_smoke.hold_k1_stack``: the stack within one bf16 ulp of
+    ``q_stack_reference``'s, the stream on the walk's stack against
+    ``q_stream_reference``, each bit for bit on a repeat), and one call of
+    the forward launching each kernel once."""
+    from chip_smoke import hold_k1_stack
+    args, cfg, case = cuda_case
+    cfg = cfg._replace(q_store_dtype="bfloat16", stream_dtype=stream)
+    out = hold_k1_stack(case, *args, cfg, MAP_RTOL[case])
+    assert out["stack_flip_share"] <= 1e-2
+    before = (ssg_cuda.launches, ssg_cuda.stream_launches)
+    ssg_cuda.ssg_loss_fwd_cuda(*args, cfg)
+    assert (ssg_cuda.launches, ssg_cuda.stream_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,split", [(64, 2), (128, 4), (512, 2), (64, 8)])
+def test_combine_bf16_alone_matches_plain_on_card(card, d, split):
+    """``flash_attn_fwd_combine_bf16`` alone on seeded parts against
+    ``flash_attn_fwd_combine_reference`` (``chip_smoke.hold_combine_bf16``:
+    o within a bf16 rounding, lse 1e-5, bit for bit on a repeat)."""
+    from chip_smoke import hold_combine_bf16
+    out = hold_combine_bf16(f"d{d}_split{split}", 2, 2, 256, d, split)
+    assert out["repeat_bit_for_bit"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cuda_case", sorted(CASES), indirect=True)
 def test_k1_repeats_bit_for_bit(cuda_case):
     args, cfg, _ = cuda_case

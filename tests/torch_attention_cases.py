@@ -13,6 +13,8 @@ that the largest |q·k·sm_scale| over the first 256 rows is the logit range."""
 import numpy as np
 import torch
 
+from ssl_tpu_torch.ops.attention import flash_attn_fwd_combine_reference
+
 # the K2 shapes of the diffusion serving path at 512^2 (64^2 latent), ssl_base.yml
 CUDA_CASES = {
     "unet_ds1": (1, 4, 4096, 4096, 64, 64 ** -0.5, "proj", 8.0),
@@ -184,12 +186,8 @@ def _fwd_part(q, k, v, sm_scale, block_k):
 
 def combine_parts(parts):
     """What flash_attn_fwd_combine_kernel does with the parts [(acc, m, l)],
-    in order: o = sum_s e^(m_s - M) acc_s / L, lse = M + log L, with M the
-    largest m_s and L = sum_s e^(m_s - M) l_s."""
-    top = torch.stack([m_ for _, m_, _ in parts]).amax(0)
-    o, total = 0.0, 0.0
-    for acc, m_, l_ in parts:
-        w = torch.exp(m_ - top)
-        total = total + w * l_
-        o = o + w.transpose(1, 2)[..., None] * acc
-    return o / total.transpose(1, 2)[..., None], top + torch.log(total)
+    in order (``ops/attention.py::flash_attn_fwd_combine_reference``, o in
+    the parts' type): o = sum_s e^(m_s - M) acc_s / L, lse = M + log L, with
+    M the largest m_s and L = sum_s e^(m_s - M) l_s."""
+    o_parts, m_parts, l_parts = (torch.stack(t) for t in zip(*parts))
+    return flash_attn_fwd_combine_reference(o_parts, m_parts, l_parts, o_parts.dtype)
