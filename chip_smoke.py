@@ -131,7 +131,21 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            in turns (bf16, float32, float32, bf16), each run a warm-up and 3
            timed steps (ms/step, imgs/s, peak memory, K1 once a step in the
            run's mode, losses finite; G, D and EMA moved)
-12. cli    the ESRGAN-SSL train and test CLIs (ssl_tpu_torch.train /
+12. metrics the metric suite on the card (NIQE on the host): seeded
+           checkpoints at full width in each official layout, written to a temp
+           directory and pointed to by LPIPS_ALEX_PTH + ALEXNET_PTH, DISTS_PTH +
+           VGG16_PTH, FID_INCEPTION_PTH, CLIP_RN50_PTH (RN50's widths) and
+           CLIP_BPE_PATH; a LPIPS or DISTS checkpoint without its backbone
+           refused; LPIPS, DISTS, FID's pool3 features and CLIP-IQA (score and
+           both towers' features) held float32 on the card with TF32 off against
+           float64 on the CPU, and read once more with TF32 on as the control,
+           which must fall outside each bound; each metric's ms per image at 512^2 and 2040 x
+           1356, NIQE's on the host at 512^2, FID over 16 PNGs at batch 8 through
+           the FID CLI's folder_features, the host's Frechet distance, peak
+           memory.  The later phases' test CLI runs score the shipped test YAMLs'
+           metrics (TEST_METRICS: PSNR, SSIM, LPIPS, DISTS) and report the
+           seconds LPIPS and DISTS add and each run's time net of them
+13. cli    the ESRGAN-SSL train and test CLIs (ssl_tpu_torch.train /
            ssl_tpu_torch.test) at the same widths on files: 24 GT PNGs of
            192^2 written through utils/png.py, their LQ and .mat edge masks
            made on the card, read by 4 loader processes; a .json option file
@@ -140,9 +154,9 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            PNG decodes through utils/png.py; the training state reloaded into
            a fresh model bit for bit; --auto_resume to 6 (K1 twice more,
            decoding with cv2 where it imports); the test CLI on net_g_6.pth
-           whole and tiled; times per iteration and the loader's data wait
+           whole and tiled (TEST_METRICS); times per iteration and the loader's data wait
            from the logger's timers, and the loader alone with each decoder
-13. realesrgan  the RealESRGAN-SSL train and test CLIs at the shipped widths
+14. realesrgan  the RealESRGAN-SSL train and test CLIs at the shipped widths
            (RRDBNet 64/23/32, UNetDiscriminatorSN 64, VGG19 at five layers,
            SSL 25/9/0.004) on files: 24 GT PNGs of 512^2 made on the card,
            their .mat masks from the generate_mask entry point, a .json
@@ -159,7 +173,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            streams and pool reloaded bit for bit).  K1 is also held at its
            shapes (b12, 3x400^2 and 3x256^2) in the kernel phase, on
            pictures with real edge masks
-14. recipes the six bicubic GAN-SSL recipes (LDL, BebyGAN, SPSR,
+15. recipes the six bicubic GAN-SSL recipes (LDL, BebyGAN, SPSR,
            RankSRGAN-PI, SwinIR-GAN, ELAN-GAN) through the train and test
            CLIs at their shipped widths on the cli phase's files: the
            options/train/<recipe> YAML's values in a .json file, batch 16, 4
@@ -171,7 +185,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            its plain version on SwinIR's and ELAN's SR of 16 training pairs;
            ms per iteration, data wait, the first iteration's extra time,
            peak memory and the test CLI's ms per image
-15. kair   the KAIR/BSRGAN GAN-SSL family (BSRGAN-SSL, ELAN-GAN-SSL,
+16. kair   the KAIR/BSRGAN GAN-SSL family (BSRGAN-SSL, ELAN-GAN-SSL,
            SwinIR-GAN-SSL on the BSRGAN degradation) through the train and
            test CLIs: each options/train/<recipe>/*.json (a KAIR-schema file,
            through utils/kair_options.py) at its widths (SwinIR's netG
@@ -190,7 +204,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            (``d_sr_float64``), and on the wide-range SR of the same G drawn
            with flax's init variance (std ~9: the inverse maps within 1e-4 of
            a float64 run, ``hold_k1_wide``)
-16. kernels one line per ported kernel (K1's float32 and bf16 stream + store
+17. kernels one line per ported kernel (K1's float32 and bf16 stream + store
            modes each, the bf16 store's stream kernel, K2's float32 and bf16
            kernels each), launches on its
            main paths, error against the plain
@@ -199,7 +213,7 @@ Phases, each printing JSON lines; the first failure exits non-zero:
 before it a ``wall`` line with each phase's seconds, then the card's name
 and power limit as nvidia-smi reports them, and last
 {"ok": true, "device": {...}}.  Weights are random from fixed seeds (no
-VGG19, UNet or VAE weight file is in the repository).  Needs one CUDA
+VGG19, UNet, VAE or metric weight file is in the repository).  Needs one CUDA
 device; imports nothing of JAX.
 """
 
@@ -333,6 +347,29 @@ CLI_VAL = ((192, 192), (176, 144))
 CLI_TILE = (24, 8)
 CLI_METRICS = {"psnr": {"type": "calculate_psnr", "crop_border": 4, "test_y_channel": True},
                "ssim": {"type": "calculate_ssim", "crop_border": 4, "test_y_channel": True}}
+# ... the train YAMLs validate with those; the shipped test YAMLs
+# (options/test/*/test_*.yml) add LPIPS and DISTS, which the test CLI runs score
+TEST_METRICS = dict(CLI_METRICS,
+                    lpips={"type": "calculate_lpips", "crop_border": 4, "better": "lower"},
+                    dists={"type": "calculate_dists", "crop_border": 4, "better": "lower"})
+# The metric suite (metrics phase) on seeded checkpoints at full width in each
+# official layout (tests/torch_metric_cases.py; no metric weight file is in the
+# repository).  Holds at METRIC_HOLD^2, float32 on the card with TF32 off
+# against float64 on the CPU: LPIPS relative; DISTS absolute (1 - a float32
+# score near 1, summed over 1,475 channels); FID's pool3 features and the CLIP
+# towers' features in relative L2; the CLIP-IQA score absolute.  Each bound
+# lies between the sound reading and the control's with TF32 on, some 10 to
+# 50 times from each (on an H100: LPIPS 7.0e-8 / 5.3e-5, DISTS 4.2e-8 /
+# 4.8e-6, FID 2.6e-7 / 4.9e-4, CLIP visual 9.5e-7 / 1.0e-3, text 1.3e-6 /
+# 8.7e-4, CLIP-IQA 5.3e-8 / 4.8e-5; PERF.md).  Times per
+# image at each of METRIC_SIZES (512^2 and a DIV2K valid image, 2040 x 1356,
+# the largest the shipped test sets give), METRIC_ITERS calls after a warm-up;
+# FID over METRIC_FID_IMAGES PNGs of 512^2 at batch METRIC_FID_BATCH.
+METRIC_HOLD, METRIC_ITERS = 256, 3
+METRIC_SIZES = ((512, 512), (1356, 2040))
+METRIC_FID_IMAGES, METRIC_FID_BATCH = 16, 8
+METRIC_BOUNDS = {"lpips": 1e-6, "dists": 5e-7, "fid_pool3": 1e-5, "clip_visual": 3e-5,
+                 "clip_text": 3e-5, "clipiqa": 1.5e-6}
 
 
 # RealESRGAN-SSL (options/train/RealESRGANSSL/train_RealESRGANSSL_x4.yml):
@@ -2822,6 +2859,252 @@ class without_cv2:
             sys.modules["cv2"] = self.saved
 
 
+class metric_seconds:
+    """Seconds of validation spent in each metric (``models/sr_model.py``'s
+    ``calculate_metric``, by ``type``) while the block runs; the metrics
+    return floats, so each call ends with the card's work done."""
+
+    def __enter__(self) -> dict:
+        from ssl_tpu_torch.models import sr_model
+        self.module, self.saved, self.seconds = sr_model, sr_model.calculate_metric, {}
+
+        def timed(data, opt):
+            t0 = time.perf_counter()
+            out = self.saved(data, opt)
+            self.seconds[opt["type"]] = self.seconds.get(opt["type"], 0.0) + \
+                time.perf_counter() - t0
+            return out
+
+        sr_model.calculate_metric = timed
+        return self.seconds
+
+    def __exit__(self, *exc):
+        self.module.calculate_metric = self.saved
+
+
+def lpips_dists_s(tests: dict) -> float:
+    """Seconds the test CLI runs of ``tests`` spent in LPIPS and DISTS."""
+    return sum(t["metric_s"].get(k, 0.0) for t in tests.values()
+               for k in ("calculate_lpips", "calculate_dists"))
+
+
+def test_record(out: dict, seconds: float, metric_s: dict, n_images: int | None = None) -> dict:
+    """A test CLI run's metrics and time: ``seconds``, or ``ms_per_image``
+    over ``n_images``, each also net of the seconds LPIPS and DISTS took, the
+    figure comparable with runs that scored PSNR and SSIM only."""
+    net = seconds - lpips_dists_s({"run": {"metric_s": metric_s}})
+    if n_images is None:
+        return dict(out, seconds=seconds, seconds_net_of_lpips_dists=net, metric_s=metric_s)
+    return dict(out, ms_per_image=1e3 * seconds / n_images,
+                ms_per_image_net_of_lpips_dists=1e3 * net / n_images, metric_s=metric_s)
+
+
+def metric_weights(root: str) -> dict:
+    """Seeded checkpoints at full width in each metric's official layout
+    (``tests/torch_metric_cases.py``) under ``root``, and the env vars that
+    point the metrics at them (the test CLI runs of the later phases read
+    LPIPS's and DISTS's); returns them by env var."""
+    from torch_metric_cases import (RN50, write_clip_rn50, write_dists, write_fid_inception,
+                                    write_lpips, write_merges)
+    lpips, alexnet = write_lpips(root, seed=1)
+    dists, vgg16 = write_dists(root, seed=2)
+    paths = {"LPIPS_ALEX_PTH": lpips, "ALEXNET_PTH": alexnet, "DISTS_PTH": dists,
+             "VGG16_PTH": vgg16,
+             "FID_INCEPTION_PTH": write_fid_inception(os.path.join(root, "pt_inception.pth")),
+             "CLIP_RN50_PTH": write_clip_rn50(os.path.join(root, "rn50.pt"), seed=3, **RN50),
+             "CLIP_BPE_PATH": write_merges(os.path.join(root, "merges.txt"))}
+    os.environ.update(paths)
+    return paths
+
+
+def metric_readings(device: str, exact: bool) -> dict:
+    """Each deep metric float32 on ``device`` against the same module in
+    float64 on the CPU, on a METRIC_HOLD^2 picture and its noisy copy, inside
+    ``exact_float32`` (``exact``) or with cuDNN's and cuBLAS's TF32 on (the
+    control); the error of each reading by METRIC_BOUNDS' key: LPIPS
+    relative, DISTS and the CLIP-IQA score absolute, FID's pool3 features and
+    the CLIP towers' features in relative L2."""
+    import contextlib
+    import copy
+
+    import torch
+    from ssl_tpu_torch.metrics import clipiqa, dists_metric, fid, lpips_metric
+    from ssl_tpu_torch.metrics.metric_util import exact_float32, image_tensor
+    from torch_metric_cases import distorted, picture
+
+    def f64(model):
+        return copy.deepcopy(model).cpu().double()
+
+    a = picture(METRIC_HOLD, METRIC_HOLD, 0)
+    b = distorted(a, 1)
+    out, finite = {}, True
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad(), (exact_float32() if exact else contextlib.nullcontext()):
+            for name, load, path_var in (("lpips", lpips_metric.lpips_model, "LPIPS_ALEX_PTH"),
+                                         ("dists", dists_metric.dists_model, "DISTS_PTH")):
+                model = load(os.environ[path_var], device)
+                xs = [image_tensor(v, 4, device) for v in (b, a)]
+                if name == "lpips":                          # LPIPS takes [-1, 1]
+                    xs = [x * 2 - 1 for x in xs]
+                got = float(model(*xs)[0])
+                ref = float(f64(model)(*(x.cpu().double() for x in xs))[0])
+                out[name] = abs(got - ref) / (abs(ref) if name == "lpips" else 1.0)
+                out[f"{name}_card"], out[f"{name}_float64"] = got, ref
+
+            model = fid.load_inception(device=device)
+            x = torch.stack([image_tensor(v, 0, device)[0] for v in (a, b)])
+            got = model(x)
+            out["fid_pool3"] = rel_l2(got.cpu(), f64(model)(x.cpu().double()))
+            finite &= bool(torch.isfinite(got).all())
+
+            visual, text, logit_scale = clipiqa._load_clip(os.environ["CLIP_RN50_PTH"],
+                                                           torch.device(device))
+            tokens = torch.as_tensor(clipiqa.prompt_token_ids(), dtype=torch.long)
+            xn = (b.astype("float32") / 255.0 - clipiqa._CLIP_MEAN) / clipiqa._CLIP_STD
+            x = torch.from_numpy(xn.transpose(2, 0, 1).copy())[None]
+            feats, tfeats = visual(x.to(device)), text(tokens.to(device))
+            feats64, tfeats64 = f64(visual)(x.double()), f64(text)(tokens)
+            out["clip_visual"] = rel_l2(feats.cpu(), feats64)
+            out["clip_text"] = rel_l2(tfeats.cpu(), tfeats64)
+            got = clipiqa.clipiqa_score(feats[0].cpu().numpy(), tfeats.cpu().numpy(), logit_scale)
+            ref = clipiqa.clipiqa_score(feats64[0].numpy(), tfeats64.numpy(), logit_scale)
+            out["clipiqa"] = abs(got - ref)
+            out["clipiqa_card"], out["clipiqa_float64"] = got, ref
+            out["prompt_tokens"] = list(tokens.shape)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    if not finite:
+        fail("metrics: FID pool3 features not finite")
+    return out
+
+
+def metric_holds(device: str) -> dict:
+    """The two refusals of a checkpoint without its backbone; each deep
+    metric held against float64 (``metric_readings``) inside
+    ``exact_float32`` with TF32 switched on around it, as the steps run:
+    each error within its METRIC_BOUNDS bound, and on the card the control
+    without ``exact_float32`` beyond it, so that the holds show the scores
+    are computed without TF32."""
+    from ssl_tpu_torch.metrics import dists_metric, lpips_metric
+
+    refused = {}
+    for name, load, path_var, backbone_var in (
+            ("lpips", lpips_metric.lpips_model, "LPIPS_ALEX_PTH", "ALEXNET_PTH"),
+            ("dists", dists_metric.dists_model, "DISTS_PTH", "VGG16_PTH")):
+        saved = os.environ.pop(backbone_var)
+        try:
+            load(os.environ[path_var], device)
+        except ValueError as e:
+            refused[name] = str(e)[:60]
+        else:
+            fail(f"metrics: a {name} checkpoint without {backbone_var} was not refused")
+        finally:
+            os.environ[backbone_var] = saved
+
+    sound = metric_readings(device, exact=True)
+    control = metric_readings(device, exact=False) if device == "cuda" else None
+    holds = {}
+    for key, bound in METRIC_BOUNDS.items():
+        if not sound[key] <= bound:
+            fail(f"metrics: {key} off float64 by {sound[key]}, bound {bound}")
+        if control is not None and not control[key] > bound:
+            fail(f"metrics: {key} with TF32 on off float64 by {control[key]}, within the "
+                 f"bound {bound}: the hold cannot tell TF32 from float32")
+        holds[key] = {"err": sound[key], "bound": bound,
+                      "control_tf32_err": None if control is None else control[key]}
+    return {"refused": refused, "holds": holds,
+            "values": {k: v for k, v in sound.items() if k not in METRIC_BOUNDS}}
+
+
+def phase_metrics(device: str = "cuda"):
+    """The metric suite on the card: each deep metric (LPIPS, DISTS, FID's
+    InceptionV3, CLIP-IQA's RN50 towers) held against its float64 CPU run
+    (``metric_holds``), a checkpoint without its backbone refused; then each
+    metric's entry function timed per image at METRIC_SIZES beside its nets
+    alone on device tensors (NIQE on the host at 512^2), FID over a folder of PNGs at batch METRIC_FID_BATCH
+    through the FID CLI's ``folder_features``, and the peak device memory.
+    Expects ``metric_weights`` to have set the env vars."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.metrics import clipiqa, dists_metric, fid, lpips_metric, niqe
+    from ssl_tpu_torch.metrics.metric_util import exact_float32, image_tensor
+    from ssl_tpu_torch.scripts.metrics.calculate_fid_folder import folder_features
+    from ssl_tpu_torch.utils.img_util import imwrite
+    from torch_metric_cases import RN50, distorted, picture
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    held = metric_holds(device)
+
+    def per_image_ms(fn, *args):
+        fn(*args)
+        t0 = time.perf_counter()
+        for _ in range(METRIC_ITERS):
+            fn(*args)
+        return 1e3 * (time.perf_counter() - t0) / METRIC_ITERS
+
+    lpips = lpips_metric.lpips_model(os.environ["LPIPS_ALEX_PTH"], device)
+    dists = dists_metric.dists_model(os.environ["DISTS_PTH"], device)
+    visual, text, _ = clipiqa._load_clip(os.environ["CLIP_RN50_PTH"], torch.device(device))
+    tokens = torch.as_tensor(clipiqa.prompt_token_ids(), dtype=torch.long, device=device)
+    times = {}
+    for h, w in METRIC_SIZES:
+        a = picture(h, w, 2)
+        b = distorted(a, 3)
+        xa, xb = (image_tensor(v, 4, device) for v in (a, b))
+        with torch.no_grad(), exact_float32():
+            # each net alone on tensors already on the device (CUDA events);
+            # the entry function adds the host's conversion, the copy, the read
+            nets = {"lpips_net_ms": time_ms(lambda: lpips(xb * 2 - 1, xa * 2 - 1), METRIC_ITERS),
+                    "dists_net_ms": time_ms(lambda: dists(xb, xa), METRIC_ITERS),
+                    "clip_visual_ms": time_ms(lambda: visual(xb), METRIC_ITERS),
+                    "clip_text_ms": time_ms(lambda: text(tokens), METRIC_ITERS)} \
+                if device == "cuda" else {}
+        times[f"{h}x{w}"] = {
+            "lpips_ms": per_image_ms(lambda: lpips_metric.calculate_lpips(b, a, 4, device=device)),
+            "dists_ms": per_image_ms(lambda: dists_metric.calculate_dists(b, a, 4, device=device)),
+            "clipiqa_ms": per_image_ms(lambda: clipiqa.calculate_clipiqa(b, device=device)),
+            **nets}
+    a = picture(512, 512, 4)
+    t0 = time.perf_counter()
+    niqe_score = niqe.calculate_niqe(a, crop_border=4)
+    niqe_ms = 1e3 * (time.perf_counter() - t0)
+    if not np.isfinite(niqe_score):
+        fail(f"metrics: NIQE {niqe_score}")
+
+    with tempfile.TemporaryDirectory() as root:
+        for i in range(METRIC_FID_IMAGES):
+            imwrite(distorted(picture(512, 512, 10 + i), i)[..., ::-1],
+                    os.path.join(root, f"im{i:02d}.png"))
+        model = fid.load_inception(device=device)
+        folder_features(root, model, METRIC_FID_BATCH, limit=METRIC_FID_BATCH)   # warm-up
+        t0 = time.perf_counter()
+        feats = folder_features(root, model, METRIC_FID_BATCH)
+        fid_folder_s = time.perf_counter() - t0
+    if feats.shape != (METRIC_FID_IMAGES, 2048) or not np.isfinite(feats).all():
+        fail(f"metrics: FID features {feats.shape}")
+    t0 = time.perf_counter()
+    mu, sigma = fid.stats_from_features(feats)
+    frechet = fid.calculate_fid_from_stats(mu, sigma, mu + 0.01, sigma)
+    frechet_s = time.perf_counter() - t0
+    result = {
+        "phase": "metrics", "device": device, "tf32": False, **held,
+        "weights": "seeded, official layouts (tests/torch_metric_cases.py)", "clip_rn50": RN50,
+        "per_image": times, "niqe_host_ms_512": niqe_ms, "niqe_512": niqe_score,
+        "fid_folder": {"images": METRIC_FID_IMAGES, "size": 512, "batch": METRIC_FID_BATCH,
+                       "decoder": decoder(), "seconds": fid_folder_s,
+                       "ms_per_image": 1e3 * fid_folder_s / METRIC_FID_IMAGES,
+                       "frechet_host_s": frechet_s, "fid_shifted_mean": frechet},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else None,
+        "card": card() if device == "cuda" else None}
+    emit(result)
+    return result
+
+
 def decoder() -> str:
     """What ``utils/img_util.py`` decodes with here."""
     try:
@@ -2999,7 +3282,7 @@ def phase_cli(device: str = "cuda"):
                     "path": {"pretrain_network_g": os.path.join(
                         exp, "models", f"net_g_{CLI_RESUME_ITERS}.pth"),
                         "param_key_g": "params_ema"},
-                    "val": {"save_img": True, "metrics": CLI_METRICS}}
+                    "val": {"save_img": True, "metrics": TEST_METRICS}}
         test_path = os.path.join(root, "test_cli.json")
         with open(test_path, "w") as f:
             json.dump(test_opt, f)
@@ -3008,11 +3291,12 @@ def phase_cli(device: str = "cuda"):
                 "--force_yml", "name=test_tiled", "tile_process=true",
                 f"tile_size={CLI_TILE[0]}", f"tile_pad={CLI_TILE[1]}"])):
             t0 = time.perf_counter()
-            out = test_cli.test_pipeline(root, ["-opt", test_path] + dev + extra)["val_pairs"]
+            with metric_seconds() as metric_s:
+                out = test_cli.test_pipeline(root, ["-opt", test_path] + dev + extra)["val_pairs"]
             if device == "cuda":
                 torch.cuda.synchronize()
-            tests[label] = dict(out, seconds=time.perf_counter() - t0)
-            if set(out) != set(CLI_METRICS) or not all(np.isfinite(v) for v in out.values()):
+            tests[label] = test_record(out, time.perf_counter() - t0, metric_s)
+            if set(out) != set(TEST_METRICS) or not all(np.isfinite(v) for v in out.values()):
                 fail(f"cli: test CLI ({label}) metrics {out}")
         saved_imgs = sorted(os.listdir(os.path.join(root, "results", "test_tiled",
                                                     "visualization", "val_pairs")))
@@ -3037,7 +3321,8 @@ def phase_cli(device: str = "cuda"):
         "save_networks_ms": [1e3 * t for t, _ in calls["save_networks"]],
         "save_training_state_ms": [1e3 * t for t, _ in calls["save_training_state"]],
         "reloaded_tensors_bit_for_bit": n_tensors, "resumed_from": CLI_ITERS,
-        "test": tests, "tile": list(CLI_TILE), "card": card() if device == "cuda" else None}
+        "test": tests, "test_lpips_dists_s": lpips_dists_s(tests), "tile": list(CLI_TILE),
+        "card": card() if device == "cuda" else None}
     emit(result)
     return launches + launches_r
 
@@ -3247,8 +3532,8 @@ def phase_realesrgan(device: str = "cuda"):
     D and the EMA with K1 in the SSL loss), the training state reloaded into
     a fresh model bit for bit (pool and generators included),
     ``--auto_resume`` to RE_RESUME_ITERS, then the test CLI on the last
-    ``net_g`` over the BlindLR-style set with PSNR/SSIM (LPIPS and DISTS are
-    left out of the option file: they raise until ROADMAP queue 1 item 9).
+    ``net_g`` over the BlindLR-style set with the shipped test YAML's
+    metrics (TEST_METRICS: PSNR, SSIM, LPIPS and DISTS).
     Then the degradation + USM + pool alone (CUDA events) and the degradation
     hold card against CPU.  K1 must launch once per iteration."""
     import gc
@@ -3382,15 +3667,16 @@ def phase_realesrgan(device: str = "cuda"):
                     "path": {"pretrain_network_g": os.path.join(
                         exp, "models", f"net_g_{RE_RESUME_ITERS}.pth"),
                         "param_key_g": "params_ema"},
-                    "val": {"save_img": True, "metrics": CLI_METRICS}}
+                    "val": {"save_img": True, "metrics": TEST_METRICS}}
         test_path = os.path.join(root, "test_realesrgan.json")
         with open(test_path, "w") as f:
             json.dump(test_opt, f)
         t0 = time.perf_counter()
-        test_out = test_cli.test_pipeline(root, ["-opt", test_path] + dev)["BlindLR"]
+        with metric_seconds() as test_metric_s:
+            test_out = test_cli.test_pipeline(root, ["-opt", test_path] + dev)["BlindLR"]
         torch.cuda.synchronize()
         test_s = time.perf_counter() - t0
-        if set(test_out) != set(CLI_METRICS) or not all(np.isfinite(v) for v in test_out.values()):
+        if set(test_out) != set(TEST_METRICS) or not all(np.isfinite(v) for v in test_out.values()):
             fail(f"realesrgan: test CLI metrics {test_out}")
 
         # the degradation, USM and pool alone, on one loader batch
@@ -3429,7 +3715,6 @@ def phase_realesrgan(device: str = "cuda"):
         "mask_edge_share": edge_share, "decoder": decoder(),
         "reduced": {"queue_size": [180, RE_QUEUE], "dataset_enlarge_ratio": [1, RE_ENLARGE],
                     "total_iter": [150000, RE_RESUME_ITERS],
-                    "test_metrics_left_out": ["lpips", "dists"],
                     "test_sets": ["7 sets of options/test/RealESRGANSSL", "BlindLR of "
                                   f"{RE_TEST_GT} GT x {len(RE_VARIANTS)} variants"]},
         "iterations": RE_ITERS, "iterations_timed": RE_ITERS - 1,
@@ -3443,7 +3728,8 @@ def phase_realesrgan(device: str = "cuda"):
         "pool_ptr_by_iter": ptrs + ptrs_r,
         "losses_last_iter": {k: logged[-1][k] for k in loss_keys},
         "reloaded_tensors_bit_for_bit": n_tensors, "resumed_from": RE_ITERS,
-        "test": dict(test_out, seconds=test_s),
+        "test": test_record(test_out, test_s, test_metric_s),
+        "test_lpips_dists_s": lpips_dists_s({"BlindLR": {"metric_s": test_metric_s}}),
         "degradation_usm_pool_ms": {"fill": front_ms[:fill], "full": front_ms[fill:]},
         "degradation_alone_ms": degrade_ms, "usm_alone_ms": usm_ms,
         "degradation_hold_card_vs_cpu": hold, "host_mode": host,
@@ -3597,7 +3883,7 @@ def phase_recipes(device: str = "cuda"):
                         "path": {"pretrain_network_g": os.path.join(
                             exp, "models", f"net_g_{RC_RESUME_ITERS}.pth"),
                             "param_key_g": "params_ema"},
-                        "val": {"save_img": True, "metrics": CLI_METRICS}}
+                        "val": {"save_img": True, "metrics": TEST_METRICS}}
             test_path = os.path.join(root, f"test_{recipe}.json")
             with open(test_path, "w") as f:
                 json.dump(test_opt, f)
@@ -3606,13 +3892,15 @@ def phase_recipes(device: str = "cuda"):
                     "--force_yml", f"name=test_{recipe}_tiled", "tile_process=true",
                     f"tile_size={CLI_TILE[0]}", f"tile_pad={CLI_TILE[1]}"])):
                 t0 = time.perf_counter()
-                out = test_cli.test_pipeline(root, ["-opt", test_path] + dev + extra)["val_pairs"]
+                with metric_seconds() as metric_s:
+                    out = test_cli.test_pipeline(root, ["-opt", test_path] + dev + extra)[
+                        "val_pairs"]
                 if device == "cuda":
                     torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
-                if set(out) != set(CLI_METRICS) or not all(np.isfinite(v) for v in out.values()):
+                if set(out) != set(TEST_METRICS) or not all(np.isfinite(v) for v in out.values()):
                     fail(f"recipes {recipe}: test CLI ({label}) metrics {out}")
-                tests[label] = dict(out, ms_per_image=1e3 * seconds / len(CLI_VAL))
+                tests[label] = test_record(out, seconds, metric_s, len(CLI_VAL))
             ms = per_iter_ms(logged, "time")
             results[recipe] = {
                 "model": opt["model_type"], "network_g": opt["network_g"],
@@ -3623,7 +3911,8 @@ def phase_recipes(device: str = "cuda"):
                 "wall_s": wall, "resumed_wall_s": wall_r,
                 "k1_launches": {"train": launches, "resumed": launches_r},
                 "losses_last_iter": {k: logged[-1][k] for k in keys},
-                "reloaded_tensors_bit_for_bit": len(want), "test": tests}
+                "reloaded_tensors_bit_for_bit": len(want), "test": tests,
+                "test_lpips_dists_s": lpips_dists_s(tests)}
             emit({"phase": "recipes", "recipe": recipe, **results[recipe]})
     emit({"phase": "recipes", "config": {r: f"options/train/{r}/train_{r}_bicubic_x4.yml"
                                          for r in RECIPES},
@@ -3885,7 +4174,7 @@ def phase_kair(device: str = "cuda"):
                         "path": {"pretrain_network_g": os.path.join(
                             exp, "models", f"net_g_{KR_RESUME_ITERS}.pth"),
                             "param_key_g": "params"},
-                        "val": {"save_img": True, "metrics": CLI_METRICS}}
+                        "val": {"save_img": True, "metrics": TEST_METRICS}}
             test_path = os.path.join(root, f"test_{recipe}.json")
             with open(test_path, "w") as f:
                 json.dump(test_opt, f)
@@ -3895,14 +4184,14 @@ def phase_kair(device: str = "cuda"):
                     "--force_yml", f"name=test_{recipe}_tiled", "tile_process=true",
                     f"tile_size={CLI_TILE[0]}", f"tile_pad={CLI_TILE[1]}"])):
                 t0 = time.perf_counter()
-                with without_cv2():
+                with without_cv2(), metric_seconds() as metric_s:
                     out = test_cli.test_pipeline(root, ["-opt", test_path] + dev + extra)["BlindLR"]
                 if device == "cuda":
                     torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
-                if set(out) != set(CLI_METRICS) or not all(np.isfinite(v) for v in out.values()):
+                if set(out) != set(TEST_METRICS) or not all(np.isfinite(v) for v in out.values()):
                     fail(f"kair {recipe}: test CLI ({label}) metrics {out}")
-                tests[label] = dict(out, ms_per_image=1e3 * seconds / n_images)
+                tests[label] = test_record(out, seconds, metric_s, n_images)
             ms = per_iter_ms(logged, "time")
             results[recipe] = {
                 "model": opt["model_type"], "network_g": opt["network_g"],
@@ -3921,7 +4210,8 @@ def phase_kair(device: str = "cuda"):
                 "k1_launches": {"train": launches, "resumed": launches_r},
                 "k1_shape": [spec["batch"], 3, spec["gt"], spec["gt"]],
                 "losses_last_iter": {k: logged[-1][k] for k in RC_LOSSES},
-                "reloaded_tensors_bit_for_bit": len(want), "test": tests}
+                "reloaded_tensors_bit_for_bit": len(want), "test": tests,
+                "test_lpips_dists_s": lpips_dists_s(tests)}
             emit({"phase": "kair", "recipe": recipe, **results[recipe]})
             gc.collect()
             torch.cuda.empty_cache()
@@ -3941,7 +4231,6 @@ def phase_kair(device: str = "cuda"):
                       "total_iter": [{r: shipped[r]["iterations"] for r in KAIR},
                                      f"{KR_ITERS}, a save, --auto_resume to {KR_RESUME_ITERS}"],
                       "dataset_enlarge_ratio": [1, KR_ENLARGE], "validation": "none",
-                      "test_metrics_left_out": ["lpips", "dists"],
                       "test_sets": ["7 sets of options/test/<recipe>", "BlindLR of "
                                     f"{RE_TEST_GT} GT x {len(RE_VARIANTS)} variants, whole "
                                     "and tiled"]},
@@ -4621,12 +4910,14 @@ def main() -> int:
               "repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
 
-    sys.path.insert(0, os.path.join(ROOT, "tests"))      # torch_attention_cases (JAX-free)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))      # torch_*_cases (JAX-free)
     wall, start = {}, time.perf_counter()
 
     def run(name, phase, *args):
@@ -4665,6 +4956,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench = run("bench", phase_bench)
     torch.cuda.empty_cache()
+    # seeded metric checkpoints for the metrics phase and every later test CLI run
+    metric_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_")
+    metric_weights(metric_dir.name)
+    run("metrics", phase_metrics)
+    torch.cuda.empty_cache()
     cli = run("cli", phase_cli)
     torch.cuda.empty_cache()
     realesrgan = run("realesrgan", phase_realesrgan)
@@ -4673,6 +4969,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kair = run("kair", phase_kair)
 
+    metric_dir.cleanup()
     emit({"phase": "wall", "seconds": wall, "total_s": time.perf_counter() - start})
     emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli, recipes,
                       kair, bench, k2_16, k2_bwd_16, dbf16))

@@ -17,8 +17,6 @@ import torch.nn.functional as F
 from ssl_tpu_torch.utils.color_util import to_y_channel
 from ssl_tpu_torch.utils.registry import METRIC_REGISTRY
 
-_LATER = "not ported yet (ROADMAP.md, queue 1 item 9: the metric suite)"
-
 
 def _gaussian_kernel(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     """cv2.getGaussianKernel(size, sigma) in float64: exp(-x^2 / 2 sigma^2),
@@ -153,14 +151,3 @@ def calculate_ssim_pt(img, img2, crop_border, test_y_channel=False, **kwargs):
     img, img2 = _prep_pt(img, img2, crop_border, test_y_channel)
     return _ssim_pt(img * 255.0, img2 * 255.0)
 
-
-def _not_ported(name):
-    def metric(*args, **kwargs):
-        raise NotImplementedError(f"{name}: {_LATER}")
-    metric.__name__ = name
-    return METRIC_REGISTRY.register(metric)
-
-
-calculate_lpips = _not_ported("calculate_lpips")
-calculate_dists = _not_ported("calculate_dists")
-calculate_niqe = _not_ported("calculate_niqe")

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ssl_tpu_torch.utils.device import resolve_device  # noqa: F401
 from ssl_tpu_torch.utils.registry import build_model, build_network  # noqa: F401
 from ssl_tpu_torch.utils.weight_port import FAMILIES, params_from_jax
 
@@ -60,16 +61,6 @@ class TrainState:
     opt_d: torch.optim.Optimizer | None = None
     extra: dict | None = None       # tensors, ints, torch.Generators and frozen modules
     nets: dict = field(default_factory=dict)    # further trained nets by name, opt_d's too
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller names another device.  There is no silent
-    CPU run: without a CUDA device the default fails."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available: the port runs on cuda unless "
-                           "the caller passes device='cpu'")
-    return dev
 
 
 class RMSprop(torch.optim.Optimizer):

@@ -152,7 +152,8 @@ class SRModel(BaseModel):
     def validation(self, state: TrainState, dataloader, current_iter, tb_logger=None,
                    save_img=False) -> dict:
         """Per-image metrics on RGB uint8 (the reference's nondist_validation),
-        averaged over the set; with ``save_img`` the SR images go to
+        the deep ones on the model's device, averaged over the set; with
+        ``save_img`` the SR images go to
         ``path.visualization/<set>/<name>_<iter>.png``."""
         dataset_name = dataloader.dataset.opt.get("name", "val")
         metric_opts = (self.opt.get("val") or {}).get("metrics") or {}
@@ -172,9 +173,11 @@ class SRModel(BaseModel):
                 save_path = os.path.join(self.opt["path"]["visualization"], dataset_name,
                                          f"{img_name}_{current_iter}.png")
                 imwrite(sr_img[..., ::-1] if sr_img.ndim == 3 else sr_img, save_path)
+            # as in the JAX package, a set without GT gets no metric, NIQE included
             for name, m_opt in metric_opts.items():
                 if gt_img is not None:
-                    results[name].append(calculate_metric({"img": sr_img, "img2": gt_img}, m_opt))
+                    results[name].append(calculate_metric(
+                        {"img": sr_img, "img2": gt_img, "device": self.device}, m_opt))
         avg = {name: float(np.mean(vals)) for name, vals in results.items() if vals}
         self._update_best(dataset_name, avg, current_iter, metric_opts)
         if tb_logger is not None:

@@ -33,7 +33,23 @@ FAMILIES = ("RRDBNet", "VGGStyleDiscriminator", "UNetDiscriminatorSN", "VGGFeatu
             "KAIRDiscriminatorVGG192", "KAIRDiscriminatorVGG128SN", "KAIRDiscriminatorPatchGAN",
             "SRVGGNetCompact", "EDSR", "RCAN", "ECBSR",
             "UNetModelDualcondV2",
-            "EncoderUNetModelWT", "AutoencoderKL", "StableSRSSL")
+            "EncoderUNetModelWT", "AutoencoderKL", "StableSRSSL",
+            "LPIPSAlex", "DISTS", "InceptionV3FID", "CLIPRN50")
+
+
+def load_torch_state_dict(path: str, param_key: str = "params") -> dict:
+    """A checkpoint's state dict, read with ``weights_only=True``: the
+    ``param_key`` entry where the file holds one (else ``params``, else
+    ``params_ema``, else the file itself), DDP's ``module.`` prefixes
+    dropped (reference base_model.py:289-315)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and param_key in sd:
+        sd = sd[param_key]
+    elif isinstance(sd, dict) and "params_ema" in sd and param_key == "params":
+        sd = sd.get("params", sd["params_ema"])
+    if isinstance(sd, dict) and sd and all(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    return sd
 
 
 def _t(a) -> torch.Tensor:
@@ -495,6 +511,108 @@ def _ldm_vae(params: dict) -> dict:
     return sd
 
 
+def _lpips(params: dict) -> dict:
+    sd: dict = {}
+    for name, node in params["net"].items():
+        _conv(sd, f"net.{name}", node)
+    for i in range(5):
+        sd[f"lin{i}"] = _t(params[f"lin{i}"])
+    return sd
+
+
+def _dists(params: dict) -> dict:
+    sd = {"alpha": _t(params["alpha"]), "beta": _t(params["beta"])}
+    for name, node in params["vgg16"].items():
+        _conv(sd, f"vgg16.{name}", node)
+    return sd
+
+
+# torchvision inception_v3's module and branch names, in the call order that
+# names the flax modules of ssl_tpu/metrics/fid.py (``_BasicConv_{i}`` in a
+# block, ``_Inception{A..E}_{i}`` at the top); as ssl_tpu/utils/weight_port.py's
+_FID_STEM = ["Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3",
+             "Conv2d_3b_1x1", "Conv2d_4a_3x3"]
+_FID_BRANCHES = {
+    "A": ["branch1x1", "branch5x5_1", "branch5x5_2", "branch3x3dbl_1", "branch3x3dbl_2",
+          "branch3x3dbl_3", "branch_pool"],
+    "B": ["branch3x3", "branch3x3dbl_1", "branch3x3dbl_2", "branch3x3dbl_3"],
+    "C": ["branch1x1", "branch7x7_1", "branch7x7_2", "branch7x7_3", "branch7x7dbl_1",
+          "branch7x7dbl_2", "branch7x7dbl_3", "branch7x7dbl_4", "branch7x7dbl_5", "branch_pool"],
+    "D": ["branch3x3_1", "branch3x3_2", "branch7x7x3_1", "branch7x7x3_2", "branch7x7x3_3",
+          "branch7x7x3_4"],
+    "E": ["branch1x1", "branch3x3_1", "branch3x3_2a", "branch3x3_2b", "branch3x3dbl_1",
+          "branch3x3dbl_2", "branch3x3dbl_3a", "branch3x3dbl_3b", "branch_pool"],
+}
+_FID_BLOCKS = [("Mixed_5b", "_InceptionA_0"), ("Mixed_5c", "_InceptionA_1"),
+               ("Mixed_5d", "_InceptionA_2"), ("Mixed_6a", "_InceptionB_0"),
+               ("Mixed_6b", "_InceptionC_0"), ("Mixed_6c", "_InceptionC_1"),
+               ("Mixed_6d", "_InceptionC_2"), ("Mixed_6e", "_InceptionC_3"),
+               ("Mixed_7a", "_InceptionD_0"), ("Mixed_7b", "_InceptionE_0"),
+               ("Mixed_7c", "_InceptionE_1")]
+
+
+def _fid_inception(params: dict, batch_stats: dict) -> dict:
+    """InceptionV3FID: the inverse of ssl_tpu.utils.weight_port.convert_fid_inception."""
+    sd: dict = {}
+
+    def basic(name: str, node: dict, stats: dict) -> None:
+        _conv(sd, f"{name}.conv", node["Conv_0"])
+        _bn(sd, f"{name}.bn", node["BatchNorm_0"], stats["BatchNorm_0"])
+
+    for i, name in enumerate(_FID_STEM):
+        basic(name, params[f"_BasicConv_{i}"], batch_stats[f"_BasicConv_{i}"])
+    for block, flax_block in _FID_BLOCKS:
+        kind = flax_block[len("_Inception")]
+        for bi, branch in enumerate(_FID_BRANCHES[kind]):
+            basic(f"{block}.{branch}", params[flax_block][f"_BasicConv_{bi}"],
+                  batch_stats[flax_block][f"_BasicConv_{bi}"])
+    return sd
+
+
+def _clip_rn50(params: dict, batch_stats: dict) -> dict:
+    """CLIP RN50 in OpenAI's layout from ``{"visual": ..., "text": ...}``
+    (the inverse of ssl_tpu.utils.weight_port.convert_clip_rn50) and the
+    visual ``batch_stats``; the flax text attention's fused ``in_proj`` is
+    ``in_proj_weight`` (3C, C)."""
+    vis, text = params["visual"], params["text"]
+    sd: dict = {}
+
+    for n in (1, 2, 3):
+        _conv(sd, f"visual.conv{n}", vis[f"conv{n}"])
+        _bn(sd, f"visual.bn{n}", vis[f"bn{n}"], batch_stats[f"bn{n}"])
+    for name, node in vis.items():
+        m = re.fullmatch(r"layer(\d)_(\d+)", name)
+        if m is None:
+            continue
+        base, stats = f"visual.layer{m.group(1)}.{m.group(2)}", batch_stats[name]
+        for c in (1, 2, 3):
+            _conv(sd, f"{base}.conv{c}", node[f"conv{c}"])
+            _bn(sd, f"{base}.bn{c}", node[f"bn{c}"], stats[f"bn{c}"])
+        if "downsample_conv" in node:
+            _conv(sd, f"{base}.downsample.0", node["downsample_conv"])
+            _bn(sd, f"{base}.downsample.1", node["downsample_bn"], stats["downsample_bn"])
+    ap = vis["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _t(ap["positional_embedding"])
+    for n in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _linear(sd, f"visual.attnpool.{n}", ap[n])
+    sd["token_embedding.weight"] = _t(text["token_embedding"]["embedding"])
+    sd["positional_embedding"] = _t(text["positional_embedding"])
+    _norm(sd, "ln_final", text["ln_final"])
+    sd["text_projection"] = _t(text["text_projection"])
+    i = 0
+    while f"resblock_{i}" in text:
+        blk, base = text[f"resblock_{i}"], f"transformer.resblocks.{i}"
+        _norm(sd, f"{base}.ln_1", blk["ln_1"])
+        sd[f"{base}.attn.in_proj_weight"] = _t(np.asarray(blk["in_proj"]["kernel"]).T)
+        sd[f"{base}.attn.in_proj_bias"] = _t(blk["in_proj"]["bias"])
+        _linear(sd, f"{base}.attn.out_proj", blk["out_proj"])
+        _norm(sd, f"{base}.ln_2", blk["ln_2"])
+        _linear(sd, f"{base}.mlp.c_fc", blk["c_fc"])
+        _linear(sd, f"{base}.mlp.c_proj", blk["c_proj"])
+        i += 1
+    return sd
+
+
 def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
     """State dict for the port's ``family`` module from a flax params tree.
     ``StableSRSSL`` takes the diffusion params dict {'unet', 'structcond',
@@ -550,6 +668,14 @@ def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
         return _ecbsr(params)
     if family == "VGGFeatureExtractor":
         return _vgg_features(params)
+    if family == "LPIPSAlex":
+        return _lpips(params)
+    if family == "DISTS":
+        return _dists(params)
+    if family == "InceptionV3FID":
+        return _fid_inception(params, batch_stats)
+    if family == "CLIPRN50":
+        return _clip_rn50(params, batch_stats)
     raise KeyError(f"no weight carry for {family!r}; known: {FAMILIES}")
 
 

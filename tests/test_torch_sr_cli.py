@@ -226,3 +226,50 @@ def test_train_and_test_clis_run_on_cpu(folders, tmp_path):
                           (tcli_test.test_pipeline, test_path)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 cli(root, ["-opt", path])
+
+
+def test_test_clis_score_lpips_dists_niqe_like_jax(pair, tmp_path, monkeypatch):
+    """One test option file with psnr, ssim, lpips, dists and niqe (crop 4,
+    the shipped test YAMLs' metrics) through both packages' test CLIs on the
+    same G (the JAX G's .pkl), with seeded official-layout LPIPS / DISTS
+    checkpoints by env var; GT of 208 x 112, so that NIQE has two 96-px
+    blocks after the crop.  The SR PNGs are equal, so each average is held
+    at its metric's tolerance (tests/test_torch_metrics_suite.py): PSNR and
+    SSIM rtol 1e-10, NIQE 1e-8, LPIPS 1e-5, DISTS 1e-6 absolute."""
+    import cv2
+    from ssl_tpu.test import test_pipeline as jax_test_pipeline
+    from torch_metric_cases import picture, write_dists, write_lpips
+    jmodel, jstate, _, _ = pair
+    root = str(tmp_path)
+    lpips, alexnet = write_lpips(root, seed=1)
+    dists, vgg16 = write_dists(root, seed=2)
+    for var, path in (("LPIPS_ALEX_PTH", lpips), ("ALEXNET_PTH", alexnet), ("DISTS_PTH", dists),
+                      ("VGG16_PTH", vgg16)):
+        monkeypatch.setenv(var, path)
+    d = {"vgt": os.path.join(root, "vgt"), "vlq": os.path.join(root, "vlq")}
+    for i in range(2):
+        gt = picture(208, 112, 60 + i)[..., ::-1]
+        for key, img in (("vgt", gt), ("vlq", cv2.resize(gt, (28, 52),
+                                                          interpolation=cv2.INTER_AREA))):
+            os.makedirs(d[key], exist_ok=True)
+            cv2.imwrite(os.path.join(d[key], f"v{i}.png"), img)
+    jmodel.save_networks(jstate, root, 6)
+    metrics = {name: {"type": f"calculate_{name}", "crop_border": 4}
+               for name in ("psnr", "ssim", "lpips", "dists", "niqe")}
+    metrics["psnr"]["test_y_channel"] = metrics["ssim"]["test_y_channel"] = True
+    results = {}
+    for package, run in (("jax", jax_test_pipeline), ("torch", tcli_test.test_pipeline)):
+        opt = eval_opt(d, os.path.join(root, "net_g_6.pkl"), name=f"metrics_{package}")
+        opt["path"]["param_key_g"] = "params"
+        opt["val"]["metrics"] = metrics
+        args = ["-opt", write_json(opt, os.path.join(root, f"{package}.json"))]
+        results[package] = run(root, args + (["--device", "cpu"] if package == "torch" else []))
+    want, got = results["jax"]["synthval"], results["torch"]["synthval"]
+    assert set(got) == set(want) == set(metrics)
+    for i in range(2):
+        pngs = [cv2.imread(os.path.join(root, "results", f"metrics_{p}", "visualization",
+                                        "synthval", f"v{i}_metrics_{p}.png")) for p in ("jax", "torch")]
+        np.testing.assert_array_equal(*pngs)
+    for name, rtol, atol in (("psnr", 1e-10, 0), ("ssim", 1e-10, 0), ("niqe", 1e-8, 0),
+                             ("lpips", 1e-5, 0), ("dists", 0, 1e-6)):
+        np.testing.assert_allclose(got[name], want[name], rtol=rtol, atol=atol, err_msg=name)
