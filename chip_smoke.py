@@ -204,7 +204,29 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            (``d_sr_float64``), and on the wide-range SR of the same G drawn
            with flax's init variance (std ~9: the inverse maps within 1e-4 of
            a float64 run, ``hold_k1_wide``)
-17. kernels one line per ported kernel (K1's float32 and bf16 stream + store
+17. prep_infer  from HR images to SR images with the port alone, through the
+           entry points a user calls: 24 HR PNGs of 400 x 520 made on the card;
+           generate_bicubic_lr --mod 12 --gt_output (GT 396 x 516, LR 99 x 129)
+           and generate_mask; the ESRGAN-SSL train CLI at the shipped YAML's
+           values (batch 16, gt 128, 4 loader processes) for 2 iterations (K1
+           once each, losses finite, net_g_2.pth written); inference_ssl_sr
+           whole and tiled, inference_rrdbnet on that net_g and inference_swinir
+           at the shipped SwinIR-GAN-SSL test YAML's width on seeded weights,
+           each on 8 LR images (ms per image, peak memory), each first image on
+           the card with TF32 off against the same CLI with --device cpu (within
+           one level on at most 0.1% of the values) and inference_ssl_sr's SR
+           against the test CLI's within one level; back_projection on 4 SR,
+           generate_realesrgan_bsrgan_lr on 4 HR with the shipped option file's
+           values; one 2040 x 1356 HR through generate_bicubic_lr and the four
+           entry points (the DIV2K-valid times); the registry hold: the seven
+           archs the port added for it (UNetDiscriminatorSNv1, MOD,
+           Discriminator_VGG_192, DiscriminatorSN_VGG_192, NLayerDiscriminator,
+           RRDBPSNet, RRDBMeanNet) at their default widths, forward and backward
+           on the card against the CPU in float64 with TF32 off: in float64
+           within 1e-10 relative L2; in float32 the output within 1e-4 and the
+           gradients reported beside the CPU float32's (a leaky ReLU's kink
+           within rounding moves a float32 gradient by ~1e-4)
+18. kernels one line per ported kernel (K1's float32 and bf16 stream + store
            modes each, the bf16 store's stream kernel, K2's float32 and bf16
            kernels each), launches on its
            main paths, error against the plain
@@ -481,6 +503,55 @@ KAIR = {
 # may move by one uint8 level where a value, or a JPEG coefficient, lies
 # within rounding of a half-integer; at most RE_TIE_SHARE of the values may.
 RE_TIE_SHARE = 1e-3
+# The prep_infer phase, the path a user walks from HR images to SR images:
+# PI_HR HR PNGs of PI_HR_SIZE (h, w) made on the card -> generate_bicubic_lr
+# --mod 12 --gt_output (GT 396 x 516, LR 99 x 129) -> generate_mask -> the
+# ESRGAN-SSL train CLI at the shipped YAML's values (batch MAIN_B, gt MAIN_GT,
+# CLI_WORKERS loader processes) for PI_ITERS iterations -> the inference
+# entry points on the first PI_INFER LR images, whole and in PI_TILE (tile,
+# halo) tiles -> back_projection on PI_GEN of their SR; one DIV2K-valid HR
+# (PI_DIV2K) through generate_bicubic_lr and the entry points; PI_GEN HR
+# through generate_realesrgan_bsrgan_lr (GENERATE_OPT).  Each entry point's
+# first image on the card with TF32 off against the same CLI with --device
+# cpu: within one level on at most PI_LEVEL_SHARE of the values.  The
+# registry hold: each arch of PI_REGISTRY at its default width (input shape
+# given), forward and backward on the card and on the CPU, TF32 off, against
+# the CPU in float64: in float64 the output, input gradient and parameter
+# gradients within PI_REG_F64; in float32 the output within PI_REG_REL_L2.
+PI_HR, PI_HR_SIZE, PI_ITERS, PI_INFER, PI_GEN = 24, (400, 520), 2, 8, 4
+PI_TILE = (100, 16)
+PI_DIV2K = (1356, 2040)
+PI_LEVEL_SHARE, PI_REG_REL_L2, PI_REG_F64 = 1e-3, 1e-4, 1e-10
+# options/test/SwinIRGANSSL/test_SwinIRGANSSL_bicubic_x4.yml's network_g
+PI_SWINIR = {"in_chans": 3, "img_size": 64, "window_size": 8, "img_range": 1.0,
+             "depths": [6] * 6, "embed_dim": 180, "num_heads": [6] * 6, "mlp_ratio": 2,
+             "upsampler": "pixelshuffle", "resi_connection": "1conv"}
+PI_REGISTRY = {"UNetDiscriminatorSNv1": (2, 3, 128, 128), "MOD": (2, 3, 64, 64),
+               "Discriminator_VGG_192": (2, 3, 192, 192),
+               "DiscriminatorSN_VGG_192": (2, 3, 192, 192),
+               "NLayerDiscriminator": (2, 3, 128, 128), "RRDBPSNet": (1, 3, 24, 24),
+               "RRDBMeanNet": (1, 3, 24, 24)}
+# options/generate/generate_RealESRGAN+BSRGAN_LR.yml as a dict (its datasets
+# block is the phase's folder)
+GENERATE_OPT = {
+    "manual_seed": 0, "scale": 4,
+    "RealESRGAN": {
+        "scale": 4, "use_second_order_prob": 0.2, "resize_prob": [0.1, 0.85, 0.05],
+        "resize_range": [0.8, 1.1], "gaussian_noise_prob": 0.5, "noise_range": [1, 8],
+        "poisson_scale_range": [0.05, 0.5], "gray_noise_prob": 0.2, "jpeg_range": [87, 95],
+        "blur_kernel_size_min": 1, "blur_kernel_size_max": 3, "kernel_list": ["iso", "aniso"],
+        "kernel_prob": [0.7, 0.3], "sinc_prob": 0.01, "blur_sigma": [0.1, 0.4],
+        "betag_range": [0.1, 0.7], "betap_range": [0.1, 0.7], "second_blur_prob": 0.8,
+        "resize_prob2": [0.1, 0.85, 0.05], "resize_range2": [0.8, 1.1],
+        "gaussian_noise_prob2": 0.5, "noise_range2": [0, 5], "poisson_scale_range2": [0, 0.4],
+        "gray_noise_prob2": 0.2, "jpeg_range2": [90, 95], "blur_kernel_size_min2": 1,
+        "blur_kernel_size_max2": 2, "kernel_list2": ["iso", "aniso"], "kernel_prob2": [0.7, 0.3],
+        "sinc_prob2": 0.01, "blur_sigma2": [0.1, 0.3], "betag_range2": [0.1, 0.5],
+        "betap_range2": [0.1, 0.5], "final_sinc_prob": 0.1},
+    "BSRGAN": {"sf": 4, "add_blur_kernel_range": [0, 4],
+               "downsample2_resize_range": [0.75, 1.0], "add_gaussian_noise_range": [1, 10],
+               "add_jpeg_noise_range": [85, 95]},
+}
 
 
 def emit(obj) -> None:
@@ -4662,6 +4733,375 @@ def realesrgan_host_run(root: str, opt: dict, device: str) -> tuple[dict, int]:
             "pool_pairs_bit_for_bit": len(want["pool_buffers"])}, launches
 
 
+def write_png(img, path: str) -> None:
+    """A (3, h, w) RGB tensor of uint8 values as a BGR PNG through ``utils/png.py``."""
+    from ssl_tpu_torch.utils.png import encode_png
+    with open(path, "wb") as f:
+        f.write(encode_png(img.byte().cpu().numpy().transpose(1, 2, 0)[..., ::-1]))
+
+
+def read_png(path: str):
+    import numpy as np
+    from ssl_tpu_torch.utils.png import decode_png
+    with open(path, "rb") as f:
+        return decode_png(f.read(), "unchanged").astype(np.int64)
+
+
+def levels_off(a, b) -> dict:
+    """Two uint8 images: the largest difference in levels and the share of
+    values that differ."""
+    import numpy as np
+    if a.shape != b.shape:
+        fail(f"prep_infer: shapes {a.shape} and {b.shape} differ")
+    d = np.abs(a - b)
+    return {"max_levels": int(d.max()), "share": float((d > 0).mean())}
+
+
+def subset(src: str, dst: str, names) -> str:
+    """``dst`` holding copies of ``src``'s files ``names``."""
+    import shutil
+    os.makedirs(dst, exist_ok=True)
+    for name in names:
+        shutil.copy(os.path.join(src, name), os.path.join(dst, name))
+    return dst
+
+
+def prep_train_opt(d: dict, mask_dir: str) -> dict:
+    """The shipped ESRGAN-SSL YAML's values (``shipped_opt``) on the files
+    the data-preparation entry points wrote: PI_ITERS iterations, a log line
+    each and a checkpoint at the last; no validation set."""
+    opt = shipped_opt(MAIN_B)
+    opt["name"] = "prep_infer_ESRGANSSL"
+    opt["datasets"] = {"train": {
+        "name": "prep_infer", "type": "PairedImageMaskDataset", "dataroot_gt": d["gt"],
+        "dataroot_lq": d["lr"], "dataroot_gt_mask": mask_dir, "filename_tmpl": "{}",
+        "io_backend": {"type": "disk"}, "gt_size": MAIN_GT, "use_hflip": True, "use_rot": True,
+        "num_worker_per_gpu": CLI_WORKERS, "batch_size_per_gpu": MAIN_B,
+        "dataset_enlarge_ratio": CLI_ENLARGE}}
+    opt["path"]["resume_state"] = None
+    opt["train"]["total_iter"] = PI_ITERS
+    opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": PI_ITERS, "use_tb_logger": False}
+    return opt
+
+
+class image_times:
+    """The wall clock at the end of each image file an inference entry point
+    writes while the block runs (its ``imwrite``, after the image is on the
+    host): ``record(t0)`` gives the first image's ms from ``t0`` (the net's
+    build and load included) and the mean ms per image after it."""
+
+    def __enter__(self):
+        from ssl_tpu_torch.scripts.inference import common
+        from ssl_tpu_torch.utils import img_util
+        self.targets, self.stamps = (common, img_util), []
+        self.saved = [m.imwrite for m in self.targets]
+
+        def stamped(*a, _f=img_util.imwrite, **kw):
+            out = _f(*a, **kw)
+            self.stamps.append(time.perf_counter())
+            return out
+        for m in self.targets:
+            m.imwrite = stamped
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.targets, self.saved):
+            m.imwrite = f
+
+    def record(self, t0: float) -> dict:
+        st = self.stamps
+        return {"images": len(st), "first_image_ms": 1e3 * (st[0] - t0),
+                "ms_per_image": 1e3 * (st[-1] - st[0]) / (len(st) - 1) if len(st) > 1 else None}
+
+
+def run_entry(main, argv: list, device: str) -> dict:
+    """One inference entry point run on ``device``: its times per image and
+    peak device memory."""
+    import torch
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with image_times() as times:
+        main(argv)
+    rec = times.record(t0)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+    return rec
+
+
+def registry_hold(device: str) -> dict:
+    """Each arch of PI_REGISTRY at its default width from a seeded init,
+    forward and backward (train mode: batch statistics, power iterations) on
+    ``device`` and on the CPU from the same weights and input, TF32 off: the
+    output, the input's gradient and all parameters' gradients in relative L2
+    against the CPU in float64.  In float64 the card holds within
+    PI_REG_F64.  In float32 the output holds within PI_REG_REL_L2; the
+    gradients are reported beside the CPU float32's own: where a
+    pre-activation lies within rounding of 0, the two sides take the other
+    slope of the leaky ReLU, and one such element moves a gradient by ~1e-4
+    in relative L2 (on an H100: 2.6e-4 at UNetDiscriminatorSNv1's conv3
+    from one kink, against 3e-7 with none).  Also the card's ms for a
+    float32 forward and backward."""
+    import copy
+    import torch
+    from ssl_tpu_torch.metrics.metric_util import exact_float32
+    from ssl_tpu_torch.utils.registry import build_network
+    out = {}
+    keys = ("output", "input_grad", "param_grads")
+    for i, (name, shape) in enumerate(PI_REGISTRY.items()):
+        net = build_network({"type": name})
+        net.reset_parameters(torch.Generator().manual_seed(i))
+        x = torch.rand(shape, generator=torch.Generator().manual_seed(100 + i))
+
+        def run(dev, dtype=torch.float32):
+            m = copy.deepcopy(net).to(dev, dtype).train()
+            xi = x.detach().to(dev, dtype).clone().requires_grad_(True)
+            y = m(xi)
+            if name == "MOD":                             # logits and the routing softmax
+                loss = y[0].sum() + (y[1] ** 2).sum()
+                y = y[0]
+            else:
+                loss = y.sum()
+            loss.backward()
+            grads = torch.cat([p.grad.flatten() for p in m.parameters()])
+            return y.detach().cpu(), xi.grad.cpu(), grads.cpu(), (m, xi)
+
+        with exact_float32():
+            want = run("cpu", torch.float64)
+            err = {side: {k: rel_l2(g, w) for k, g, w in zip(keys, got[:3], want[:3])}
+                   for side, got in (("card_float64", run(device, torch.float64)),
+                                     ("cpu_float32", run("cpu")))}
+            card = run(device)
+            err["card_float32"] = {k: rel_l2(g, w) for k, g, w in zip(keys, card[:3], want[:3])}
+            m, xi = card[3]
+
+            def step():
+                xi.grad = None
+                y = m(xi)
+                (y[0].sum() if name == "MOD" else y.sum()).backward()
+            ms = time_ms(step, 3) if device == "cuda" else None
+        if max(err["card_float64"].values()) > PI_REG_F64 or \
+                err["card_float32"]["output"] > PI_REG_REL_L2:
+            fail(f"prep_infer: registry hold {name}: {err} (bounds {PI_REG_F64} in float64, "
+                 f"{PI_REG_REL_L2} on the float32 output)")
+        out[name] = {"shape": list(shape), "rel_l2_to_cpu_float64": err, "fwd_bwd_ms": ms,
+                     "params": sum(p.numel() for p in net.parameters())}
+    return out
+
+
+def phase_prep_infer(device: str = "cuda"):
+    """From HR images to SR images with the port alone, through the entry
+    points a user calls: generate_bicubic_lr, generate_mask, the ESRGAN-SSL
+    train CLI (K1 once per iteration), inference_ssl_sr whole and tiled,
+    inference_rrdbnet, inference_swinir, back_projection and
+    generate_realesrgan_bsrgan_lr; each entry point's first image held
+    against its CPU run, inference_ssl_sr's SR against the test CLI's; the
+    DIV2K-valid size's times; the registry hold.  Returns K1's launches."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+    import ssl_tpu_torch.test as test_cli
+    from ssl_tpu_torch.metrics.metric_util import exact_float32
+    from ssl_tpu_torch.scripts import (back_projection, generate_bicubic_lr,
+                                       generate_realesrgan_bsrgan_lr)
+    from ssl_tpu_torch.scripts.inference import (inference_rrdbnet, inference_ssl_sr,
+                                                 inference_swinir)
+    from ssl_tpu_torch.utils.registry import build_network
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    dev = ["--device", device] if device != "cuda" else []   # the entry points default to the card
+    sections, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        """The seconds since the previous mark, kept under ``name``."""
+        now = time.perf_counter()
+        sections[name] = now - last[0]
+        last[0] = now
+
+    with tempfile.TemporaryDirectory(prefix="prep_infer_") as root:
+        d = {k: os.path.join(root, k) for k in ("hr", "gt", "lr", "masks", "div2k_hr",
+                                                "div2k_gt", "div2k_lr", "gen_lr", "gen_sr", "bp")}
+        os.makedirs(d["hr"])
+        gen = torch.Generator(device=device).manual_seed(19)
+        t0 = time.perf_counter()
+        for i in range(PI_HR):
+            write_png(smooth_picture(*PI_HR_SIZE, gen, device), os.path.join(d["hr"], f"{i:04d}.png"))
+        fixtures_s = time.perf_counter() - t0
+        names = sorted(os.listdir(d["hr"]))
+        mark("fixtures")
+
+        # data preparation
+        prep_s = {}
+        _, prep_s["generate_bicubic_lr"] = timed(generate_bicubic_lr.main, [
+            "--input", d["hr"], "--output", d["lr"], "--mod", "12", "--gt_output", d["gt"]])
+        gt_hw = tuple(n - n % 12 for n in PI_HR_SIZE)
+        lr_hw = tuple(n // SCALE for n in gt_hw)
+        lr0 = read_png(os.path.join(d["lr"], names[0]))
+        if lr0.shape != lr_hw + (3,) or \
+                read_png(os.path.join(d["gt"], names[0])).shape != gt_hw + (3,):
+            fail(f"prep_infer: LR {lr0.shape} from {PI_HR_SIZE} HR")
+        (mask_dir, edge_share), prep_s["generate_mask"] = timed(generate_masks, d["gt"], d["masks"])
+        mark("data_preparation")
+
+        # the train CLI at the shipped widths on those files
+        opt = prep_train_opt(d, mask_dir)
+        opt_path = os.path.join(root, "prep_train.json")
+        with open(opt_path, "w") as f:
+            json.dump(opt, f)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        state, logged, launches, train_wall = run_train_cli(root, ["-opt", opt_path] + dev, device)
+        train_peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+        del state
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        if launches != PI_ITERS:
+            fail(f"prep_infer: K1 launched {launches} times in {PI_ITERS} iterations")
+        loss_keys = ("l_pix", "l_percep", "l_g_gan", "l_selfsim", "l_selfsim_kl", "l_d_real",
+                     "l_d_fake")
+        for x in logged:
+            if not all(np.isfinite(x.get(k, np.nan)) for k in loss_keys):
+                fail(f"prep_infer: iteration {x['iter']}: losses {x}")
+        model_path = os.path.join(root, "experiments", opt["name"], "models",
+                                  f"net_g_{PI_ITERS}.pth")
+        if not os.path.isfile(model_path):
+            fail(f"prep_infer: {model_path} was not written")
+        mark("train_cli")
+
+        # the inference entry points on the first PI_INFER LR images
+        lq = subset(d["lr"], os.path.join(root, "lq"), names[:PI_INFER])
+        one = subset(d["lr"], os.path.join(root, "lq_one"), names[:1])
+        tile = ["--tile_size", str(PI_TILE[0]), "--tile_pad", str(PI_TILE[1])]
+        swin_path = os.path.join(root, "swinir_seeded.pth")
+        swin = build_network({"type": "SwinIR", "upscale": SCALE, **PI_SWINIR})
+        swin.reset_parameters(torch.Generator().manual_seed(0))
+        torch.save({"params_ema": swin.state_dict()}, swin_path)
+        del swin
+        entries = {
+            "inference_ssl_sr": (inference_ssl_sr.main, ["--model_path", model_path]),
+            "inference_ssl_sr_tiled": (inference_ssl_sr.main, ["--model_path", model_path] + tile),
+            "inference_rrdbnet": (inference_rrdbnet.main, ["--model_path", model_path]),
+            "inference_swinir": (inference_swinir.main, [
+                "--model_path", swin_path, "--net_opt", json.dumps(PI_SWINIR)]),
+        }
+        runs, holds, cpu_s = {}, {}, 0.0
+        for label, (main_fn, extra) in entries.items():
+            out_dir = os.path.join(root, f"sr_{label}")
+            runs[label] = run_entry(main_fn, ["--input", lq, "--output", out_dir] + extra + dev,
+                                    device)
+            sr = read_png(os.path.join(out_dir, sorted(os.listdir(out_dir))[0]))
+            if sr.shape != gt_hw + (3,) or sr.std() < 1:
+                fail(f"prep_infer: {label}'s SR {sr.shape}, std {sr.std()}")
+            if label == "inference_swinir":
+                continue
+            # the first image: the card with TF32 off against --device cpu
+            got = {}
+            for side, flags in (("card", dev), ("cpu", ["--device", "cpu"])):
+                side_dir = os.path.join(root, f"one_{label}_{side}")
+                t0 = time.perf_counter()
+                with exact_float32():
+                    main_fn(["--input", one, "--output", side_dir] + extra + flags)
+                cpu_s += time.perf_counter() - t0 if side == "cpu" else 0.0
+                got[side] = read_png(os.path.join(side_dir, sorted(os.listdir(side_dir))[0]))
+            holds[label] = levels_off(got["card"], got["cpu"])
+            if holds[label]["max_levels"] > 1 or holds[label]["share"] > PI_LEVEL_SHARE:
+                fail(f"prep_infer: {label} on the card against the CPU: {holds[label]}")
+            if label == "inference_ssl_sr":
+                ssl_sr_card = got["card"]
+        mark("inference_and_holds")
+
+        # inference_ssl_sr's SR against the test CLI's, both TF32 off
+        test_opt = {"name": "prep_infer_test", "model_type": "ESRGANSSLModel", "scale": SCALE,
+                    "num_devices": 1, "manual_seed": 0,
+                    "datasets": {"test_1": {"name": "prep_one", "type": "PairedImageDataset",
+                                            "dataroot_gt": subset(d["gt"], os.path.join(
+                                                root, "gt_one"), names[:1]),
+                                            "dataroot_lq": one, "io_backend": {"type": "disk"}}},
+                    "network_g": opt["network_g"],
+                    "path": {"pretrain_network_g": model_path, "param_key_g": "params_ema"},
+                    "val": {"save_img": True, "metrics": CLI_METRICS}}
+        test_path = os.path.join(root, "prep_test.json")
+        with open(test_path, "w") as f:
+            json.dump(test_opt, f)
+        with exact_float32():
+            test_metrics = test_cli.test_pipeline(root, ["-opt", test_path] + dev)["prep_one"]
+        vis = os.path.join(root, "results", "prep_infer_test", "visualization", "prep_one")
+        holds["ssl_sr_vs_test_cli"] = levels_off(
+            read_png(os.path.join(vis, sorted(os.listdir(vis))[0])), ssl_sr_card)
+        if holds["ssl_sr_vs_test_cli"]["max_levels"] > 1:
+            fail(f"prep_infer: inference_ssl_sr against the test CLI: "
+                 f"{holds['ssl_sr_vs_test_cli']}")
+        mark("test_cli")
+
+        # back_projection on PI_GEN of the SR, and generate_realesrgan_bsrgan_lr
+        sr_dir = os.path.join(root, "sr_inference_ssl_sr")
+        (bp_names, prep_s["back_projection"]) = timed(back_projection.main, [
+            "--lr", subset(d["lr"], os.path.join(root, "lr_bp"), names[:PI_GEN]),
+            "--pre", subset(sr_dir, os.path.join(root, "sr_bp"), names[:PI_GEN]),
+            "--out", d["bp"]])
+        gen_opt = dict(GENERATE_OPT, datasets={"prep": {"dataroot": subset(
+            d["hr"], os.path.join(root, "hr_gen"), names[:PI_GEN])}})
+        gen_path = os.path.join(root, "generate.json")
+        with open(gen_path, "w") as f:
+            json.dump(gen_opt, f)
+        branches, prep_s["generate_realesrgan_bsrgan_lr"] = timed(
+            generate_realesrgan_bsrgan_lr.main, ["--param_path", gen_path, "--save_LR_path",
+                                                 d["gen_lr"], "--save_bicubicSR_path", d["gen_sr"]])
+        for name, _ in branches:
+            base = os.path.splitext(name)[0] + ".png"
+            if read_png(os.path.join(d["gen_sr"], base)).shape != tuple(PI_HR_SIZE) + (3,):
+                fail(f"prep_infer: the bicubic SR of {name}")
+        mark("back_projection_and_generate")
+
+        # one DIV2K-valid image (twice, for a steady-state time per image)
+        os.makedirs(d["div2k_hr"])
+        write_png(smooth_picture(*PI_DIV2K, gen, device), os.path.join(d["div2k_hr"], "a.png"))
+        _, prep_s["generate_bicubic_lr_div2k"] = timed(generate_bicubic_lr.main, [
+            "--input", d["div2k_hr"], "--output", d["div2k_lr"], "--mod", "12", "--gt_output",
+            d["div2k_gt"]])
+        import shutil
+        shutil.copy(os.path.join(d["div2k_lr"], "a.png"), os.path.join(d["div2k_lr"], "b.png"))
+        div2k = {}
+        for label, (main_fn, extra) in entries.items():
+            out_dir = os.path.join(root, f"div2k_{label}")
+            div2k[label] = run_entry(main_fn, ["--input", d["div2k_lr"], "--output", out_dir]
+                                     + extra + dev, device)
+            if read_png(os.path.join(out_dir, sorted(os.listdir(out_dir))[0])).shape != \
+                    tuple(n - n % 12 for n in PI_DIV2K) + (3,):
+                fail(f"prep_infer: {label} at the DIV2K size")
+        mark("div2k")
+        registry = registry_hold(device)
+        mark("registry")
+
+    per_image = {"generate_bicubic_lr": PI_HR, "generate_mask": PI_HR,
+                 "back_projection": PI_GEN, "generate_realesrgan_bsrgan_lr": PI_GEN,
+                 "generate_bicubic_lr_div2k": 1}
+    result = {
+        "phase": "prep_infer", "hr_images": PI_HR, "hr_size": list(PI_HR_SIZE),
+        "lr_size": list(lr_hw), "fixtures_s": fixtures_s,
+        "prep_ms_per_image": {k: 1e3 * prep_s[k] / n for k, n in per_image.items()},
+        "edge_share": edge_share, "decoder": decoder(),
+        "train": {"iterations": PI_ITERS, "k1_launches": launches, "wall_s": train_wall,
+                  "iter_ms": [1e3 * x["time"] for x in logged], "peak_mem_gb": train_peak,
+                  "losses_last_iter": {k: logged[-1][k] for k in loss_keys}},
+        "inference": runs, "inference_div2k": div2k,
+        "div2k_lr": [(n - n % 12) // SCALE for n in PI_DIV2K],
+        "tile": list(PI_TILE), "holds": holds, "test_cli_metrics": test_metrics,
+        "realesrgan_bsrgan_branches": [t for _, t in branches],
+        "back_projection_images": len(bp_names), "registry": registry,
+        "tf32": "entry point runs timed at cuDNN TF32 on (torch's default); holds with TF32 off",
+        "seconds": sections, "cpu_hold_runs_s": cpu_s,
+        "card": card() if device == "cuda" else None}
+    emit(result)
+    return launches
+
+
 def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
     """The kernels line's K2 entries, float32 and bf16: the kernel phases'
     results by case (``phase_k2``, ``phase_k2_bwd`` and their bf16
@@ -4781,14 +5221,14 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
 
 
 def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
-                 recipes, kair, bench, k2_16, k2_bwd_16, dbf16) -> dict:
+                 recipes, kair, bench, k2_16, k2_bwd_16, dbf16, prep) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
     phases' results (K1's, K2's forward's and backward's by case, the serving
     K2 launches and forward kernel launches, the diffusion_train and
     diffusion_cli launch counts, the K1 launches of the ESRGAN train step
     and of the CLIs, the recipes phase's K1 launches and holds, and the kair
-    phase's K1 launches by recipe and holds, and the bench phase's K1
-    launches by mode; K2's bf16 kernels from the bf16 kernel phases and the
+    phase's K1 launches by recipe and holds, the bench phase's K1
+    launches by mode, and the prep_infer phase's train CLI's K1 launches; K2's bf16 kernels from the bf16 kernel phases and the
     diffusion_bf16 phase's launches).  K1's float32 mode and its bf16 stream
     + store mode (bench.py's step) each have an entry; ``modes`` under the
     first lists every mode held, the bf16 stream mode (the batched route)
@@ -4807,7 +5247,7 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
               "b24_3x128^2": "bench_f32",
               "b12_3x400^2": "realesrgan_edges", "b12_3x256^2": "realesrgan_host_edges",
               **{f"b{KAIR[r]['batch']}_3x{KAIR[r]['gt']}^2": f"kair_{r}" for r in KAIR}}
-    k1_runs = {"main_path": launches + cli + recipes,
+    k1_runs = {"main_path": launches + cli + recipes + prep,
                "diffusion_smooth": train["k1"] + dcli["k1"],
                "realesrgan_edges": realesrgan, "realesrgan_host_edges": realesrgan_host,
                "bench_f32": bench_launches["float32"],
@@ -4830,12 +5270,12 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
         "replaces": "ssl_tpu/ops/ssg_pallas.py:41",
         "mode": "float32",
         "launches": launches + cli + train["k1"] + realesrgan + realesrgan_host + dcli["k1"]
-        + recipes + sum(kair_launches.values()) + bench_launches["float32"],
+        + recipes + sum(kair_launches.values()) + bench_launches["float32"] + prep,
         "launches_by_path": {"esrgan_train": launches, "esrgan_cli": cli,
                              "diffusion_train": train["k1"], "realesrgan_cli": realesrgan,
                              "realesrgan_host_cli": realesrgan_host, "diffusion_cli": dcli["k1"],
                              "recipes_cli": recipes, "kair_cli": sum(kair_launches.values()),
-                             "bench_f32": bench_launches["float32"]},
+                             "bench_f32": bench_launches["float32"], "prep_infer_cli": prep},
         "max_abs_err": max([k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth",
                                                            "realesrgan_edges",
                                                            "realesrgan_host_edges",
@@ -4854,7 +5294,7 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
         "bound_ms_by_shape": {s: k1[c]["bound_ms"] for s, c in shapes.items()},
         "plain_ms_by_shape": {s: k1[c]["plain_ms"] for s, c in shapes.items()},
         "times_are": "mean per launch over the run's launches (b16 3x128^2 in the ESRGAN "
-                     "step and CLI and the six recipes' CLIs, b2 3x512^2 in the diffusion "
+                     "step and CLI, the six recipes' CLIs and the prep_infer train CLI, b2 3x512^2 in the diffusion "
                      "mini-step and its CLI, b12 3x400^2 in the RealESRGAN-SSL CLI, b12 "
                      "3x256^2 in its host mode, b48 3x256^2, b64 3x192^2 and b16 3x256^2 "
                      "in the KAIR family's CLIs); ms is the kernel's device time "
@@ -4968,11 +5408,13 @@ def main() -> int:
     recipes = run("recipes", phase_recipes)
     torch.cuda.empty_cache()
     kair = run("kair", phase_kair)
+    torch.cuda.empty_cache()
+    prep = run("prep_infer", phase_prep_infer)
 
     metric_dir.cleanup()
     emit({"phase": "wall", "seconds": wall, "total_s": time.perf_counter() - start})
     emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli, recipes,
-                      kair, bench, k2_16, k2_bwd_16, dbf16))
+                      kair, bench, k2_16, k2_bwd_16, dbf16, prep))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,11 @@
 """Discriminators (reference: archs/discriminator_arch.py).
 
 Counterpart of ``ssl_tpu/archs/discriminator_arch.py``:
-``VGGStyleDiscriminator``, the D of the shipped ESRGAN-SSL config, and
-``UNetDiscriminatorSN``, the D of RealESRGAN-SSL.
+``VGGStyleDiscriminator``, the D of the shipped ESRGAN-SSL config,
+``UNetDiscriminatorSN``, the D of RealESRGAN-SSL, and the registry's other
+discriminators, which no shipped option file names: ``UNetDiscriminatorSNv1``,
+``MOD``, ``Discriminator_VGG_192``, ``DiscriminatorSN_VGG_192`` and
+``NLayerDiscriminator``.
 
 VGGStyleDiscriminator's module names follow the reference state dict
 (conv0_0, conv0_1/bn0_1, ..., linear1, linear2), whose head flattens NCHW.
@@ -229,3 +232,167 @@ class UNetDiscriminatorSN(nn.Module):
         out = lrelu(self.conv8(out))
         out = self.conv9(out)
         return out if self.compute_dtype is None else out.float()
+
+
+@ARCH_REGISTRY.register()
+class UNetDiscriminatorSNv1(nn.Module):
+    """Shallow (one-level) U-Net SN discriminator (reference :388-425).  The
+    upsampling goes back to conv0's size, which is not twice conv1's on an
+    odd side: ``F.interpolate`` bilinear with ``align_corners=False``
+    computes what ``jax.image.resize``'s bilinear does when it upsamples
+    (the edge taps clamp in one and renormalise in the other, to the same
+    weights)."""
+
+    def __init__(self, num_in_ch: int = 3, num_feat: int = 64, skip_connection: bool = True):
+        super().__init__()
+        self.skip_connection = skip_connection
+        self.conv0 = Conv2d(num_in_ch, num_feat, 3, 1, 1)
+        self.conv1 = SNConv2d(num_feat, num_feat * 2, 4, 2)
+        self.conv2 = SNConv2d(num_feat * 2, num_feat, 3)
+        self.conv3 = SNConv2d(num_feat, num_feat, 3)
+        self.conv4 = Conv2d(num_feat, 1, 3, 1, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init_sn_discriminator(self, generator)
+
+    def forward(self, x):
+        def lrelu(v):
+            return F.leaky_relu(v, 0.2)
+
+        x0 = lrelu(self.conv0(x))
+        x1 = lrelu(self.conv1(x0))
+        x1 = F.interpolate(x1, size=x0.shape[-2:], mode="bilinear", align_corners=False)
+        x2 = lrelu(self.conv2(x1))
+        if self.skip_connection:
+            x2 = x2 + x0
+        return self.conv4(lrelu(self.conv3(x2)))
+
+
+@ARCH_REGISTRY.register()
+class MOD(nn.Module):
+    """Mixture of discriminators with hard expert routing (reference
+    :39-110), as the JAX module lays it out: a 7-conv BN feature extractor
+    (``fe_conv*``, ``fe_bn*``); routing = softmax(feature @ ``w_gating1``)
+    per pixel; the code reduction lrelu(lrelu(``cr_body``(feature)) *
+    ``cr_weight``) split into ``num_expert`` parts; one classifier
+    (``cls_fc1``, ``cls_fc2``) shared by every expert, the argmax expert's
+    logit taken per pixel.  Pixels are the (b, h * w) tokens in row-major
+    order, as the JAX module flattens NHWC.  Returns ``(logits (b, hw, 1),
+    routing (b, hw, E), parts [E x (b, hw, c)], ortho_weight (E, c))``."""
+
+    def __init__(self, num_in_ch: int = 3, num_feat: int = 64, num_expert: int = 12):
+        super().__init__()
+        nf, self.num_expert = num_feat, num_expert
+        self.fe_conv0 = nn.Conv2d(num_in_ch, nf, 3, 1, 1)
+        self.fe_conv1 = nn.Conv2d(nf, nf, 4, 2, 1, bias=False)
+        self.fe_conv2 = nn.Conv2d(nf, nf * 2, 3, 1, 1, bias=False)
+        self.fe_conv3 = nn.Conv2d(nf * 2, nf * 2, 4, 2, 1, bias=False)
+        self.fe_conv4 = nn.Conv2d(nf * 2, nf * 4, 3, 1, 1, bias=False)
+        self.fe_conv5 = nn.Conv2d(nf * 4, nf * 4, 3, 1, 1, bias=False)
+        self.fe_conv6 = nn.Conv2d(nf * 4, nf * 4, 3, 1, 1, bias=False)
+        for i, c in enumerate((nf, nf * 2, nf * 2, nf * 4, nf * 4, nf * 4), start=1):
+            setattr(self, f"fe_bn{i}", BatchNorm2d(c))
+        c = nf * 4
+        self.w_gating1 = nn.Parameter(torch.zeros(c, num_expert))
+        self.cr_body = nn.Linear(c, c * num_expert)
+        self.cr_weight = nn.Parameter(torch.zeros(1, 1, c * num_expert))
+        self.cls_fc1 = nn.Linear(c, num_feat // 2)
+        self.cls_fc2 = nn.Linear(num_feat // 2, 1)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Convs and linears from N(0, 1 / fan_in), unit batch norms, and the
+        gating and transform weights from N(0, 1), as flax draws them."""
+        normal_init_(self, generator)
+        self.w_gating1.copy_(torch.randn(self.w_gating1.shape, generator=generator))
+        self.cr_weight.copy_(torch.randn(self.cr_weight.shape, generator=generator))
+
+    def forward(self, x):
+        def lrelu(v):
+            return F.leaky_relu(v, 0.2)
+
+        f = lrelu(self.fe_conv0(x))
+        for i in range(1, 7):
+            f = lrelu(getattr(self, f"fe_bn{i}")(getattr(self, f"fe_conv{i}")(f)))
+        b, c, h, w = f.shape
+        feature = f.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        routing = torch.softmax(feature @ self.w_gating1, dim=-1)
+        proj = lrelu(lrelu(self.cr_body(feature)) * self.cr_weight)
+        parts = list(torch.split(proj, c, dim=-1))
+        top = torch.argmax(routing, dim=-1)
+        stacked = torch.stack([self.cls_fc2(lrelu(self.cls_fc1(p))) for p in parts], dim=-1)
+        output = torch.gather(stacked, -1, top[..., None, None])[..., 0]
+        return output, routing, parts, self.cr_weight.reshape(self.num_expert, -1)
+
+
+@ARCH_REGISTRY.register()
+class Discriminator_VGG_192(VGGStyleDiscriminator):
+    """192-input VGG-style D (reference :194-255): layer for layer
+    ``VGGStyleDiscriminator(input_size=192)``, whose names and weight carry
+    it shares."""
+
+    def __init__(self, num_in_ch: int = 3, num_feat: int = 64):
+        super().__init__(num_in_ch, num_feat, 192)
+
+
+@ARCH_REGISTRY.register()
+class DiscriminatorSN_VGG_192(nn.Module):
+    """Spectral-norm VGG D for 192 inputs (reference :258-323): ``conv0_0``
+    plain and biased, ``conv0_1`` to ``conv5_1`` spectrally normalized
+    (``SNConv2d``, flax's power iteration) and bias-free, then ``linear1``
+    and ``linear2`` on the NCHW-flattened 3 x 3 map."""
+
+    def __init__(self, num_in_ch: int = 3, num_feat: int = 64):
+        super().__init__()
+        nf = num_feat
+        self.conv0_0 = nn.Conv2d(num_in_ch, nf, 3, 1, 1)
+        self.conv0_1 = SNConv2d(nf, nf, 4, 2)
+        chans = [nf, nf * 2, nf * 4, nf * 8, nf * 8, nf * 8]
+        for i in range(1, 6):
+            setattr(self, f"conv{i}_0", SNConv2d(chans[i - 1], chans[i], 3))
+            setattr(self, f"conv{i}_1", SNConv2d(chans[i], chans[i], 4, 2))
+        self.linear1 = nn.Linear(nf * 8 * 3 * 3, 100)
+        self.linear2 = nn.Linear(100, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init_sn_discriminator(self, generator)
+
+    def forward(self, x):
+        if x.shape[-2:] != (192, 192):
+            raise ValueError(f"input must be 192x192, got {tuple(x.shape)}")
+        lrelu = lambda v: F.leaky_relu(v, 0.2)  # noqa: E731
+        feat = lrelu(self.conv0_1(lrelu(self.conv0_0(x))))
+        for i in range(1, 6):
+            feat = lrelu(getattr(self, f"conv{i}_1")(lrelu(getattr(self, f"conv{i}_0")(feat))))
+        return self.linear2(lrelu(self.linear1(feat.flatten(1))))
+
+
+@ARCH_REGISTRY.register()
+class NLayerDiscriminator(nn.Module):
+    """PatchGAN discriminator (taming / pix2pix layout; the reference's CFW
+    adversarial loss uses it): ``conv0`` (stride 2, biased), ``conv1`` to
+    ``conv{n_layers - 1}`` (stride 2) and ``conv{n_layers}`` (stride 1),
+    each bias-free with a flax-rule batch norm ``bn{k}``, then ``conv_out``
+    to a 1-channel logit map; every conv is 4 x 4 with padding 1."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3):
+        super().__init__()
+        self.n_layers = n_layers
+        self.conv0 = nn.Conv2d(input_nc, ndf, 4, 2, 1)
+        cin = ndf
+        for n in range(1, n_layers + 1):
+            cout = ndf * min(2 ** n, 8)
+            setattr(self, f"conv{n}", nn.Conv2d(cin, cout, 4, 2 if n < n_layers else 1, 1,
+                                                bias=False))
+            setattr(self, f"bn{n}", BatchNorm2d(cout))
+            cin = cout
+        self.conv_out = nn.Conv2d(cin, 1, 4, 1, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        normal_init_(self, generator)
+
+    def forward(self, x):
+        h = F.leaky_relu(self.conv0(x), 0.2)
+        for n in range(1, self.n_layers + 1):
+            h = F.leaky_relu(getattr(self, f"bn{n}")(getattr(self, f"conv{n}")(h)), 0.2)
+        return self.conv_out(h)

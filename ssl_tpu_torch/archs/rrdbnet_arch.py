@@ -1,6 +1,8 @@
 """RRDBNet — ESRGAN / RealESRGAN generator (reference: archs/rrdbnet_arch.py:67).
 
-Counterpart of ``ssl_tpu/archs/rrdbnet_arch.py::RRDBNet``.  The dense block
+Counterpart of ``ssl_tpu/archs/rrdbnet_arch.py``: ``RRDBNet``, and its two
+variants that no shipped option file names, ``RRDBPSNet`` (a pixel-shuffle
+tail) and ``RRDBMeanNet`` (DIV2K mean shift around RRDBNet).  The dense block
 uses the plain concat form; the JAX package's ``split_convs`` regrouping,
 scanned trunk, remat and unroll are TPU schedules of the same math and have
 no counterpart here.  Module names follow the reference state dict
@@ -118,3 +120,70 @@ class RRDBNet(nn.Module):
         feat = lrelu(self.conv_up2(F.interpolate(feat, scale_factor=2, mode="nearest")))
         out = self.conv_last(lrelu(self.conv_hr(feat)))
         return out if self.compute_dtype is None else out.float()
+
+
+@ARCH_REGISTRY.register()
+class RRDBPSNet(nn.Module):
+    """RRDBNet with a pixel-shuffle upsampler tail in place of the two
+    nearest + conv stages (reference rrdbnet_arch.py:143-195): ``upsample``
+    is conv (4 ``num_feat``) + PixelShuffle(2) per factor 2, or conv (9
+    ``num_feat``) + PixelShuffle(3) at scale 3 (``upsample.{2 k}`` are the
+    convs)."""
+
+    def __init__(self, num_in_ch: int = 3, num_out_ch: int = 3, scale: int = 4,
+                 num_feat: int = 64, num_block: int = 23, num_grow_ch: int = 32):
+        super().__init__()
+        self.scale = scale
+        if scale == 2:
+            num_in_ch *= 4
+        elif scale == 1:
+            num_in_ch *= 16
+        self.conv_first = Conv2d(num_in_ch, num_feat, 3, 1, 1)
+        self.body = make_layer(RRDB, num_block, num_feat=num_feat, num_grow_ch=num_grow_ch)
+        self.conv_body = Conv2d(num_feat, num_feat, 3, 1, 1)
+        if scale & (scale - 1) == 0:
+            ups = []
+            for _ in range(scale.bit_length() - 1):
+                ups += [Conv2d(num_feat, 4 * num_feat, 3, 1, 1), nn.PixelShuffle(2)]
+        elif scale == 3:
+            ups = [Conv2d(num_feat, 9 * num_feat, 3, 1, 1), nn.PixelShuffle(3)]
+        else:
+            raise ValueError(f"scale {scale} is not supported. Supported scales: 2^n and 3.")
+        self.upsample = nn.Sequential(*ups)
+        self.conv_hr = Conv2d(num_feat, num_feat, 3, 1, 1)
+        self.conv_last = Conv2d(num_feat, num_out_ch, 3, 1, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init_rrdb_net(self, generator)
+
+    def forward(self, x):
+        lrelu = lambda v: F.leaky_relu(v, 0.2)  # noqa: E731
+        if self.scale == 2:
+            feat = F.pixel_unshuffle(x, 2)
+        elif self.scale == 1:
+            feat = F.pixel_unshuffle(x, 4)
+        else:
+            feat = x
+        feat = self.conv_first(feat)
+        feat = feat + self.conv_body(self.body(feat))
+        feat = lrelu(self.upsample(feat))
+        return self.conv_last(lrelu(self.conv_hr(feat)))
+
+
+@ARCH_REGISTRY.register()
+class RRDBMeanNet(RRDBNet):
+    """RRDBNet inside DIV2K mean-shift wrappers (reference
+    rrdbnet_arch.py:197-258): (x - mean) * img_range through RRDBNet, then
+    / img_range + mean.  RRDBNet's module names, so the same weights load."""
+
+    def __init__(self, num_in_ch: int = 3, num_out_ch: int = 3, scale: int = 4,
+                 num_feat: int = 64, num_block: int = 23, num_grow_ch: int = 32,
+                 img_range: float = 255.0,
+                 rgb_mean=(0.4488, 0.4371, 0.4040)):
+        super().__init__(num_in_ch, num_out_ch, scale, num_feat, num_block, num_grow_ch)
+        self.img_range = float(img_range)
+        self.rgb_mean = tuple(float(v) for v in rgb_mean)
+
+    def forward(self, x):
+        mean = torch.tensor(self.rgb_mean, dtype=x.dtype, device=x.device)[None, :, None, None]
+        return super().forward((x - mean) * self.img_range) / self.img_range + mean

@@ -1,14 +1,15 @@
-"""The two-stage-degradation datasets of the diffusion tree.
+"""The two-stage-degradation datasets of the diffusion tree, and the
+Real-ESRGAN paired set.
 
 Counterpart of ``ssl_tpu/data/extra_datasets.py`` for
 ``TwoStageDegradationImgMaskDataset`` (:104-162, the StableSR-SSL training
 set) and ``TwoStageDegradationDF2KDataset`` (:75-100), each registered also
-under the reference's spelling.  Crops, flips and kernels take the global
-``random`` and ``np.random`` draws in the JAX package's order, so one seed
-gives its items; images become CHW float32 tensors (``gt`` (3, h, w) RGB in
-[0, 1], ``gt_mask`` (1, h, w), the kernels (21, 21)).  The rest of that file
-(``RealESRGANPairedDataset``, ``FFHQDataset``, ``FFHQDegradationDataset``)
-is not ported yet (ROADMAP.md)."""
+under the reference's spelling, and ``RealESRGANPairedDataset`` (:28-53).
+Crops, flips and kernels take the global ``random`` and ``np.random`` draws
+in the JAX package's order, so one seed gives its items; images become CHW
+float32 tensors (``gt`` (3, h, w) RGB in [0, 1], ``gt_mask`` (1, h, w), the
+kernels (21, 21)).  The rest of that file (``FFHQDataset``,
+``FFHQDegradationDataset``) is not ported yet (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -17,13 +18,46 @@ import random
 
 import torch
 
-from ssl_tpu_torch.data.data_util import paths_from_folder
+from ssl_tpu_torch.data.data_util import (paired_paths_from_folders,
+                                          paired_paths_from_meta_info_file, paths_from_folder)
 from ssl_tpu_torch.data.paired_image_dataset import BaseDataset, load_mask
 from ssl_tpu_torch.data.realesr_degradation import RealESRGANDegrader
 from ssl_tpu_torch.data.realesrgan_dataset import _kernels, _KernelSynth
-from ssl_tpu_torch.data.transforms import augment
+from ssl_tpu_torch.data.transforms import augment, paired_random_crop
 from ssl_tpu_torch.utils.img_util import img2array, img2tensor, imread
 from ssl_tpu_torch.utils.registry import DATASET_REGISTRY
+
+
+@DATASET_REGISTRY.register()
+class RealESRGANPairedDataset(BaseDataset):
+    """LQ / GT pairs listed by a ``meta_info`` file (its first column, the GT
+    names) or, without one, paired by name from the two folders (reference
+    realesrgan_paired_dataset.py); in the train phase a random aligned crop
+    of ``gt_size`` and flips / rotations (``use_hflip``, ``use_rot``, both on
+    unless the options say otherwise)."""
+
+    def __init__(self, opt: dict):
+        self.opt = opt
+        self.scale = opt.get("scale", 4)
+        folders, tmpl = [opt["dataroot_lq"], opt["dataroot_gt"]], opt.get("filename_tmpl", "{}")
+        if opt.get("meta_info"):
+            self.paths = paired_paths_from_meta_info_file(folders, ["lq", "gt"],
+                                                          opt["meta_info"], tmpl)
+        else:
+            self.paths = paired_paths_from_folders(folders, ["lq", "gt"], tmpl)
+        self.phase = opt.get("phase", "train")
+        self.gt_size = opt.get("gt_size")
+
+    def __getitem__(self, index):
+        d = self.paths[index]
+        img_gt = img2array(imread(d["gt_path"]))
+        img_lq = img2array(imread(d["lq_path"]))
+        if self.phase == "train":
+            img_gt, img_lq = paired_random_crop(img_gt, img_lq, self.gt_size, self.scale)
+            img_gt, img_lq = augment([img_gt, img_lq], self.opt.get("use_hflip", True),
+                                     self.opt.get("use_rot", True))
+        return {"lq": img2tensor(img_lq), "gt": img2tensor(img_gt), "lq_path": d["lq_path"],
+                "gt_path": d["gt_path"]}
 
 
 @DATASET_REGISTRY.register()

@@ -50,33 +50,42 @@ def _pulse(size: int = 21) -> np.ndarray:
 class _KernelSynth:
     """Per-item two-stage + sinc kernel synthesis (reference
     my_realesrgan_image_mask_dataset.py __getitem__:88-141), each kernel
-    zero-padded to 21 x 21."""
+    zero-padded to 21 x 21.  The draws come from ``rng`` (a
+    ``random.Random``) and ``np_rng`` (a ``np.random.RandomState``), the
+    global ``random`` and ``np.random`` unless given, in the JAX order."""
 
-    def __init__(self, opt: dict):
+    def __init__(self, opt: dict, rng: random.Random | None = None,
+                 np_rng: np.random.RandomState | None = None):
         self.o = {**_DEFAULTS, **{k: v for k, v in opt.items() if k in _DEFAULTS}}
         self.kernel_range = [2 * v + 1 for v in range(3, 11)]  # 7..21
+        self.rng, self.np_rng = rng, np_rng
+
+    def _streams(self):
+        return self.rng or random, self.np_rng or np.random
 
     def _blur_kernel(self, suffix: str) -> np.ndarray:
         o = self.o
-        ks = random.choice(self.kernel_range)
-        if np.random.uniform() < o["sinc_prob" + suffix]:
-            omega_c = np.random.uniform(np.pi / 3 if ks < 13 else np.pi / 5, np.pi)
+        rng, np_rng = self._streams()
+        ks = rng.choice(self.kernel_range)
+        if np_rng.uniform() < o["sinc_prob" + suffix]:
+            omega_c = np_rng.uniform(np.pi / 3 if ks < 13 else np.pi / 5, np.pi)
             kernel = circular_lowpass_kernel(omega_c, ks, pad_to=False)
         else:
             sigma = o["blur_sigma" + suffix]
             kernel = random_mixed_kernels(o["kernel_list" + suffix], o["kernel_prob" + suffix],
                                           ks, sigma, sigma, [-math.pi, math.pi],
                                           o["betag_range" + suffix], o["betap_range" + suffix],
-                                          noise_range=None)
+                                          noise_range=None, rng=np_rng)
         pad = (21 - ks) // 2
         return np.pad(kernel, ((pad, pad), (pad, pad)))
 
     def sample(self):
         kernel = self._blur_kernel("")
         kernel2 = self._blur_kernel("2")
-        if np.random.uniform() < self.o["final_sinc_prob"]:
-            ks3 = random.choice(self.kernel_range)
-            omega_c = np.random.uniform(np.pi / 3, np.pi)
+        rng, np_rng = self._streams()
+        if np_rng.uniform() < self.o["final_sinc_prob"]:
+            ks3 = rng.choice(self.kernel_range)
+            omega_c = np_rng.uniform(np.pi / 3, np.pi)
             sinc = circular_lowpass_kernel(omega_c, ks3, pad_to=21)
         else:
             sinc = _pulse(21)

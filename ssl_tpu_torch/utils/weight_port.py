@@ -34,7 +34,9 @@ FAMILIES = ("RRDBNet", "VGGStyleDiscriminator", "UNetDiscriminatorSN", "VGGFeatu
             "SRVGGNetCompact", "EDSR", "RCAN", "ECBSR",
             "UNetModelDualcondV2",
             "EncoderUNetModelWT", "AutoencoderKL", "StableSRSSL",
-            "LPIPSAlex", "DISTS", "InceptionV3FID", "CLIPRN50")
+            "LPIPSAlex", "DISTS", "InceptionV3FID", "CLIPRN50",
+            "UNetDiscriminatorSNv1", "MOD", "Discriminator_VGG_192", "DiscriminatorSN_VGG_192",
+            "NLayerDiscriminator", "RRDBPSNet", "RRDBMeanNet")
 
 
 def load_torch_state_dict(path: str, param_key: str = "params") -> dict:
@@ -238,14 +240,74 @@ def _vgg_disc(params: dict, batch_stats: dict | None) -> dict:
         if batch_stats is not None:
             st = batch_stats[f"BatchNorm_{n}"]
             sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"] = _t(st["mean"]), _t(st["var"])
-    # the flax head flattens NHWC; torch flattens NCHW: reorder the rows
+    _nhwc_head(sd, params, np.asarray(params[f"Conv_{n_conv - 1}"]["kernel"]).shape[-1])
+    return sd
+
+
+def _nhwc_head(sd: dict, params: dict, c: int) -> None:
+    """``Dense_0`` / ``Dense_1`` -> ``linear1`` / ``linear2``.  The flax
+    head flattens an NHWC (s, s, c) map, torch an NCHW one: ``linear1``'s
+    columns are reordered."""
     k = np.asarray(params["Dense_0"]["kernel"])            # (s*s*c, 100)
-    c = np.asarray(params[f"Conv_{n_conv - 1}"]["kernel"]).shape[-1]
     s = int(round((k.shape[0] // c) ** 0.5))
     k = k.reshape(s, s, c, -1).transpose(3, 2, 0, 1).reshape(k.shape[-1], -1)
     sd["linear1.weight"], sd["linear1.bias"] = _t(k), _t(params["Dense_0"]["bias"])
-    sd["linear2.weight"] = _t(np.asarray(params["Dense_1"]["kernel"]).T)
-    sd["linear2.bias"] = _t(params["Dense_1"]["bias"])
+    _linear(sd, "linear2", params["Dense_1"])
+
+
+def _vgg192_sn(params: dict, batch_stats: dict | None) -> dict:
+    """DiscriminatorSN_VGG_192: ``Conv_0`` is ``conv0_0``; ``_SNConv_{k}``
+    are ``conv0_1``, ``conv1_0``, ``conv1_1``, ... ``conv5_1`` in order."""
+    sd: dict = {}
+    _conv(sd, "conv0_0", params["Conv_0"])
+    names = ["conv0_1"] + [f"conv{i}_{j}" for i in range(1, 6) for j in (0, 1)]
+    for k, name in enumerate(names):
+        _conv(sd, name, params[f"_SNConv_{k}"]["Conv_0"])
+        if batch_stats is not None:
+            sn = batch_stats[f"_SNConv_{k}"]["SpectralNorm_0"]
+            sd[f"{name}.u"] = _t(sn["Conv_0/kernel/u"])
+            sd[f"{name}.sigma"] = _t(sn["Conv_0/kernel/sigma"])
+    c = np.asarray(params[f"_SNConv_{len(names) - 1}"]["Conv_0"]["kernel"]).shape[-1]
+    _nhwc_head(sd, params, c)
+    return sd
+
+
+def _mod(params: dict, batch_stats: dict | None) -> dict:
+    """MOD: the names are the same on both sides; the gating and transform
+    weights are parameters of their own."""
+    sd: dict = {}
+    for name, node in params.items():
+        if name.startswith("fe_conv"):
+            _conv(sd, name, node)
+        elif name.startswith("fe_bn"):
+            _bn(sd, name, node, None if batch_stats is None else batch_stats[name])
+        elif name in ("cr_body", "cls_fc1", "cls_fc2"):
+            _linear(sd, name, node)
+        else:                                              # w_gating1, cr_weight
+            sd[name] = _t(node)
+    return sd
+
+
+def _nlayer_d(params: dict, batch_stats: dict | None) -> dict:
+    """NLayerDiscriminator: ``conv*`` as named; ``BatchNorm_{k}`` is ``bn{k + 1}``."""
+    sd: dict = {}
+    for name, node in params.items():
+        if name.startswith("BatchNorm_"):
+            _bn(sd, f"bn{int(name.split('_')[1]) + 1}", node,
+                None if batch_stats is None else batch_stats[name])
+        else:
+            _conv(sd, name, node)
+    return sd
+
+
+def _rrdbps(params: dict) -> dict:
+    """RRDBPSNet: RRDBNet's unscanned trunk and a pixel-shuffle ``upsample``."""
+    sd: dict = {}
+    for name in ("conv_first", "conv_body", "conv_hr", "conv_last"):
+        _conv(sd, name, params[name])
+    for i in range(_count(params, "body_")):
+        _rrdb(sd, f"body.{i}", params[f"body_{i}"])
+    _upsample(sd, params["upsample"])
     return sd
 
 
@@ -625,10 +687,18 @@ def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
         return {"unet": _openai_unet(params["unet"]),
                 "structcond": _openai_unet(params["structcond"]),
                 "null_context": _t(params["null_context"])}
-    if family == "RRDBNet":
+    if family in ("RRDBNet", "RRDBMeanNet"):
         return _rrdbnet(params)
-    if family == "VGGStyleDiscriminator":
+    if family == "RRDBPSNet":
+        return _rrdbps(params)
+    if family in ("VGGStyleDiscriminator", "Discriminator_VGG_192"):
         return _vgg_disc(params, batch_stats)
+    if family == "DiscriminatorSN_VGG_192":
+        return _vgg192_sn(params, batch_stats)
+    if family == "MOD":
+        return _mod(params, batch_stats)
+    if family == "NLayerDiscriminator":
+        return _nlayer_d(params, batch_stats)
     if family == "Discriminator_VGG_296":   # the stack is a submodule in flax
         stack = "_VGGDownStack_0"
         return _vgg_disc({**params[stack], "Dense_0": params["Dense_0"],
@@ -646,7 +716,7 @@ def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
         return _swinir(params)
     if family == "ELAN":
         return _elan(params)
-    if family == "UNetDiscriminatorSN":
+    if family in ("UNetDiscriminatorSN", "UNetDiscriminatorSNv1"):
         return _unet_disc(params, batch_stats)
     if family == "MSRResNet":
         return _msrresnet(params)

@@ -70,6 +70,9 @@ def test_every_module_imports_without_cv2_yaml_lmdb_tensorboardx():
                           text=True, timeout=300)
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout + proc.stderr
     assert "ssl_tpu_torch.train" in _modules() and "ssl_tpu_torch.utils.png" in _modules()
+    assert {"ssl_tpu_torch.scripts.inference.common",
+            "ssl_tpu_torch.scripts.inference.inference_ssl_sr",
+            "ssl_tpu_torch.scripts.generate_bicubic_lr"} <= set(_modules())
 
 
 @pytest.mark.parametrize("path", [
@@ -127,8 +130,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):       # a diffusion compute_dtype but bf16 / fp32
         from ssl_tpu_torch.diffusion.vae import AutoencoderKL
         AutoencoderKL(compute_dtype="float16")
-    with pytest.raises(KeyError):
-        build_network({"type": "UNetDiscriminatorSNv1"})
+    with pytest.raises(KeyError):                  # a video net: queue 1 item 12
+        build_network({"type": "BasicVSR"})
 
 
 def test_schedules_match_jax():
