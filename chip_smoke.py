@@ -108,15 +108,36 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            24 GT PNGs of 512^2 made on the card, .mat masks from the
            generate_mask entry point, a .json base file with ssl_base.yml's
            values (crop 512, batch 2, 4 loader processes, the shipped
-           degradation block on the host degrader); 24 mini-steps (two
-           updates: losses finite, K1 1, K2 17 forward and 15 backward per
-           mini-step, the weights moved at mini-steps 12 and 24 only),
-           ckpt_12.pkl in the JAX layout, train_state_24.pkl reloaded bit
-           for bit, --resume auto to 36, the test CLI on ckpt_12.pkl and
-           ckpt_24.pkl (one 512^2 request of 50 steps each: two different
-           images); the host C++ filter2d and JPEG held against their numpy
+           degradation block on the host degrader); 12 mini-steps (one
+           update: losses finite, K1 1, K2 17 forward and 15 backward per
+           mini-step, the weights moved at mini-step 12 only),
+           ckpt_12.pkl in the JAX layout, train_state_12.pkl reloaded bit
+           for bit, --resume auto to 24 (moved at 24 only), the test CLI on
+           ckpt_12.pkl and ckpt_24.pkl (one 512^2 request of 10 steps each:
+           two different images); the host C++ filter2d and JPEG held against their numpy
            versions on 2 x 512^2; ms per mini-step, data wait and the host
            degrader's share from the CLI's timers
+9b. zoo    the gather API, the strategy zoo and PerceptualSimLoss, TF32
+           off: (a) the gather route (impl: scan) against K1's dense route
+           at the ESRGAN-SSL step's shape (b16, 3x128^2 pictures with real
+           edge masks, the capacity at the largest edge count): l1 within
+           1e-4, kl within 1e-3 relative, d_sr within D_SR_REL_L2; ms
+           forward + backward, device launches and peak memory of each;
+           (b) selfsim1_opt.softmax on the gather route on two of those
+           pictures, card against CPU in float64 within 1e-10; (c) every key of the zoo that
+           ssl_loss takes at b2 3x128^2 (mask stride 3, capacity 2048, the
+           zoo's default options), card against CPU in float64 within
+           1e-10 on the losses and d_sr, float32 reported with its ms;
+           (e) PerceptualSimLoss with every term on, card against CPU in
+           float64 at 128^2, timed at 512^2 b2; (d) 24 mini-steps (two
+           updates) of the StableSR-SSL training CLI with
+           sslopt.simself_strategy=areaarea_mask_nonlocal_cuda_v1 and
+           model.use_flash_attention=true on diffusion_cli's kind of data:
+           losses finite, l_selfsim > 0, the weights moved at mini-steps
+           12 and 24 only (the accumulation restarts within one process),
+           no K1 and K2 17 forward and 15
+           backward per mini-step (diffusion_cli's), ms per mini-step, peak
+           memory, edge pixels per image against the capacity
 10. train   the ESRGAN-SSL train step at the shipped widths (RRDBNet 64/23/32,
            VGGStyleDiscriminator 64, VGG19 conv5_4, SSL 25/9/0.004), batch 16,
            gt 128: one warm-up step and 3 timed steps through build_model ->
@@ -181,7 +202,8 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            with the recipe's own keys logged, K1 once per iteration and the
            plain SSL forward never on the card), the training state reloaded
            bit for bit (SPSR's gradient D and RankSRGAN's Ranker included),
-           --auto_resume to 4, the test CLI whole and tiled; K1 held against
+           --auto_resume to 4, the test CLI whole (and for SwinIR-GAN also
+           tiled); K1 held against
            its plain version on SwinIR's and ELAN's SR of 16 training pairs;
            ms per iteration, data wait, the first iteration's extra time,
            peak memory and the test CLI's ms per image
@@ -414,12 +436,29 @@ RE_HOST_GT = 256
 # StableSR-SSL training through its CLI (ssl_tpu_torch.diffusion.main --train):
 # DC_TRAIN GT PNGs of TRAIN_SIZE^2 (the size of the shipped
 # multiscale_HR_sub_512), crop TRAIN_SIZE, batch TRAIN_B, DC_WORKERS loader
-# processes, 12 mini-steps an update; DC_STEPS mini-steps (two updates) with a
+# processes, 12 mini-steps an update; DC_STEPS mini-steps (one update) with a
 # log line every DC_LOG and checkpoints and previews every DC_SAVE, then
-# --resume auto to DC_RESUME_STEPS; the test CLI on the two checkpoints, one
-# (4 SERVE_LQ)^2 request of SERVE_STEPS steps each.
+# --resume auto to DC_RESUME_STEPS (a second update and checkpoint); the test
+# CLI on the two checkpoints, one (4 SERVE_LQ)^2 request of DC_TEST_STEPS
+# steps each (the serve phase times SERVE_STEPS).
 DC_TRAIN, DC_WORKERS = 24, 4
-DC_STEPS, DC_LOG, DC_SAVE, DC_RESUME_STEPS = 24, 4, 12, 36
+DC_STEPS, DC_LOG, DC_SAVE, DC_RESUME_STEPS, DC_TEST_STEPS = 12, 4, 12, 24, 10
+# The zoo phase: the gather route (impl: scan) against K1's dense route at the
+# ESRGAN-SSL step's shape (b16 3 x MAIN_GT^2 pictures with real edge masks,
+# every edge within the capacity), selfsim1_opt.softmax there, every key of the
+# strategy zoo through ssl_loss at b ZOO_B 3 x ZOO_SIZE^2 (mask stride 3,
+# capacity ZOO_CAP, the zoo's default options: tiles 16, search / area 25,
+# window 9), PerceptualSimLoss with both self-similarity terms (held at
+# ZOO_SIZE^2, timed at TRAIN_SIZE^2 b TRAIN_B), and ZOO_CLI_STEPS mini-steps
+# (two updates) of the StableSR-SSL training CLI with ZOO_CLI_STRATEGY on
+# diffusion_cli_fixtures' data.  Card against CPU in float64 within
+# ZOO_F64_RTOL (relative on the losses, relative L2 on d_sr); TF32 off.
+ZOO_B, ZOO_SIZE, ZOO_CAP, ZOO_F64_RTOL = 2, 128, 2048, 1e-10
+ZOO_CLI_STEPS, ZOO_CLI_STRATEGY = 24, "areaarea_mask_nonlocal_cuda_v1"
+# the CPU's float64 references run in this many processes of this many threads
+ZOO_REF_WORKERS, ZOO_REF_THREADS = 8, 1
+# each key's float32 ms: CUDA events over this many calls after a first one
+ZOO_TIME_ITERS = 2
 # The six bicubic GAN-SSL recipes (options/train/<recipe>/train_<recipe>_bicubic_x4.yml):
 # the ESRGAN-SSL YAML's values (``shipped_opt``) but for each recipe's model,
 # its G at the shipped widths, its D, its own losses (``train``) and nets
@@ -463,6 +502,9 @@ RECIPES = {
 }
 RC_LOSSES = ("l_pix", "l_percep", "l_g_gan", "l_selfsim", "l_selfsim_kl", "l_d_real", "l_d_fake")
 RC_WORKERS, RC_ITERS, RC_RESUME_ITERS = 4, 3, 4
+# the recipes whose test CLI also runs in tiles (the windowed transformer's
+# padding to its window); the others run whole only
+RC_TILED = ("SwinIRGANSSL",)
 # The KAIR/BSRGAN GAN-SSL family (options/train/<recipe>/train_<recipe>_DF2K_OST_x4.json,
 # KAIR-schema files through utils/kair_options.py): KR_TRAIN GT PNGs of KR_GT_IMG^2
 # (at least the largest batch, each larger than H_size 256), cropped to the file's
@@ -1067,8 +1109,9 @@ def k1_times(sr, gt, mask, cfg, iters: int, stored: bool = False) -> dict:
     launches), the kernels alone (profiler: with the bf16 store the walk and
     the stream, ``kernels_device_ms``, and their sum), the call's peak device
     memory above its inputs (with the bf16 store: the q stack), the plain
-    forward and the plain backward (CUDA events), the bytes and operations
-    its function needs and the least time they allow on the card (the
+    forward and the plain backward (CUDA events over one call each, warm
+    from the hold's runs at this shape), the bytes and operations its
+    function needs and the least time they allow on the card (the
     function's, whatever the design moves: the stack is this design's own
     traffic).  With the bf16 store also the stream alone: its plain
     version's time on the same stack, and its own bound (the stack read once,
@@ -1089,9 +1132,10 @@ def k1_times(sr, gt, mask, cfg, iters: int, stored: bool = False) -> dict:
     maps = call()
     torch.cuda.synchronize()
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    plain_ms = time_ms(lambda: ssl_loss_sums_reference(sr, gt, mask, cfg), 2)
+    plain_ms = time_ms(lambda: ssl_loss_sums_reference(sr, gt, mask, cfg), 1, warmup=0)
     bwd_ms = time_ms(lambda: ssl_loss_dense_bwd(sr, gt, mask, maps[3], maps[4], one, one,
-                                                cfg, maps[5], maps[6], stored=stored), 2)
+                                                cfg, maps[5], maps[6], stored=stored), 1,
+                     warmup=0)
     b, c, h, w = sr.shape
     nbytes = 4 * (2 * b * c * h * w + b * h * w) + 4 * (4 * b * h * w + 3)
     ops = k1_operations(b, c, h, w, cfg.search, cfg.generalization)
@@ -1109,7 +1153,7 @@ def k1_times(sr, gt, mask, cfg, iters: int, stored: bool = False) -> dict:
         # the kl term 7 with two logs, a_map 2, b_map 2
         stream_ops = 18.0 * (stack.numel() // 2)
         out["stream"] = {
-            "plain_ms": time_ms(lambda: q_stream_reference(stack, inv_sr, inv_gt, mask), 2),
+            "plain_ms": time_ms(lambda: q_stream_reference(stack, inv_sr, inv_gt, mask), 1),
             "bytes": stream_bytes, "operations": stream_ops,
             "bound_ms": 1e3 * max(stream_bytes / PEAK_BYTES_PER_S, stream_ops / PEAK_FP32_PER_S),
             "bound_by": "bytes" if stream_bytes / PEAK_BYTES_PER_S > stream_ops / PEAK_FP32_PER_S
@@ -3847,7 +3891,7 @@ def phase_recipes(device: str = "cuda"):
     on the card), the training state reloaded into a fresh model bit for bit
     (SPSR's gradient D and RankSRGAN's Ranker included), ``--auto_resume``
     to RC_RESUME_ITERS, then the test CLI on the last ``net_g``
-    (``params_ema``) whole and in tiles.  After the SwinIR and ELAN runs K1
+    (``params_ema``) whole, and for RC_TILED also in tiles.  After the SwinIR and ELAN runs K1
     is held against its plain version on their G's SR of MAIN_B training
     pairs (new generator statistics for the kernel).  Returns the K1
     launches of the runs and the holds' largest errors."""
@@ -3959,9 +4003,10 @@ def phase_recipes(device: str = "cuda"):
             with open(test_path, "w") as f:
                 json.dump(test_opt, f)
             tests = {}
-            for label, extra in (("whole", []), ("tiled", [
-                    "--force_yml", f"name=test_{recipe}_tiled", "tile_process=true",
-                    f"tile_size={CLI_TILE[0]}", f"tile_pad={CLI_TILE[1]}"])):
+            runs = [("whole", [])] + [("tiled", [
+                "--force_yml", f"name=test_{recipe}_tiled", "tile_process=true",
+                f"tile_size={CLI_TILE[0]}", f"tile_pad={CLI_TILE[1]}"])] * (recipe in RC_TILED)
+            for label, extra in runs:
                 t0 = time.perf_counter()
                 with metric_seconds() as metric_s:
                     out = test_cli.test_pipeline(root, ["-opt", test_path] + dev + extra)[
@@ -3994,7 +4039,8 @@ def phase_recipes(device: str = "cuda"):
                                               f"{RC_RESUME_ITERS}"],
                       "dataset_enlarge_ratio": [1, CLI_ENLARGE], "validation": "none",
                       "test_sets": ["7 sets of options/test/<recipe>",
-                                    f"{len(CLI_VAL)} val pairs, whole and tiled"]},
+                                    f"{len(CLI_VAL)} val pairs, whole (and tiled for "
+                                    f"{', '.join(RC_TILED)})"]},
           "k1_launches": launches_all, "k1_holds": holds,
           "ms_per_iter": {r: v["ms_per_iter"] for r, v in results.items()},
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
@@ -4412,10 +4458,10 @@ def phase_diffusion_cli(device: str = "cuda"):
     """StableSR-SSL training through its CLI (``ssl_tpu_torch.diffusion.main
     --train``) at the full width of options/diffusion/ssl_base.yml, with
     ``model.use_flash_attention=true`` as a dotlist override, on the
-    ``diffusion_cli_fixtures`` data: DC_STEPS mini-steps (two updates of 12),
+    ``diffusion_cli_fixtures`` data: DC_STEPS mini-steps (one update of 12),
     the training state reloaded into a fresh state bit for bit,
-    ``--resume auto`` to DC_RESUME_STEPS, then the test CLI on the two
-    checkpoints.  K1 once, K2's forward 17 and its backward 15 times per
+    ``--resume auto`` to DC_RESUME_STEPS (the second update), then the test
+    CLI on the two checkpoints.  K1 once, K2's forward 17 and its backward 15 times per
     mini-step; the weights move at every 12th mini-step only.  Returns the
     launches of the CLI's training runs by kernel."""
     import gc
@@ -4510,14 +4556,13 @@ def phase_diffusion_cli(device: str = "cuda"):
         idle = [k_ for k_, c in kernels.items() if c == 0 and not k_.endswith("_bf16")]
         if idle:
             fail(f"diffusion_cli: kernels {idle} were never launched: {kernels}")
-        for f in [f"ckpt_{s}.pkl" for s in (DC_SAVE, DC_STEPS)] + \
-                 [f"train_state_{s}.pkl" for s in (DC_SAVE, DC_STEPS)] + \
+        for f in [f"ckpt_{DC_STEPS}.pkl", f"train_state_{DC_STEPS}.pkl"] + \
                  [f"images/train/{k}_gs-{DC_SAVE:06d}.png"
                   for k in ("inputs", "gt", "reconstruction", "pred_x0")]:
             if not os.path.isfile(os.path.join(logdir, f)):
                 fail(f"diffusion_cli: {f} was not written")
 
-        # ckpt_12.pkl in the JAX layout; train_state_24.pkl reloaded bit for bit
+        # ckpt_12.pkl in the JAX layout; train_state_12.pkl reloaded bit for bit
         model = dmain.build_from_config(cfg)
         fresh = model.init_state(seed=1, device=device)
         fresh_degrader = RealESRGANDegrader(cfg["degradation"], scale=1, seed=1,
@@ -4566,8 +4611,10 @@ def phase_diffusion_cli(device: str = "cuda"):
         records_r, resumed, _, steps_r, kernels_r, wall_r = run(
             [f"train.max_steps={DC_RESUME_STEPS}"])
         check(records_r, steps_r, DC_STEPS + 1, DC_RESUME_STEPS)
-        if resumed.step != DC_RESUME_STEPS:
-            fail(f"diffusion_cli: the resumed run ended at step {resumed.step}")
+        if resumed.step != DC_RESUME_STEPS or not os.path.isfile(
+                os.path.join(logdir, f"ckpt_{DC_RESUME_STEPS}.pkl")):
+            fail(f"diffusion_cli: the resumed run ended at step {resumed.step} or wrote no "
+                 f"ckpt_{DC_RESUME_STEPS}.pkl")
         del resumed
         gc.collect()
         torch.cuda.empty_cache()
@@ -4587,22 +4634,22 @@ def phase_diffusion_cli(device: str = "cuda"):
             return img
         test_cli.restore = timed_restore
         try:
-            for ckpt in (DC_SAVE, DC_STEPS):
+            for ckpt in (DC_STEPS, DC_RESUME_STEPS):
                 out_dir = os.path.join(root, f"restored_{ckpt}")
                 t0 = time.perf_counter()
                 test_cli.main(["--config", test_cfg, "--ckpt",
                                os.path.join(logdir, f"ckpt_{ckpt}.pkl"), "--init-img", d["lq"],
-                               "--outdir", out_dir, "--ddpm_steps", str(SERVE_STEPS)]
+                               "--outdir", out_dir, "--ddpm_steps", str(DC_TEST_STEPS)]
                               + (["--device", device] if device != "cuda" else []))
                 outs[ckpt] = imread(os.path.join(out_dir, "lq0.png"), float32=False)
                 request_ms[f"cli_{ckpt}_s"] = time.perf_counter() - t0
         finally:
             test_cli.restore = restore
-        if outs[DC_SAVE].shape != (4 * SERVE_LQ, 4 * SERVE_LQ, 3) or \
-                np.array_equal(outs[DC_SAVE], outs[DC_STEPS]):
-            fail(f"diffusion_cli: the two checkpoints restored {outs[DC_SAVE].shape} images "
+        first, second = outs[DC_STEPS], outs[DC_RESUME_STEPS]
+        if first.shape != (4 * SERVE_LQ, 4 * SERVE_LQ, 3) or np.array_equal(first, second):
+            fail(f"diffusion_cli: the two checkpoints restored {first.shape} images "
                  "that are the same")
-        image_diff = float(np.abs(outs[DC_SAVE].astype(int) - outs[DC_STEPS].astype(int)).mean())
+        image_diff = float(np.abs(first.astype(int) - second.astype(int)).mean())
 
     def mean(xs):
         return sum(xs) / len(xs)
@@ -4635,8 +4682,8 @@ def phase_diffusion_cli(device: str = "cuda"):
           "reduced": {"max_steps": [800000, DC_STEPS], "log_every": [100, DC_LOG],
                       "save_every": [1000, DC_SAVE], "image_every": [1000, DC_SAVE],
                       "resumed_to": DC_RESUME_STEPS,
-                      "test_cli": f"ckpt_{DC_SAVE}.pkl and ckpt_{DC_STEPS}.pkl, one "
-                                  f"{4 * SERVE_LQ}^2 request each, {SERVE_STEPS} steps"},
+                      "test_cli": f"ckpt_{DC_STEPS}.pkl and ckpt_{DC_RESUME_STEPS}.pkl, one "
+                                  f"{4 * SERVE_LQ}^2 request each, {DC_TEST_STEPS} steps"},
           "run": stats(records), "resumed": stats(records_r), "wall_s": wall,
           "resumed_wall_s": wall_r, "peak_mem_gb": peak_gb,
           "launches_per_mini_step": per_step_expected, "launches": launches,
@@ -4648,6 +4695,338 @@ def phase_diffusion_cli(device: str = "cuda"):
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
     return launches
+
+
+def zoo_loss(sr, gt, mask, setting, dtype, device) -> dict:
+    """ssl_loss with ``setting`` on ``device`` in ``dtype``: l1, kl, d_sr of
+    l1 + kl (on the host in float64) and the call's seconds, forward and
+    backward, ending in a synchronise."""
+    import torch
+    from ssl_tpu_torch.losses.ssl_loss import ssl_loss
+    x = torch.as_tensor(sr, dtype=dtype, device=device).requires_grad_(True)
+    g = torch.as_tensor(gt, dtype=dtype, device=device)
+    m = torch.as_tensor(mask, dtype=dtype, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l1, kl = ssl_loss(x, g, m, setting)
+    (l1 + kl).backward()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return {"l1": l1.item(), "kl": kl.item(), "d_sr": x.grad.double().cpu(),
+            "s": time.perf_counter() - t0}
+
+
+def zoo_call(sr, gt, mask, setting, device):
+    """A function that runs ``ssl_loss`` forward and backward in float32 on
+    ``device`` with no copy to the host, for ``time_ms`` and
+    ``profiled_launches``."""
+    import torch
+    from ssl_tpu_torch.losses.ssl_loss import ssl_loss
+    x = torch.as_tensor(sr, dtype=torch.float32, device=device).requires_grad_(True)
+    g = torch.as_tensor(gt, dtype=torch.float32, device=device)
+    m = torch.as_tensor(mask, dtype=torch.float32, device=device)
+
+    def call():
+        x.grad = None
+        l1, kl = ssl_loss(x, g, m, setting)
+        (l1 + kl).backward()
+    return call
+
+
+def zoo_percep(loss, x, gt) -> dict:
+    """PerceptualSimLoss's four terms and d_x of their sum, and the call's
+    seconds."""
+    import torch
+    x = x.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    terms = loss(x, gt)
+    sum(terms).backward()
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return {"terms": [t.item() for t in terms], "d_x": x.grad.double().cpu(),
+            "s": time.perf_counter() - t0}
+
+
+def zoo_percep_loss():
+    """PerceptualSimLoss at five VGG19 layers with every term on (the simself
+    tiles' maps kept flat: without a neighbourhood the tile grid has no map
+    layout), its tower seeded."""
+    from ssl_tpu_torch.losses.feature_sim import PerceptualSimLoss
+    return PerceptualSimLoss(
+        layer_weights={"conv1_2": 0.1, "conv2_2": 0.1, "conv3_4": 1.0, "conv4_4": 1.0,
+                       "conv5_4": 1.0},
+        perceptual_weight=1.0, style_weight=0.5, simself_weight=1.0,
+        simself_channel_weight=1.0, rearrange_back=False)
+
+
+def zoo_cpu_ref(kind: str, *args) -> dict:
+    """The CPU float64 reference of one zoo hold, in a worker process of
+    ZOO_REF_THREADS threads: ``zoo_loss`` (kind 'loss') or ``zoo_percep``
+    (kind 'percep')."""
+    import torch
+    torch.set_num_threads(ZOO_REF_THREADS)
+    if kind == "loss":
+        return zoo_loss(*args, torch.float64, "cpu")
+    x, gt = (torch.from_numpy(a) for a in args)
+    return zoo_percep(zoo_percep_loss().double(), x, gt)
+
+
+def zoo_compare(got: dict, ref: dict, keys=("l1", "kl"), grad="d_sr") -> dict:
+    """Relative errors of the scalars ``keys``, and the relative L2 of the
+    gradient ``grad`` (0 where both are 0: a saturated softmax passes none)."""
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-300)
+    norm = float(ref[grad].norm())
+    d = float((got[grad] - ref[grad]).norm())
+    return {**{k: rel(got[k], ref[k]) for k in keys}, grad: d / norm if norm else d}
+
+
+def zoo_gather_holds(device: str, inputs, setting) -> dict:
+    """(a) The gather route (``setting``, ``impl: scan`` with the capacity at
+    the largest edge count) against K1's dense route on ``inputs`` (the
+    ESRGAN-SSL step's shape): l1 within 1e-4 and kl within 1e-3 relative,
+    d_sr within D_SR_REL_L2; each route's ms forward + backward (CUDA events
+    over 3 calls after that held one), device launches a call and peak
+    memory."""
+    import torch
+
+    sr, gt, mask = inputs
+    routes = {"k1_dense": setting._replace(impl="dense"), "gather_scan": setting}
+    out, runs = {"edges_per_image": [int(c) for c in mask.reshape(len(mask), -1).sum(1)]}, {}
+    for name, route in routes.items():
+        runs[name] = zoo_loss(sr, gt, mask, route, torch.float32, device)
+        call = zoo_call(sr, gt, mask, route, device)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(call, 3, warmup=0)
+        out[name] = {"ms_fwd_bwd": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "device_launches": profiled_launches(call),
+                     "l1": runs[name]["l1"], "kl": runs[name]["kl"]}
+    err = zoo_compare(runs["gather_scan"], runs["k1_dense"])
+    out["gather_vs_k1"] = err
+    if err["l1"] > 1e-4 or err["kl"] > 1e-3 or err["d_sr"] > D_SR_REL_L2:
+        fail(f"zoo: the gather route against K1's at b{MAIN_B} 3x{MAIN_GT}^2: {err} (holds: "
+             f"l1 1e-4, kl 1e-3, d_sr {D_SR_REL_L2})")
+    return out
+
+
+def zoo_f64_holds(device: str, cases: dict, refs: dict) -> dict:
+    """(b), (c) Each case's (inputs, setting) through ``ssl_loss`` in float64
+    on the card against ``refs`` (the CPU's float64, futures) within
+    ZOO_F64_RTOL.  Returns the readings and, under "refs", the CPU results."""
+    import torch
+
+    out, done = {}, {}
+    for key, (inputs, setting) in cases.items():
+        card64 = zoo_loss(*inputs, setting, torch.float64, device)
+        done[key] = refs[key].result()
+        f64 = zoo_compare(card64, done[key])
+        out[key] = {"l1": done[key]["l1"], "kl": done[key]["kl"], "card_f64_vs_cpu_f64": f64,
+                    "cpu_f64_s": done[key]["s"]}
+        if max(f64.values()) > ZOO_F64_RTOL:
+            fail(f"zoo: {key} card against CPU in float64: {f64} (hold {ZOO_F64_RTOL})")
+    return {"readings": out, "refs": done}
+
+
+def zoo_f32_times(device: str, cases: dict, holds: dict) -> None:
+    """Each case in float32 on the card: its error against the CPU's float64
+    (the first float32 call, which also warms the case up) and its ms
+    forward + backward (CUDA events over ZOO_TIME_ITERS calls after it),
+    added to ``holds``' readings."""
+    import torch
+
+    for key, (inputs, setting) in cases.items():
+        card32 = zoo_loss(*inputs, setting, torch.float32, device)
+        ms = time_ms(zoo_call(*inputs, setting, device), ZOO_TIME_ITERS, warmup=0)
+        holds["readings"][key].update(ms_f32=ms, card_f32_vs_cpu_f64=zoo_compare(
+            card32, holds["refs"][key]))
+
+
+def zoo_percep_holds(device: str, inputs, ref) -> dict:
+    """(e) ``zoo_percep_loss``: the four terms and d_x on the card against
+    ``ref`` (the CPU's float64 on ``inputs``, a future) within ZOO_F64_RTOL."""
+    import torch
+
+    x, gt = (torch.from_numpy(a).to(device) for a in inputs)
+    got = zoo_percep(zoo_percep_loss().double().to(device), x, gt)
+    ref = ref.result()
+    err = zoo_compare(got, ref, keys=(), grad="d_x")
+    err["terms"] = [abs(a - b) / abs(b) for a, b in zip(got["terms"], ref["terms"])]
+    if max(err["terms"] + [err["d_x"]]) > ZOO_F64_RTOL:
+        fail(f"zoo: PerceptualSimLoss card against CPU in float64: {err}")
+    return {"terms_f64": ref["terms"], "card_f64_vs_cpu_f64": err, "cpu_f64_s": ref["s"]}
+
+
+def zoo_percep_times(device: str) -> dict:
+    """``zoo_percep_loss`` in float32 at b TRAIN_B 3 x TRAIN_SIZE^2: ms forward
+    + backward (CUDA events over 3 calls after one) and peak memory."""
+    import torch
+
+    loss32 = zoo_percep_loss().to(device)
+    big = torch.rand(TRAIN_B, 3, TRAIN_SIZE, TRAIN_SIZE, device=device,
+                     generator=torch.Generator(device=device).manual_seed(14))
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: zoo_percep(loss32, big, big.flip(-1)), 3)
+    return {"ms_fwd_bwd_512": ms, "peak_gb_512": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def zoo_cli(device: str) -> dict:
+    """(d) ZOO_CLI_STEPS mini-steps of the StableSR-SSL training CLI with
+    ``model.use_flash_attention=true sslopt.simself_strategy=ZOO_CLI_STRATEGY``
+    as overrides, at the full width of ssl_base.yml on fresh
+    ``diffusion_cli_fixtures`` data (no checkpoint or preview falls in the
+    run): losses finite and l_selfsim > 0 at every mini-step, the weights
+    moved after every 12th only, per mini-step K2 TRAIN_K2_FWD forward and
+    TRAIN_K2_BWD backward launches (diffusion_cli's) and no K1 (the zoo
+    replaces the fused loss), every float32 K2 kernel launched; ms per
+    mini-step, peak memory and the edge pixels per image (mask stride 3)
+    against the capacity."""
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.diffusion import main as dmain
+    from ssl_tpu_torch.diffusion.ddpm_ssl import StableSRSSL, trainable
+    from ssl_tpu_torch.losses import simself_strategies
+    from ssl_tpu_torch.ops import ssg_cuda
+    from ssl_tpu_torch.ops.ssg import apply_mask_stride
+
+    per_step_expected = {"k1": 0, "k2_fwd": TRAIN_K2_FWD, "k2_bwd": TRAIN_K2_BWD}
+    with tempfile.TemporaryDirectory(prefix="zoo_smoke_") as root:
+        d, _ = diffusion_cli_fixtures(os.path.join(root, "data"), device)
+        cfg = ssl_base_train_cfg(d)
+        cfg["train"].update(max_steps=ZOO_CLI_STEPS, save_every=1000, image_every=1000)
+        cfg_path = os.path.join(root, "ssl_base.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        records, steps, edges, live = [], [], [], {}
+        call, loss_fn = StableSRSSL.train_step, simself_strategies.simself_strategy_loss
+
+        def counts():
+            return {"k1": ssg_cuda.launches, **k2_counts()}
+
+        def step(self, state, batch, draws=None):
+            if "start" not in live:
+                live["start"] = [p.detach().clone() for p in trainable(state.params)]
+            before = counts()
+            out = call(self, state, batch, draws)
+            steps.append({k: v - before[k] for k, v in counts().items()})
+            return out
+
+        def strategy_loss(sr, gt, mask, setting):
+            m = apply_mask_stride(mask[:, 0] if mask.dim() == 4 else mask, setting.mask_stride)
+            edges.append([int(v) for v in m.reshape(m.shape[0], -1).sum(1)])
+            live["setting"] = setting
+            return loss_fn(sr, gt, mask, setting)
+
+        def on_iteration(record, state, degrader):
+            moved = not all(torch.equal(a, p) for a, p in zip(live["start"],
+                                                               trainable(state.params)))
+            if moved:
+                live["start"] = [p.detach().clone() for p in trainable(state.params)]
+            records.append(dict(record, moved=moved))
+
+        ssg_cuda.launches = 0
+        reset_k2_counts()
+        StableSRSSL.train_step = step
+        simself_strategies.simself_strategy_loss = strategy_loss
+        args = types.SimpleNamespace(
+            base=cfg_path, logdir=os.path.join(root, "logs"), device=device, resume=None,
+            overrides=["model.use_flash_attention=true",
+                       f"sslopt.simself_strategy={ZOO_CLI_STRATEGY}"])
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            dmain.train(args, on_iteration)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            StableSRSSL.train_step = call
+            simself_strategies.simself_strategy_loss = loss_fn
+        kernels = k2_counts()
+    if live.get("setting") is None or live["setting"].strategy != ZOO_CLI_STRATEGY:
+        fail(f"zoo: the CLI's SSL term did not go through {ZOO_CLI_STRATEGY}")
+    if [r["step"] for r in records] != list(range(1, ZOO_CLI_STEPS + 1)):
+        fail(f"zoo: the CLI ran mini-steps {[r['step'] for r in records]}")
+    for r in records:
+        if not all(np.isfinite(v) for v in r["logs"].values()) or r["logs"]["l_selfsim"] <= 0:
+            fail(f"zoo: CLI mini-step {r['step']} logged {r['logs']}")
+        if r["moved"] != (r["step"] % TRAIN_MINI_STEPS == 0):
+            fail(f"zoo: after CLI mini-step {r['step']} the weights "
+                 f"{'moved' if r['moved'] else 'did not move'}")
+    if any({k: s_[k] for k in per_step_expected} != per_step_expected for s_ in steps):
+        fail(f"zoo: CLI launches per mini-step {steps}, expected {per_step_expected}")
+    idle = [k for k, c in kernels.items() if c == 0 and k.startswith("flash_attn")
+            and not k.endswith("_bf16")]
+    if idle:
+        fail(f"zoo: the CLI's K2 kernels {idle} never launched: {kernels}")
+    warm = [r["iter_s"] for r in records[1:] if not r["moved"]]
+    applying = [r["iter_s"] for r in records if r["moved"]]
+    flat = [e for batch in edges for e in batch]
+    return {"strategy": ZOO_CLI_STRATEGY, "mini_steps": ZOO_CLI_STEPS, "wall_s": wall,
+            "ms_first": 1e3 * records[0]["iter_s"], "ms_warm_mean": 1e3 * sum(warm) / len(warm),
+            "ms_applying": 1e3 * sum(applying) / len(applying),
+            "degrader_ms_mean": 1e3 * sum(r["degrade_s"] for r in records) / len(records),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "capacity": live["setting"].capacity,
+            "edges_per_image": {"min": min(flat), "mean": sum(flat) / len(flat), "max": max(flat),
+                                "over_capacity": sum(e > live["setting"].capacity
+                                                     for e in flat), "images": len(flat)},
+            "losses_last": records[-1]["logs"], "launches_per_mini_step": per_step_expected,
+            "launches": {k: v for k, v in kernels.items() if not k.endswith("_bf16")}}
+
+
+def phase_zoo(device: str = "cuda"):
+    """The gather API, the strategy zoo and PerceptualSimLoss (ZOO_* above),
+    TF32 off.  The CPU's float64 references run in ZOO_REF_WORKERS spawned
+    processes beside the card's float64 holds; the times are taken after
+    those processes have stopped, on an idle host.  Returns the zoo CLI's K2
+    launches by kernel."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.losses.ssl_loss import SSLSetting, ssl_setting_from_opt
+    from torch_zoo_cases import LOSS_KEYS, loss_opts
+
+    t, t0 = {}, time.perf_counter()
+    main = edge_case(MAIN_B, MAIN_GT, 11)
+    gather = ssl_setting_from_opt(shipped_opt(MAIN_B))._replace(
+        impl="scan", capacity=int(main[2].reshape(MAIN_B, -1).sum(1).max()))
+    zoo = edge_case(ZOO_B, ZOO_SIZE, 12)
+    # (b) on the first ZOO_B pictures, then (c), the masked families first: their
+    # references take the longest
+    cases = {"kl_softmax": (tuple(a[:ZOO_B] for a in main), gather._replace(kl_softmax=True))}
+    cases.update((key, (zoo, SSLSetting(strategy=key, strategy_opts=loss_opts(key, scaled=True),
+                                        mask_stride=3, capacity=ZOO_CAP, l1_weight=0.5,
+                                        kl_weight=0.5)))
+                 for key in sorted(LOSS_KEYS, key=lambda k: "mask" not in k))
+    rng = np.random.RandomState(13)
+    percep_in = tuple(rng.rand(ZOO_B, 3, ZOO_SIZE, ZOO_SIZE) for _ in range(2))
+    with ProcessPoolExecutor(ZOO_REF_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = {key: pool.submit(zoo_cpu_ref, "loss", *inputs, setting)
+                for key, (inputs, setting) in cases.items()}
+        percep_ref = pool.submit(zoo_cpu_ref, "percep", *percep_in)
+        holds = zoo_f64_holds(device, cases, refs)
+        percep = zoo_percep_holds(device, percep_in, percep_ref)
+    t["f64_holds_s"] = time.perf_counter() - t0
+    gather = zoo_gather_holds(device, main, gather)
+    zoo_f32_times(device, cases, holds)
+    percep.update(zoo_percep_times(device))
+    t["times_s"] = time.perf_counter() - t0 - sum(t.values())
+    torch.cuda.empty_cache()
+    cli = zoo_cli(device)
+    t["cli_s"] = time.perf_counter() - t0 - sum(t.values())
+    readings = holds["readings"]
+    emit({"phase": "zoo", "gather": dict(gather, kl_softmax=readings.pop("kl_softmax")),
+          "strategies": readings, "perceptual_sim": percep, "cli": cli, "seconds": t,
+          "cpu_reference_workers": [ZOO_REF_WORKERS, ZOO_REF_THREADS],
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
+    return cli["launches"]
 
 
 def realesrgan_host_run(root: str, opt: dict, device: str) -> tuple[dict, int]:
@@ -5221,21 +5600,23 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
 
 
 def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
-                 recipes, kair, bench, k2_16, k2_bwd_16, dbf16, prep) -> dict:
+                 recipes, kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
     phases' results (K1's, K2's forward's and backward's by case, the serving
     K2 launches and forward kernel launches, the diffusion_train and
     diffusion_cli launch counts, the K1 launches of the ESRGAN train step
     and of the CLIs, the recipes phase's K1 launches and holds, and the kair
     phase's K1 launches by recipe and holds, the bench phase's K1
-    launches by mode, and the prep_infer phase's train CLI's K1 launches; K2's bf16 kernels from the bf16 kernel phases and the
-    diffusion_bf16 phase's launches).  K1's float32 mode and its bf16 stream
+    launches by mode, and the prep_infer phase's train CLI's K1 launches; the
+    zoo phase's CLI's K2 launches; K2's bf16 kernels from the bf16 kernel
+    phases and the diffusion_bf16 phase's launches).  K1's float32 mode and its bf16 stream
     + store mode (bench.py's step) each have an entry; ``modes`` under the
     first lists every mode held, the bf16 stream mode (the batched route)
     included.  Each K2 kernel has an entry, its bf16 counterpart
     (``_bf16``) another."""
     serve_calls, serve_fwd = serve
-    paths = {"": {"serve": serve_fwd, "diffusion_train": train, "diffusion_cli": dcli},
+    paths = {"": {"serve": serve_fwd, "diffusion_train": train, "diffusion_cli": dcli,
+                  "zoo_cli": zoo},
              "_bf16": {"serve_bf16": dbf16["serve"],
                        "diffusion_bf16_mini_steps": dbf16["mini_steps"],
                        "diffusion_bf16_cli": dbf16["cli"]}}
@@ -5392,6 +5773,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dcli = run("diffusion_cli", phase_diffusion_cli)
     torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    zoo = run("zoo", phase_zoo)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
     launches = run("train", phase_train)
     torch.cuda.empty_cache()
     bench = run("bench", phase_bench)
@@ -5414,7 +5799,7 @@ def main() -> int:
     metric_dir.cleanup()
     emit({"phase": "wall", "seconds": wall, "total_s": time.perf_counter() - start})
     emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli, recipes,
-                      kair, bench, k2_16, k2_bwd_16, dbf16, prep))
+                      kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

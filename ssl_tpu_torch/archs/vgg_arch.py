@@ -109,7 +109,8 @@ class VGGFeatureExtractor(nn.Module):
             if f"relu{block}_{idx}" in wanted:
                 out[f"relu{block}_{idx}"] = x
             pos, idx = pos + 1, idx + 1
-        return {k: v.float() for k, v in out.items()}
+        # bf16 taps come back in float32, as flax returns them; float64 stays
+        return {k: v.to(torch.promote_types(v.dtype, torch.float32)) for k, v in out.items()}
 
 
 def load_torchvision_vgg19(module: VGGFeatureExtractor, path: str) -> None:

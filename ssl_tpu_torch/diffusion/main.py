@@ -12,8 +12,10 @@ and so on): without the first, K2 is off the path and only K1 runs; with
 ``compute_dtype: bfloat16`` (or the override ``model.compute_dtype=bfloat16``)
 the three nets run their activations in bf16 on float32 weights, K2 runs its
 bf16 kernels, and the SSL loss (K1) still sees a float32 decoded image.  The
-training options come over as there: ``sslopt`` into the SSL setting (``mask_stride`` 3 by default;
-``capacity``, the gather API's, is read and ignored), ``train.lr`` and
+training options come over as there: ``sslopt`` into the SSL setting
+(``mask_stride`` 3 and ``capacity`` 2048 by default; a ``simself_strategy``
+other than the shipped one, with the zoo's keys, routes the SSL term
+through ``losses/simself_strategies.py``), ``train.lr`` and
 ``train.accumulate_grad_batches``.
 
 The CLI: ``TwoStageDegradationImgMaskDataset`` batches from
@@ -38,8 +40,8 @@ A ``.json`` base file needs no ``yaml``.  Runs on ``cuda`` unless
 ``--device`` names another device.  Not ported yet, and raising
 ``NotImplementedError``: a ``compute_dtype`` other than float32 and
 bfloat16, ``parallel`` (data and tensor parallelism), ``train.ckpt_backend:
-orbax``, reference-schema configs (``model.target``), the SSL strategy zoo, and the
-checkpoint and CLIP weight paths."""
+orbax``, reference-schema configs (``model.target``), and the checkpoint
+and CLIP weight paths."""
 
 from __future__ import annotations
 
@@ -59,15 +61,12 @@ from ssl_tpu_torch.data.realesr_degradation import RealESRGANDegrader
 from ssl_tpu_torch.diffusion.ddpm_ssl import DiffusionSSLConfig, StableSRSSL, trainable
 from ssl_tpu_torch.diffusion.unet import NOT_PORTED, EncoderUNetModelWT, UNetModelDualcondV2
 from ssl_tpu_torch.diffusion.vae import AutoencoderKL
-from ssl_tpu_torch.losses.ssl_loss import SSLSetting
+from ssl_tpu_torch.losses.ssl_loss import SSLSetting, zoo_opts, zoo_strategy
 from ssl_tpu_torch.models.base_model import _rng_state, _set_rng_state, resolve_device
 from ssl_tpu_torch.ops.ssg import SSGConfig
 from ssl_tpu_torch.utils.img_util import imwrite
 from ssl_tpu_torch.utils.options import ordered_yaml_load, parse_value
 from ssl_tpu_torch.utils.weight_port import params_to_jax
-
-# the fused SSL loss under the names the reference configs give it
-DEFAULT_STRATEGIES = ("", "areaarea_mask_nonlocalavg_cuda_v1", "ssl_cuda")
 
 
 def build_from_config(cfg: dict) -> StableSRSSL:
@@ -77,9 +76,6 @@ def build_from_config(cfg: dict) -> StableSRSSL:
     if cfg.get("parallel"):
         raise NotImplementedError(f"parallel: {cfg['parallel']} {NOT_PORTED}")
     sslopt = cfg.get("sslopt", {})
-    if sslopt.get("simself_strategy", "") not in DEFAULT_STRATEGIES:
-        raise NotImplementedError(
-            f"sslopt.simself_strategy={sslopt['simself_strategy']!r} {NOT_PORTED}")
     dcfg = DiffusionSSLConfig(
         timesteps=model_cfg.get("timesteps", 1000),
         beta_schedule=model_cfg.get("beta_schedule", "linear"),
@@ -111,8 +107,10 @@ def build_from_config(cfg: dict) -> StableSRSSL:
                     sigma=sslopt.get("sigma", 0.004),
                     generalization=sslopt.get("generalization", True))
     setting = SSLSetting(ssg=ssg, mask_stride=sslopt.get("mask_stride", 3),
+                         capacity=sslopt.get("capacity", 2048),
                          l1_weight=dcfg.ssl_l1_weight, kl_weight=dcfg.ssl_kl_weight,
-                         impl=sslopt.get("impl", "dense"))
+                         impl=sslopt.get("impl", "dense"),
+                         strategy=zoo_strategy(sslopt), strategy_opts=zoo_opts(sslopt))
     train = cfg.get("train", {})
     return StableSRSSL(
         dcfg, unet=unet, structcond=structcond, vae=vae, ssl_setting=setting,

@@ -17,7 +17,8 @@ class ESRGANSSLModel(ESRGANModel):
 
     def __init__(self, opt: dict, device=None):
         super().__init__(opt, device=device)
-        self.ssl_setting = ssl_setting_from_opt(opt)
+        gt_size = ((opt.get("datasets") or {}).get("train") or {}).get("gt_size")
+        self.ssl_setting = ssl_setting_from_opt(opt, gt_size=gt_size)
         self.use_ssl = bool(opt.get("ssl_setting")) and (
             self.ssl_setting.l1_weight > 0 or self.ssl_setting.kl_weight > 0)
 

@@ -54,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 class SSGConfig(NamedTuple):
@@ -384,3 +385,157 @@ def ssl_loss_dense_bwd(sr, gt, mask, inv_sr, inv_gt, g_l1, g_kl,
         P = reflect_pad_2d(sr, p)                        # the float32 P (JAX's stored routes)
     dP = 2.0 * ((sum_shift_a + a9)[:, None] * P - acc1)
     return reflect_pad_2d_adjoint(dP, p)
+
+
+# ---------------------------------------------------------------------------
+# The gather API: SSG rows at given edge positions
+# ---------------------------------------------------------------------------
+# Counterpart of ``ssl_tpu/ops/ssg.py::mask_to_positions``, ``ssg_ssd_maps_scan``,
+# ``ssg_epilogue``, ``ssg_matrix`` and ``ssg_from_mask``: the reference's (N,
+# search^2) SSG-matrix API, which ``impl: scan``, ``selfsim1_opt.softmax`` and
+# the diffusion tree's strategy zoo use.  Plain PyTorch, as JAX writes it in
+# XLA (no Pallas kernel computes it there either: ``ssg_pallas.py::
+# ssg_ssd_maps_pallas`` runs the same scan).
+#
+# Where JAX scans the offsets one at a time with prefix sums, this computes the
+# dense raw-SSD maps of a chunk of whole search rows at once and gathers the
+# positions from them.  For offset d the window sum splits into disjoint parts,
+# each a sum of non-negative terms (no cancelling prefix or box differences):
+#
+#   S_d = sum_{kh in Ry} [ sum_{kw in Rx} D_d + sum_{kw notin Rx} C2 ]
+#         + sum_{kh notin Ry} sum_{kw} C2
+#
+# with [Ry] x [Rx] the clipped window rectangle of d, D_d = sum_c (P - P_d)^2
+# and C2 = sum_c P^2; each sum over kw (kh) is a 1 x window (window x 1)
+# grouped convolution with a 0/1 kernel per offset.  A chunk holds as many
+# search rows as ``SSD_CHUNK_BYTES`` allow, and under autograd it is
+# recomputed in the backward (``torch.utils.checkpoint``), as JAX bounds its
+# memory with ``jax.checkpoint(body)``: only the gathered rows are kept.
+
+SSD_CHUNK_BYTES = 1 << 30
+
+
+def mask_to_positions(mask: torch.Tensor, capacity: int):
+    """Binary (h, w) mask -> fixed-capacity row-major positions.
+
+    Returns (pos, valid, count): pos (capacity, 2) int32 (y, x) with padding
+    rows (0, 0); valid (capacity,) bool; count () int32, the true number of
+    edge pixels, which may exceed capacity: then the first ``capacity`` in
+    row-major order (``torch.nonzero``'s, as the reference wrapper's
+    ``similaritywrapper.py:67``) are kept and the rest dropped."""
+    w = mask.shape[-1]
+    flat = mask.reshape(-1) == 1
+    idx = torch.nonzero(flat)[:capacity, 0]
+    n = idx.numel()
+    pos = torch.zeros((capacity, 2), dtype=torch.int32, device=mask.device)
+    pos[:n, 0] = (idx // w).to(torch.int32)
+    pos[:n, 1] = (idx % w).to(torch.int32)
+    valid = torch.arange(capacity, device=mask.device) < n
+    return pos, valid, flat.sum(dtype=torch.int32)
+
+
+def _rect_kernels(iy0: int, iy1: int, search: int, window: int, device, dtype):
+    """0/1 kernels of the offsets of search rows [iy0, iy1), row-major: the
+    columns inside (``kx_in``) and outside (``kx_out``) each offset's clipped
+    rectangle, (N, 1, 1, window), and its rows likewise, (N, 1, window, 1)."""
+    p, k = search // 2, window // 2
+    t = torch.arange(-k, k + 1, device=device)
+
+    def inside(i):
+        lo, hi = _window_bounds(i - p, p, k)
+        return ((t >= lo) & (t <= hi)).to(dtype)
+    rows = torch.stack([inside(i) for i in range(iy0, iy1)])            # (R, window)
+    cols = torch.stack([inside(i) for i in range(search)])              # (S, window)
+    n = (iy1 - iy0) * search
+    kx = cols.repeat(iy1 - iy0, 1).reshape(n, 1, 1, window)
+    ky = rows.repeat_interleave(search, 0).reshape(n, 1, window, 1)
+    return kx, 1.0 - kx, ky, 1.0 - ky
+
+
+def _ssd_chunk(P, Pbig, iy0: int, iy1: int, flat_pos, search: int, window: int):
+    """Raw SSDs of the offsets of search rows [iy0, iy1) at ``flat_pos``
+    (m, n) flat pixel indices: (m, n, (iy1 - iy0) * search)."""
+    p, k = search // 2, window // 2
+    m, c, hp, wp = P.shape
+    h, w = hp - 2 * p, wp - 2 * p
+    h2, w2 = h + 2 * k, w + 2 * k
+    centre = P[:, :, p - k:p + h + k, p - k:p + w + k]                 # (m, c, h2, w2)
+    # cand[:, :, r, j, u, v] = Pbig[:, :, p - k + iy0 + r + u, p - k + j + v]: P
+    # shifted by (iy0 + r - p, j - p), zeros outside the padded image
+    cand = (Pbig[:, :, p - k + iy0:p - k + iy1 + h2 - 1, p - k:p + w + k + 2 * p]
+            .unfold(2, h2, 1).unfold(3, w2, 1))                          # (m, c, R, S, h2, w2)
+    diff = centre[:, :, None, None] - cand
+    n_off = (iy1 - iy0) * search
+    D = torch.sum(diff * diff, dim=1).reshape(m, n_off, h2, w2)
+    c2 = torch.sum(centre * centre, dim=1, keepdim=True)                 # (m, 1, h2, w2)
+    kx_in, kx_out, ky_in, ky_out = _rect_kernels(iy0, iy1, search, window, P.device, P.dtype)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False              # 0/1 sums: no input rounding
+    try:
+        e = F.conv2d(D, kx_in, groups=n_off) + F.conv2d(c2, kx_out)     # (m, N, h2, w)
+        full = F.conv2d(c2, torch.ones_like(kx_in[:1]))                 # (m, 1, h2, w)
+        s = F.conv2d(e, ky_in, groups=n_off) + F.conv2d(full, ky_out)   # (m, N, h, w)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    idx = flat_pos[:, None, :].expand(m, n_off, flat_pos.shape[1])
+    return torch.gather(s.reshape(m, n_off, h * w), 2, idx).transpose(1, 2)
+
+
+def ssd_rows(imgs: torch.Tensor, pos: torch.Tensor, search: int, window: int) -> torch.Tensor:
+    """Raw windowed SSDs of each image at its positions: imgs (m, c, h, w),
+    pos (m, n, 2) (y, x) -> (m, n, search^2), offsets row-major; candidate
+    pixels outside the search patch read as zero (``ssg_ssd_maps_scan``'s
+    function for a batch of images)."""
+    if search % 2 == 0 or window % 2 == 0 or window > search:
+        raise ValueError(f"search and window must be odd with window <= search, "
+                         f"got {search}, {window}")
+    p = search // 2
+    m, c, h, w = imgs.shape
+    P = reflect_pad_2d(imgs, p)
+    Pbig = F.pad(P, (p, p, p, p))
+    flat_pos = pos[..., 0].long() * w + pos[..., 1].long()
+    k = window // 2
+    row_bytes = m * (c + 3) * search * (h + 2 * k) * (w + 2 * k) * imgs.element_size()
+    rows = max(1, min(search, SSD_CHUNK_BYTES // max(row_bytes, 1)))
+    grad = torch.is_grad_enabled() and imgs.requires_grad
+    out = []
+    for iy0 in range(0, search, rows):
+        args = (P, Pbig, iy0, min(iy0 + rows, search), flat_pos, search, window)
+        out.append(checkpoint(_ssd_chunk, *args, use_reentrant=False) if grad
+                   else _ssd_chunk(*args))
+    return torch.cat(out, dim=2)
+
+
+def ssg_ssd_maps_scan(img: torch.Tensor, cfg: SSGConfig, pos: torch.Tensor) -> torch.Tensor:
+    """Gathered raw SSD values for each (edge pixel, search offset): img (c,
+    h, w), pos (cap, 2) -> (cap, search^2), before the division by c *
+    window^2 and the exp."""
+    return ssd_rows(img[None], pos[None], cfg.search, cfg.window)[0]
+
+
+def ssg_epilogue(ssd: torch.Tensor, num_ch: int, cfg: SSGConfig) -> torch.Tensor:
+    """ssd (..., search^2) raw -> similarity rows q, row-normalized with
+    ``generalization`` (sum + 1e-10)."""
+    q = torch.exp(-(ssd / (num_ch * float(cfg.window) ** 2)) / cfg.sigma)
+    if cfg.generalization:
+        q = q / (torch.sum(q, dim=-1, keepdim=True) + 1e-10)
+    return q
+
+
+def ssg_matrix(img: torch.Tensor, pos: torch.Tensor, cfg: SSGConfig = SSGConfig()) -> torch.Tensor:
+    """SSG rows for given edge positions: img (c, h, w) or a batch (m, c, h,
+    w) with pos (cap, 2) or (m, cap, 2) -> (cap, search^2) or (m, cap,
+    search^2).  Rows of padding positions are those of pixel (0, 0): mask
+    them with the validity mask.  The JAX package's ``impl`` argument
+    ('scan', 'pallas', 'dense') picks among implementations of this one
+    function, so the port takes none."""
+    if img.dim() == 3:
+        return ssg_epilogue(ssg_ssd_maps_scan(img, cfg, pos), img.shape[0], cfg)
+    return ssg_epilogue(ssd_rows(img, pos, cfg.search, cfg.window), img.shape[1], cfg)
+
+
+def ssg_from_mask(img: torch.Tensor, mask: torch.Tensor, capacity: int,
+                  cfg: SSGConfig = SSGConfig()):
+    """(q, valid, count) of image (c, h, w) from a binary (h, w) mask."""
+    pos, valid, count = mask_to_positions(mask, capacity)
+    return ssg_matrix(img, pos, cfg), valid, count

@@ -164,12 +164,22 @@ def test_unported_model_options_raise(change):
 
 
 def test_unported_top_level_options_raise():
-    for key, value in (("parallel", {"data": 2, "tp": 2}),
-                       ("sslopt", {"simself_strategy": "areaarea"})):
-        cfg = shipped()
-        cfg[key] = value
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_from_config(cfg)
+    """``parallel`` is refused; a zoo strategy with its options builds the
+    SSL setting the JAX package builds (capacity 2048 by default)."""
+    cfg = shipped()
+    cfg["parallel"] = {"data": 2, "tp": 2}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_from_config(cfg)
+    cfg = shipped()
+    cfg["sslopt"].update(simself_strategy="areaarea_mask_nonlocal", kernel_size=7,
+                         kernel_size_center=3, softmax_sr=True, simself_dh=8)
+    got, ref = build_from_config(cfg).ssl_setting, jax_build(cfg).ssl_setting
+    assert got.strategy == ref.strategy == "areaarea_mask_nonlocal"
+    assert got.strategy_opts == ref.strategy_opts and len(got.strategy_opts) == 4
+    assert got.capacity == ref.capacity == 2048
+    for field in ("mask_stride", "l1_weight", "kl_weight", "kl_softmax", "impl"):
+        assert getattr(got, field) == getattr(ref, field), field
+    assert tuple(got.ssg) == tuple(getattr(ref.ssg, f) for f in got.ssg._fields)
 
 
 def test_entry_points_target_cuda_by_default(monkeypatch):

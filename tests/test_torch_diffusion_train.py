@@ -1,6 +1,9 @@
 """The port's StableSR-SSL train step against ssl_tpu's (fp32, CPU), for the
-eps, v and x0 parameterizations: the logs, and the weights and their EMA
-after one step (accumulate 1).
+eps, v and x0 parameterizations, and with a strategy of the zoo as the SSL
+term: a dense tile one (areaarea) and a masked one (the CUDA op's epilogue,
+whose rows the port's areaarea_mask_nonlocal shares; that key is held
+against JAX's through ssl_loss in tests/test_torch_simself_strategies.py):
+the logs, and the weights and their EMA after one step (accumulate 1).
 
 Configs, seeded non-zero weights and the JAX step's draws (recomputed from
 ``state.rng`` as the JAX step splits it, and handed to the port):
@@ -27,9 +30,21 @@ from torch_diffusion_train_cases import (LR, batch, capture_grads, check_logs, c
                                          flat, jax_draws, pair, torch_batch)
 
 
-@pytest.mark.parametrize("parameterization", ["eps", "v", "x0"])
-def test_train_step_matches_jax(parameterization):
-    jm, jstate, tm, state = pair(parameterization)
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread (the suite runs several test processes at once)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("parameterization,strategy", [
+    ("eps", ""), ("v", ""), ("x0", ""), ("eps", "areaarea"),
+    ("eps", "areaarea_mask_nonlocal_cuda_v1")],
+    ids=["eps", "v", "x0", "areaarea", "areaarea_mask_nonlocal_cuda_v1"])
+def test_train_step_matches_jax(parameterization, strategy):
+    jm, jstate, tm, state = pair(parameterization, strategy=strategy)
     b = batch()
     draws = jax_draws(jm, jstate)
     before = {k: v.clone() for k, v in flat(state.params).items()}

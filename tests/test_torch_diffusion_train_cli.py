@@ -6,7 +6,8 @@ A tiny config like tests/test_diffusion_train_cli.py:37-59 (crop 32, UNet 32
 processes:
 
 * 2 mini-steps on ``--device cpu`` from a ``.json`` base file with ``yaml``
-  hidden, then ``--resume auto`` to 4; ``ckpt_2.pkl`` has the JAX CLI's
+  hidden, then ``--resume auto`` to 4 (and 2 more with a zoo strategy as an
+  override); ``ckpt_2.pkl`` has the JAX CLI's
   layout (every leaf's path, shape and dtype of the JAX model's params), and
   ``train_state_2.pkl`` reloads into a fresh state bit for bit.
 * ``params_to_jax(params_from_jax(p))`` is ``p`` bit for bit.
@@ -21,6 +22,7 @@ import json
 import os
 import pickle
 import random
+import re
 import sys
 import types
 
@@ -151,6 +153,30 @@ def test_cli_two_mini_steps_then_resume_to_four(data, jax_params, tmp_path, monk
     out = capsys.readouterr().out
     assert "resumed from" in out and "train_state_2.pkl at step 2" in out and "step 3 (" in out
     assert resumed.step == 4 and (logdir / "train_state_4.pkl").is_file()
+
+
+def test_cli_trains_with_a_zoo_strategy(data, tmp_path, monkeypatch, capsys):
+    """2 mini-steps (one update) with ``sslopt.simself_strategy`` and a zoo
+    option as overrides: the SSL term goes through the strategy zoo, with
+    finite losses and l_selfsim > 0."""
+    from ssl_tpu_torch.losses import simself_strategies
+    seen = []
+    loss_fn = simself_strategies.simself_strategy_loss
+
+    def spy(sr, gt, mask, setting):
+        seen.append((setting.strategy, dict(setting.strategy_opts), setting.capacity))
+        return loss_fn(sr, gt, mask, setting)
+    monkeypatch.setattr(simself_strategies, "simself_strategy_loss", spy)
+    base = write_cfg(tmp_path, "cfg.json", tiny_cfg(data, save_every=100, image_every=100))
+    state = tmain.main(["--train", "--base", base, "--logdir", str(tmp_path / "logs"),
+                        "--device", "cpu", "sslopt.simself_strategy=areaarea_mask_nonlocal_cuda_v1",
+                        "sslopt.kernel_size=9"])
+    assert state.step == 2 and state.mini_step == 0
+    assert seen == [("areaarea_mask_nonlocal_cuda_v1", {"kernel_size": 9}, 2048)] * 2
+    logged = re.findall(r"'l_selfsim': ([^,}]+)", capsys.readouterr().out)
+    assert len(logged) == 2
+    for value in map(float, logged):
+        assert np.isfinite(value) and value > 0, logged
 
 
 def test_params_round_trip_bit_for_bit(jax_params):

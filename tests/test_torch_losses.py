@@ -30,6 +30,15 @@ SHIPPED_YML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fil
                            "options", "train", "ESRGANSSL", "train_ESRGANSSL_bicubic_x4.yml")
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread (the suite runs several test processes at once)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
 
@@ -73,13 +82,13 @@ def test_ssl_setting_from_shipped_yaml_matches_jax():
     with open(SHIPPED_YML) as f:
         opt = yaml.safe_load(f)
     ref = jssl.ssl_setting_from_opt(opt, gt_size=128)
-    got = tssl.ssl_setting_from_opt(opt)
+    got = tssl.ssl_setting_from_opt(opt, gt_size=128)
     # the port's SSGConfig leaves out pair_offsets (an exact re-ordering in JAX)
     assert tuple(got.ssg) == tuple(getattr(ref.ssg, f) for f in got.ssg._fields)
     for field in got._fields[1:]:
         assert getattr(got, field) == getattr(ref, field), field
     # the shipped GAN tree defines mask_stride but does not apply it
-    assert got.mask_stride == 0 and got.impl == "dense"
+    assert got.mask_stride == 0 and got.impl == "dense" and got.capacity == 128 * 128 // 3
     forced = dict(opt, ssl_setting=dict(opt["ssl_setting"], apply_mask_stride=True))
     assert tssl.ssl_setting_from_opt(forced).mask_stride == 3
 
@@ -104,21 +113,55 @@ def test_ssl_loss_matches_jax_at_shipped_setting(mask_stride):
     np.testing.assert_allclose(float(got[1]), float(ref[1]), rtol=1e-3)
 
 
-@pytest.mark.parametrize("change", [{"impl": "scan"}, {"simself_strategy": "areaarea"}])
+def _gather_case(ssl_setting, train, mask_stride=0):
+    """Both packages' ssl_loss (l1, kl, d_sr of their sum) on a 16^2 pair at
+    search 7 / window 3 / sigma 0.05, the ssl_setting block ``ssl_setting``
+    and the train block ``train`` (capacity 40: above the edge count of the
+    first image, below the second's)."""
+    opt = {"ssl_setting": dict({"kernel_size_search": 7, "kernel_size_window": 3,
+                                "sigma": 0.05, "capacity": 40}, **ssl_setting),
+           "train": dict(train, mask_stride=mask_stride)}
+    rng = np.random.RandomState(5)
+    gt = rng.rand(2, 16, 16, 3).astype(np.float32)
+    sr = np.clip(gt + rng.randn(*gt.shape) * 0.1, 0, 1).astype(np.float32)
+    mask = (rng.rand(2, 16, 16, 1) < np.array([0.1, 0.3])[:, None, None, None]).astype(np.float32)
+    js, ts = jssl.ssl_setting_from_opt(opt), tssl.ssl_setting_from_opt(opt)
+    assert ts.capacity == js.capacity == 40 and ts.strategy_opts == js.strategy_opts
+
+    def f(x):
+        l1, kl = jssl.ssl_loss(x, jnp.asarray(gt), jnp.asarray(mask), js)
+        return l1 + kl, (l1, kl)
+    (_, ref), ref_d = jax.jit(jax.value_and_grad(f, has_aux=True))(jnp.asarray(sr))
+    x = _nchw(sr).requires_grad_(True)
+    got = tssl.ssl_loss(x, _nchw(gt), _nchw(mask), ts)
+    sum(got).backward()
+    return got, ref, x.grad.numpy().transpose(0, 2, 3, 1), np.asarray(ref_d)
+
+
+def _check_gather(got, ref, d, rd):
+    """l1 rel 1e-4, kl rel 1e-3; d_sr within a relative L2 of 1e-4 with an atol
+    of 1e-6 of its largest element (float32 sums in other orders)."""
+    np.testing.assert_allclose(got[0].item(), float(ref[0]), rtol=1e-4)
+    np.testing.assert_allclose(got[1].item(), float(ref[1]), rtol=1e-3)
+    err = np.maximum(np.abs(d - rd) - 1e-6 * np.abs(rd).max(), 0)
+    assert np.abs(rd).max() > 0 and np.linalg.norm(err) <= 1e-4 * np.linalg.norm(rd)
+
+
+@pytest.mark.parametrize("change", [{"impl": "scan"}, {"simself_strategy": "areaarea",
+                                                       "simself_dh": 8, "simself_dw": 8,
+                                                       "kernel_size": 3, "softmax_sr": True}])
 def test_ssl_loss_unported_paths_raise(change):
-    setting = tssl.ssl_setting_from_opt({"ssl_setting": change,
-                                         "train": {"selfsim_opt": {"loss_weight": 1.0}}})
-    x = torch.zeros(1, 3, 16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tssl.ssl_loss(x, x, torch.zeros(1, 16, 16), setting)
+    """The gather route (``impl: scan``) and a zoo strategy through
+    ``ssl_loss``, against ``ssl_tpu``'s."""
+    _check_gather(*_gather_case(change, {"selfsim_opt": {"loss_weight": 1.0},
+                                         "selfsim1_opt": {"loss_weight": 0.5}}, mask_stride=3))
 
 
 def test_ssl_loss_kl_softmax_raises():
-    setting = tssl.ssl_setting_from_opt(
-        {"ssl_setting": {}, "train": {"selfsim1_opt": {"loss_weight": 1.0, "softmax": True}}})
-    x = torch.zeros(1, 3, 16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tssl.ssl_loss(x, x, torch.zeros(1, 16, 16), setting)
+    """``selfsim1_opt.softmax: true`` (the gather route with the row softmax
+    in the KL), against ``ssl_tpu``'s."""
+    _check_gather(*_gather_case({}, {"selfsim_opt": {"loss_weight": 1.0},
+                                     "selfsim1_opt": {"loss_weight": 1.0, "softmax": True}}))
 
 
 def test_perceptual_loss_matches_jax_with_carried_vgg():

@@ -34,6 +34,9 @@ from ssl_tpu_torch.utils.weight_port import params_from_jax
 from torch_diffusion_cases import CFG, STRUCT, UNET, VAE, nchw, seeded_params
 
 SSG = dict(search=9, window=5, sigma=0.1)
+# a zoo strategy's options at these sizes (tiles of 16, search 7, window 3)
+ZOO_OPTS = (("kernel_size", 7), ("kernel_size_center", 3), ("scaling_factor", 1.0),
+            ("simself_dh", 16), ("simself_dw", 16), ("softmax_sr", True))
 B, SIZE, LATENT = 2, 32, 16
 LR = 5e-5                # StableSRSSL's default, as in the JAX package
 GRAD_FLOOR = 1e-5        # of the largest gradient: below it a gradient is rounding noise
@@ -98,12 +101,14 @@ def weights(seed=0):
     return params, seeded_params(j_vae, np.zeros((B, SIZE, SIZE, 3), np.float32), seed=seed + 23)
 
 
-def pair(parameterization="eps", accumulate=1, pixel_weight=0.1, seed=0):
-    """(JAX model, JAX state, port model, port state) from one set of weights."""
+def pair(parameterization="eps", accumulate=1, pixel_weight=0.1, seed=0, strategy=""):
+    """(JAX model, JAX state, port model, port state) from one set of weights;
+    ``strategy`` a key of the strategy zoo (ZOO_OPTS), '' the fused loss."""
     cfg = dict(CFG, parameterization=parameterization, pixel_weight=pixel_weight)
+    ssl = dict(mask_stride=3, l1_weight=0.5, kl_weight=0.5, strategy=strategy,
+               strategy_opts=ZOO_OPTS if strategy else (), capacity=64)
     jm = JModel(JCfg(**cfg), unet=JUNet(**UNET), structcond=JEnc(**STRUCT), vae=JVAE(**VAE),
-                ssl_setting=JSSLSetting(ssg=JSSGConfig(**SSG), mask_stride=3, l1_weight=0.5,
-                                        kl_weight=0.5),
+                ssl_setting=JSSLSetting(ssg=JSSGConfig(**SSG), **ssl),
                 accumulate=accumulate)
     params, vp = weights(seed)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
@@ -115,8 +120,7 @@ def pair(parameterization="eps", accumulate=1, pixel_weight=0.1, seed=0):
 
     tm = StableSRSSL(DiffusionSSLConfig(**cfg), unet=UNetModelDualcondV2(**UNET),
                      structcond=EncoderUNetModelWT(**STRUCT), vae=AutoencoderKL(**VAE),
-                     ssl_setting=SSLSetting(ssg=SSGConfig(**SSG), mask_stride=3, l1_weight=0.5,
-                                            kl_weight=0.5),
+                     ssl_setting=SSLSetting(ssg=SSGConfig(**SSG), **ssl),
                      accumulate=accumulate)
     state = tm.init_state(seed=0, device="cpu")
     load_jax_params(state, params)
