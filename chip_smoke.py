@@ -2,7 +2,13 @@
 
     python3 chip_smoke.py
 
-Phases, each printing JSON lines; the first failure exits non-zero:
+Phases, each printing JSON lines; the first failure exits non-zero.  The
+zoo phase's CPU references start first, in processes of their own beside
+the phases before it; the metrics phase (12), which needs none of the
+port's kernels, runs on the card while they build; the recipes phase (15)
+runs in a process of its own beside diffusion_cli (9), and the parallel
+phase's dist_train.sh (18b) beside prep_infer (17).  The StableSR-SSL
+training runs accumulate 4 mini-steps an update (ssl_base.yml: 12):
 
 1. build   compile the port's CUDA kernels (K1 ssg_loss_fwd, K2
            flash_attn_fwd and flash_attn_bwd) with nvcc, one process per
@@ -92,13 +98,13 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            per denoising step and per mini-step, peak memory, device
            launches per step; K2 14 per step and 17 forward, 15 backward a
            mini-step, all bf16 kernels; the UNet gradient's cosine to
-           float32 above 0.98), then 12 mini-steps through the training CLI
+           float32 above 0.98), then 4 mini-steps through the training CLI
            with model.compute_dtype=bfloat16 as an override (one update)
-8. diffusion_train  the shipped training options (lr 5e-5, 12 mini-steps
-           per update, EMA 0.9999) at 512^2, batch 2, on smooth synthetic
+8. diffusion_train  the shipped training options (lr 5e-5, EMA 0.9999;
+           4 mini-steps per update) at 512^2, batch 2, on smooth synthetic
            GT/LQ with a mask of density 0.25: one full accumulation cycle of
-           12 mini-steps through train_step; logs finite, weights unchanged
-           after mini-steps 1-11 and moved after 12, the EMA moved, K1 once
+           4 mini-steps through train_step; logs finite, weights unchanged
+           after mini-steps 1-3 and moved after 4, the EMA moved, K1 once
            and K2 17 forward and 15 backward per mini-step, every K2
            kernel launched; times, peak memory and K2's forward and
            backward device time per mini-step
@@ -108,12 +114,12 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            24 GT PNGs of 512^2 made on the card, .mat masks from the
            generate_mask entry point, a .json base file with ssl_base.yml's
            values (crop 512, batch 2, 4 loader processes, the shipped
-           degradation block on the host degrader); 12 mini-steps (one
-           update: losses finite, K1 1, K2 17 forward and 15 backward per
-           mini-step, the weights moved at mini-step 12 only),
-           ckpt_12.pkl in the JAX layout, train_state_12.pkl reloaded bit
-           for bit, --resume auto to 24 (moved at 24 only), the test CLI on
-           ckpt_12.pkl and ckpt_24.pkl (one 512^2 request of 10 steps each:
+           degradation block on the host degrader, 4 mini-steps an update);
+           4 mini-steps (one update: losses finite, K1 1, K2 17 forward and
+           15 backward per mini-step, the weights moved at mini-step 4 only),
+           ckpt_4.pkl in the JAX layout, train_state_4.pkl reloaded bit
+           for bit, --resume auto to 8 (moved at 8 only), the test CLI on
+           ckpt_4.pkl and ckpt_8.pkl (one 512^2 request of 10 steps each:
            two different images); the host C++ filter2d and JPEG held against their numpy
            versions on 2 x 512^2; ms per mini-step, data wait and the host
            degrader's share from the CLI's timers
@@ -129,12 +135,12 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            zoo's default options), card against CPU in float64 within
            1e-10 on the losses and d_sr, float32 reported with its ms;
            (e) PerceptualSimLoss with every term on, card against CPU in
-           float64 at 128^2, timed at 512^2 b2; (d) 24 mini-steps (two
+           float64 at 128^2, timed at 512^2 b2; (d) 8 mini-steps (two
            updates) of the StableSR-SSL training CLI with
            sslopt.simself_strategy=areaarea_mask_nonlocal_cuda_v1 and
            model.use_flash_attention=true on diffusion_cli's kind of data:
            losses finite, l_selfsim > 0, the weights moved at mini-steps
-           12 and 24 only (the accumulation restarts within one process),
+           4 and 8 only (the accumulation restarts within one process),
            no K1 and K2 17 forward and 15
            backward per mini-step (diffusion_cli's), ms per mini-step, peak
            memory, edge pixels per image against the capacity
@@ -198,11 +204,11 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            RankSRGAN-PI, SwinIR-GAN, ELAN-GAN) through the train and test
            CLIs at their shipped widths on the cli phase's files: the
            options/train/<recipe> YAML's values in a .json file, batch 16, 4
-           loader processes, 3 iterations with a checkpoint (losses finite
+           loader processes, 2 iterations with a checkpoint (losses finite
            with the recipe's own keys logged, K1 once per iteration and the
            plain SSL forward never on the card), the training state reloaded
            bit for bit (SPSR's gradient D and RankSRGAN's Ranker included),
-           --auto_resume to 4, the test CLI whole (and for SwinIR-GAN also
+           --auto_resume to 3, the test CLI whole (and for SwinIR-GAN also
            tiled); K1 held against
            its plain version on SwinIR's and ELAN's SR of 16 training pairs;
            ms per iteration, data wait, the first iteration's extra time,
@@ -215,10 +221,10 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            (48 / 64 / 16) in 6 loader processes on 64 GT PNGs of 288^2 made on
            the card, .mat masks from the generate_mask entry point, with cv2
            hidden (the host BSRGAN degradation's resize and JPEG, and the PNG
-           decode, are the port's own); 3 iterations with a save (losses
+           decode, are the port's own); 2 iterations with a save (losses
            finite, K1 once per iteration, the stride-3 mask applied, the plain
            SSL forward never on the card), the training state reloaded bit for
-           bit, --auto_resume to 4, the test CLI with the shipped test YAML's
+           bit, --auto_resume to 3, the test CLI with the shipped test YAML's
            model (BSGRANTestModel / BSGRANTestSwinIRModel) and G on a
            BlindLR-style set whole and tiled; the loader alone; K1 held on
            BSRGAN-SSL's SR of 16 degraded pairs with the stride-3 mask, for
@@ -248,7 +254,27 @@ Phases, each printing JSON lines; the first failure exits non-zero:
            within 1e-10 relative L2; in float32 the output within 1e-4 and the
            gradients reported beside the CPU float32's (a leaky ReLU's kink
            within rounding moves a float32 gradient by ~1e-4)
-18. kernels one line per ported kernel (K1's float32 and bf16 stream + store
+18. parallel torch.distributed at one rank under NCCL (phase_parallel):
+           (a) the ESRGAN-SSL train CLI at the cli phase's widths and data,
+           3 iterations with --launcher none and with --launcher pytorch
+           (DDP, the synced batch norm, the global relativistic means and
+           SSL count), cuDNN deterministic and TF32 off: losses within rtol
+           1e-4 and weights within lr / 5 (+2.2 lr where a gradient was
+           rounding noise) of the none run's, K1 once per iteration, net_g's
+           file unprefixed and loading into the plain net, --auto_resume to
+           4, ms per iteration of each in turns (none, pytorch, pytorch,
+           none);
+           (b) ssl_tpu_torch/scripts/dist_train.sh under torchrun
+           --standalone, one rank, 2 iterations at small widths (the launch
+           path), rank 0's files written; it starts before prep_infer and
+           has ended before (a)'s timed turns; (c)
+           inference_ssl_sr --spatial on prep_infer's 339 x 510 LR, equal to
+           the net on the whole image; (d) two StableSR-SSL mini-steps
+           (ssl_base.yml's widths, num_res_blocks 1, 256^2, accumulate 2) on
+           a (data 1, tp 1) mesh against the same without a mesh: losses
+           within TRAIN_LOG_RTOL, gradients within TRAIN_GRAD_REL_L2, the
+           update within 2.2 lr; K1 and K2 launched
+19. kernels one line per ported kernel (K1's float32 and bf16 stream + store
            modes each, the bf16 store's stream kernel, K2's float32 and bf16
            kernels each), launches on its
            main paths, error against the plain
@@ -285,6 +311,14 @@ PEAK_TF32_PER_S = 495e12
 PEAK_BF16_PER_S = 989e12
 
 MAIN_B, MAIN_GT, SCALE = 16, 128, 4
+# The parallel phase (torch.distributed at one rank, NCCL): the ESRGAN-SSL
+# train CLI for PAR_ITERS iterations under --launcher none and pytorch, the
+# latter resumed to PAR_RESUME_ITERS; a gradient below PAR_GRAD_FLOOR of its
+# net's largest is rounding noise; dist_train.sh for PAR_TORCHRUN_ITERS
+# iterations (given PAR_TORCHRUN_TIMEOUT seconds); StableSR-SSL mini-steps at
+# PAR_DIFF_SIZE^2.
+PAR_ITERS, PAR_RESUME_ITERS, PAR_TORCHRUN_ITERS, PAR_TORCHRUN_TIMEOUT = 3, 4, 2, 300
+PAR_GRAD_FLOOR, PAR_DIFF_SIZE = 1e-5, 256
 # bench.py's ESRGAN-SSL step (bench.py:54-116): batch 24, gt 128; a warm-up
 # step, then BENCH_STEPS timed steps, at its bf16 defaults and in float32.
 BENCH_B, BENCH_GT, BENCH_STEPS = 24, 128, 3
@@ -358,8 +392,13 @@ BWD_REL_L2, BWD_RTOL, BWD_ATOL = 1e-4, 1e-3, 1e-4
 # (4), the no-grad VAE encoder over [gt; lq] (1), the decoder's mid
 # attention (1) and its replay under remat (1); backward in all but the
 # encoder and the replay.  tests/test_torch_diffusion_config.py counts them
-# on the meta device.
-TRAIN_B, TRAIN_SIZE, TRAIN_MINI_STEPS = 2, 512, 12
+# on the meta device.  The training runs accumulate TRAIN_MINI_STEPS
+# mini-steps an update (ssl_base.yml's accumulate_grad_batches 12 cut to 4,
+# so that each update costs a third of the mini-steps): diffusion_train's
+# one cycle in process, and the training CLI runs of diffusion_bf16,
+# diffusion_cli and the zoo phase, through their base file.
+TRAIN_B, TRAIN_SIZE, TRAIN_MINI_STEPS = 2, 512, 4
+SHIPPED_ACCUMULATE = 12
 TRAIN_K2_FWD, TRAIN_K2_BWD = 17, 15
 # The K2-vs-plain hold of one mini-step at 256^2 (a 32^2 latent: the
 # UNet's and struct-cond encoder's ds-1 attentions and the VAE's mid
@@ -377,7 +416,7 @@ TRAIN_LOG_RTOL, TRAIN_GRAD_REL_L2 = 1e-4, 1e-3
 # the train CLI with the override runs BF16_CLI_STEPS mini-steps (one update).
 BF16_NET_BOUND, BF16_E2E_RATIO, BF16_GRAD_COS = 3e-2, 1.25, 0.98
 BF16_TURNS = ("bfloat16", "float32", "float32", "bfloat16")
-BF16_CLI_STEPS = 12
+BF16_CLI_STEPS = TRAIN_MINI_STEPS
 # The train and test CLIs on files: CLI_TRAIN GT images of CLI_GT^2 with their
 # LQ and masks, read by CLI_WORKERS loader processes, each image CLI_ENLARGE
 # times an epoch (dataset_enlarge_ratio) so that the run stays in one epoch, as
@@ -409,7 +448,7 @@ TEST_METRICS = dict(CLI_METRICS,
 # image at each of METRIC_SIZES (512^2 and a DIV2K valid image, 2040 x 1356,
 # the largest the shipped test sets give), METRIC_ITERS calls after a warm-up;
 # FID over METRIC_FID_IMAGES PNGs of 512^2 at batch METRIC_FID_BATCH.
-METRIC_HOLD, METRIC_ITERS = 256, 3
+METRIC_HOLD, METRIC_ITERS = 256, 2
 METRIC_SIZES = ((512, 512), (1356, 2040))
 METRIC_FID_IMAGES, METRIC_FID_BATCH = 16, 8
 METRIC_BOUNDS = {"lpips": 1e-6, "dists": 5e-7, "fid_pool3": 1e-5, "clip_visual": 3e-5,
@@ -436,13 +475,14 @@ RE_HOST_GT = 256
 # StableSR-SSL training through its CLI (ssl_tpu_torch.diffusion.main --train):
 # DC_TRAIN GT PNGs of TRAIN_SIZE^2 (the size of the shipped
 # multiscale_HR_sub_512), crop TRAIN_SIZE, batch TRAIN_B, DC_WORKERS loader
-# processes, 12 mini-steps an update; DC_STEPS mini-steps (one update) with a
-# log line every DC_LOG and checkpoints and previews every DC_SAVE, then
-# --resume auto to DC_RESUME_STEPS (a second update and checkpoint); the test
+# processes, TRAIN_MINI_STEPS mini-steps an update; DC_STEPS mini-steps (one
+# update) with a log line every DC_LOG and checkpoints and previews every
+# DC_SAVE, then --resume auto to DC_RESUME_STEPS (a second update and
+# checkpoint); the test
 # CLI on the two checkpoints, one (4 SERVE_LQ)^2 request of DC_TEST_STEPS
 # steps each (the serve phase times SERVE_STEPS).
 DC_TRAIN, DC_WORKERS = 24, 4
-DC_STEPS, DC_LOG, DC_SAVE, DC_RESUME_STEPS, DC_TEST_STEPS = 12, 4, 12, 24, 10
+DC_STEPS, DC_LOG, DC_SAVE, DC_RESUME_STEPS, DC_TEST_STEPS = 4, 2, 4, 8, 10
 # The zoo phase: the gather route (impl: scan) against K1's dense route at the
 # ESRGAN-SSL step's shape (b16 3 x MAIN_GT^2 pictures with real edge masks,
 # every edge within the capacity), selfsim1_opt.softmax there, every key of the
@@ -454,11 +494,13 @@ DC_STEPS, DC_LOG, DC_SAVE, DC_RESUME_STEPS, DC_TEST_STEPS = 12, 4, 12, 24, 10
 # diffusion_cli_fixtures' data.  Card against CPU in float64 within
 # ZOO_F64_RTOL (relative on the losses, relative L2 on d_sr); TF32 off.
 ZOO_B, ZOO_SIZE, ZOO_CAP, ZOO_F64_RTOL = 2, 128, 2048, 1e-10
-ZOO_CLI_STEPS, ZOO_CLI_STRATEGY = 24, "areaarea_mask_nonlocal_cuda_v1"
+ZOO_CLI_STEPS, ZOO_CLI_STRATEGY = 2 * TRAIN_MINI_STEPS, "areaarea_mask_nonlocal_cuda_v1"
 # the CPU's float64 references run in this many processes of this many threads
-ZOO_REF_WORKERS, ZOO_REF_THREADS = 8, 1
+# (from the script's start, beside the build, the metrics phase and the phases
+# before the zoo's: 3 of the card machine's 8 cores, as nvcc takes 3)
+ZOO_REF_WORKERS, ZOO_REF_THREADS = 3, 1
 # each key's float32 ms: CUDA events over this many calls after a first one
-ZOO_TIME_ITERS = 2
+ZOO_TIME_ITERS = 1
 # The six bicubic GAN-SSL recipes (options/train/<recipe>/train_<recipe>_bicubic_x4.yml):
 # the ESRGAN-SSL YAML's values (``shipped_opt``) but for each recipe's model,
 # its G at the shipped widths, its D, its own losses (``train``) and nets
@@ -501,7 +543,7 @@ RECIPES = {
         "network_d": RC_D}, "train": {}, "losses": (), "hold_k1": True},
 }
 RC_LOSSES = ("l_pix", "l_percep", "l_g_gan", "l_selfsim", "l_selfsim_kl", "l_d_real", "l_d_fake")
-RC_WORKERS, RC_ITERS, RC_RESUME_ITERS = 4, 3, 4
+RC_WORKERS, RC_ITERS, RC_RESUME_ITERS = 4, 2, 3
 # the recipes whose test CLI also runs in tiles (the windowed transformer's
 # padding to its window); the others run whole only
 RC_TILED = ("SwinIRGANSSL",)
@@ -520,7 +562,7 @@ RC_TILED = ("SwinIRGANSSL",)
 # KR_HOLD training pairs with the stride-3 mask, for each of KR_HOLD_SEEDS; the kernel
 # phase holds and times it at each recipe's shape (``batch`` x ``gt``^2).
 KR_TRAIN, KR_GT_IMG, KR_ENLARGE, KR_HOLD, KR_HOLD_SEEDS = 64, 288, 4, 16, (0, 1, 2)
-KR_ITERS, KR_RESUME_ITERS = 3, 4
+KR_ITERS, KR_RESUME_ITERS = 2, 3
 KR_SWINIR = {"type": "SwinIR", "upscale": 4, "in_chans": 3, "img_size": 64, "window_size": 8,
              "img_range": 1.0, "depths": [6, 6, 6, 6, 6, 6], "embed_dim": 180,
              "num_heads": [6, 6, 6, 6, 6, 6], "mlp_ratio": 2, "upsampler": "pixelshuffle",
@@ -563,6 +605,7 @@ RE_TIE_SHARE = 1e-3
 PI_HR, PI_HR_SIZE, PI_ITERS, PI_INFER, PI_GEN = 24, (400, 520), 2, 8, 4
 PI_TILE = (100, 16)
 PI_DIV2K = (1356, 2040)
+PI_STASH: dict = {}         # the DIV2K-size LR PNG, which the parallel phase restores again
 PI_LEVEL_SHARE, PI_REG_REL_L2, PI_REG_F64 = 1e-3, 1e-4, 1e-10
 # options/test/SwinIRGANSSL/test_SwinIRGANSSL_bicubic_x4.yml's network_g
 PI_SWINIR = {"in_chans": 3, "img_size": 64, "window_size": 8, "img_range": 1.0,
@@ -600,8 +643,14 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# what fail() stops before the script exits (the zoo's reference processes)
+STOP = []
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    for stop in STOP:
+        stop()
     sys.exit(1)
 
 
@@ -2224,12 +2273,16 @@ def phase_train_e2e(model, state):
 
 
 def phase_diffusion_train(model, state):
-    """One full accumulation cycle at 512^2 through train_step; returns the
-    K1, K2 forward and K2 backward launch counts of the run."""
+    """One full accumulation cycle at 512^2 through train_step, of
+    TRAIN_MINI_STEPS mini-steps (the model's shipped accumulate set to that
+    for the phase); returns the K1, K2 forward and K2 backward launch counts
+    of the run."""
     import numpy as np
     import torch
     from ssl_tpu_torch.diffusion.ddpm_ssl import trainable
     from ssl_tpu_torch.ops import attention_cuda, ssg_cuda
+
+    shipped, model.accumulate = model.accumulate, TRAIN_MINI_STEPS
 
     batches = [train_batch(TRAIN_SIZE, seed=30 + 2 * i) for i in range(TRAIN_MINI_STEPS)]
     start = [p.detach().clone() for p in trainable(state.params)]
@@ -2276,11 +2329,13 @@ def phase_diffusion_train(model, state):
     fwd_kernels = dict(attention_cuda.fwd_kernel_launches)
     if any(torch.equal(a, e) for a, e in zip(ema_before, trainable(state.ema_params))):
         fail("diffusion_train: an EMA tensor did not move at the applying mini-step")
+    model.accumulate = shipped
     n = TRAIN_MINI_STEPS
     expected = {"k1": n, "k2_fwd": n * TRAIN_K2_FWD, "k2_bwd": n * TRAIN_K2_BWD}
     emit({"phase": "diffusion_train", "config": "options/diffusion/ssl_base.yml",
           "size": TRAIN_SIZE, "batch": TRAIN_B, "mini_steps": n,
-          "accumulate": model.accumulate, "lr": model.lr, "ms_first": ms[0],
+          "accumulate": n, "reduced": {"accumulate_grad_batches": [shipped, n]},
+          "lr": model.lr, "ms_first": ms[0],
           "ms_profiled": ms[1], "ms_warm_mean": sum(ms[2:-1]) / len(ms[2:-1]),
           "ms_warm": ms[2:-1], "ms_applying": ms[-1], "logs_first": logs[0], "logs_last": logs[-1],
           "launches": launches, "expected": expected, "k2_bwd_kernel_launches": bwd_kernels,
@@ -2620,7 +2675,8 @@ def phase_diffusion_bf16(model, state):
                          "bf16_kernel_launches": train_kernels},
           "train_cli": cli,
           "reduced": {"serve_requests": f"{len(BF16_TURNS)} in turns, 2 per dtype",
-                      "cli_mini_steps": [800000, BF16_CLI_STEPS]},
+                      "cli_mini_steps": [800000, BF16_CLI_STEPS],
+                      "cli_accumulate_grad_batches": [SHIPPED_ACCUMULATE, TRAIN_MINI_STEPS]},
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "card": card()})
     return {"serve": serve_kernels, "mini_steps": train_kernels, "cli": cli["launches"]}
 
@@ -4363,8 +4419,9 @@ def ssl_base_train_cfg(d: dict) -> dict:
     yaml): ``ssl_base_cfg``'s model, sslopt and train blocks without the
     flash switch (the CLI gets it as an override), the shipped degradation
     block, the data block on ``diffusion_cli_fixtures``'s folders, and this
-    phase's cuts (DC_STEPS mini-steps, a log line every DC_LOG, checkpoints
-    and previews every DC_SAVE)."""
+    phase's cuts (TRAIN_MINI_STEPS mini-steps an update, DC_STEPS
+    mini-steps, a log line every DC_LOG, checkpoints and previews every
+    DC_SAVE)."""
     cfg = ssl_base_cfg()
     del cfg["model"]["use_flash_attention"]
     cfg["degradation"] = {
@@ -4377,8 +4434,8 @@ def ssl_base_train_cfg(d: dict) -> dict:
     cfg["data"] = {"crop_size": TRAIN_SIZE, "batch_size": TRAIN_B, "num_workers": DC_WORKERS,
                    "train": {"type": "TwoStageDegradationImgMaskDataset",
                              "dataroot_gt": [d["gt"]], "dataroot_gt_mask": [d["mask"]]}}
-    cfg["train"].update(max_steps=DC_STEPS, log_every=DC_LOG, save_every=DC_SAVE,
-                        image_every=DC_SAVE)
+    cfg["train"].update(accumulate_grad_batches=TRAIN_MINI_STEPS, max_steps=DC_STEPS,
+                        log_every=DC_LOG, save_every=DC_SAVE, image_every=DC_SAVE)
     return cfg
 
 
@@ -4458,11 +4515,12 @@ def phase_diffusion_cli(device: str = "cuda"):
     """StableSR-SSL training through its CLI (``ssl_tpu_torch.diffusion.main
     --train``) at the full width of options/diffusion/ssl_base.yml, with
     ``model.use_flash_attention=true`` as a dotlist override, on the
-    ``diffusion_cli_fixtures`` data: DC_STEPS mini-steps (one update of 12),
+    ``diffusion_cli_fixtures`` data: DC_STEPS mini-steps (one update of
+    TRAIN_MINI_STEPS),
     the training state reloaded into a fresh state bit for bit,
     ``--resume auto`` to DC_RESUME_STEPS (the second update), then the test
     CLI on the two checkpoints.  K1 once, K2's forward 17 and its backward 15 times per
-    mini-step; the weights move at every 12th mini-step only.  Returns the
+    mini-step; the weights move at every TRAIN_MINI_STEPS-th mini-step only.  Returns the
     launches of the CLI's training runs by kernel."""
     import gc
     import pickle
@@ -4562,7 +4620,8 @@ def phase_diffusion_cli(device: str = "cuda"):
             if not os.path.isfile(os.path.join(logdir, f)):
                 fail(f"diffusion_cli: {f} was not written")
 
-        # ckpt_12.pkl in the JAX layout; train_state_12.pkl reloaded bit for bit
+        # ckpt_<DC_SAVE>.pkl in the JAX layout; train_state_<DC_STEPS>.pkl reloaded bit
+        # for bit
         model = dmain.build_from_config(cfg)
         fresh = model.init_state(seed=1, device=device)
         fresh_degrader = RealESRGANDegrader(cfg["degradation"], scale=1, seed=1,
@@ -4677,9 +4736,11 @@ def phase_diffusion_cli(device: str = "cuda"):
     launches = {k: kernels[k] + kernels_r[k] for k in kernels}
     emit({"phase": "diffusion_cli", "config": "options/diffusion/ssl_base.yml",
           "override": "model.use_flash_attention=true", "train_images": DC_TRAIN,
-          "size": TRAIN_SIZE, "batch": TRAIN_B, "workers": DC_WORKERS, "accumulate": 12,
+          "size": TRAIN_SIZE, "batch": TRAIN_B, "workers": DC_WORKERS,
+          "accumulate": TRAIN_MINI_STEPS,
           "fixtures_s": fixtures_s, "mask_edge_share": edge_share, "decoder": decoder(),
-          "reduced": {"max_steps": [800000, DC_STEPS], "log_every": [100, DC_LOG],
+          "reduced": {"accumulate_grad_batches": [SHIPPED_ACCUMULATE, TRAIN_MINI_STEPS],
+                      "max_steps": [800000, DC_STEPS], "log_every": [100, DC_LOG],
                       "save_every": [1000, DC_SAVE], "image_every": [1000, DC_SAVE],
                       "resumed_to": DC_RESUME_STEPS,
                       "test_cli": f"ckpt_{DC_STEPS}.pkl and ckpt_{DC_RESUME_STEPS}.pkl, one "
@@ -4875,8 +4936,9 @@ def zoo_cli(device: str) -> dict:
     ``model.use_flash_attention=true sslopt.simself_strategy=ZOO_CLI_STRATEGY``
     as overrides, at the full width of ssl_base.yml on fresh
     ``diffusion_cli_fixtures`` data (no checkpoint or preview falls in the
-    run): losses finite and l_selfsim > 0 at every mini-step, the weights
-    moved after every 12th only, per mini-step K2 TRAIN_K2_FWD forward and
+    run; TRAIN_MINI_STEPS mini-steps an update): losses finite and
+    l_selfsim > 0 at every mini-step, the weights moved after every
+    TRAIN_MINI_STEPS-th only, per mini-step K2 TRAIN_K2_FWD forward and
     TRAIN_K2_BWD backward launches (diffusion_cli's) and no K1 (the zoo
     replaces the fused loss), every float32 K2 kernel launched; ms per
     mini-step, peak memory and the edge pixels per image (mask stride 3)
@@ -4964,7 +5026,10 @@ def zoo_cli(device: str) -> dict:
     warm = [r["iter_s"] for r in records[1:] if not r["moved"]]
     applying = [r["iter_s"] for r in records if r["moved"]]
     flat = [e for batch in edges for e in batch]
-    return {"strategy": ZOO_CLI_STRATEGY, "mini_steps": ZOO_CLI_STEPS, "wall_s": wall,
+    return {"strategy": ZOO_CLI_STRATEGY, "mini_steps": ZOO_CLI_STEPS,
+            "accumulate": TRAIN_MINI_STEPS,
+            "reduced": {"accumulate_grad_batches": [SHIPPED_ACCUMULATE, TRAIN_MINI_STEPS]},
+            "wall_s": wall,
             "ms_first": 1e3 * records[0]["iter_s"], "ms_warm_mean": 1e3 * sum(warm) / len(warm),
             "ms_applying": 1e3 * sum(applying) / len(applying),
             "degrader_ms_mean": 1e3 * sum(r["degrade_s"] for r in records) / len(records),
@@ -4977,27 +5042,19 @@ def zoo_cli(device: str) -> dict:
             "launches": {k: v for k, v in kernels.items() if not k.endswith("_bf16")}}
 
 
-def phase_zoo(device: str = "cuda"):
-    """The gather API, the strategy zoo and PerceptualSimLoss (ZOO_* above),
-    TF32 off.  The CPU's float64 references run in ZOO_REF_WORKERS spawned
-    processes beside the card's float64 holds; the times are taken after
-    those processes have stopped, on an idle host.  Returns the zoo CLI's K2
-    launches by kernel."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+def zoo_cases():
+    """The zoo phase's inputs: the ESRGAN-SSL step's shape with its gather
+    setting, the held cases (``kl_softmax`` on the first ZOO_B pictures of
+    that shape, then every loss key of the zoo, the masked families first:
+    their references take the longest) and PerceptualSimLoss's pair."""
     import numpy as np
-    import torch
     from ssl_tpu_torch.losses.ssl_loss import SSLSetting, ssl_setting_from_opt
     from torch_zoo_cases import LOSS_KEYS, loss_opts
 
-    t, t0 = {}, time.perf_counter()
     main = edge_case(MAIN_B, MAIN_GT, 11)
     gather = ssl_setting_from_opt(shipped_opt(MAIN_B))._replace(
         impl="scan", capacity=int(main[2].reshape(MAIN_B, -1).sum(1).max()))
     zoo = edge_case(ZOO_B, ZOO_SIZE, 12)
-    # (b) on the first ZOO_B pictures, then (c), the masked families first: their
-    # references take the longest
     cases = {"kl_softmax": (tuple(a[:ZOO_B] for a in main), gather._replace(kl_softmax=True))}
     cases.update((key, (zoo, SSLSetting(strategy=key, strategy_opts=loss_opts(key, scaled=True),
                                         mask_stride=3, capacity=ZOO_CAP, l1_weight=0.5,
@@ -5005,13 +5062,59 @@ def phase_zoo(device: str = "cuda"):
                  for key in sorted(LOSS_KEYS, key=lambda k: "mask" not in k))
     rng = np.random.RandomState(13)
     percep_in = tuple(rng.rand(ZOO_B, 3, ZOO_SIZE, ZOO_SIZE) for _ in range(2))
-    with ProcessPoolExecutor(ZOO_REF_WORKERS,
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        refs = {key: pool.submit(zoo_cpu_ref, "loss", *inputs, setting)
-                for key, (inputs, setting) in cases.items()}
-        percep_ref = pool.submit(zoo_cpu_ref, "percep", *percep_in)
-        holds = zoo_f64_holds(device, cases, refs)
-        percep = zoo_percep_holds(device, percep_in, percep_ref)
+    return main, gather, cases, percep_in
+
+
+def zoo_start_refs():
+    """Start the zoo phase's CPU float64 references in ZOO_REF_WORKERS
+    spawned processes of ZOO_REF_THREADS threads.  main() starts them
+    before the build, so that they run on the host's idle cores beside the
+    card's earlier phases.  Returns (the pool, the futures by case, the
+    PerceptualSimLoss future, ``zoo_cases()``): the cases are made once,
+    with TF32 off as the zoo phase runs, and shared with it."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    b = torch.backends
+    saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+    b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+    try:
+        inputs = zoo_cases()
+    finally:
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = saved
+    _, _, cases, percep_in = inputs
+    pool = ProcessPoolExecutor(ZOO_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    STOP.append(lambda: stop_pool(pool))
+    refs = {key: pool.submit(zoo_cpu_ref, "loss", *args, setting)
+            for key, (args, setting) in cases.items()}
+    return pool, refs, pool.submit(zoo_cpu_ref, "percep", *percep_in), inputs
+
+
+def stop_pool(pool) -> None:
+    """Cancel what ``pool`` has not started and end its processes."""
+    procs = list((getattr(pool, "_processes", None) or {}).values())
+    pool.shutdown(wait=False, cancel_futures=True)
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+    for p in procs:
+        p.join(5)
+
+
+def phase_zoo(started, device: str = "cuda"):
+    """The gather API, the strategy zoo and PerceptualSimLoss (ZOO_* above),
+    TF32 off, against the CPU's float64 references that ``zoo_start_refs``
+    started (``started``); the times are taken after those processes have
+    stopped, on an idle host.  Returns the zoo CLI's K2 launches by
+    kernel."""
+    import torch
+
+    t, t0 = {}, time.perf_counter()
+    pool, refs, percep_ref, (main, gather, cases, percep_in) = started
+    holds = zoo_f64_holds(device, cases, refs)
+    percep = zoo_percep_holds(device, percep_in, percep_ref)
+    pool.shutdown()
     t["f64_holds_s"] = time.perf_counter() - t0
     gather = zoo_gather_holds(device, main, gather)
     zoo_f32_times(device, cases, holds)
@@ -5024,6 +5127,7 @@ def phase_zoo(device: str = "cuda"):
     emit({"phase": "zoo", "gather": dict(gather, kl_softmax=readings.pop("kl_softmax")),
           "strategies": readings, "perceptual_sim": percep, "cli": cli, "seconds": t,
           "cpu_reference_workers": [ZOO_REF_WORKERS, ZOO_REF_THREADS],
+          "cpu_references_started": "before the build, beside the earlier phases",
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": card()})
     return cli["launches"]
@@ -5444,6 +5548,8 @@ def phase_prep_infer(device: str = "cuda"):
         _, prep_s["generate_bicubic_lr_div2k"] = timed(generate_bicubic_lr.main, [
             "--input", d["div2k_hr"], "--output", d["div2k_lr"], "--mod", "12", "--gt_output",
             d["div2k_gt"]])
+        with open(os.path.join(d["div2k_lr"], "a.png"), "rb") as f:   # for the parallel phase
+            PI_STASH["div2k_lr_png"] = f.read()
         import shutil
         shutil.copy(os.path.join(d["div2k_lr"], "a.png"), os.path.join(d["div2k_lr"], "b.png"))
         div2k = {}
@@ -5479,6 +5585,411 @@ def phase_prep_infer(device: str = "cuda"):
         "card": card() if device == "cuda" else None}
     emit(result)
     return launches
+
+
+class parallel_env:
+    """torchrun's environment for one rank on this machine (a free port on
+    localhost) while the block runs; the earlier values come back after it."""
+    KEYS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+    def __enter__(self):
+        import socket
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                          WORLD_SIZE="1", LOCAL_RANK="0")
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class deterministic_float32:
+    """cuDNN's deterministic algorithms, and no TF32, while the block runs:
+    two runs of one step then differ only where their arithmetic does."""
+
+    def __enter__(self):
+        import torch
+        b = torch.backends
+        self.saved = (b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.allow_tf32,
+                      b.cuda.matmul.allow_tf32)
+        b.cudnn.deterministic, b.cudnn.benchmark = True, False
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+        b = torch.backends
+        (b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.allow_tf32,
+         b.cuda.matmul.allow_tf32) = self.saved
+
+
+def grad_floors(counts: dict):
+    """A spy on the GAN recipes' ``optimizer_step`` that counts, for every
+    element of each net's parameters, the steps at which its gradient was
+    below PAR_GRAD_FLOOR of the net's largest (rounding noise: Adam's first
+    steps move such an element by about lr either way).  Restore it with
+    ``.restore()``."""
+    import torch
+    from ssl_tpu_torch.models import srgan_model
+
+    orig = srgan_model.optimizer_step
+
+    def spy(opt, lr, apply=True):
+        params = [p for g in opt.param_groups for p in g["params"]]
+        grads = [p.grad for p in params if p.grad is not None]
+        if apply and grads:
+            top = max(float(g.abs().max()) for g in grads)
+            for p in params:
+                if p.grad is not None:
+                    c = counts.setdefault(id(p), torch.zeros_like(p, dtype=torch.int32))
+                    c += (p.grad.abs() < PAR_GRAD_FLOOR * top).int()
+        return orig(opt, lr, apply)
+
+    class Restore:
+        def restore(self):
+            srgan_model.optimizer_step = orig
+    srgan_model.optimizer_step = spy
+    return Restore()
+
+
+def start_dist_train(device: str = "cuda") -> dict:
+    """Start (b) of ``phase_parallel``: ``ssl_tpu_torch/scripts/dist_train.sh``
+    (torchrun --standalone, one rank) for PAR_TORCHRUN_ITERS iterations on
+    ``cli_fixtures`` data with a small G and D (RRDBNet 8/1/4, D 4, no
+    perceptual term: this checks the launch path; (a) holds the widths'
+    step), in its own temporary directory.  main() starts it before the
+    prep_infer phase, so that its start-up runs beside that phase;
+    ``phase_parallel`` waits for it and checks what it wrote.  Returns its
+    process, folder, log and start time."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory(prefix="parallel_torchrun_")
+    t0 = time.perf_counter()
+    d, _ = cli_fixtures(os.path.join(tmp.name, "data"), device)
+    opt = cli_opt(d, MAIN_B)
+    opt["name"] = "parallel_torchrun"
+    opt["train"]["total_iter"] = PAR_TORCHRUN_ITERS
+    opt["val"]["val_freq"] = None
+    opt["logger"]["save_checkpoint_freq"] = None
+    opt["network_g"].update(num_feat=8, num_block=1, num_grow_ch=4)
+    opt["network_d"]["num_feat"] = 4
+    del opt["train"]["perceptual_opt"]
+    path = os.path.join(tmp.name, "torchrun.json")
+    with open(path, "w") as f:
+        json.dump(opt, f)
+    env = {k: v for k, v in os.environ.items() if k not in parallel_env.KEYS}
+    log = open(os.path.join(tmp.name, "torchrun.log"), "w")
+    proc = subprocess.Popen(
+        ["bash", os.path.join(ROOT, "ssl_tpu_torch", "scripts", "dist_train.sh"), "1", path],
+        cwd=tmp.name, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        tmp.cleanup()
+    STOP.append(stop)
+    return {"proc": proc, "root": tmp.name, "log": log, "t0": t0, "stop": stop}
+
+
+def phase_parallel(started: dict, device: str = "cuda"):
+    """The port's torch.distributed paths at one rank under NCCL, at full
+    width:
+
+    (a) the ESRGAN-SSL train CLI (cli_opt: RRDBNet 23 x 64, the VGG-style D
+        with its synced batch norm, batch 16, GT 128) for PAR_ITERS
+        iterations with ``--launcher none`` and with ``--launcher pytorch``
+        (DDP), in this process, then ``--auto_resume`` to PAR_RESUME_ITERS
+        under pytorch, all with cuDNN deterministic and TF32 off
+        (``deterministic_float32``): each iteration's losses within rtol 1e-4 of the
+        none run's, the weights within lr / 5 (plus 2.2 lr for each step
+        at which an element's gradient was below PAR_GRAD_FLOOR of its
+        net's largest; the share of such elements and of those beyond lr / 5
+        are reported), K1 once per iteration, and net_g's file without a ``module.`` prefix loading
+        into the plain net; ms per iteration of both, in turns (none,
+        pytorch, pytorch, none), with nothing else on the card;
+    (b) one ``ssl_tpu_torch/scripts/dist_train.sh`` (``start_dist_train``,
+        ``started``: torchrun --standalone, one rank) of PAR_TORCHRUN_ITERS
+        iterations at small widths, which must exit with 0 and leave rank
+        0's files; it starts before the prep_infer phase and has ended
+        before (a)'s timed turns as a rule (else they wait for it);
+    (c) ``inference_ssl_sr --spatial`` on the prep_infer phase's DIV2K-size
+        LR, equal to the net applied to the whole image;
+    (d) two StableSR-SSL mini-steps (ssl_base.yml's widths with
+        ``num_res_blocks`` 1, 256^2, batch 2, accumulate 2) with
+        ``parallel: {data: 1, tp: 1}`` against the same mini-steps without a
+        mesh: losses within TRAIN_LOG_RTOL, the first mini-step's summed
+        gradients within TRAIN_GRAD_REL_L2, the update within 2.2 lr per
+        element; K1 and K2 launched.
+
+    Returns the launches by path: K1's of (a) and (d), K2's kernels' of (d)."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ssl_tpu_torch.models import build_model
+    from ssl_tpu_torch.models.base_model import load_network
+    from ssl_tpu_torch.parallel.fsdp import unwrap
+    from ssl_tpu_torch.scripts.inference import inference_ssl_sr
+
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="parallel_smoke_") as root:
+        t0 = time.perf_counter()
+        d, _ = cli_fixtures(os.path.join(root, "data"), device)
+        paths = {}
+        # validation in the pytorch run only (rank 0 scores); one save, the
+        # final one, in each run
+        for label, iters, val in (("none", PAR_ITERS, None),
+                                  ("pytorch", PAR_ITERS, PAR_ITERS),
+                                  ("pytorch_2", PAR_ITERS, None),
+                                  ("none_2", PAR_ITERS, None)):
+            opt = cli_opt(d, MAIN_B)
+            opt["name"] = f"parallel_{label}"
+            opt["train"]["total_iter"] = iters
+            opt["val"]["val_freq"] = val
+            opt["logger"]["save_checkpoint_freq"] = None
+            paths[label] = os.path.join(root, f"{label}.json")
+            with open(paths[label], "w") as f:
+                json.dump(opt, f)
+        secs["fixtures"] = time.perf_counter() - t0
+
+        # (b) dist_train.sh, started before the prep_infer phase: it ends
+        # before (a)'s timed turns, so that they run alone on the card
+        torchrun = started["proc"]
+        t0 = time.perf_counter()
+        try:
+            torchrun.wait(timeout=PAR_TORCHRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            pass
+        secs["torchrun_wait"] = time.perf_counter() - t0
+        secs["torchrun"] = time.perf_counter() - started["t0"]
+        started["log"].close()
+        with open(os.path.join(started["root"], "torchrun.log")) as f:
+            out = f.read()
+        texp = os.path.join(started["root"], "experiments", "parallel_torchrun")
+        written = sorted(os.listdir(os.path.join(texp, "models"))) if os.path.isdir(texp) else []
+        if torchrun.returncode != 0 or f"net_g_{PAR_TORCHRUN_ITERS}.pth" not in written or \
+                not os.path.isfile(os.path.join(texp, "training_states",
+                                                f"{PAR_TORCHRUN_ITERS}.state")):
+            fail(f"parallel: dist_train.sh exited {torchrun.returncode}, wrote {written}:\n"
+                 f"{out[-3000:]}")
+        started["stop"]()
+        STOP.remove(started["stop"])
+
+        # (a) --launcher none, then pytorch (DDP at one rank): held; then a
+        # second turn of each in the other order, for the times alone
+        runs, floors, times = {}, {}, {"none": [], "pytorch": []}
+        for label in ("none", "pytorch", "pytorch_2", "none_2"):
+            launcher = label.split("_")[0]
+            args = ["--launcher", "pytorch"] if launcher == "pytorch" else []
+            t0 = time.perf_counter()
+            spy = grad_floors(floors) if label == "none" else None
+            with parallel_env(), deterministic_float32():
+                state, logged, launches, wall = run_train_cli(
+                    root, ["-opt", paths[label]] + args, device, [spy] if spy else [])
+            times[launcher].append({"ms_per_iter": per_iter_ms(logged, "time"),
+                                    "first_iter_ms": 1e3 * logged[0]["time"], "wall_s": wall})
+            if label in ("none", "pytorch"):
+                nets = {n: [p.detach().clone() for p in unwrap(getattr(state, n)).parameters()]
+                        for n in ("net_g", "net_d", "net_g_ema")}
+                noisy = {n: [floors.get(id(p)) for p in unwrap(getattr(state, n)).parameters()]
+                         for n in ("net_g", "net_d")} if label == "none" else None
+                wrapped = {n: type(getattr(state, n)).__name__ for n in ("net_g", "net_d")}
+                runs[label] = {"logged": logged, "launches": launches, "nets": nets,
+                               "noisy": noisy, "wrapped": wrapped}
+            elif launches != PAR_ITERS:
+                fail(f"parallel: K1 launched {launches} times in the {label} run")
+            del state
+            gc.collect()
+            secs[f"cli_{label}"] = time.perf_counter() - t0
+
+        if not dist.is_initialized() or dist.get_backend() != "nccl":
+            fail("parallel: --launcher pytorch left no NCCL process group")
+        if runs["pytorch"]["wrapped"] != {"net_g": "DistributedDataParallel",
+                                          "net_d": "DistributedDataParallel"}:
+            fail(f"parallel: the nets were not wrapped in DDP: {runs['pytorch']['wrapped']}")
+        loss_keys = ("l_pix", "l_percep", "l_g_gan", "l_selfsim", "l_selfsim_kl", "l_d_real",
+                     "l_d_fake")
+        loss_err = 0.0
+        for a, b in zip(runs["none"]["logged"], runs["pytorch"]["logged"]):
+            for k in loss_keys:
+                err = abs(b[k] - a[k]) / max(abs(a[k]), 1e-30)
+                loss_err = max(loss_err, err)
+                if not err <= 1e-4:
+                    fail(f"parallel: iteration {a['iter']} {k}: pytorch {b[k]} against none "
+                         f"{a[k]}")
+        lr = cli_opt(d, MAIN_B)["train"]["optim_g"]["lr"]
+        weight_err, noisy_share, beyond_fifth = {}, {}, {}
+        for n in ("net_g", "net_d", "net_g_ema"):
+            worst, n_noisy, n_beyond, total = 0.0, 0, 0, 0
+            pairs = zip(runs["none"]["nets"][n], runs["pytorch"]["nets"][n])
+            for i, (a, b) in enumerate(pairs):
+                cnt = runs["none"]["noisy"]["net_d" if n == "net_d" else "net_g"][i]
+                cnt = torch.zeros_like(a) if cnt is None else cnt.to(a.dtype)
+                tol = lr / 5 + 2.2 * lr * cnt
+                diff = (a - b).abs()
+                if bool((diff > tol).any()):
+                    fail(f"parallel: {n} parameter {i} differs by {float(diff.max())} from the "
+                         "--launcher none run")
+                worst = max(worst, float(diff.max()))
+                n_noisy += int((cnt > 0).sum())
+                n_beyond += int((diff > lr / 5).sum())
+                total += a.numel()
+            weight_err[n], noisy_share[n] = worst, n_noisy / total
+            beyond_fifth[n] = n_beyond / total
+        for label in ("none", "pytorch"):
+            if runs[label]["launches"] != PAR_ITERS:
+                fail(f"parallel: K1 launched {runs[label]['launches']} times in the "
+                     f"{label} run")
+        exp = os.path.join(root, "experiments", "parallel_pytorch")
+        g = build_model(dict(json.load(open(paths["pytorch"])), is_train=False),
+                        device=device).build_g()
+        sd = torch.load(os.path.join(exp, "models", f"net_g_{PAR_ITERS}.pth"),
+                        map_location="cpu", weights_only=True)
+        prefixed = [k for k in sd["params"] if k.startswith("module.")]
+        load_network(g, os.path.join(exp, "models", f"net_g_{PAR_ITERS}.pth"))
+        if prefixed or not all(torch.equal(p.cpu(), q.cpu()) for p, q in
+                               zip(g.parameters(), runs["pytorch"]["nets"]["net_g"])):
+            fail(f"parallel: net_g_{PAR_ITERS}.pth does not load as the plain net "
+                 f"({len(prefixed)} prefixed keys)")
+        t0 = time.perf_counter()
+        with deterministic_float32():
+            resumed, logged_r, launches_r, _ = run_train_cli(
+                root, ["-opt", paths["pytorch"], "--launcher", "pytorch", "--auto_resume",
+                       "--force_yml", f"train:total_iter={PAR_RESUME_ITERS}"], device)
+        secs["cli_resume"] = time.perf_counter() - t0
+        if [x["iter"] for x in logged_r] != list(range(PAR_ITERS + 1, PAR_RESUME_ITERS + 1)) \
+                or launches_r != PAR_RESUME_ITERS - PAR_ITERS \
+                or resumed.step != PAR_RESUME_ITERS:
+            fail(f"parallel: the resumed run logged {[x['iter'] for x in logged_r]}, launched "
+                 f"K1 {launches_r} times, ended at step {resumed.step}")
+        del resumed, g
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) --spatial at one rank: the net on the whole image
+        t0 = time.perf_counter()
+        lr_dir = os.path.join(root, "div2k_lr")
+        os.makedirs(lr_dir)
+        with open(os.path.join(lr_dir, "a.png"), "wb") as f:
+            f.write(PI_STASH["div2k_lr_png"])
+        weights = os.path.join(exp, "models", f"net_g_{PAR_RESUME_ITERS}.pth")
+        with parallel_env():
+            spatial = run_entry(inference_ssl_sr.main,
+                                ["--input", lr_dir, "--output", os.path.join(root, "sp"),
+                                 "--model_path", weights, "--spatial"], device)
+        from ssl_tpu_torch.utils.img_util import img2array, img2tensor, imread, tensor2img
+        net = build_model(dict(json.load(open(paths["pytorch"])), is_train=False),
+                          device=device).build_g()
+        load_network(net, weights, "params_ema")
+        with torch.no_grad():
+            lr_img = img2tensor(img2array(imread(os.path.join(lr_dir, "a.png"))))[None]
+            whole = tensor2img(net.to(device).eval()(lr_img.to(device)), rgb2bgr=False)
+        got = read_png(os.path.join(root, "sp", "a.png"))[..., ::-1]
+        if got.shape != whole.shape or not np.array_equal(got, whole):
+            fail(f"parallel: --spatial differs from the whole-image pass "
+                 f"({got.shape} vs {whole.shape})")
+        spatial_shape = list(lr_img.shape[-2:])
+        del net
+        secs["spatial"] = time.perf_counter() - t0
+
+        # (d) StableSR-SSL mini-steps on the (data 1, model 1) mesh
+        t0 = time.perf_counter()
+        diffusion = parallel_diffusion(device)
+        secs["diffusion"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+
+    emit({"phase": "parallel", "world_size": 1, "backend": "nccl", "batch": MAIN_B,
+          "gt_size": MAIN_GT, "iterations": PAR_ITERS, "resumed_to": PAR_RESUME_ITERS,
+          "ms_per_iter": {k: [t["ms_per_iter"] for t in v] for k, v in times.items()},
+          "first_iter_ms": {k: [t["first_iter_ms"] for t in v] for k, v in times.items()},
+          "wall_s": {k: [t["wall_s"] for t in v] for k, v in times.items()},
+          "timed_with": "float32 without TF32, cuDNN deterministic; turns none, pytorch, "
+                        "pytorch, none, with nothing else on the card (dist_train.sh, started "
+                        "before the prep_infer phase, has ended)",
+          "k1_launches": {"none": runs["none"]["launches"],
+                          "pytorch": runs["pytorch"]["launches"], "resumed": launches_r},
+          "max_loss_rel_err": loss_err, "max_weight_abs_err": weight_err,
+          "noisy_gradient_share": noisy_share, "share_beyond_lr_over_5": beyond_fifth,
+          "torchrun": {"iterations": PAR_TORCHRUN_ITERS, "rc": torchrun.returncode,
+                       "models": written},
+          "spatial": {"lr_size": spatial_shape, "images": spatial["images"],
+                      "peak_mem_gb": spatial["peak_mem_gb"]},
+          "diffusion": diffusion,
+          "seconds": secs, "card": card()})
+    return {"k1": runs["pytorch"]["launches"] + launches_r + diffusion["k1_launches"],
+            "k2": diffusion["k2_kernels"]}
+
+
+def parallel_diffusion(device: str) -> dict:
+    """(d) of ``phase_parallel``: two mini-steps of ssl_base.yml's widths
+    (``num_res_blocks`` 1, accumulate 2: the second applies AdamW) with
+    ``parallel: {data: 1, tp: 1}`` under the process group, and the same
+    two without a mesh, from the same seeded weights and draws."""
+    import torch
+    from ssl_tpu_torch.diffusion.ddpm_ssl import trainable
+    from ssl_tpu_torch.diffusion.main import build_from_config
+    from ssl_tpu_torch.ops import ssg_cuda
+
+    cfg = ssl_base_cfg()
+    cfg["model"]["unet"]["num_res_blocks"] = 1
+    cfg["train"]["accumulate_grad_batches"] = 2
+    batch = train_batch(PAR_DIFF_SIZE, seed=30)
+    out = {}
+    for label, par in (("plain", None), ("mesh", {"data": 1, "tp": 1})):
+        model = build_from_config(dict(cfg, parallel=par) if par else cfg)
+        state = model.init_state(seed=0, device=device)
+        redraw_zero_init(state)
+        start = [p.detach().clone() for p in trainable(state.params)]
+        state = model.place_state(state)
+        ssg_cuda.launches = 0
+        reset_k2_counts()
+        state, first = model.train_step(state, batch)
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                 for p in trainable(state.params)]
+        state, second = model.train_step(state, batch)
+        torch.cuda.synchronize()
+        out[label] = {"logs": [{k: float(v) for k, v in x.items()} for x in (first, second)],
+                      "grads": grads, "k1": ssg_cuda.launches, "k2": k2_counts(),
+                      "update": [p.detach() - s for p, s in zip(trainable(state.params), start)],
+                      "opt": type(state.opt).__name__, "mesh": model.distributed}
+        del model, state, start
+        torch.cuda.empty_cache()
+    plain, mesh = out["plain"], out["mesh"]
+    if not mesh["mesh"] or mesh["opt"] != "ZeroAdamW":
+        fail(f"parallel: the diffusion model took no mesh ({mesh['mesh']}, {mesh['opt']})")
+    log_err = max(abs(b[k] - a[k]) / max(abs(a[k]), 1e-30)
+                  for a, b in zip(plain["logs"], mesh["logs"]) for k in a)
+    if not log_err <= TRAIN_LOG_RTOL:
+        fail(f"parallel: diffusion losses {mesh['logs']} against {plain['logs']}")
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(mesh["grads"], plain["grads"]))
+    den = sum(float((b ** 2).sum()) for b in plain["grads"])
+    grad_err = (num / den) ** 0.5
+    if not grad_err <= TRAIN_GRAD_REL_L2:
+        fail(f"parallel: diffusion gradients {grad_err} from the plain mini-step's")
+    lr = cfg["train"]["lr"]
+    update_err = max(float((a - b).abs().max()) for a, b in zip(mesh["update"], plain["update"]))
+    moved = max(float(a.abs().max()) for a in mesh["update"])
+    if not (update_err <= 2.2 * lr and moved > 0):
+        fail(f"parallel: diffusion update differs by {update_err} (moved {moved})")
+    k2 = {k: v for k, v in mesh["k2"].items() if k not in ("k2_fwd", "k2_bwd")}
+    if mesh["k1"] != 2 or not mesh["k2"]["k2_fwd"] or not mesh["k2"]["k2_bwd"] or \
+            mesh["k2"] != plain["k2"]:
+        fail(f"parallel: diffusion launches K1 {mesh['k1']}, K2 {mesh['k2']} against "
+             f"{plain['k2']}")
+    return {"size": PAR_DIFF_SIZE, "batch": TRAIN_B, "mini_steps": 2, "accumulate": 2,
+            "num_res_blocks": 1, "max_log_rel_err": log_err, "grad_rel_l2": grad_err,
+            "max_update_abs_err": update_err, "max_update": moved,
+            "k1_launches": mesh["k1"], "k2_launches": {"fwd": mesh["k2"]["k2_fwd"],
+                                                        "bwd": mesh["k2"]["k2_bwd"]},
+            "k2_kernels": k2}
 
 
 def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
@@ -5600,7 +6111,7 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
 
 
 def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
-                 recipes, kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo) -> dict:
+                 recipes, kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo, par) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
     phases' results (K1's, K2's forward's and backward's by case, the serving
     K2 launches and forward kernel launches, the diffusion_train and
@@ -5608,7 +6119,9 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
     and of the CLIs, the recipes phase's K1 launches and holds, and the kair
     phase's K1 launches by recipe and holds, the bench phase's K1
     launches by mode, and the prep_infer phase's train CLI's K1 launches; the
-    zoo phase's CLI's K2 launches; K2's bf16 kernels from the bf16 kernel
+    zoo phase's CLI's K2 launches; the parallel phase's K1 launches (the DDP
+    CLI runs and the StableSR-SSL mini-steps) and K2 launches; K2's bf16
+    kernels from the bf16 kernel
     phases and the diffusion_bf16 phase's launches).  K1's float32 mode and its bf16 stream
     + store mode (bench.py's step) each have an entry; ``modes`` under the
     first lists every mode held, the bf16 stream mode (the batched route)
@@ -5616,7 +6129,7 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
     (``_bf16``) another."""
     serve_calls, serve_fwd = serve
     paths = {"": {"serve": serve_fwd, "diffusion_train": train, "diffusion_cli": dcli,
-                  "zoo_cli": zoo},
+                  "zoo_cli": zoo, "parallel": par["k2"]},
              "_bf16": {"serve_bf16": dbf16["serve"],
                        "diffusion_bf16_mini_steps": dbf16["mini_steps"],
                        "diffusion_bf16_cli": dbf16["cli"]}}
@@ -5651,12 +6164,13 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
         "replaces": "ssl_tpu/ops/ssg_pallas.py:41",
         "mode": "float32",
         "launches": launches + cli + train["k1"] + realesrgan + realesrgan_host + dcli["k1"]
-        + recipes + sum(kair_launches.values()) + bench_launches["float32"] + prep,
+        + recipes + sum(kair_launches.values()) + bench_launches["float32"] + prep + par["k1"],
         "launches_by_path": {"esrgan_train": launches, "esrgan_cli": cli,
                              "diffusion_train": train["k1"], "realesrgan_cli": realesrgan,
                              "realesrgan_host_cli": realesrgan_host, "diffusion_cli": dcli["k1"],
                              "recipes_cli": recipes, "kair_cli": sum(kair_launches.values()),
-                             "bench_f32": bench_launches["float32"], "prep_infer_cli": prep},
+                             "bench_f32": bench_launches["float32"], "prep_infer_cli": prep,
+                             "parallel": par["k1"]},
         "max_abs_err": max([k1[c]["max_abs_err"] for c in ("main_smooth", "diffusion_smooth",
                                                            "realesrgan_edges",
                                                            "realesrgan_host_edges",
@@ -5725,20 +6239,90 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
         *k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths)]}
 
 
+# The recipes phase runs in a process of its own (``start_phase_child``)
+# beside the diffusion_cli phase: both spend most of their time on the host
+# (building, saving and reloading nets, loader processes, the host degrader)
+# and neither times a kernel.  It has CHILD_TIMEOUT seconds.
+CHILD_TIMEOUT = 900
+
+
+def start_phase_child(name: str) -> dict:
+    """Start ``python3 chip_smoke.py --phase <name> --result <file>``: the
+    phase alone in a process of its own, its JSON lines and errors written
+    to files and its result to a JSON file, which ``join_phase_child``
+    prints and reads.  Returns its handle."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_")
+    files = {k: open(os.path.join(tmp.name, k), "w") for k in ("out", "err")}
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase", name,
+                             "--result", os.path.join(tmp.name, "result.json")],
+                            cwd=ROOT, stdout=files["out"], stderr=files["err"])
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in files.values():
+            f.close()
+        tmp.cleanup()
+    STOP.append(stop)
+    return {"name": name, "proc": proc, "root": tmp.name, "stop": stop}
+
+
+def join_phase_child(child: dict):
+    """Wait for a ``start_phase_child`` process, print its JSON lines and
+    errors, and fail if it failed.  Returns its phase's result and the
+    seconds the phase took there."""
+    proc, name = child["proc"], child["name"]
+    try:
+        proc.wait(timeout=CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
+    for k, stream in (("out", sys.stdout), ("err", sys.stderr)):
+        with open(os.path.join(child["root"], k)) as f:
+            stream.write(f.read())
+        stream.flush()
+    if proc.returncode != 0:
+        fail(f"{name}: its process exited {proc.returncode}")
+    with open(os.path.join(child["root"], "result.json")) as f:
+        done = json.load(f)
+    child["stop"]()
+    STOP.remove(child["stop"])
+    return done["result"], done["seconds"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ssl_tpu_torch")):
         print("chip_smoke: ssl_tpu_torch/ is not beside this script; run it from the "
               "repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    import tempfile
-
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))      # torch_*_cases (JAX-free)
+    if sys.argv[1:2] == ["--phase"]:                     # start_phase_child's process
+        name, result = sys.argv[2], sys.argv[4]
+        t0 = time.perf_counter()
+        out = {"recipes": phase_recipes}[name]()
+        with open(result, "w") as f:
+            json.dump({"result": out, "seconds": time.perf_counter() - t0}, f)
+        return 0
+    try:
+        return phases()
+    finally:
+        for stop in STOP:
+            stop()
+
+
+def phases() -> int:
+    """The phases in their order, the wall line, the kernels line, the card
+    and the last line."""
+    import tempfile
+
+    import torch
     wall, start = {}, time.perf_counter()
 
     def run(name, phase, *args):
@@ -5748,7 +6332,19 @@ def main() -> int:
         wall[name] = time.perf_counter() - t0
         return out
 
-    run("build", phase_build)
+    from concurrent.futures import ThreadPoolExecutor
+
+    zoo_refs = zoo_start_refs()
+    # seeded metric checkpoints for the metrics phase and every later test CLI
+    # run; the metrics phase needs none of the port's kernels, so it runs on
+    # the card while nvcc builds them
+    metric_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_")
+    metric_weights(metric_dir.name)
+    with ThreadPoolExecutor(1) as builder:
+        built = builder.submit(run, "build", phase_build)
+        run("metrics", phase_metrics)
+        built.result()
+    torch.cuda.empty_cache()
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5771,35 +6367,35 @@ def main() -> int:
     train = run("diffusion_train", phase_diffusion_train, model, state)
     del model, state
     torch.cuda.empty_cache()
+    recipes_child = start_phase_child("recipes")
     dcli = run("diffusion_cli", phase_diffusion_cli)
+    t0 = time.perf_counter()
+    recipes, wall["recipes"] = join_phase_child(recipes_child)
+    wall["recipes_wait"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    zoo = run("zoo", phase_zoo)
+    zoo = run("zoo", phase_zoo, zoo_refs)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
     launches = run("train", phase_train)
     torch.cuda.empty_cache()
     bench = run("bench", phase_bench)
     torch.cuda.empty_cache()
-    # seeded metric checkpoints for the metrics phase and every later test CLI run
-    metric_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_")
-    metric_weights(metric_dir.name)
-    run("metrics", phase_metrics)
-    torch.cuda.empty_cache()
     cli = run("cli", phase_cli)
     torch.cuda.empty_cache()
     realesrgan = run("realesrgan", phase_realesrgan)
     torch.cuda.empty_cache()
-    recipes = run("recipes", phase_recipes)
-    torch.cuda.empty_cache()
     kair = run("kair", phase_kair)
     torch.cuda.empty_cache()
+    dist_train = run("parallel_torchrun_start", start_dist_train)
     prep = run("prep_infer", phase_prep_infer)
+    torch.cuda.empty_cache()
+    par = run("parallel", phase_parallel, dist_train)
 
     metric_dir.cleanup()
     emit({"phase": "wall", "seconds": wall, "total_s": time.perf_counter() - start})
     emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli, recipes,
-                      kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo))
+                      kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo, par))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,6 +19,8 @@ Layout
 - ``ssl_tpu_torch.utils``   registries, options, logger, image IO (PNG
                             without ``cv2``: ``utils/png.py``)
 - ``ssl_tpu_torch.diffusion`` StableSR-SSL: train step, samplers, inference CLI
+- ``ssl_tpu_torch.parallel`` torch.distributed: DDP, FSDP, spatial and tensor
+                            parallelism under ``torchrun``
 - ``ssl_tpu_torch.csrc``    CUDA C++ sources, compiled with nvcc at first use
 
 The package imports neither JAX nor ``ssl_tpu``.  Entry points run on

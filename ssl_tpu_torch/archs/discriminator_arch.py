@@ -30,7 +30,16 @@ from ssl_tpu_torch.utils.registry import ARCH_REGISTRY
 
 class BatchNorm2d(nn.BatchNorm2d):
     """Batch norm with flax's statistics rule (see the module docstring).
-    Running stats are updated in place in train mode."""
+    Running stats are updated in place in train mode.
+
+    Synced when ``sync`` is set (a model's ``place_state`` sets it under a
+    process group): the train-mode statistics are those of the global batch,
+    the per-channel sums of x and x^2 added over the data ranks in one
+    all-reduce that carries their gradient, as the JAX step normalizes its
+    global array.  The running stats then move alike on every rank."""
+
+    #: (a sum over the data ranks that carries its gradient, their number)
+    sync = None
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -38,8 +47,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        mean = torch.mean(x, dim=(0, 2, 3))
-        var = torch.clamp(torch.mean(x * x, dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.sync is not None:
+            total, ranks = self.sync
+            sums = total(torch.stack([torch.sum(x, dim=(0, 2, 3)),
+                                      torch.sum(x * x, dim=(0, 2, 3))]))
+            sums = sums / float(x.numel() // x.shape[1] * ranks)
+            mean, sq = sums[0], sums[1]
+        else:
+            mean, sq = torch.mean(x, dim=(0, 2, 3)), torch.mean(x * x, dim=(0, 2, 3))
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(mean * self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var * self.momentum)

@@ -8,8 +8,9 @@ with ``num_worker_per_gpu`` worker processes, as in BasicSR
 
 * ``EnlargedSampler`` yields the JAX sampler's permutation
   (``np.random.RandomState(epoch)``).
-* Each worker seeds ``random`` and ``numpy`` from the manual seed and its
-  worker id (BasicSR's ``worker_init_fn`` at rank 0: one process trains).
+* Each worker seeds ``random`` and ``numpy`` with BasicSR's
+  ``num_workers * rank + worker_id + seed``, ``rank`` being the data rank
+  (ranks that share rows under ``parallel.fsdp`` draw alike).
 * With ``num_worker_per_gpu: 0`` the items are drawn in the main process, in
   the order the JAX loader's single thread draws them, so one seed gives the
   same batches in both packages.
@@ -54,15 +55,15 @@ class EnlargedSampler(Sampler):
         return self.num_per_rank
 
 
-def worker_init_fn(worker_id: int, seed: int) -> None:
-    """BasicSR's per-worker seed, num_workers * rank + worker_id + seed, at
-    rank 0."""
-    np.random.seed(worker_id + seed)
-    random.seed(worker_id + seed)
+def worker_init_fn(worker_id: int, seed: int, num_workers: int = 0, rank: int = 0) -> None:
+    """BasicSR's per-worker seed, num_workers * rank + worker_id + seed."""
+    worker_seed = num_workers * rank + worker_id + seed
+    np.random.seed(worker_seed)
+    random.seed(worker_seed)
 
 
 def build_dataloader(dataset, dataset_opt: dict, sampler=None, seed: int = 0,
-                     device="cpu") -> DataLoader:
+                     device="cpu", rank: int = 0) -> DataLoader:
     """Reference-surface builder (data/__init__.py:40-94 semantics).  Train:
     ``batch_size_per_gpu``, ``num_worker_per_gpu`` worker processes (kept
     alive across epochs), whole batches only; val and test: batch 1 in the
@@ -75,7 +76,8 @@ def build_dataloader(dataset, dataset_opt: dict, sampler=None, seed: int = 0,
         dataset, batch_size=dataset_opt.get("batch_size_per_gpu", 16), sampler=sampler,
         shuffle=sampler is None, num_workers=num_workers, drop_last=True, pin_memory=pin,
         persistent_workers=num_workers > 0,
-        worker_init_fn=partial(worker_init_fn, seed=seed) if num_workers > 0 else None)
+        worker_init_fn=(partial(worker_init_fn, seed=seed, num_workers=num_workers, rank=rank)
+                        if num_workers > 0 else None))
 
 
 def _to(batch: dict, device, non_blocking: bool) -> dict:

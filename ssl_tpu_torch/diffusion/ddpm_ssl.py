@@ -22,7 +22,15 @@ context, the eps / v / x0 loss, the differentiable decode of x0 under remat,
 the pixel L1 and the SSL loss (K1) on it, AdamW with optax's defaults every
 ``accumulate`` mini-steps on the mean gradient (``optax.MultiSteps``), and the
 LitEma update every mini-step.  The text context is the learned null context
-(no CLIP weights are in the repository)."""
+(no CLIP weights are in the repository).
+
+With a distributed ``mesh`` (``parallel/mesh.py::dp_tp_mesh``, the JAX
+``mesh``) the step keeps the JAX step's global-batch semantics: each rank
+takes its ``data`` share of the global batch and its rows of the global
+batch's draws, the SSL count is global (``losses/ssl_loss.py``), the
+accumulated gradients are averaged over ``data`` before AdamW, and
+``place_state`` splits the UNet and the struct-cond encoder over ``model``
+(``parallel/tensor.py``; ``zero`` adds ZeRO-1 for AdamW's moments)."""
 
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from ssl_tpu_torch.diffusion.vae import AutoencoderKL
 from ssl_tpu_torch.losses.ssl_loss import SSLSetting, ssl_loss
 from ssl_tpu_torch.models.base_model import resolve_device
 from ssl_tpu_torch.ops.ssg import SSGConfig
+from ssl_tpu_torch.parallel.tensor import NETS, ZeroAdamW, apply_tp, state_plan, trained_keys
 
 # optax.adamw's defaults, which the JAX step takes (torch's AdamW defaults to
 # a weight decay of 1e-2)
@@ -105,15 +114,15 @@ class StableSRSSL:
                  lr: float = 5e-5, accumulate: int = 1, vae_ckpt: str | None = None,
                  clip_text_ckpt: str | None = None, unet_ckpt: str | None = None,
                  text_prompt: str | None = None, use_ema: bool = True,
-                 ema_decay: float = 0.9999, mesh=None, zero: bool = False):
+                 ema_decay: float = 0.9999, mesh=None, zero: bool = False,
+                 zero_min_size: int = 2 ** 14):
         for name, value in (("vae_ckpt", vae_ckpt), ("clip_text_ckpt", clip_text_ckpt),
                             ("unet_ckpt", unet_ckpt), ("text_prompt", text_prompt)):
             if value:
                 raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, queue 1): no "
                                           "such weight file is in the repository")
-        if mesh is not None or zero:
-            raise NotImplementedError("mesh / zero (data and tensor parallelism, ZeRO) are not "
-                                      "ported yet (ROADMAP.md, queue 1)")
+        self.mesh, self.zero, self.zero_min_size = mesh, zero, zero_min_size
+        self.plan = None
         self.cfg = cfg
         with torch.device("meta"):
             self.unet = unet or UNetModelDualcondV2(context_dim=cfg.context_dim)
@@ -155,6 +164,33 @@ class StableSRSSL:
         return DiffusionState(step=0, params=params, frozen={"vae": vae}, ema_params=ema, opt=opt,
                               generator=gen)
 
+    @property
+    def distributed(self) -> bool:
+        return self.mesh is not None and self.mesh.distributed
+
+    def place_state(self, state: DiffusionState) -> DiffusionState:
+        """Lay the state out on the mesh, after init and resume (the JAX
+        ``place_state``): the UNet's and the struct-cond encoder's Megatron
+        layers, in the weights and the EMA, split over ``model``, and AdamW
+        (with its moments) rebuilt as ``parallel/tensor.py::ZeroAdamW``.
+        Nothing without a distributed mesh."""
+        if not self.distributed:
+            return state
+        mesh = self.mesh
+        plan = state_plan(state.params, mesh.tp, self.zero, self.zero_min_size)
+        keys = trained_keys(state.params)
+        saved = state.opt.state_dict()
+        for tree in (state.params, state.ema_params):
+            if tree is not None:
+                for net in NETS:
+                    apply_tp(tree[net], plan, net, mesh.tp, mesh.inner_rank, mesh.inner_group)
+        params = trainable(state.params)
+        state.opt = ZeroAdamW(params, keys, plan, mesh.tp, mesh.inner_rank, mesh.inner_group,
+                              lr=self.lr, **ADAMW)
+        state.opt.load_state_dict(_local_moments(saved, plan, keys, state.opt))
+        self.plan = plan
+        return state
+
     def infer_params(self, state: DiffusionState) -> dict:
         """Sampling-time weights: the EMA when tracked (the reference samples
         under LitEma's ema_scope)."""
@@ -187,12 +223,21 @@ class StableSRSSL:
 
     def draws(self, state: DiffusionState, gt: torch.Tensor) -> dict:
         """One mini-step's random numbers from the state's generator: the
-        encoder's posterior noise for [gt; lq], t and the diffusion noise."""
+        encoder's posterior noise for [gt; lq], t and the diffusion noise.
+        Under a distributed mesh they are drawn for the global batch (every
+        rank draws alike) and this rank keeps its rows."""
         gen, dev = state.generator, gt.device
-        shape = latent_shape(state.frozen["vae"], gt.shape[0], gt.shape[2], gt.shape[3])
+        b, data = gt.shape[0], (self.mesh.data if self.distributed else 1)
+        shape = latent_shape(state.frozen["vae"], b * data, gt.shape[2], gt.shape[3])
         enc = torch.randn((2 * shape[0], *shape[1:]), generator=gen, device=dev)
         t = torch.randint(0, self.sched.num_timesteps, shape[:1], generator=gen, device=dev)
-        return {"enc_noise": enc, "t": t, "noise": torch.randn(shape, generator=gen, device=dev)}
+        noise = torch.randn(shape, generator=gen, device=dev)
+        if data > 1:
+            r = self.mesh.data_rank
+            rows = slice(r * b, (r + 1) * b)
+            enc = torch.cat([enc[:shape[0]][rows], enc[shape[0]:][rows]])
+            t, noise = t[rows], noise[rows]
+        return {"enc_noise": enc, "t": t, "noise": noise}
 
     def make_train_step(self):
         cfg = self.cfg
@@ -232,7 +277,7 @@ class StableSRSSL:
                 logs["l_pixel"] = l_pixel
                 total = total + l_pixel
                 if use_ssl:
-                    l_ss, l_kl = ssl_loss(img01, gt01, batch["gt_mask"], setting)
+                    l_ss, l_kl = ssl_loss(img01, gt01, batch["gt_mask"], setting, self.mesh)
                     total = total + l_ss + l_kl
                     logs["l_selfsim"] = l_ss
                     logs["l_selfsim_kl"] = l_kl
@@ -258,6 +303,8 @@ class StableSRSSL:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
+            if self.distributed:  # the mean over the data ranks
+                _all_reduce_mean(grads, self.mesh.data_group, self.mesh.data)
             if self.accumulate > 1:
                 torch._foreach_div_(grads, float(self.accumulate))
             state.opt.step()
@@ -318,3 +365,47 @@ class StableSRSSL:
         if self._preview is None:
             self._preview = self.make_preview()
         return self._preview(state, batch, draws)
+
+
+@torch.no_grad()
+def _all_reduce_mean(tensors: list, group, n: int, bucket: int = 2 ** 24) -> None:
+    """Each tensor replaced by its mean over ``group`` (``n`` ranks), in
+    all-reduces of up to ``bucket`` values."""
+    import torch.distributed as dist
+    start = 0
+    while start < len(tensors):
+        end, size = start, 0
+        while end < len(tensors) and (end == start or size + tensors[end].numel() <= bucket):
+            size += tensors[end].numel()
+            end += 1
+        flat = torch.cat([t.reshape(-1) for t in tensors[start:end]])
+        dist.all_reduce(flat, group=group)
+        flat /= n
+        for t, part in zip(tensors[start:end], flat.split([t.numel() for t in tensors[start:end]])):
+            t.copy_(part.view_as(t))
+        start = end
+
+
+def _local_moments(saved: dict, plan: dict, keys: list, opt: ZeroAdamW) -> dict:
+    """A one-rank AdamW state dict with each moment cut to this rank's slice
+    (``plan["moments"]``), for ``ZeroAdamW.load_state_dict``."""
+    state = {}
+    for i, s in saved["state"].items():
+        dim, slot = plan["moments"][keys[i]], opt.slots[i]
+        state[i] = {k: (v.narrow(dim, opt.rank * slot.shape[dim], slot.shape[dim]).clone()
+                        if dim is not None and torch.is_tensor(v) and v.dim() else v)
+                    for k, v in s.items()}
+    return {"state": state, "param_groups": saved["param_groups"]}
+
+
+def full_moments(opt, plan: dict, keys: list) -> dict:
+    """``opt``'s state dict with every moment gathered whole: the one-rank
+    AdamW's layout (``ZeroAdamW``; a plain optimizer's own)."""
+    from ssl_tpu_torch.parallel.tensor import gather_tp
+    sd = opt.state_dict()
+    if not isinstance(opt, ZeroAdamW):
+        return sd
+    sd["state"] = {i: {k: (gather_tp(v, plan["moments"][keys[i]], opt.tp, opt.group)
+                           if torch.is_tensor(v) and v.dim() else v) for k, v in s.items()}
+                   for i, s in sd["state"].items()}
+    return sd

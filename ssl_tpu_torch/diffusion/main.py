@@ -37,11 +37,27 @@ come to the host every mini-step, so the timers cover the card's work.
 A top-level ``seed`` (0 by default; the JAX CLI leaves its degrader
 unseeded) seeds the weights, the loader, the degrader and the step's draws.
 A ``.json`` base file needs no ``yaml``.  Runs on ``cuda`` unless
-``--device`` names another device.  Not ported yet, and raising
-``NotImplementedError``: a ``compute_dtype`` other than float32 and
-bfloat16, ``parallel`` (data and tensor parallelism), ``train.ckpt_backend:
-orbax``, reference-schema configs (``model.target``), and the checkpoint
-and CLIP weight paths."""
+``--device`` names another device.
+
+``parallel: {data: D, tp: T, zero: false, zero_min_size: 16384}`` runs one
+process per card under ``torchrun`` (gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node 4 -m ssl_tpu_torch.diffusion.main --train --base <file> \\
+        parallel.data=2 parallel.tp=2
+
+``data`` x ``tp`` must be the world size.  Every rank loads and degrades the
+global batch (``data.batch_size``, as the JAX CLI's one host does, so the
+degrader's draws and pool are the JAX pipeline's) and steps on its ``data``
+share; the UNet splits over ``tp`` (``parallel/tensor.py``); the logged
+losses are means over the ranks, and rank 0 writes the logs' files,
+previews and checkpoints, which are those of a one-rank run.  A save in the
+middle of an accumulation raises at ``data`` > 1 (each rank holds its own
+partial gradients).
+
+Not ported yet, and raising ``NotImplementedError``: a ``compute_dtype``
+other than float32 and bfloat16, ``train.ckpt_backend: orbax``,
+reference-schema configs (``model.target``), and the checkpoint and CLIP
+weight paths."""
 
 from __future__ import annotations
 
@@ -58,7 +74,8 @@ from torch.utils.data import Sampler
 
 from ssl_tpu_torch.data import build_dataloader, build_dataset
 from ssl_tpu_torch.data.realesr_degradation import RealESRGANDegrader
-from ssl_tpu_torch.diffusion.ddpm_ssl import DiffusionSSLConfig, StableSRSSL, trainable
+from ssl_tpu_torch.diffusion.ddpm_ssl import (DiffusionSSLConfig, StableSRSSL, full_moments,
+                                              trainable)
 from ssl_tpu_torch.diffusion.unet import NOT_PORTED, EncoderUNetModelWT, UNetModelDualcondV2
 from ssl_tpu_torch.diffusion.vae import AutoencoderKL
 from ssl_tpu_torch.losses.ssl_loss import SSLSetting, zoo_opts, zoo_strategy
@@ -66,15 +83,21 @@ from ssl_tpu_torch.models.base_model import _rng_state, _set_rng_state, resolve_
 from ssl_tpu_torch.ops.ssg import SSGConfig
 from ssl_tpu_torch.utils.img_util import imwrite
 from ssl_tpu_torch.utils.options import ordered_yaml_load, parse_value
+from ssl_tpu_torch.parallel.mesh import (barrier, dp_tp_mesh, init_distributed, is_main,
+                                         mean_over_ranks, shard_batch)
+from ssl_tpu_torch.parallel.tensor import NETS, full_net_state, gather_tp, trained_keys
 from ssl_tpu_torch.utils.weight_port import params_to_jax
 
 
-def build_from_config(cfg: dict) -> StableSRSSL:
+def build_from_config(cfg: dict, mesh=None) -> StableSRSSL:
+    """The model of ``cfg``, with the (data, model) mesh that ``parallel:``
+    asks for (``parallel/mesh.py::dp_tp_mesh``) unless ``mesh`` is given."""
     model_cfg = cfg.get("model", {})
     if "target" in model_cfg:
         raise NotImplementedError(f"reference-schema configs (model.target) {NOT_PORTED}")
-    if cfg.get("parallel"):
-        raise NotImplementedError(f"parallel: {cfg['parallel']} {NOT_PORTED}")
+    par = cfg.get("parallel") or {}
+    if mesh is None and par:
+        mesh = dp_tp_mesh(par)
     sslopt = cfg.get("sslopt", {})
     dcfg = DiffusionSSLConfig(
         timesteps=model_cfg.get("timesteps", 1000),
@@ -118,7 +141,9 @@ def build_from_config(cfg: dict) -> StableSRSSL:
         vae_ckpt=model_cfg.get("vae_ckpt"),
         clip_text_ckpt=model_cfg.get("clip_text_ckpt"),
         text_prompt=model_cfg.get("text_prompt"),
-        unet_ckpt=model_cfg.get("ckpt_path") or model_cfg.get("unet_ckpt"))
+        unet_ckpt=model_cfg.get("ckpt_path") or model_cfg.get("unet_ckpt"),
+        mesh=mesh, zero=bool(par.get("zero", False)),
+        zero_min_size=int(par.get("zero_min_size", 2 ** 14)))
 
 
 def apply_dotlist(cfg: dict, dotlist: list[str]) -> dict:
@@ -161,9 +186,15 @@ class EpochShuffle(Sampler):
         return self.n
 
 
-def _nets(params: dict) -> dict:
-    return {"unet": params["unet"].state_dict(), "structcond": params["structcond"].state_dict(),
-            "null_context": params["null_context"].detach()}
+def _nets(params: dict, model: StableSRSSL | None = None) -> dict:
+    """The nets' state dicts, whole (gathered over ``model``'s mesh)."""
+    if model is None or model.plan is None:
+        return {"unet": params["unet"].state_dict(),
+                "structcond": params["structcond"].state_dict(),
+                "null_context": params["null_context"].detach()}
+    mesh = model.mesh
+    return {**{net: full_net_state(params[net], model.plan, net, mesh.tp, mesh.inner_group)
+               for net in NETS}, "null_context": params["null_context"].detach()}
 
 
 def _load_nets(params: dict, saved: dict) -> None:
@@ -173,21 +204,38 @@ def _load_nets(params: dict, saved: dict) -> None:
         params["null_context"].copy_(saved["null_context"])
 
 
-def save_train_state(path: str, state, degrader: RealESRGANDegrader) -> None:
-    """``train_state_{step}.pkl``: everything a resumed run continues from."""
+def save_train_state(path: str, state, degrader: RealESRGANDegrader,
+                     model: StableSRSSL | None = None) -> None:
+    """``train_state_{step}.pkl``: everything a resumed run continues from.
+    Under ``model``'s distributed mesh every rank enters (the state is
+    gathered) and rank 0 writes the file of a one-rank run."""
     grads = None
+    plan = None if model is None else model.plan
     if state.mini_step:                    # gradients summed since the last update
-        grads = [None if p.grad is None else p.grad.detach() for p in trainable(state.params)]
-    torch.save({"step": state.step, "mini_step": state.mini_step,
-                "params": _nets(state.params),
-                "ema_params": None if state.ema_params is None else _nets(state.ema_params),
-                "opt": state.opt.state_dict(), "grads": grads,
-                "generator": state.generator.get_state(),
-                "degrader": degrader.get_state(), "rng": _rng_state()}, path)
+        if model is not None and model.distributed and model.mesh.data > 1:
+            raise ValueError("a save in the middle of an accumulation at data > 1: make "
+                             "save_every a multiple of accumulate_grad_batches")
+        keys = trained_keys(state.params)
+        grads = [None if p.grad is None else
+                 (p.grad.detach() if plan is None else
+                  gather_tp(p.grad.detach(), plan["params"][k], model.mesh.tp,
+                            model.mesh.inner_group))
+                 for k, p in zip(keys, trainable(state.params))]
+    payload = {"step": state.step, "mini_step": state.mini_step,
+               "params": _nets(state.params, model),
+               "ema_params": None if state.ema_params is None else _nets(state.ema_params, model),
+               "opt": (state.opt.state_dict() if plan is None else
+                       full_moments(state.opt, plan, trained_keys(state.params))),
+               "grads": grads, "generator": state.generator.get_state(),
+               "degrader": degrader.get_state(), "rng": _rng_state()}
+    if is_main():
+        torch.save(payload, path)
+    barrier()
 
 
 def load_train_state(path: str, state, degrader: RealESRGANDegrader) -> None:
-    """Restore ``save_train_state``'s file into ``state`` and ``degrader`` in place."""
+    """Restore ``save_train_state``'s file into ``state`` and ``degrader`` in
+    place (before ``StableSRSSL.place_state``)."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     _load_nets(state.params, payload["params"])
     if (state.ema_params is None) != (payload["ema_params"] is None):
@@ -231,8 +279,12 @@ def train(args, on_iteration=None):
     train_cfg = cfg.get("train", {})
     if train_cfg.get("ckpt_backend", "pickle") != "pickle":
         raise NotImplementedError(f"train.ckpt_backend={train_cfg['ckpt_backend']!r} {NOT_PORTED}")
-    model = build_from_config(cfg)
     device = resolve_device(getattr(args, "device", None))
+    if cfg.get("parallel") and "WORLD_SIZE" in os.environ:
+        device = init_distributed(device)      # one rank a card under torchrun
+    model = build_from_config(cfg)
+    mesh = model.mesh
+    rank0 = is_main()
     seed = int(cfg.get("seed", 0))
     random.seed(seed)
     np.random.seed(seed)
@@ -260,7 +312,9 @@ def train(args, on_iteration=None):
         path = find_train_state(args.logdir) if resume == "auto" else resume
         if path is not None:                 # auto with no state yet: a fresh start
             load_train_state(path, state, degrader)
-            print(f"resumed from {path} at step {state.step}", flush=True)
+            if rank0:
+                print(f"resumed from {path} at step {state.step}", flush=True)
+    state = model.place_state(state)        # the mesh's layout, after init and resume
     total_steps = train_cfg.get("max_steps", 800000)
     log_every = train_cfg.get("log_every", 100)
     save_every = train_cfg.get("save_every", 1000)
@@ -269,13 +323,16 @@ def train(args, on_iteration=None):
     out_dir = args.logdir
     os.makedirs(out_dir, exist_ok=True)
     tb = None
-    if train_cfg.get("use_tb_logger"):
+    if train_cfg.get("use_tb_logger") and rank0:
         from ssl_tpu_torch.utils.logger import init_tb_logger
         tb = init_tb_logger(os.path.join(out_dir, "tb_logger"))
 
     def dump_images(step, batch):
-        """A row of the batch's images per preview key, as PNG."""
+        """A row of the batch's images per preview key, as PNG (every rank
+        runs the preview; rank 0 writes)."""
         for key, val in model.preview(state, batch).items():
+            if not rank0:
+                continue
             grid = torch.cat(list(val.clamp(0, 1)), dim=2).permute(1, 2, 0).cpu().numpy()
             bgr = (grid[..., ::-1] * 255.0).round().astype(np.uint8)
             imwrite(np.ascontiguousarray(bgr),
@@ -302,9 +359,9 @@ def train(args, on_iteration=None):
             if (ndp and np.random.rand() < ndp) or np.isnan(proc["lq"]).any():
                 proc = {**proc, "lq": proc["gt"]}
             t_degrade = time.perf_counter()
-            device_batch = {k: _chw(v, device) for k, v in proc.items()}
+            device_batch = shard_batch({k: _chw(v, device) for k, v in proc.items()}, mesh)
             state, logs = model.train_step(state, device_batch)
-            host = {k: float(v) for k, v in logs.items()}
+            host = {k: float(v) for k, v in mean_over_ranks(logs).items()}
             step = state.step
             t_prev, t_end = t_end, time.perf_counter()
             record = {"step": step, "logs": host, "iter_s": t_end - t_prev,
@@ -315,7 +372,7 @@ def train(args, on_iteration=None):
                 window[k] += record[k]
             if on_iteration is not None:
                 on_iteration(record, state, degrader)
-            if step % log_every == 0:
+            if step % log_every == 0 and rank0:
                 n = log_every
                 print(f"step {step} ({window['iter_s'] / n:.2f}s/it, data "
                       f"{1e3 * window['data_s'] / n:.1f} ms/it, degrade "
@@ -327,10 +384,12 @@ def train(args, on_iteration=None):
             if image_every and step % image_every == 0:
                 dump_images(step, device_batch)
             if save_every and step % save_every == 0:
-                with open(os.path.join(out_dir, f"ckpt_{step}.pkl"), "wb") as f:
-                    pickle.dump(params_to_jax("StableSRSSL", state.params), f)
+                ckpt = params_to_jax("StableSRSSL", _nets(state.params, model))
+                if rank0:
+                    with open(os.path.join(out_dir, f"ckpt_{step}.pkl"), "wb") as f:
+                        pickle.dump(ckpt, f)
                 save_train_state(os.path.join(out_dir, f"train_state_{step}.pkl"), state,
-                                 degrader)
+                                 degrader, model)
             t_end = time.perf_counter()     # the saves and previews are not an iteration's
         epoch += 1
     if tb is not None:
@@ -348,9 +407,12 @@ def main(argv=None):
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
     args, unknown = parser.parse_known_args(argv)
     args.overrides = unknown
-    if args.train:
-        return train(args)
-    return None
+    if not args.train:
+        return None
+    state = train(args)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return state
 
 
 if __name__ == "__main__":

@@ -15,8 +15,10 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ssl_tpu_torch.diffusion.schedules import DiffusionSchedule, space_timesteps
+from ssl_tpu_torch.parallel.mesh import get_dist_info
 
 
 def _start(shape, generator, device, x_init):
@@ -163,10 +165,15 @@ def tiled_sample(sample_fn: Callable, z_lq: torch.Tensor, tile: int, overlap: in
                  latent_channels: int = 4, data_parallel: bool = False):
     """Canvas-tiled sampling over NCHW latents: run ``sample_fn`` on
     overlapping z_lq tiles one after another and blend them with Gaussian
-    weights (the reference p_sample_loop_canvas :2908-2981)."""
-    if data_parallel:
-        raise NotImplementedError("tiles in parallel across devices are not ported yet "
-                                  "(ROADMAP.md, queue 1: parallelism)")
+    weights (the reference p_sample_loop_canvas :2908-2981).
+
+    ``data_parallel`` spreads the tiles over the ranks of the process group,
+    in groups of one tile a rank as the JAX path stacks them (a short last
+    group is padded with the first tile, whose output is dropped): each rank
+    samples its tile of the group, the tiles are gathered, and every rank
+    blends the same canvas in the serial order.  With a deterministic
+    ``sample_fn`` (``ddim``) the result equals the serial path's; a
+    stochastic one draws each tile's noise from its rank's generator."""
     b, _, h, w = z_lq.shape
     stride = tile - overlap
     weights = torch.from_numpy(gaussian_tile_weights(tile)).to(z_lq.device)[None, None]
@@ -178,9 +185,17 @@ def tiled_sample(sample_fn: Callable, z_lq: torch.Tensor, tile: int, overlap: in
         ys.append(h - tile)
     if xs[-1] + tile < w:
         xs.append(w - tile)
-    for y0 in ys:
-        for x0 in xs:
-            out = sample_fn(z_lq[:, :, y0:y0 + tile, x0:x0 + tile])
+    coords = [(y0, x0) for y0 in ys for x0 in xs]
+    rank, n = get_dist_info() if data_parallel else (0, 1)
+    for c0 in range(0, len(coords), n):
+        group = coords[c0:c0 + n]
+        y0, x0 = group[rank] if rank < len(group) else coords[0]
+        out = sample_fn(z_lq[:, :, y0:y0 + tile, x0:x0 + tile])
+        outs = [out]
+        if n > 1:
+            outs = [torch.empty_like(out) for _ in range(n)]
+            dist.all_gather(outs, out.contiguous())
+        for (y0, x0), out in zip(group, outs):
             canvas[:, :, y0:y0 + tile, x0:x0 + tile] += out * weights
             acc[:, :, y0:y0 + tile, x0:x0 + tile] += weights
     return canvas / torch.clamp(acc, min=1e-8)

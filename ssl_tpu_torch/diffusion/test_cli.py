@@ -18,8 +18,17 @@ float32 weights; the sampler's latents stay float32).  Runs on ``cuda``
 unless ``--device`` names another device.  Images are read and written
 through ``utils/img_util.py`` (``cv2`` where it imports, else
 ``utils/png.py``), and a ``.json`` config needs no ``yaml``.
-``--vqgan_ckpt`` (CFW), ``--tp``, ``--tile_parallel`` and ``--prompt`` are not
-ported yet and raise."""
+
+Under ``torchrun`` (one rank per card; gloo with ``--device cpu``) ``--tp N``
+splits the UNet's and the struct-cond encoder's Megatron layers over the N
+ranks (``parallel/tensor.py``; the world must be N), and ``--tile_parallel``
+hands each rank its tile of each group of latent tiles
+(``sampler.py::tiled_sample``); every rank samples and rank 0 writes:
+
+    torchrun --nproc_per_node 2 -m ssl_tpu_torch.diffusion.test_cli --config cfg.yml \\
+        --ckpt ckpt_N.pkl --init-img lq/ --outdir out --tp 2
+
+``--vqgan_ckpt`` (CFW) and ``--prompt`` are not ported yet and raise."""
 
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from ssl_tpu_torch.diffusion.ddpm_ssl import DiffusionState
 from ssl_tpu_torch.diffusion.main import build_from_config
 from ssl_tpu_torch.diffusion.sampler import (ddim_sample, plms_sample, spaced_ddpm_sample,
                                              tiled_sample)
+from ssl_tpu_torch.parallel.mesh import dp_tp_mesh, init_distributed, is_main
 from ssl_tpu_torch.utils.img_util import img2array, img2tensor, imread, imwrite, tensor2img
 from ssl_tpu_torch.utils.options import ordered_yaml_load
 from ssl_tpu_torch.utils.weight_port import params_from_jax
@@ -59,7 +69,8 @@ def load_jax_params(state: DiffusionState, params: dict) -> None:
 
 def restore(model, state: DiffusionState, lq_up: torch.Tensor, generator: torch.Generator,
             sampler: str = "ddpm", steps: int = 200, tile_latent: int = 0,
-            colorfix: str = "adain", timings: dict | None = None) -> torch.Tensor:
+            colorfix: str = "adain", timings: dict | None = None,
+            tile_parallel: bool = False) -> torch.Tensor:
     """One request: the upsampled LQ image (1, 3, H, W) in [0, 1] -> the
     restored image in [0, 1].  VAE encode, ``sampler`` over the struct-cond
     encoder and the UNet with the sampling-time weights (tiled when
@@ -89,7 +100,8 @@ def restore(model, state: DiffusionState, lq_up: torch.Tensor, generator: torch.
         z_lq = model.encode(vae, lq_up * 2 - 1, generator)
         lap("encode")
         if tile_latent and max(z_lq.shape[-2:]) > tile_latent:
-            z = tiled_sample(sample_tile, z_lq, tile_latent, tile_latent // 4)
+            z = tiled_sample(sample_tile, z_lq, tile_latent, tile_latent // 4,
+                             data_parallel=tile_parallel)
         else:
             z = sample_tile(z_lq)
         lap("sample")
@@ -114,8 +126,10 @@ def parse_args(argv=None):
     parser.add_argument("--colorfix_type", choices=["nofix", "adain", "wavelet"], default="adain")
     parser.add_argument("--vqgan_ckpt", default=None, help="CFW decoder (not ported yet)")
     parser.add_argument("--tile_latent", type=int, default=0, help="latent tile size (0=off)")
-    parser.add_argument("--tile_parallel", action="store_true", help="not ported yet")
-    parser.add_argument("--tp", type=int, default=0, help="not ported yet")
+    parser.add_argument("--tile_parallel", action="store_true",
+                        help="latent tiles split over the ranks (torchrun)")
+    parser.add_argument("--tp", type=int, default=0,
+                        help="the UNet split over this many ranks (torchrun)")
     parser.add_argument("--prompt", default=None, help="not ported yet (needs CLIP weights)")
     parser.add_argument("--sampler", choices=sorted(SAMPLERS), default="ddpm")
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
@@ -124,18 +138,27 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for given, flag in ((args.vqgan_ckpt, "--vqgan_ckpt"), (args.tp and args.tp > 1, "--tp"),
-                        (args.tile_parallel, "--tile_parallel"),
-                        (args.prompt is not None, "--prompt")):
+    for given, flag in ((args.vqgan_ckpt, "--vqgan_ckpt"), (args.prompt is not None, "--prompt")):
         if given:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, queue 1)")
-    model = build_from_config(ordered_yaml_load(args.config))
-    state = model.init_state(seed=0, device=args.device)
+    tp = max(args.tp or 1, 1)
+    if tp > 1 and args.tile_parallel:
+        raise ValueError("--tp and --tile_parallel split the ranks two ways: take one")
+    device, mesh = args.device, None
+    if "WORLD_SIZE" in os.environ and (tp > 1 or args.tile_parallel):
+        device = init_distributed("cuda" if device is None else device)
+    if tp > 1:
+        mesh = dp_tp_mesh({"data": 1, "tp": tp})
+    model = build_from_config(ordered_yaml_load(args.config), mesh)
+    state = model.init_state(seed=0, device=device)
     with open(args.ckpt, "rb") as f:
         load_jax_params(state, pickle.load(f))
+    state = model.place_state(state)
     device = state.params["null_context"].device
     gen = torch.Generator(device=device).manual_seed(42)
-    os.makedirs(args.outdir, exist_ok=True)
+    rank0 = is_main()
+    if rank0:
+        os.makedirs(args.outdir, exist_ok=True)
     for name in sorted(os.listdir(args.init_img)):
         path = os.path.join(args.init_img, name)
         lq = img2tensor(img2array(imread(path)))[None]
@@ -145,7 +168,9 @@ def main(argv=None):
         # which the JAX CLI calls, is this interpolation
         lq_up = F.interpolate(lq, size=(up_h, up_w), mode="bicubic", align_corners=False)
         img = restore(model, state, lq_up.to(device), gen, args.sampler, args.ddpm_steps,
-                      args.tile_latent, args.colorfix_type)
+                      args.tile_latent, args.colorfix_type, tile_parallel=args.tile_parallel)
+        if not rank0:
+            continue
         out_path = os.path.join(args.outdir, name)
         imwrite(tensor2img(img), out_path)
         print(f"{path} -> {out_path}")

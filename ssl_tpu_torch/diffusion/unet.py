@@ -35,6 +35,7 @@ from torch import nn
 
 from ssl_tpu_torch.archs.arch_util import Conv2d
 from ssl_tpu_torch.ops.attention import sdp_attention
+from ssl_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 
 NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
 
@@ -289,18 +290,28 @@ class AttentionBlockQKV(nn.Module):
         self.norm = normalization(channels)
         self.qkv = nn.Conv1d(channels, 3 * channels, 1)
         self.proj_out = zero_module(nn.Conv1d(channels, channels, 1))
+        # tensor parallelism (parallel/tensor.py): this rank holds num_heads / tp
+        # heads of qkv's output and proj_out's input
+        self.tp, self.tp_group = 1, None
 
     def forward(self, x):
         b, c, h, w = x.shape
         d = c // self.num_heads
+        heads = self.num_heads // self.tp
         y = self.norm(x).flatten(2).transpose(1, 2)
+        if self.tp_group is not None:
+            y = copy_to_tp(y, self.tp_group)
         qkv = F.linear(y, self.qkv.weight[:, :, 0].to(y.dtype), self.qkv.bias.to(y.dtype))
-        qkv = qkv.view(b, h * w, self.num_heads, 3, d)
+        qkv = qkv.view(b, h * w, heads, 3, d)
         scale = 1.0 / math.sqrt(math.sqrt(d))
         out = sdp_attention(qkv[..., 0, :] * scale, qkv[..., 1, :] * scale, qkv[..., 2, :], 1.0,
-                            self.use_flash_attention).reshape(b, h * w, c)
-        out = F.linear(out, self.proj_out.weight[:, :, 0].to(out.dtype),
-                       self.proj_out.bias.to(out.dtype))
+                            self.use_flash_attention).reshape(b, h * w, heads * d)
+        if self.tp_group is None:
+            out = F.linear(out, self.proj_out.weight[:, :, 0].to(out.dtype),
+                           self.proj_out.bias.to(out.dtype))
+        else:
+            out = reduce_from_tp(F.linear(out, self.proj_out.weight[:, :, 0].to(out.dtype)),
+                                 self.tp_group) + self.proj_out.bias.to(out.dtype)
         return x + out.transpose(1, 2).reshape(b, c, h, w)
 
 

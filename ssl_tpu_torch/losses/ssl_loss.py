@@ -11,7 +11,10 @@ the shipped one goes to ``losses/simself_strategies.py``.
 
 Reduction parity: the reference concatenates all per-image SSGs to
 (1, N_total, search^2) and takes the mean over every element, so the sums
-are divided by count * search^2 (+1e-12).
+are divided by count * search^2 (+1e-12).  Under a process group the count
+is that of the global batch, as in the JAX step, and each rank's term is
+scaled by the ``data`` width, so that the mean of the ranks' terms (and of
+their gradients, which DDP takes) is the global loss.
 
 ``impl: dense`` takes the JAX package's stored route or its batched route by
 the same rule (``dense_route``), so that both packages compute the same
@@ -28,6 +31,7 @@ from ssl_tpu_torch.losses.basic_loss import KLDistanceLoss
 from ssl_tpu_torch.ops.ssg import (BF16, SSGConfig, apply_mask_stride, mask_to_positions,
                                    ssg_matrix)
 from ssl_tpu_torch.ops.ssg_cuda import ssl_loss_sums
+from ssl_tpu_torch.parallel.mesh import global_sum
 
 # the shipped strategy's names: the fused loss above, not the zoo
 DEFAULT_STRATEGIES = ("", "areaarea_mask_nonlocalavg_cuda_v1", "ssl_cuda")
@@ -125,16 +129,22 @@ def dense_route(b: int, h: int, w: int, cfg: SSGConfig) -> tuple:
     return stored, cfg if stored else cfg._replace(q_store_dtype="float32")
 
 
-def ssl_loss(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, setting: SSLSetting):
+def ssl_loss(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, setting: SSLSetting,
+             mesh=None):
     """(l_selfsim, l_selfsim_kl) for a batch.
 
     sr, gt: NCHW (b, c, h, w) float32; mask: (b, 1, h, w) or (b, h, w) binary
-    edge masks.  GT's SSG is a constant target."""
+    edge masks.  GT's SSG is a constant target.  ``mesh`` is the model's
+    training mesh (``parallel/mesh.py``): when it is distributed the count
+    is that of the global batch."""
     if setting.strategy:
+        if mesh is not None and mesh.data > 1:
+            raise NotImplementedError("a simself_strategy zoo loss over several data ranks is "
+                                      "not ported yet (ROADMAP.md, queue 1 item 10)")
         from ssl_tpu_torch.losses.simself_strategies import simself_strategy_loss
         return simself_strategy_loss(sr, gt, mask, setting)
     if setting.kl_softmax or setting.impl not in ("dense", "pallas"):
-        return gather_route(sr, gt, mask, setting)
+        return gather_route(sr, gt, mask, setting, mesh)
     if setting.impl == "pallas" and BF16 in (setting.ssg.q_store_dtype,
                                              setting.ssg.stream_dtype):
         raise NotImplementedError("ssl_setting.impl='pallas' with the bf16 knobs (a float32 "
@@ -145,11 +155,23 @@ def ssl_loss(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, setting: SS
     mask = apply_mask_stride(mask.to(sr.dtype), setting.mask_stride).contiguous()
     stored, cfg = dense_route(*mask.shape, setting.ssg)
     l1_sum, kl_sum, count = ssl_loss_sums(sr.contiguous(), gt.contiguous(), mask, cfg, stored)
+    count, scale = global_count(count, mesh)
     denom = count * (setting.ssg.search * setting.ssg.search) + 1e-12
-    return l1_sum / denom * setting.l1_weight, kl_sum / denom * setting.kl_weight
+    return (l1_sum / denom * setting.l1_weight * scale,
+            kl_sum / denom * setting.kl_weight * scale)
 
 
-def gather_route(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, setting: SSLSetting):
+def global_count(count: torch.Tensor, mesh):
+    """(the count of the global batch, the scale of this rank's term): the
+    count summed over ``mesh``'s ``data`` axis and its width when the mesh
+    is distributed, else (``count``, 1)."""
+    if mesh is None or not mesh.distributed:
+        return count, 1
+    return global_sum(count.detach(), mesh), mesh.data
+
+
+def gather_route(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, setting: SSLSetting,
+                 mesh=None):
     """(l_selfsim, l_selfsim_kl) through the gather API (``ssl_tpu``'s
     ``impl: scan`` path): the rows of SR and of GT (without grad) at each
     image's first ``capacity`` edge pixels, weighted by validity, the sums
@@ -165,8 +187,9 @@ def gather_route(sr: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, setting
     with torch.no_grad():
         q_gt = ssg_matrix(gt, pos, setting.ssg)
     vmask = valid[..., None].to(sr.dtype)                     # (b, cap, 1)
-    denom = torch.sum(vmask) * q_sr.shape[-1] + 1e-12
-    l1 = torch.sum(torch.abs(q_sr - q_gt) * vmask) / denom * setting.l1_weight
+    count, scale = global_count(torch.sum(vmask), mesh)
+    denom = count * q_sr.shape[-1] + 1e-12
+    l1 = torch.sum(torch.abs(q_sr - q_gt) * vmask) / denom * setting.l1_weight * scale
     kl_fn = KLDistanceLoss(loss_weight=1.0, reduction="none", softmax=setting.kl_softmax)
-    kl = torch.sum(kl_fn.pointwise(q_sr, q_gt) * vmask) / denom * setting.kl_weight
+    kl = torch.sum(kl_fn.pointwise(q_sr, q_gt) * vmask) / denom * setting.kl_weight * scale
     return l1, kl

@@ -14,14 +14,17 @@ import torch
 
 @contextlib.contextmanager
 def exact_float32():
-    """cuDNN's and cuBLAS's TF32 off inside the block, restored after it."""
+    """cuDNN's and cuBLAS's TF32 off inside the block, restored after it;
+    cuDNN itself stays on."""
     matmul = torch.backends.cuda.matmul.allow_tf32
+    cudnn = torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
-        with torch.backends.cudnn.flags(allow_tf32=False):
-            yield
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def image_tensor(img, crop_border: int, device) -> torch.Tensor:

@@ -20,6 +20,13 @@ during a step, and RealESRGAN's draws come from the generators in
 ``extra``.  Without training (``is_train: false``) the
 state holds only ``net_g`` (and its EMA when ``ema_decay`` is set).
 
+Under a process group (``--launcher pytorch``) ``place_state`` wraps the
+trained nets for the mesh (``parallel/fsdp.py``): DDP, or FSDP with
+``parallel.fsdp``.  Every rank enters the saves, which gather; rank 0 writes
+the files, which are those of a one-rank run (no ``module.`` prefix, full
+tensors), and every other rank ``r`` writes its own generator and host
+streams to ``training_states/{iter}.rank{r}.state``, which it resumes from.
+
 Checkpoints: ``save_networks`` writes ``net_g_{iter}.pth`` ({"params",
 "params_ema"}), ``net_d_{iter}.pth`` ({"params"}) and one such file for each
 of ``nets`` (SPSR's ``net_d_grad_{iter}.pth``) in the reference's layout;
@@ -31,6 +38,7 @@ generator states; the schedules are functions of the step) and the
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 import random
@@ -42,6 +50,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ssl_tpu_torch.archs.discriminator_arch import BatchNorm2d
+from ssl_tpu_torch.parallel.fsdp import (data_parallel, full_optimizer_state_dict, full_params,
+                                         full_state_dict, reshard_optimizer, shard_blocks,
+                                         sync_replicated_grads)
+from ssl_tpu_torch.parallel.mesh import (barrier, get_dist_info, global_sum, is_main,
+                                         resolve_mesh)
 from ssl_tpu_torch.utils.device import resolve_device  # noqa: F401
 from ssl_tpu_torch.utils.registry import build_model, build_network  # noqa: F401
 from ssl_tpu_torch.utils.weight_port import FAMILIES, params_from_jax
@@ -124,6 +138,7 @@ def optimizer_step(opt: torch.optim.Optimizer, lr: float, apply: bool = True) ->
     params = [p for g in opt.param_groups for p in g["params"]]
     for g in opt.param_groups:
         g["lr"] = lr
+    sync_replicated_grads(params)
     if apply:
         opt.step()
         return
@@ -141,9 +156,11 @@ def optimizer_step(opt: torch.optim.Optimizer, lr: float, apply: bool = True) ->
 
 @torch.no_grad()
 def ema_update(ema: nn.Module, net: nn.Module, decay: float) -> None:
-    """net_g_ema = decay * ema + (1 - decay) * net_g (reference base_model.py:75-82)."""
-    for pe, p in zip(ema.parameters(), net.parameters()):
-        pe.copy_(pe * decay + p * (1.0 - decay))
+    """net_g_ema = decay * ema + (1 - decay) * net_g (reference base_model.py:75-82),
+    as two foreach updates; a sharded ``net`` is gathered first."""
+    ema_params = list(ema.parameters())
+    torch._foreach_mul_(ema_params, decay)
+    torch._foreach_add_(ema_params, full_params(net), alpha=1.0 - decay)
 
 
 def load_network(net: nn.Module, path: str, param_key: str = "params", strict: bool = True):
@@ -191,7 +208,7 @@ def _set_rng_state(rng: dict) -> None:
 
 
 def _host_state_dict(net: nn.Module) -> dict:
-    return {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    return full_state_dict(net)
 
 
 def _host_extra(extra: dict | None) -> dict | None:
@@ -221,11 +238,45 @@ def _load_extra(extra: dict, saved: dict, device) -> None:
 class BaseModel:
     """Holds the static config, the device and the step function."""
 
+    #: whether ``place_state`` may wrap this recipe's nets for a process group
+    data_parallel = True
+
     def __init__(self, opt: dict, device=None):
         self.opt = opt
         self.is_train = opt.get("is_train", True)
         self.scale = opt.get("scale", 4)
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(opt)
+
+    def place_state(self, state: TrainState) -> TrainState:
+        """Wrap the trained nets for the mesh, after init and resume (the
+        JAX ``place_state``): G in DDP, or its trunk's blocks sharded with
+        ``parallel.fsdp`` (its optimizer rebuilt over the sharded
+        parameters); D and ``nets`` in DDP.  The EMA stays a plain module.
+        The flax-rule batch norms of the trained nets get this model's
+        mesh, so that their statistics cover the global batch.  Nothing
+        without a process group."""
+        if not self.mesh.distributed:
+            return state
+        if not self.data_parallel:
+            raise NotImplementedError(f"{type(self).__name__} under --launcher pytorch is not "
+                                      "ported yet (ROADMAP.md, queue 1 item 10)")
+        sync = (functools.partial(global_sum, mesh=self.mesh), self.mesh.data)
+        for net in (state.net_g, state.net_d, *state.nets.values()):
+            for m in (net.modules() if net is not None else ()):
+                if isinstance(m, BatchNorm2d):
+                    m.sync = sync
+        if self.mesh.fsdp > 1:
+            min_size = int((self.opt.get("parallel") or {}).get("fsdp_min_size", 2 ** 14))
+            shard_blocks(state.net_g, self.mesh, min_size)
+            if state.opt_g is not None:
+                state.opt_g = reshard_optimizer(state.opt_g, list(state.net_g.parameters()))
+        else:
+            state.net_g = data_parallel(state.net_g)
+        if state.net_d is not None:
+            state.net_d = data_parallel(state.net_d)
+        state.nets = {name: data_parallel(net) for name, net in state.nets.items()}
+        return state
 
     def build_g(self):
         net_opt = deepcopy(self.opt["network_g"])
@@ -245,15 +296,17 @@ class BaseModel:
         """``net_g_{iter}.pth`` ({"params", "params_ema"}) and, with a D,
         ``net_d_{iter}.pth`` ({"params"}) and ``{name}_{iter}.pth`` for each
         of ``state.nets``, as the reference saves them."""
-        os.makedirs(save_dir, exist_ok=True)
         payload = {"params": _host_state_dict(state.net_g)}
         if state.net_g_ema is not None:
             payload["params_ema"] = _host_state_dict(state.net_g_ema)
-        torch.save(payload, os.path.join(save_dir, f"net_g_{current_iter}.pth"))
-        for name, net in (("net_d", state.net_d), *state.nets.items()):
-            if net is not None:
-                torch.save({"params": _host_state_dict(net)},
-                           os.path.join(save_dir, f"{name}_{current_iter}.pth"))
+        others = {name: _host_state_dict(net)
+                  for name, net in (("net_d", state.net_d), *state.nets.items()) if net is not None}
+        if is_main():
+            os.makedirs(save_dir, exist_ok=True)
+            torch.save(payload, os.path.join(save_dir, f"net_g_{current_iter}.pth"))
+            for name, sd in others.items():
+                torch.save({"params": sd}, os.path.join(save_dir, f"{name}_{current_iter}.pth"))
+        barrier()
 
     def save_training_state(self, state: TrainState, state_dir: str, epoch: int,
                             current_iter: int) -> None:
@@ -268,15 +321,22 @@ class BaseModel:
             payload[name] = _host_state_dict(net)
         for name in _OPTIMIZERS:
             optim = getattr(state, name)
-            payload[name] = None if optim is None else optim.state_dict()
-        torch.save(payload, os.path.join(state_dir, f"{current_iter}.state"))
-        with open(os.path.join(state_dir, "latest"), "w") as f:
-            f.write(str(current_iter))
+            payload[name] = None if optim is None else full_optimizer_state_dict(optim)
+        rank = get_dist_info()[0]
+        if rank == 0:
+            torch.save(payload, os.path.join(state_dir, f"{current_iter}.state"))
+            with open(os.path.join(state_dir, "latest"), "w") as f:
+                f.write(str(current_iter))
+        else:       # this rank's own streams
+            torch.save({"rng": payload["rng"], "host": payload["host"]},
+                       os.path.join(state_dir, f"{current_iter}.rank{rank}.state"))
+        barrier()
 
     def load_training_state(self, state: TrainState, state_dir: str,
                             current_iter: int | str = "latest"):
-        """Load ``{current_iter}.state`` into ``state`` (in place) and restore
-        the generators; returns ``(state, iter)``."""
+        """Load ``{current_iter}.state`` into ``state`` (in place, before
+        ``place_state``) and restore the generators (a rank > 0 its own, where
+        it saved them); returns ``(state, iter)``."""
         if current_iter == "latest":
             with open(os.path.join(state_dir, "latest")) as f:
                 current_iter = int(f.read().strip())
@@ -303,6 +363,13 @@ class BaseModel:
             self.set_host_state(payload["host"])
         state.step = int(payload["step"])
         _set_rng_state(payload["rng"])
+        rank = get_dist_info()[0]
+        own = os.path.join(state_dir, f"{current_iter}.rank{rank}.state")
+        if rank and os.path.exists(own):       # a rank > 0 resumes its own streams
+            streams = torch.load(own, map_location="cpu", weights_only=True)
+            _set_rng_state(streams["rng"])
+            if streams.get("host"):
+                self.set_host_state(streams["host"])
         return state, int(payload["iter"])
 
     @staticmethod

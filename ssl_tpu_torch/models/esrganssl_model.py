@@ -25,7 +25,8 @@ class ESRGANSSLModel(ESRGANModel):
     def g_losses(self, state, batch):
         total, logs, sr = super().g_losses(state, batch)
         if self.use_ssl and "gt_mask" in batch:
-            l_selfsim, l_selfsim_kl = ssl_loss(sr, batch["gt"], batch["gt_mask"], self.ssl_setting)
+            l_selfsim, l_selfsim_kl = ssl_loss(sr, batch["gt"], batch["gt_mask"],
+                                               self.ssl_setting, self.mesh)
             if self.ssl_setting.l1_weight > 0:
                 total = total + l_selfsim
                 logs["l_selfsim"] = l_selfsim

@@ -76,7 +76,12 @@ def queue_shuffle(extra: dict, batch: dict, qsize: int, perm: torch.Tensor | Non
 
 class _DegradationMixin:
     """The degradation, USM and pool in front of a recipe's step
-    (``ssl_tpu``'s ``_DegradationMixin`` in device mode)."""
+    (``ssl_tpu``'s ``_DegradationMixin`` in device mode).  Under a process
+    group it raises: the JAX step draws the degradations and runs the pool
+    over the global batch, which no rank holds here (ROADMAP.md, queue 1
+    item 10)."""
+
+    data_parallel = False
 
     def _init_degrader(self, opt: dict):
         self.degrade_cfg = DegradeConfig.from_opt(opt)
@@ -216,7 +221,7 @@ class RealESRGANSSLModel(_DegradationMixin, ESRGANSSLModel):
             total = total + l_pix
             logs["l_pix"] = l_pix
         if self.use_ssl and "gt_mask" in batch:
-            l_ss, l_kl = ssl_loss(sr, gt, batch["gt_mask"], self.ssl_setting)
+            l_ss, l_kl = ssl_loss(sr, gt, batch["gt_mask"], self.ssl_setting, self.mesh)
             if self.ssl_setting.l1_weight > 0:
                 total = total + l_ss
                 logs["l_selfsim"] = l_ss

@@ -36,6 +36,9 @@ from ssl_tpu_torch.utils.registry import MODEL_REGISTRY
 
 @MODEL_REGISTRY.register()
 class SPSRSSLModel(ESRGANSSLModel):
+    # its own step applies the two Ds in place: under a process group it
+    # raises (ROADMAP.md, queue 1 item 10)
+    data_parallel = False
 
     def __init__(self, opt: dict, device=None):
         super().__init__(opt, device=device)
@@ -76,7 +79,7 @@ class SPSRSSLModel(ESRGANSSLModel):
         logs["l_g_grad_pix"] = l_grad_pix
         logs["l_g_grad_branch"] = l_grad_branch
         if self.use_ssl and "gt_mask" in batch:
-            l_ss, l_kl = ssl_loss(sr, gt, batch["gt_mask"], self.ssl_setting)
+            l_ss, l_kl = ssl_loss(sr, gt, batch["gt_mask"], self.ssl_setting, self.mesh)
             if self.ssl_setting.l1_weight > 0:
                 total = total + l_ss
                 logs["l_selfsim"] = l_ss

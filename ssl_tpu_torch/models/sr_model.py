@@ -18,6 +18,8 @@ from ssl_tpu_torch.metrics import calculate_metric
 from ssl_tpu_torch.models.base_model import (BaseModel, TrainState, build_optimizer,
                                              ema_update, load_network, optimizer_step)
 from ssl_tpu_torch.models.lr_scheduler import build_schedule
+from ssl_tpu_torch.parallel.mesh import is_main
+from ssl_tpu_torch.parallel.spatial import spatial_infer
 from ssl_tpu_torch.utils.img_util import imwrite, tensor2img
 from ssl_tpu_torch.utils.registry import MODEL_REGISTRY, build_loss
 
@@ -109,17 +111,22 @@ class SRModel(BaseModel):
     def test(self, state: TrainState, lq: torch.Tensor) -> torch.Tensor:
         """SR of an (n, c, h, w) or (c, h, w) batch on the model's device:
         whole, reflect-padded at the bottom and right to a multiple of 16 (the
-        JAX package's shape buckets), or in tiles with ``tile_process``.
+        JAX package's shape buckets), in tiles with ``tile_process``, or with
+        its height sharded over the ranks with ``spatial_infer`` (unpadded,
+        as in JAX).
         Reference: esrganssl_model.py test()/tile_process (:290-384)."""
         net = self.infer_net(state)
         lq = lq.to(self.device, torch.float32)
         if lq.dim() == 3:
             lq = lq[None]
-        if self.opt.get("spatial_infer"):
-            raise NotImplementedError("spatial_infer (multi-card halo exchange) is not ported "
-                                      "yet (ROADMAP.md, queue 1 item 10)")
         if self.opt.get("tile_process"):
             return self.tile_process(net, lq)
+        if self.opt.get("spatial_infer"):
+            # the height sharded over the ranks, each window with halo rows
+            # of its neighbours (parallel/spatial.py); the halo plays
+            # tile_pad's role
+            return spatial_infer(lambda x: self.infer(net, x), lq, self.scale,
+                                 halo=int(self.opt.get("spatial_halo", 32)))
         mult = 16
         h, w = lq.shape[-2:]
         sr = self.infer(net, pad_reflect(lq, (mult - h % mult) % mult, (mult - w % mult) % mult))
@@ -154,16 +161,22 @@ class SRModel(BaseModel):
         """Per-image metrics on RGB uint8 (the reference's nondist_validation),
         the deep ones on the model's device, averaged over the set; with
         ``save_img`` the SR images go to
-        ``path.visualization/<set>/<name>_<iter>.png``."""
+        ``path.visualization/<set>/<name>_<iter>.png``.  Under a process
+        group every rank runs every image (a sharded net's forward is
+        collective) and rank 0 alone scores and writes; the other ranks
+        return no metric."""
         dataset_name = dataloader.dataset.opt.get("name", "val")
         metric_opts = (self.opt.get("val") or {}).get("metrics") or {}
         results = {name: [] for name in metric_opts}
+        main = is_main()
         for batch in dataloader:
             if batch["lq"].shape[0] != 1:
                 raise ValueError(
                     f"validation expects batch_size_per_gpu=1 for val loaders, got "
                     f"{batch['lq'].shape[0]} (dataset {dataset_name!r})")
             sr = self.test(state, batch["lq"])
+            if not main:
+                continue
             # metrics take RGB uint8 (to_y_channel uses RGB coefficients);
             # only the saved file is BGR, as cv2.imwrite wants it
             sr_img = tensor2img(sr, rgb2bgr=False)
@@ -178,6 +191,8 @@ class SRModel(BaseModel):
                 if gt_img is not None:
                     results[name].append(calculate_metric(
                         {"img": sr_img, "img2": gt_img, "device": self.device}, m_opt))
+        if not main:
+            return {}
         avg = {name: float(np.mean(vals)) for name, vals in results.items() if vals}
         self._update_best(dataset_name, avg, current_iter, metric_opts)
         if tb_logger is not None:

@@ -10,7 +10,14 @@ a D phase, as the JAX step does them:
   when the gate is off Adam's moments still advance with zero gradients.
 * D phase: real then fake, serially, threading the running stats, on the SR
   of the G phase (computed with the pre-update G) detached.
-* EMA of G after the G update."""
+* EMA of G after the G update.
+
+Under a process group (``--launcher pytorch``) the step keeps the JAX step's
+global-batch semantics: the relativistic means run over the global batch
+(``parallel/mesh.py::global_mean``), in both phases, and so do the D's
+batch-norm statistics (``archs/discriminator_arch.py::BatchNorm2d``), in the
+G phase too.  The G phase applies the unwrapped D, so that DDP's reducer of
+D sees only the D phase's backward."""
 
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from ssl_tpu_torch.models.base_model import (TrainState, build_optimizer, ema_up
                                              load_network, optimizer_step)
 from ssl_tpu_torch.models.lr_scheduler import build_schedule
 from ssl_tpu_torch.models.sr_model import SRModel
+from ssl_tpu_torch.parallel.fsdp import unwrap
+from ssl_tpu_torch.parallel.mesh import global_mean
 from ssl_tpu_torch.utils.registry import MODEL_REGISTRY, build_loss, build_network
 
 
@@ -82,16 +91,18 @@ class SRGANModel(SRModel):
     def gan_g_loss(self, fake_pred, real_pred):
         if self.relativistic:
             real_pred = real_pred.detach()
-            l_g_real = self.cri_gan(real_pred - torch.mean(fake_pred), False, is_disc=False)
-            l_g_fake = self.cri_gan(fake_pred - torch.mean(real_pred), True, is_disc=False)
+            l_g_real = self.cri_gan(real_pred - global_mean(fake_pred, self.mesh), False,
+                                    is_disc=False)
+            l_g_fake = self.cri_gan(fake_pred - global_mean(real_pred, self.mesh), True,
+                                    is_disc=False)
             return (l_g_real + l_g_fake) / 2
         return self.cri_gan(fake_pred, True, is_disc=False)
 
     def gan_d_loss(self, real_pred, fake_pred):
         if self.relativistic:
-            l_d_real = self.cri_gan(real_pred - torch.mean(fake_pred.detach()),
+            l_d_real = self.cri_gan(real_pred - global_mean(fake_pred.detach(), self.mesh),
                                     True, is_disc=True) * 0.5
-            l_d_fake = self.cri_gan(fake_pred - torch.mean(real_pred.detach()),
+            l_d_fake = self.cri_gan(fake_pred - global_mean(real_pred.detach(), self.mesh),
                                     False, is_disc=True) * 0.5
         else:
             l_d_real = self.cri_gan(real_pred, True, is_disc=True)
@@ -105,10 +116,11 @@ class SRGANModel(SRModel):
         if self.cri_gan is not None:
             # each pass from the pre-step buffers, as the JAX step applies D
             # to both with the incoming stats (spectral norms' u moves D)
-            with frozen_discriminator(state.net_d):
-                fake_pred = state.net_d(sr)
-            with frozen_discriminator(state.net_d):
-                real_pred = state.net_d(batch["gt"])
+            net_d = unwrap(state.net_d)
+            with frozen_discriminator(net_d):
+                fake_pred = net_d(sr)
+            with frozen_discriminator(net_d):
+                real_pred = net_d(batch["gt"])
             l_g_gan = self.gan_g_loss(fake_pred, real_pred.detach())
             total = total + l_g_gan
             logs["l_g_gan"] = l_g_gan

@@ -4,7 +4,10 @@ Counterpart of ``ssl_tpu/utils/options.py``: the same YAML schema, the same
 ``-opt``, ``--auto_resume``, ``--debug`` and ``--force_yml key:sub=val``
 switches, the same experiment and result paths, KAIR ``.json`` files through
 ``utils/kair_options.py``, plus ``--device`` (``cuda``
-unless the caller names another).  ``yaml`` is imported only to read a YAML
+unless the caller names another).  ``--launcher pytorch`` runs one process
+per card under ``torchrun`` (``jax``, the JAX CLI's name, is an alias);
+``--launcher none`` is one process, so a ``num_devices`` above 1 raises
+there and names the ``torchrun`` command.  ``yaml`` is imported only to read a YAML
 file: a ``.json`` option file (``//`` comments allowed) needs none, and
 without ``yaml`` a ``--force_yml`` value is read as JSON, else kept as a
 string."""
@@ -18,9 +21,6 @@ import random
 import re
 
 from ssl_tpu_torch.utils.kair_options import is_kair_options, kair_to_opt
-
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
-
 
 def ordered_yaml_load(path_or_str: str, from_file: bool = True) -> dict:
     if from_file:
@@ -68,18 +68,6 @@ def set_by_dotted(opt: dict, dotted: str):
     node[parts[-1]] = parse_value(val)
 
 
-def visible_devices(opt: dict, device: str) -> int:
-    """``num_devices`` with ``auto`` resolved to the visible card count (1 on
-    the CPU)."""
-    n = opt.get("num_devices", "auto")
-    if n in (None, "auto"):
-        if not device.startswith("cuda"):
-            return 1
-        import torch
-        return torch.cuda.device_count()
-    return int(n)
-
-
 def parse_options(root_path: str, is_train: bool = True, args=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", type=str, required=True, help="Path to option YAML file.")
@@ -87,14 +75,14 @@ def parse_options(root_path: str, is_train: bool = True, args=None):
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--force_yml", nargs="+", default=None,
                         help="Override yaml options, e.g. train:total_iter=100")
-    parser.add_argument("--launcher", choices=["none", "jax"], default="none",
-                        help="'jax' (multi-host) is not ported")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "jax"], default="none",
+                        help="'pytorch': one process per card under torchrun ('jax' is an "
+                             "alias)")
     parser.add_argument("--device", default="cuda",
                         help="torch device; cuda unless another is named (e.g. cpu)")
     parsed = parser.parse_args(args)
-    if parsed.launcher != "none":
-        raise NotImplementedError(f"--launcher {parsed.launcher}: multi-process runs are "
-                                  f"{_ROADMAP}, item 10")
+    if parsed.launcher == "jax":
+        parsed.launcher = "pytorch"
 
     opt = ordered_yaml_load(parsed.opt)
     if is_kair_options(opt):
@@ -102,11 +90,12 @@ def parse_options(root_path: str, is_train: bool = True, args=None):
     if parsed.force_yml:
         for entry in parsed.force_yml:
             set_by_dotted(opt, entry.strip())
-    n_dev = visible_devices(opt, parsed.device)
-    if n_dev > 1:
-        raise NotImplementedError(f"num_devices {opt.get('num_devices', 'auto')} resolves to "
-                                  f"{n_dev} devices: data parallelism is {_ROADMAP}, item 10; "
-                                  "set num_devices: 1")
+    n_dev = opt.get("num_devices", "auto")
+    if parsed.launcher == "none" and n_dev not in (None, "auto") and int(n_dev) > 1:
+        cli = "train" if is_train else "test"
+        raise ValueError(f"num_devices {n_dev} with --launcher none: one process drives one "
+                         f"card; run torchrun --nproc_per_node {n_dev} -m ssl_tpu_torch.{cli} "
+                         f"-opt {parsed.opt} --launcher pytorch")
     opt["auto_resume"] = parsed.auto_resume
     opt["is_train"] = is_train
 

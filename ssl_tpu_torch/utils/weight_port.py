@@ -757,25 +757,30 @@ def _openai_unet_to_jax(sd: dict) -> dict:
     tree: dict = {}
     for key, value in sd.items():
         a = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
-        m = re.fullmatch(r"(input_blocks|output_blocks)\.(\d+)\.(\d+)\.(.+)", key) or \
-            re.fullmatch(r"(middle_block|time_embed|out|fea_tran)\.(\d+)\.(.+)", key)
-        if m is None:
-            raise KeyError(f"unexpected torch parameter {key}")
-        *head, rest = m.groups()
-        path, leaf = rest.rsplit(".", 1) if "." in rest else ("", rest)
-        node = tree.setdefault("_".join(head), {})
-        if path:
-            node = node.setdefault(path.replace(".", "_"), {})
-        if leaf == "bias":
-            node["bias"] = a
-        elif leaf != "weight":
-            raise KeyError(f"unexpected torch leaf {key}")
-        elif a.ndim == 1:
-            node["scale"] = a
-        else:
-            node["kernel"] = (a.transpose(2, 3, 1, 0) if a.ndim == 4 else
-                              a[..., 0].T if a.ndim == 3 else a.T)
+        *modules, leaf = unet_flax_path(key, a.ndim)
+        node = tree
+        for name in modules:
+            node = node.setdefault(name, {})
+        node[leaf] = (a.transpose(2, 3, 1, 0) if a.ndim == 4 else a[..., 0].T if a.ndim == 3
+                      else a.T if a.ndim == 2 else a)
     return _np_leaves(tree)
+
+
+def unet_flax_path(key: str, ndim: int) -> list[str]:
+    """The flax path of the UNet (or struct-cond encoder) parameter ``key``
+    of ``ndim`` dims: ``input_blocks.1.0.in_layers.2.weight`` ->
+    [``input_blocks_1_0``, ``in_layers_2``, ``kernel``] (a 1-d weight is a
+    norm's ``scale``)."""
+    m = re.fullmatch(r"(input_blocks|output_blocks)\.(\d+)\.(\d+)\.(.+)", key) or \
+        re.fullmatch(r"(middle_block|time_embed|out|fea_tran)\.(\d+)\.(.+)", key)
+    if m is None:
+        raise KeyError(f"unexpected torch parameter {key}")
+    *head, rest = m.groups()
+    path, leaf = rest.rsplit(".", 1) if "." in rest else ("", rest)
+    if leaf not in ("weight", "bias"):
+        raise KeyError(f"unexpected torch leaf {key}")
+    leaf = "bias" if leaf == "bias" else "scale" if ndim == 1 else "kernel"
+    return ["_".join(head)] + ([path.replace(".", "_")] if path else []) + [leaf]
 
 
 def _np_leaves(tree):

@@ -80,10 +80,15 @@ def test_cli_color_fixes_write_images(setup):
         assert out.shape == (64, 64, 3)
 
 
-@pytest.mark.parametrize("flag", [["--vqgan_ckpt", "x.pkl"], ["--tp", "2"], ["--tile_parallel"],
-                                  ["--prompt", "a photo"]])
+@pytest.mark.parametrize("flag", [["--vqgan_ckpt", "x.pkl"], ["--tp", "2"],
+                                  ["--tile_parallel", "--tp", "2"], ["--prompt", "a photo"]])
 def test_cli_unported_options_raise(setup, flag):
+    """CFW and prompts are not ported; --tp 2 needs a torchrun world of 2,
+    and --tp with --tile_parallel is refused: each raises before any output."""
     root, (ckpt_a, _) = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    err, match = ((ValueError, "torchrun") if flag == ["--tp", "2"] else
+                  (ValueError, "take one") if "--tile_parallel" in flag else
+                  (NotImplementedError, "ROADMAP"))
+    with pytest.raises(err, match=match):
         _run(root, ckpt_a, "unused", *flag)
     assert not os.path.exists(root / "unused")

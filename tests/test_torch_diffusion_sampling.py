@@ -132,8 +132,9 @@ def test_tiled_sample_blends_like_jax():
     got = sampler.tiled_sample(lambda t: t * 2.0 + 1.0, nchw(z), tile=8, overlap=2)
     np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), np.asarray(ref), rtol=1e-6,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        sampler.tiled_sample(lambda t: t, nchw(z), tile=8, overlap=2, data_parallel=True)
+    # one rank: data_parallel takes the serial path
+    assert torch.equal(sampler.tiled_sample(lambda t: t * 2.0 + 1.0, nchw(z), tile=8, overlap=2,
+                                            data_parallel=True), got)
 
 
 def test_generator_draws_are_reproducible(pair):

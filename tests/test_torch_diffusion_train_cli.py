@@ -256,8 +256,12 @@ def test_first_degraded_batch_matches_jax(data, tmp_path, monkeypatch):
     ("train.ckpt_backend=orbax", "ckpt_backend"), ("parallel.tp=2", "parallel"),
     ("model.target=ldm.models.X", "model.target")])
 def test_unported_options_raise(data, tmp_path, override, what):
+    """orbax and reference-schema configs are not ported; ``parallel`` beyond
+    one rank needs a torchrun world of its size."""
     base = write_cfg(tmp_path, "cfg.json", tiny_cfg(data))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+    err, match = ((ValueError, "torchrun") if what == "parallel" else
+                  (NotImplementedError, "ROADMAP.md"))
+    with pytest.raises(err, match=match) as e:
         tmain.main(["--train", "--base", base, "--logdir", str(tmp_path), "--device", "cpu",
                     override])
     assert what in str(e.value)

@@ -8,11 +8,23 @@ for one model call (tests/test_torch_diffusion.py)."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from torch_diffusion_cases import close
 from torch_diffusion_train_cases import (batch, capture_grads, check_logs, check_weights, flat,
                                          jax_draws, jax_preview_draws, pair, torch_batch)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: the suite runs several test processes on the
+    machine's cores, and torch's thread pools contending for them slow this
+    file's CPU steps by orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_accumulation_matches_jax():

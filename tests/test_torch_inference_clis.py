@@ -12,7 +12,8 @@ CLI's (float32 convolutions summed in other orders, rounded to uint8);
 ``inference_ssl_sr`` tiled within one level of whole away from the image's
 border (a tile at the border is reflect-padded where the whole image is
 zero-padded past its multiple-of-16 pad, in both packages); a checkpoint without
-the asked key falls back to ``params`` in both; ``--spatial`` raises; and
+the asked key falls back to ``params`` in both; ``--spatial`` at one rank
+runs whole, as the JAX CLI's does on these small images; and
 without ``--device`` on a machine without a card the entry point raises."""
 
 import importlib.util
@@ -162,11 +163,16 @@ def test_ssl_sr_tiled_matches_whole(files, tmp_path):
     assert np.abs(whole[inner] - tiled[inner]).max() <= 1
 
 
-def test_spatial_raises_and_no_card_refuses(files, tmp_path):
+def test_spatial_raises_and_no_card_refuses(files, tmp_path, monkeypatch):
+    """``--spatial`` at one rank (no torchrun) runs the whole image through
+    spatial_infer, within a level of the JAX CLI's ``--spatial`` (whose 8
+    virtual devices find the image too small and run it whole)."""
     argv = ["--input", str(files / "lq"), "--model_path", str(files / "rrdb.pth"),
             "--output", str(tmp_path / "o"), "--num_feat", "8", "--num_block", "1"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        inference_ssl_sr.main(argv + ["--spatial", "--device", "cpu"])
+    inference_ssl_sr.main(argv + ["--spatial", "--device", "cpu"])
+    _jax_cli(monkeypatch, "inference_ssl_sr", argv[:4] + ["--output", tmp_path / "j"] + argv[6:]
+             + ["--spatial"])
+    _within_a_level(tmp_path / "o", tmp_path / "j")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is reachable")
     for main in (inference_ssl_sr.main, inference_rrdbnet.main):

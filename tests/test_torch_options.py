@@ -80,12 +80,16 @@ def test_device_defaults_to_cuda():
 
 
 def test_unported_switches_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Several cards need torchrun: num_devices > 1 in one process raises and
+    names the command; --launcher takes pytorch, and jax as its alias."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2 -m ssl_tpu_torch.train"):
         topt.parse_options("/r", True, ["-opt", TRAIN_YML, "--device", "cpu",
                                         "--force_yml", "num_devices=2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.parse_options("/r", True, ["-opt", TRAIN_YML, "--device", "cpu",
-                                        "--launcher", "jax"])
+    for launcher in ("jax", "pytorch"):
+        _, parsed = topt.parse_options("/r", True, ["-opt", TRAIN_YML, "--device", "cpu",
+                                                    "--launcher", launcher,
+                                                    "--force_yml", "num_devices=2"])
+        assert parsed.launcher == "pytorch"
     # KAIR files are ported: one parses to the JAX package's adapted dict
     kair = os.path.join(tmp_path, "kair.json")
     with open(kair, "w") as f:
@@ -93,7 +97,6 @@ def test_unported_switches_raise(tmp_path):
     got, _ = topt.parse_options("/r", True, ["-opt", kair, "--device", "cpu"])
     want, _ = jopt.parse_options("/r", True, ["-opt", kair])
     assert got == want and got["model_type"] == "BSRGANSSLModel"
-    assert topt.visible_devices({"num_devices": "auto"}, "cpu") == 1
 
 
 def test_dict2str_and_copy_opt_file_match_jax(tmp_path):

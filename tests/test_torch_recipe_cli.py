@@ -44,6 +44,24 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def jax_init_once(monkeypatch):
+    """The JAX package's ``init_params`` run once per net, input shape and
+    seed: the JAX test CLI builds its model, and so initialises G, at each
+    run, and the whole and tiled runs initialise the same G alike before
+    loading ``net_g_N.pkl`` over it; flax's eager init of SPSRNet takes
+    tens of seconds a call on this CPU."""
+    from ssl_tpu.models.base_model import BaseModel
+    init, done = BaseModel.init_params, {}
+
+    def init_params(self, net, shape, rng_seed=0, extra_kwargs=None):
+        key = (repr(net), tuple(shape), rng_seed, repr(extra_kwargs))
+        if key not in done:
+            done[key] = init(self, net, shape, rng_seed, extra_kwargs)
+        return done[key]
+    monkeypatch.setattr(BaseModel, "init_params", init_params)
+
+
 @pytest.fixture(scope="module")
 def folders(tmp_path_factory):
     return write_dataset(str(tmp_path_factory.mktemp("recipe_cli_data")), n_train=4, gt=64)
@@ -110,7 +128,7 @@ def test_train_cli_resume_is_bit_for_bit(recipe, folders, tmp_path):
 
 
 @pytest.mark.parametrize("g", ["SPSRNet", "SwinIR"])
-def test_test_cli_matches_jax(g, folders, tmp_path):
+def test_test_cli_matches_jax(g, folders, tmp_path, jax_init_once):
     """Both test CLIs on one JAX ``net_g_1.pkl``: SPSR takes its second
     output, SwinIR pads by a full window; whole and in tiles of 8 with a
     halo of 4."""

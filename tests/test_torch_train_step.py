@@ -31,6 +31,17 @@ LOSSES = ("l_pix", "l_selfsim", "l_selfsim_kl", "l_g_gan", "l_d_real", "l_d_fake
 PARAM_ATOL = 2e-5
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: the suite runs several test processes on the
+    machine's cores, and torch's thread pools contending for them slow this
+    file's CPU steps by orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _opt(init_iters=0, ssl=True, gan=True):
     opt = {
         "name": "parity", "model_type": "ESRGANSSLModel", "scale": 4, "num_devices": 1,
