@@ -108,6 +108,34 @@ training runs accumulate 4 mini-steps an update (ssl_base.yml: 12):
            and K2 17 forward and 15 backward per mini-step, every K2
            kernel launched; times, peak memory and K2's forward and
            backward device time per mini-step
+8b. cfw    StableSR's stage 2 at full width, on the diffusion phase's
+           seeded model: (a) that model written as a full StableSR-layout
+           .ckpt and imported through model.vae_ckpt and model.ckpt_path,
+           every parameter and one denoiser output (cuDNN deterministic,
+           TF32 off) bit for bit the original's; (b) the dump entry point
+           (ssl_tpu_torch.scripts.gt_input_output) on 4 GT PNGs of 512^2
+           with 4 DDPM steps; (c) the CFW CLI (ssl_tpu_torch.diffusion.
+           cfw_train) on the reference's configs/autoencoder/
+           autoencoder_kl_64x64x4_resi.yaml (its widths, 512^2, batch 2;
+           pretrain_vae a reference-layout .ckpt of the seeded VAE) with
+           vae.use_flash_attention=true and network_d.type=
+           NLayerDiscriminator as overrides: 2 steps (K2 3 forward and 1
+           backward a step, losses finite), cfw_state_2.pkl reloaded bit for
+           bit, the decoder moved and the frozen encoder the imported VAE's,
+           --resume to 3; (d) in process on the dump's first batch: a float32
+           step with the flash switch on against the same step with it off
+           (cuDNN deterministic, TF32 off; losses within TRAIN_LOG_RTOL, the
+           trained weights within lr/5), K2 held on that step's own q, k, v
+           (the encoder's forward, the decoder's forward, lse and backward),
+           one bf16 step with K2's bf16 kernels held likewise (each output
+           at most 1.5x the plain bf16 version's error against float32, the
+           d = 512 bf16 phase's absolute bounds reported beside:
+           hold_k2_cfw), then ms per
+           step in turns bf16, float32, float32, bf16 with peak memory;
+           (e) test_cli --vqgan_ckpt cfw_3.pkl on 2 LQ PNGs of 128^2 (10 DDPM
+           steps), each within one level of the same request in process,
+           different from the plain VAE's decode, finite; ms per image
+           with and without the CFW decoder
 9. diffusion_cli  StableSR-SSL training through its CLI
            (ssl_tpu_torch.diffusion.main --train) at the same width with
            model.use_flash_attention=true as a dotlist override, on files:
@@ -483,6 +511,21 @@ RE_HOST_GT = 256
 # steps each (the serve phase times SERVE_STEPS).
 DC_TRAIN, DC_WORKERS = 24, 4
 DC_STEPS, DC_LOG, DC_SAVE, DC_RESUME_STEPS, DC_TEST_STEPS = 4, 2, 4, 8, 10
+# The cfw phase: StableSR's stage 2 at the reference's CFW widths, 512^2 crops,
+# batch 2, NLayerDiscriminator at its default widths.  K2 a step: the
+# encoder's mid attention on the LQ (no grad), the decoder's, and its replay
+# under remat (forward), the decoder's backward.
+CFW_WIDTHS = {"ch": 128, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2, "num_fuse_block": 2}
+CFW_SIZE, CFW_B, CFW_GT, CFW_DUMP_STEPS = 512, 2, 4, 4
+CFW_CLI_STEPS, CFW_RESUME_STEPS, CFW_TIME_STEPS = 2, 3, 2
+CFW_TEST_LQ, CFW_TEST_STEPS = 2, 10
+CFW_OVERRIDES = ["vae.use_flash_attention=true", "network_d.type=NLayerDiscriminator",
+                 "train.log_every=1"]
+CFW_K2 = {"fwd": 3, "bwd": 1}
+CFW_KERNELS = ("flash_attn_fwd_d512", "flash_attn_bwd_p_ds", "flash_attn_bwd_dkv_mm",
+               "flash_attn_bwd_dq_mm")
+CFW_TURNS = ("bfloat16", "float32", "float32", "bfloat16")
+CFW_GRAD_FLOOR, CFW_NOISE_SHARE = 1e-5, 0.05
 # The zoo phase: the gather route (impl: scan) against K1's dense route at the
 # ESRGAN-SSL step's shape (b16 3 x MAIN_GT^2 pictures with real edge masks,
 # every edge within the capacity), selfsim1_opt.softmax there, every key of the
@@ -2352,6 +2395,513 @@ def phase_diffusion_train(model, state):
         fail(f"diffusion_train: K2 kernels {idle} were never launched: "
              f"{bwd_kernels}, {fwd_kernels}")
     return dict(launches, **bwd_kernels, **fwd_kernels)
+
+
+def cfw_reference_cfg(vae_ckpt: str, dump: str) -> dict:
+    """The reference's configs/autoencoder/autoencoder_kl_64x64x4_resi.yaml
+    (OmegaConf schema) at its widths (CFW_WIDTHS), with ``ckpt_path`` on the
+    phase's reference-layout VAE and the data on the phase's dump."""
+    return {
+        "model": {"base_learning_rate": 5.0e-5,
+                  "target": "ldm.models.autoencoder.AutoencoderKLResi",
+                  "params": {"embed_dim": 4, "monitor": "val/rec_loss", "ckpt_path": vae_ckpt,
+                             "fusion_w": 1.0, "freeze_dec": True, "synthesis_data": False,
+                             "lossconfig": {"target": "ldm.modules.losses.LPIPSWithDiscriminator",
+                                            "params": {"disc_start": 501, "kl_weight": 0,
+                                                       "disc_weight": 0.025, "disc_factor": 1.0}},
+                             "ddconfig": {"double_z": True, "z_channels": 4, "resolution": 512,
+                                          "in_channels": 3, "out_ch": 3, **CFW_WIDTHS,
+                                          "attn_resolutions": [], "dropout": 0.0},
+                             "image_key": "gt"}},
+        "data": {"target": "main.DataModuleFromConfig",
+                 "params": {"batch_size": CFW_B, "num_workers": 0, "wrap": True,
+                            "train": {"target": "basicsr.data.single_image_dataset."
+                                                "SingleImageNPDataset",
+                                      "params": {"gt_path": [dump], "crop_size": CFW_SIZE,
+                                                 "io_backend": {"type": "disk"}}}}},
+    }
+
+
+def cfw_stage1_files(model, state, root: str, device: str) -> dict:
+    """The stage-1 model's files, from the diffusion phase's seeded model:
+    a full StableSR-layout checkpoint (``model.diffusion_model.``,
+    ``structcond_stage_model.``, ``first_stage_model.``), the VAE alone in
+    that layout (``pretrain_vae``), the EMA as the JAX CLI's params pickle
+    (``--ckpt``; sampling reads the EMA) and ssl_base.yml's config (flash on)."""
+    import pickle
+
+    import torch
+    from ssl_tpu_torch.utils.weight_port import params_to_jax
+
+    def host(net, prefix):
+        return {prefix + k: v.detach().cpu() for k, v in net.state_dict().items()}
+
+    files = {k: os.path.join(root, name) for k, name in (
+        ("full", "stablesr.ckpt"), ("vae", "sd_vae.ckpt"), ("pkl", "stage1.pkl"),
+        ("cfg", "ssl_base.json"))}
+    vae = host(state.frozen["vae"], "first_stage_model.")
+    torch.save({"state_dict": {**host(state.params["unet"], "model.diffusion_model."),
+                               **host(state.params["structcond"], "structcond_stage_model."),
+                               **vae}, "global_step": 0}, files["full"])
+    torch.save({"state_dict": vae}, files["vae"])
+    with open(files["pkl"], "wb") as f:
+        pickle.dump(params_to_jax("StableSRSSL", state.ema_params), f)
+    with open(files["cfg"], "w") as f:
+        json.dump(ssl_base_cfg(), f)
+    return files
+
+
+def cfw_import_hold(model, state, files: dict, device: str) -> dict:
+    """``model.vae_ckpt`` and ``model.ckpt_path`` on the full checkpoint:
+    every imported parameter (UNet, struct-cond encoder, VAE; the EMA a copy)
+    bit for bit the original's, and one denoiser output, cuDNN
+    deterministic and TF32 off, bit for bit the original model's."""
+    import torch
+    from ssl_tpu_torch.diffusion.main import build_from_config
+
+    cfg = ssl_base_cfg()
+    cfg["model"].update(vae_ckpt=files["full"], ckpt_path=files["full"])
+    t0 = time.perf_counter()
+    imported = build_from_config(cfg)
+    new = imported.init_state(seed=1, device=device)
+    import_s = time.perf_counter() - t0
+    n = 0
+    for name, a, b in (("unet", state.params["unet"], new.params["unet"]),
+                       ("structcond", state.params["structcond"], new.params["structcond"]),
+                       ("unet ema", new.params["unet"], new.ema_params["unet"]),
+                       ("vae", state.frozen["vae"], new.frozen["vae"])):
+        for (key, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            n += 1
+            if not torch.equal(x, y):
+                fail(f"cfw: the imported {name} parameter {key} differs from the original")
+    gen = torch.Generator(device=device).manual_seed(7)
+    z = torch.randn((1, 4, CFW_SIZE // 8, CFW_SIZE // 8), generator=gen, device=device)
+    t = torch.full((1,), 500, device=device)
+    ctx = state.params["null_context"][None].detach()
+    with torch.no_grad(), deterministic_float32():
+        want = model.apply_model(state.params, z, t, ctx, z)
+        got = imported.apply_model(new.params, z, t, ctx, z)
+    if not torch.equal(got, want):
+        fail(f"cfw: the imported model's denoiser output differs by up to "
+             f"{float((got - want).abs().max())}")
+    del imported, new
+    return {"tensors_bit_for_bit": n, "denoiser_bit_for_bit": True, "import_s": import_s,
+            "full_ckpt_gb": os.path.getsize(files["full"]) / 1e9}
+
+
+def cfw_dump(files: dict, root: str, device: str) -> tuple[str, dict]:
+    """CFW_GT seeded GT PNGs of CFW_SIZE^2 through the dump entry point
+    (``ssl_tpu_torch.scripts.gt_input_output``, CFW_DUMP_STEPS DDPM steps)."""
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.scripts import gt_input_output
+    from ssl_tpu_torch.utils.img_util import imread, imwrite
+
+    gt_dir, dump = os.path.join(root, "gt"), os.path.join(root, "dump")
+    os.makedirs(gt_dir)
+    gen = torch.Generator(device=device).manual_seed(40)
+    for i in range(CFW_GT):
+        img = smooth_picture(CFW_SIZE, CFW_SIZE, gen, device)
+        imwrite(np.ascontiguousarray(img.byte().cpu().numpy().transpose(1, 2, 0)[..., ::-1]),
+                os.path.join(gt_dir, f"{i:04d}.png"))
+    t0 = time.perf_counter()
+    names = gt_input_output.main(["--config", files["cfg"], "--ckpt", files["pkl"], "--gt_dir",
+                                  gt_dir, "--outdir", dump, "--ddpm_steps", str(CFW_DUMP_STEPS),
+                                  "--seed", "0"] + (["--device", device] if device != "cuda"
+                                                    else []))
+    dump_s = time.perf_counter() - t0
+    latent_shape = (CFW_SIZE // 8, CFW_SIZE // 8, 4)
+    for name in names:
+        z = np.load(os.path.join(dump, "latents", name[:-4] + ".npy"))
+        sample = imread(os.path.join(dump, "samples", name), float32=False)
+        if z.shape != latent_shape or not np.isfinite(z).all() or sample.shape != (
+                CFW_SIZE, CFW_SIZE, 3):
+            fail(f"cfw: the dump wrote a latent {z.shape} (finite: {np.isfinite(z).all()}) "
+                 f"and a sample {sample.shape} for {name}")
+    counts = {sub: len(os.listdir(os.path.join(dump, sub)))
+              for sub in ("gts", "inputs", "latents", "samples")}
+    if set(counts.values()) != {CFW_GT}:
+        fail(f"cfw: the dump's folders hold {counts}")
+    return dump, {"images": CFW_GT, "ddpm_steps": CFW_DUMP_STEPS, "wall_s": dump_s,
+                  "s_per_image": dump_s / CFW_GT}
+
+
+def cfw_cli(base: str, root: str, device: str) -> dict:
+    """The CFW CLI on the reference-schema file with the overrides
+    CFW_OVERRIDES: CFW_CLI_STEPS steps (K2 CFW_K2 a step, losses finite),
+    ``cfw_state_{n}.pkl`` reloaded into a fresh state bit for bit, the
+    weights moved and the frozen encoder the imported one's, then
+    ``--resume`` to CFW_RESUME_STEPS.  Returns the checks and K2's launches
+    by kernel over both runs."""
+    import types
+
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.diffusion import cfw_train
+    from ssl_tpu_torch.ops import attention_cuda
+
+    logdir = os.path.join(root, "cfw_logs")
+    steps, logs, ms = [], [], []
+    clock = [time.perf_counter()]
+
+    def on_step(step, out, state):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms.append(1e3 * (now - clock[0]))
+        steps.append({"fwd": attention_cuda.launches - sum(s["fwd"] for s in steps),
+                      "bwd": attention_cuda.bwd_launches - sum(s["bwd"] for s in steps)})
+        logs.append({k: float(v) for k, v in out.items()})
+        clock[0] = time.perf_counter()
+
+    def run(extra, resume=None):
+        args = types.SimpleNamespace(base=base, logdir=logdir, data_root=None, resume=resume,
+                                     device=device, overrides=CFW_OVERRIDES + extra)
+        clock[0] = time.perf_counter()
+        return cfw_train.train(args, on_step)
+
+    reset_k2_counts()
+    t0 = time.perf_counter()
+    first = run([f"train.max_steps={CFW_CLI_STEPS}", f"train.save_every={CFW_CLI_STEPS}"])
+    wall = time.perf_counter() - t0
+    tm = cfw_train.CFWTrainModel(cfw_train.load_cfw_config(base, CFW_OVERRIDES))
+    fresh = tm.init_state(seed=1, device=device)
+    moved = any(not torch.equal(a, b) for a, b in zip(
+        cfw_train.trainable(first.net)[:4], cfw_train.trainable(fresh.net)[:4]))
+    same_encoder = all(torch.equal(a, b) for a, b in zip(first.net.encoder.state_dict().values(),
+                                                         fresh.net.encoder.state_dict().values()))
+    cfw_train.load_cfw_state(os.path.join(logdir, f"cfw_state_{CFW_CLI_STEPS}.pkl"), fresh)
+    n = 0
+    for a, b in ((first.net, fresh.net), (first.ema, fresh.ema), (first.net_d, fresh.net_d)):
+        for (key, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            n += 1
+            if not torch.equal(x, y):
+                fail(f"cfw: the reloaded {key} differs from the saved state")
+    for a, b in ((first.opt_g, fresh.opt_g), (first.opt_d, fresh.opt_d)):
+        sa, sb = a.state_dict()["state"], b.state_dict()["state"]
+        for i in sa:
+            for key in sa[i]:
+                n += 1
+                if not torch.equal(sa[i][key], sb[i][key]):
+                    fail(f"cfw: a reloaded Adam moment ({i}.{key}) differs")
+    if fresh.step != CFW_CLI_STEPS or not moved or not same_encoder:
+        fail(f"cfw: step {fresh.step}, the decoder moved: {moved}, the frozen encoder is the "
+             f"imported VAE's: {same_encoder}")
+    del fresh
+    t0 = time.perf_counter()
+    resumed = run([f"train.max_steps={CFW_RESUME_STEPS}", f"train.save_every={CFW_RESUME_STEPS}"],
+                  os.path.join(logdir, f"cfw_state_{CFW_CLI_STEPS}.pkl"))
+    resumed_wall = time.perf_counter() - t0
+    kernels = k2_counts()
+    if resumed.step != CFW_RESUME_STEPS or not os.path.isfile(
+            os.path.join(logdir, f"cfw_{CFW_RESUME_STEPS}.pkl")):
+        fail(f"cfw: the resumed CLI ended at step {resumed.step}")
+    if any(not np.isfinite(v) for rec in logs for v in rec.values()) or \
+            sorted(logs[0]) != ["l_d", "l_g_gan", "l_pix", "l_total"]:
+        fail(f"cfw: the CLI logged {logs}")
+    if any(s != CFW_K2 for s in steps):
+        fail(f"cfw: K2 launches per step {steps}, expected {CFW_K2}")
+    idle = [k_ for k_ in CFW_KERNELS if kernels.get(k_, 0) == 0]
+    if idle:
+        fail(f"cfw: K2 kernels {idle} were not launched in the CLI's steps: {kernels}")
+    del first, resumed
+    return {"steps": CFW_RESUME_STEPS, "logs": logs, "ms_per_step": ms, "wall_s": wall,
+            "resumed_wall_s": resumed_wall, "k2_per_step": CFW_K2,
+            "reloaded_tensors_bit_for_bit": n, "pkl": os.path.join(logdir,
+                                                                  f"cfw_{CFW_RESUME_STEPS}.pkl"),
+            "launches": kernels}
+
+
+class capture_attention:
+    """Record the (q, k, v) of the VAE's mid attention calls that carry a
+    gradient (the decoder's), detached copies, while the block runs."""
+
+    def __enter__(self):
+        from ssl_tpu_torch.diffusion import vae
+        self.vae, self.orig, self.calls = vae, vae.sdp_attention, []
+
+        def spy(q, k, v, scale, use_flash):
+            self.calls.append({"qkv": [t.detach().clone() for t in (q, k, v)], "scale": scale,
+                               "grad": q.requires_grad})
+            return self.orig(q, k, v, scale, use_flash)
+        vae.sdp_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.vae.sdp_attention = self.orig
+
+
+def hold_k2_cfw(call: dict, seed: int, device: str) -> dict:
+    """K2 on one captured call's q, k, v: float32, the forward's o (rtol 1e-4,
+    atol 1e-5 of its largest value) and lse (1e-5, 1e-5), and with the
+    call's gradient the backward's dq, dk, dv on a seeded dO against
+    ``flash_attn_bwd_reference`` (BWD_RTOL, BWD_ATOL of the largest value,
+    BWD_REL_L2); bf16, against the float32 plain version on the inputs
+    upcast, each output at most BF16_PLAIN_RATIO times the error of the plain
+    bf16 version (``sdp_attention_reference`` / ``flash_attn_bwd_reference``
+    on the bf16 inputs, the kernels' rounding points) on the same inputs.
+    phase_k2_d512_bf16's absolute bounds (BF16_FWD_REL_L2, BF16_BWD_REL_L2),
+    set on synthetic inputs, are reported beside: on the CFW decoder's own
+    q, k, v after the stage-1 model's training steps the plain bf16
+    backward's dq was itself 1.2e-2 off float32 (PERF.md §6), so no bf16
+    implementation of the contract meets them there.  The kernel's distance
+    to the plain bf16 version is reported too."""
+    import torch
+    from torch_attention_cases import BF16_BWD_REL_L2, BF16_FWD_REL_L2, BF16_PLAIN_RATIO
+    from ssl_tpu_torch.ops import attention_cuda
+    from ssl_tpu_torch.ops.attention import (attention_lse_reference, flash_attn_bwd_reference,
+                                             sdp_attention_reference)
+
+    q, k, v = call["qkv"]
+    scale = call["scale"]
+    b, n, h, d = q.shape
+    out = {"b_heads_n_d": [b, h, n, d], "dtype": str(q.dtype).removeprefix("torch.")}
+    o, lse = attention_cuda.flash_attn_fwd_cuda(q, k, v, scale, return_lse=True)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    ref_o, ref_lse = sdp_attention_reference(q32, k32, v32, scale), attention_lse_reference(
+        q32, k32, scale)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        plain = sdp_attention_reference(q, k, v, scale)
+        out["o_rel_l2"], out["plain_o_rel_l2"] = rel_l2(o, ref_o), rel_l2(plain, ref_o)
+        out["o_rel_l2_vs_plain_bf16"] = rel_l2(o, plain)
+        out["o_within_absolute"] = out["o_rel_l2"] <= BF16_FWD_REL_L2
+        if out["o_rel_l2"] > BF16_PLAIN_RATIO * out["plain_o_rel_l2"]:
+            fail(f"cfw: K2 bf16 forward {out}")
+        out["lse_max_abs_err"] = check_close("cfw K2 bf16 lse", lse,
+                                             attention_lse_reference(q, k, scale), 1e-5, 1e-5)
+    else:
+        out["o_max_abs_err"] = check_close("cfw K2 o", o, ref_o, 1e-4,
+                                           1e-5 * float(ref_o.abs().max()))
+        out["lse_max_abs_err"] = check_close("cfw K2 lse", lse, ref_lse, 1e-5, 1e-5)
+        out["o_rel_l2"] = rel_l2(o, ref_o)
+    if not call["grad"]:
+        return out
+    do = torch.randn(q.shape, generator=torch.Generator(device=device).manual_seed(seed),
+                     device=device).to(q.dtype)
+    got = attention_cuda.flash_attn_bwd_cuda(q, k, v, o, lse, do, scale)
+    if bf16:
+        ref = flash_attn_bwd_reference(q32, k32, v32, ref_o, ref_lse, do.float(), scale)
+        plain = flash_attn_bwd_reference(q, k, v, o, lse, do, scale)
+        for g_name, g, r, p_ in zip(("dq", "dk", "dv"), got, ref, plain):
+            out[f"{g_name}_rel_l2"], out[f"plain_{g_name}_rel_l2"] = rel_l2(g, r), rel_l2(p_, r)
+            out[f"{g_name}_rel_l2_vs_plain_bf16"] = rel_l2(g, p_)
+            out[f"{g_name}_within_absolute"] = out[f"{g_name}_rel_l2"] <= BF16_BWD_REL_L2
+            if out[f"{g_name}_rel_l2"] > BF16_PLAIN_RATIO * out[f"plain_{g_name}_rel_l2"]:
+                fail(f"cfw: K2 bf16 backward {g_name}: {out}")
+    else:
+        ref = flash_attn_bwd_reference(q, k, v, ref_o, ref_lse, do, scale)
+        for g_name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            out[f"{g_name}_max_abs_err"] = check_close(
+                f"cfw K2 bwd {g_name}", g, r, BWD_RTOL, BWD_ATOL * float(r.abs().max()))
+            out[f"{g_name}_rel_l2"] = rel_l2(g, r)
+            if out[f"{g_name}_rel_l2"] > BWD_REL_L2:
+                fail(f"cfw: K2 backward {g_name}: {out}")
+    return out
+
+
+def cfw_weights_hold(got, ref, grads, lr: float) -> dict:
+    """The trained weights of two runs of one step within lr/5, where the
+    gradient is at rounding-noise level (below CFW_GRAD_FLOOR of the
+    tensor's largest, or of the net's where the whole tensor is below that)
+    within 2.2 lr, on at most CFW_NOISE_SHARE of the elements
+    (tests/test_torch_cfw.py::check_trained)."""
+    top = max(float(g.abs().max()) for g in grads)
+    worst, noisy, total = 0.0, 0, 0
+    for x, r, g in zip(got, ref, grads):
+        g = g.abs()
+        own = float(g.max())
+        floor = g < CFW_GRAD_FLOOR * (own if own >= CFW_GRAD_FLOOR * top else top)
+        atol = lr / 5 + 2 * lr * floor.float()
+        diff = (x - r).abs()
+        worst = max(worst, float((diff / atol).max()))
+        noisy += int(floor.sum())
+        total += r.numel()
+    if worst > 1 or noisy > CFW_NOISE_SHARE * total:
+        fail(f"cfw: the flash route's trained weights are {worst} of their bound from the "
+             f"plain route's ({noisy} of {total} elements at rounding-noise level)")
+    return {"worst_of_bound": worst, "noise_share": noisy / total}
+
+
+def cfw_steps(base: str, dump: str, device: str) -> dict:
+    """In process, on the dump's first batch: one float32 step with the
+    flash switch on against the same step with it off (cuDNN deterministic,
+    TF32 off: losses within TRAIN_LOG_RTOL, trained weights by
+    ``cfw_weights_hold``), K2 held on the step's own q, k, v (the encoder's
+    forward, the decoder's forward and backward; ``hold_k2_cfw``); one bf16
+    step, K2's bf16 kernels held likewise; then ms per step in turns CFW_TURNS, CFW_TIME_STEPS
+    timed steps a turn after the held one, with peak memory and K2's
+    launches a step by kernel."""
+    import numpy as np
+    import torch
+    from ssl_tpu_torch.diffusion import cfw_train
+    from ssl_tpu_torch.ops import attention_cuda
+
+    ds = cfw_train.CFWTripletDataset.from_root(dump, crop_size=CFW_SIZE)
+    items = [ds[i] for i in range(CFW_B)]
+    batch = {k: torch.from_numpy(np.ascontiguousarray(
+        np.stack([it[k] for it in items]).transpose(0, 3, 1, 2))).to(device) for k in items[0]}
+    runs, holds, launches, logs = {}, {}, {}, {}
+    for route, extra in (("flash", []), ("plain", ["vae.use_flash_attention=false"]),
+                         ("bf16", ["vae.compute_dtype=bfloat16"])):
+        tm = cfw_train.CFWTrainModel(cfw_train.load_cfw_config(base, CFW_OVERRIDES + extra))
+        state = tm.init_state(seed=0, device=device)
+        grads = []
+        if route == "plain":
+            state.opt_g.register_step_pre_hook(lambda *a, s=state: grads.extend(
+                p.grad.detach().clone() for p in cfw_train.trainable(s.net)))
+        reset_k2_counts()
+        with capture_attention() as cap, deterministic_float32():
+            state, out = tm.train_step(state, batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches[route] = k2_counts()
+        logs[route] = {k: float(v) for k, v in out.items()}
+        runs[route] = {"tm": tm, "state": state, "grads": grads}
+        if route != "plain":      # the encoder's call, and the decoder's (its first of two)
+            calls = [next(c for c in cap.calls if c["grad"] is g) for g in (False, True)]
+            holds[route] = dict(zip(("encoder", "decoder"),
+                                    (hold_k2_cfw(c, 50 + i, device) for i, c in enumerate(calls))))
+    if launches["plain"]["k2_fwd"] or launches["plain"]["k2_bwd"]:
+        fail(f"cfw: the plain route launched K2: {launches['plain']}")
+    for route in ("flash", "bf16"):
+        if {"fwd": launches[route]["k2_fwd"], "bwd": launches[route]["k2_bwd"]} != CFW_K2:
+            fail(f"cfw: {route} step: K2 launches {launches[route]}, expected {CFW_K2}")
+        if not all(np.isfinite(v) for v in logs[route].values()):
+            fail(f"cfw: the {route} step logged {logs[route]}")
+    log_err = {k: abs(logs["flash"][k] - v) / abs(v) for k, v in logs["plain"].items()}
+    if max(log_err.values()) > TRAIN_LOG_RTOL:
+        fail(f"cfw: the flash and plain steps' logs differ by {log_err}")
+    lr = runs["plain"]["tm"].optim_g.get("lr", 1e-4)
+    weights = cfw_weights_hold(
+        [p.detach() for p in cfw_train.trainable(runs["flash"]["state"].net)],
+        [p.detach() for p in cfw_train.trainable(runs["plain"]["state"].net)],
+        runs["plain"]["grads"], lr)
+    del runs["plain"]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    ms = {"float32": [], "bfloat16": []}
+    peak = {}
+    for dtype in CFW_TURNS:
+        run = runs["bf16" if dtype == "bfloat16" else "flash"]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(CFW_TIME_STEPS):
+            t0 = time.perf_counter()
+            run["tm"].train_step(run["state"], batch)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms[dtype].append(1e3 * (time.perf_counter() - t0))
+        if device == "cuda":
+            peak[dtype] = torch.cuda.max_memory_allocated() / 1e9
+    del runs
+    by_kernel = {route: {k_: c for k_, c in counts.items()
+                         if c and k_.startswith("flash_attn")} for route, counts in launches.items()
+                 if route != "plain"}
+    return {"log_rel_err_flash_vs_plain": log_err, "weights_flash_vs_plain": weights,
+            "logs": logs, "k2_holds": holds, "k2_per_step_by_kernel": by_kernel,
+            "ms_per_step": {k: sum(v) / len(v) for k, v in ms.items()}, "ms_turns": ms,
+            "peak_mem_gb": peak, "launches_bf16": launches["bf16"]}
+
+
+def cfw_serve(model, state, files: dict, cfw_pkl: str, root: str, device: str) -> dict:
+    """``test_cli --vqgan_ckpt`` on CFW_TEST_LQ seeded LQ PNGs of SERVE_LQ^2
+    (CFW_TEST_STEPS DDPM steps, no color fix); then the same requests in
+    process through ``restore`` on the phase's model (the pickle's weights)
+    from the CLI's generator seed, with the CFW decoder and with the plain
+    VAE: the CLI's images within one uint8 level of the in-process CFW ones
+    on at most RE_TIE_SHARE of the values, each different from the plain
+    decode's, the decodes finite; ms per image of each."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from ssl_tpu_torch.diffusion import test_cli
+    from ssl_tpu_torch.utils.img_util import img2array, img2tensor, imread, imwrite, tensor2img
+
+    lq_dir, out_dir = os.path.join(root, "lq"), os.path.join(root, "restored")
+    os.makedirs(lq_dir)
+    gen = torch.Generator(device=device).manual_seed(41)
+    for i in range(CFW_TEST_LQ):
+        img = smooth_picture(SERVE_LQ, SERVE_LQ, gen, device)
+        imwrite(np.ascontiguousarray(img.byte().cpu().numpy().transpose(1, 2, 0)[..., ::-1]),
+                os.path.join(lq_dir, f"lq{i}.png"))
+    t0 = time.perf_counter()
+    test_cli.main(["--config", files["cfg"], "--ckpt", files["pkl"], "--init-img", lq_dir,
+                   "--outdir", out_dir, "--ddpm_steps", str(CFW_TEST_STEPS), "--colorfix_type",
+                   "nofix", "--vqgan_ckpt", cfw_pkl] + (["--device", device] if device != "cuda"
+                                                         else []))
+    cli_s = time.perf_counter() - t0
+    cfw = test_cli.load_cfw(json.load(open(files["cfg"])), cfw_pkl, device)
+    result = {"cli_wall_s": cli_s, "images": CFW_TEST_LQ, "ddpm_steps": CFW_TEST_STEPS}
+    imgs = {}
+    for route, net in (("cfw", cfw), ("plain", None)):
+        gen = torch.Generator(device=device).manual_seed(42)
+        ms = []
+        imgs[route] = []
+        for i in range(CFW_TEST_LQ):
+            lq = img2tensor(img2array(imread(os.path.join(lq_dir, f"lq{i}.png"))))[None]
+            lq_up = F.interpolate(lq, size=(4 * SERVE_LQ, 4 * SERVE_LQ), mode="bicubic",
+                                  align_corners=False).to(device)
+            t0 = time.perf_counter()
+            img = test_cli.restore(model, state, lq_up, gen, "ddpm", CFW_TEST_STEPS, 0, "nofix",
+                                   cfw=net)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if not bool(torch.isfinite(img).all()):
+                fail(f"cfw: the {route} decode of lq{i} is not finite")
+            imgs[route].append(tensor2img(img))
+        result[f"ms_per_image_{route}"] = ms
+    for i in range(CFW_TEST_LQ):
+        cli = imread(os.path.join(out_dir, f"lq{i}.png"), float32=False)
+        levels = np.abs(cli.astype(int) - imgs["cfw"][i].astype(int))
+        share = float((levels > 0).mean())
+        plain_diff = float(np.abs(cli.astype(int) - imgs["plain"][i].astype(int)).mean())
+        result[f"lq{i}"] = {"cli_vs_in_process_levels": int(levels.max()),
+                            "share_off": share, "mean_abs_diff_vs_plain": plain_diff}
+        if levels.max() > 1 or share > RE_TIE_SHARE or plain_diff == 0:
+            fail(f"cfw: test_cli --vqgan_ckpt's lq{i}: {result[f'lq{i}']}")
+    return result
+
+
+def phase_cfw(model, state, device: str = "cuda"):
+    """StableSR's stage 2 at full width (see the module docstring, 8b).
+    Returns K2's launches by kernel on the CFW CLI's steps (float32) and on
+    the in-process bf16 step."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="cfw_smoke_") as root:
+        t0 = time.perf_counter()
+        files = cfw_stage1_files(model, state, root, device)
+        files_s = time.perf_counter() - t0
+        imported = cfw_import_hold(model, state, files, device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        dump, dumped = cfw_dump(files, root, device)
+        base = os.path.join(root, "autoencoder_kl_64x64x4_resi.json")
+        with open(base, "w") as f:
+            json.dump(cfw_reference_cfg(files["vae"], dump), f)
+        cli = cfw_cli(base, root, device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        steps = cfw_steps(base, dump, device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        served = cfw_serve(model, state, files, cli.pop("pkl"), root, device)
+    emit({"phase": "cfw", "config": "configs/autoencoder/autoencoder_kl_64x64x4_resi.yaml "
+                                    "(reference schema) + " + " ".join(CFW_OVERRIDES),
+          "stage1": "options/diffusion/ssl_base.yml", "widths": CFW_WIDTHS, "size": CFW_SIZE,
+          "batch": CFW_B, "d": {"type": "NLayerDiscriminator", "ndf": 64, "n_layers": 3},
+          "reduced": {"max_steps": ["(reference: Lightning's)", CFW_RESUME_STEPS],
+                      "dump": f"{CFW_GT} GT images, {CFW_DUMP_STEPS} DDPM steps (200)",
+                      "test_cli": f"{CFW_TEST_LQ} images, {CFW_TEST_STEPS} DDPM steps (200)"},
+          "files_s": files_s, "import": imported, "dump": dumped, "cli": cli, "steps": steps,
+          "serve": served, "card": card() if device == "cuda" else None})
+    return {"cfw_cli": cli["launches"], "cfw_bf16_step": steps["launches_bf16"]}
 
 
 def profiled_launches(fn) -> int:
@@ -6111,7 +6661,7 @@ def k2_entries(k2, k2_bwd, k2_16, k2_bwd_16, paths) -> list:
 
 
 def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
-                 recipes, kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo, par) -> dict:
+                 recipes, kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo, par, cfw) -> dict:
     """The {"kernels": [...]} line: one entry per kernel of the port, from the
     phases' results (K1's, K2's forward's and backward's by case, the serving
     K2 launches and forward kernel launches, the diffusion_train and
@@ -6120,19 +6670,20 @@ def kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli,
     phase's K1 launches by recipe and holds, the bench phase's K1
     launches by mode, and the prep_infer phase's train CLI's K1 launches; the
     zoo phase's CLI's K2 launches; the parallel phase's K1 launches (the DDP
-    CLI runs and the StableSR-SSL mini-steps) and K2 launches; K2's bf16
-    kernels from the bf16 kernel
-    phases and the diffusion_bf16 phase's launches).  K1's float32 mode and its bf16 stream
+    CLI runs and the StableSR-SSL mini-steps) and K2 launches; the cfw
+    phase's K2 launches on the CFW CLI's steps and on its bf16 step; K2's
+    bf16 kernels from the bf16 kernel phases and the diffusion_bf16 phase's
+    launches).  K1's float32 mode and its bf16 stream
     + store mode (bench.py's step) each have an entry; ``modes`` under the
     first lists every mode held, the bf16 stream mode (the batched route)
     included.  Each K2 kernel has an entry, its bf16 counterpart
     (``_bf16``) another."""
     serve_calls, serve_fwd = serve
     paths = {"": {"serve": serve_fwd, "diffusion_train": train, "diffusion_cli": dcli,
-                  "zoo_cli": zoo, "parallel": par["k2"]},
+                  "zoo_cli": zoo, "parallel": par["k2"], "cfw_cli": cfw["cfw_cli"]},
              "_bf16": {"serve_bf16": dbf16["serve"],
                        "diffusion_bf16_mini_steps": dbf16["mini_steps"],
-                       "diffusion_bf16_cli": dbf16["cli"]}}
+                       "diffusion_bf16_cli": dbf16["cli"], "cfw_bf16_step": cfw["cfw_bf16_step"]}}
     realesrgan, realesrgan_host = realesrgan
     recipes, recipe_holds = recipes
     kair_launches, kair_holds = kair
@@ -6365,6 +6916,7 @@ def phases() -> int:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     dbf16 = run("diffusion_bf16", phase_diffusion_bf16, model, state)
     train = run("diffusion_train", phase_diffusion_train, model, state)
+    cfw = run("cfw", phase_cfw, model, state)
     del model, state
     torch.cuda.empty_cache()
     recipes_child = start_phase_child("recipes")
@@ -6395,7 +6947,7 @@ def phases() -> int:
     metric_dir.cleanup()
     emit({"phase": "wall", "seconds": wall, "total_s": time.perf_counter() - start})
     emit(kernels_line(k1, k2, k2_bwd, serve, train, launches, cli, realesrgan, dcli, recipes,
-                      kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo, par))
+                      kair, bench, k2_16, k2_bwd_16, dbf16, prep, zoo, par, cfw))
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

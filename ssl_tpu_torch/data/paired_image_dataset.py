@@ -171,3 +171,71 @@ class MultiLROneGTDataset(BaseDataset):
         img_lq = img2array(imread(d["lq_path"]))
         h, w = img_lq.shape[:2]
         return _tensors({"lq": img_lq, "gt": img_gt[: h * self.scale, : w * self.scale, :], **d})
+
+
+@DATASET_REGISTRY.register()
+class SingleImageNPDataset(BaseDataset):
+    """CFW stage-2 quadruplets (reference single_image_dataset.py:76-164;
+    ``ssl_tpu/data/paired_image_dataset.py:169-228``): the aligned
+    ``{gts,inputs,latents,samples}`` folders under ``gt_path`` (one root or a
+    list), as ``ssl_tpu_torch.scripts.gt_input_output`` dumps them.  Items:
+    ``lq``, ``gt`` and ``sample`` (3, h, w) RGB in [0, 1] (normalised by
+    ``mean`` / ``std`` when given; ``color: y`` keeps the Y channel), and the
+    ``latent`` (c, h, w).  Both latent layouts load: the JAX and the port's
+    dumps save (h, w, c), the reference's (1, c, h, w)."""
+
+    def __init__(self, opt: dict):
+        import glob
+
+        self.opt = opt
+        image_type = opt.get("image_type", "png")
+        roots = opt["gt_path"]
+        if isinstance(roots, str):
+            roots = [roots]
+        self.gt_paths, self.lq_paths, self.np_paths, self.sample_paths = [], [], [], []
+        for root in roots:
+            def listing(sub, pattern):
+                return sorted(glob.glob(os.path.join(root, sub, pattern)))
+            self.gt_paths += listing("gts", "*." + image_type)
+            self.lq_paths += listing("inputs", "*." + image_type)
+            self.np_paths += listing("latents", "*.npy")
+            self.sample_paths += listing("samples", "*." + image_type)
+        if not (len(self.gt_paths) == len(self.lq_paths) == len(self.np_paths)
+                == len(self.sample_paths)):
+            raise ValueError("gts/inputs/latents/samples must align")
+        self.mean, self.std = opt.get("mean"), opt.get("std")
+
+    def __len__(self):
+        return len(self.gt_paths)
+
+    def _norm(self, img: np.ndarray) -> np.ndarray:
+        if self.mean is not None or self.std is not None:
+            mean = np.asarray(self.mean if self.mean is not None else 0.0, np.float32)
+            std = np.asarray(self.std if self.std is not None else 1.0, np.float32)
+            img = (img - mean) / std
+        return img
+
+    def __getitem__(self, index):
+        lq = img2array(imread(self.lq_paths[index]))
+        gt = img2array(imread(self.gt_paths[index]))
+        sample = img2array(imread(self.sample_paths[index]))
+        latent = read_latent(self.np_paths[index])
+        if self.opt.get("color") == "y":
+            from ssl_tpu_torch.utils.color_util import rgb2ycbcr
+            lq, gt, sample = (rgb2ycbcr(v, y_only=True)[..., None] for v in (lq, gt, sample))
+        return _tensors({"lq": self._norm(lq), "lq_path": self.lq_paths[index],
+                         "gt": self._norm(gt), "gt_path": self.gt_paths[index],
+                         "latent": latent, "latent_path": self.np_paths[index],
+                         "sample": self._norm(sample),
+                         "sample_path": self.sample_paths[index]})
+
+
+def read_latent(path: str) -> np.ndarray:
+    """A dumped latent as (h, w, c) float32: a leading batch axis is dropped,
+    and a (c, h, w) one (c of 3 or 4, the reference's layout) transposed."""
+    latent = np.load(path).astype(np.float32)
+    if latent.ndim == 4:
+        latent = latent[0]
+    if latent.shape[0] in (3, 4) and latent.shape[-1] not in (3, 4):
+        latent = latent.transpose(1, 2, 0)
+    return latent

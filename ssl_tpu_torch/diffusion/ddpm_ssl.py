@@ -22,7 +22,8 @@ context, the eps / v / x0 loss, the differentiable decode of x0 under remat,
 the pixel L1 and the SSL loss (K1) on it, AdamW with optax's defaults every
 ``accumulate`` mini-steps on the mean gradient (``optax.MultiSteps``), and the
 LitEma update every mini-step.  The text context is the learned null context
-(no CLIP weights are in the repository).
+(no CLIP weights are in the repository).  ``vae_ckpt`` and ``unet_ckpt``
+import SD / StableSR checkpoints over the seeded weights at ``init_state``.
 
 With a distributed ``mesh`` (``parallel/mesh.py::dp_tp_mesh``, the JAX
 ``mesh``) the step keeps the JAX step's global-batch semantics: each rank
@@ -52,6 +53,8 @@ from ssl_tpu_torch.losses.ssl_loss import SSLSetting, ssl_loss
 from ssl_tpu_torch.models.base_model import resolve_device
 from ssl_tpu_torch.ops.ssg import SSGConfig
 from ssl_tpu_torch.parallel.tensor import NETS, ZeroAdamW, apply_tp, state_plan, trained_keys
+from ssl_tpu_torch.utils.weight_port import (has_reference_prefix, load_reference_state,
+                                             load_torch_state_dict)
 
 # optax.adamw's defaults, which the JAX step takes (torch's AdamW defaults to
 # a weight decay of 1e-2)
@@ -116,11 +119,11 @@ class StableSRSSL:
                  text_prompt: str | None = None, use_ema: bool = True,
                  ema_decay: float = 0.9999, mesh=None, zero: bool = False,
                  zero_min_size: int = 2 ** 14):
-        for name, value in (("vae_ckpt", vae_ckpt), ("clip_text_ckpt", clip_text_ckpt),
-                            ("unet_ckpt", unet_ckpt), ("text_prompt", text_prompt)):
+        for name, value in (("clip_text_ckpt", clip_text_ckpt), ("text_prompt", text_prompt)):
             if value:
                 raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, queue 1): no "
-                                          "such weight file is in the repository")
+                                          "CLIP text weights are in the repository")
+        self.vae_ckpt, self.unet_ckpt = vae_ckpt, unet_ckpt
         self.mesh, self.zero, self.zero_min_size = mesh, zero, zero_min_size
         self.plan = None
         self.cfg = cfg
@@ -147,6 +150,7 @@ class StableSRSSL:
         drew the weights goes on to draw the steps' t and noise; AdamW's
         moments are made at its first update."""
         device = resolve_device(device)
+        files = self.read_checkpoints()       # a missing file fails before any weight is made
         gen = torch.Generator(device=device).manual_seed(seed)
         vae = _materialize(self.vae, device, gen).requires_grad_(False)
         params = {
@@ -155,6 +159,7 @@ class StableSRSSL:
             "null_context": (torch.randn((self.cfg.context_len, self.cfg.context_dim),
                                          generator=gen, device=device) * 0.02).requires_grad_(True),
         }
+        self.import_checkpoints(files, vae, params)
         ema = None
         if self.use_ema:
             ema = copy.deepcopy(params)
@@ -163,6 +168,30 @@ class StableSRSSL:
         opt = torch.optim.AdamW(trainable(params), lr=self.lr, **ADAMW)
         return DiffusionState(step=0, params=params, frozen={"vae": vae}, ema_params=ema, opt=opt,
                               generator=gen)
+
+    def read_checkpoints(self) -> dict:
+        """The state dicts of ``vae_ckpt`` and ``unet_ckpt`` (SD / ldm /
+        StableSR ``.ckpt`` or ``.pth`` files, their ``state_dict``); a missing
+        file raises FileNotFoundError."""
+        paths = {"vae": self.vae_ckpt, "unet": self.unet_ckpt}
+        read = {p: load_torch_state_dict(p, "state_dict")   # a full checkpoint read once
+                for p in set(paths.values()) if p}
+        return {name: read[p] for name, p in paths.items() if p}
+
+    def import_checkpoints(self, files: dict, vae: AutoencoderKL, params: dict) -> None:
+        """Load ``read_checkpoints``'s files over the seeded weights by their
+        own keys, as the JAX ``init_state`` merges them
+        (ssl_tpu/diffusion/ddpm_ssl.py:160-196): the VAE (under
+        ``first_stage_model.`` in a full checkpoint), the UNet (under
+        ``model.diffusion_model.``, or a bare UNet file), and the struct-cond
+        encoder only where the UNet's file has ``structcond_stage_model.``
+        keys (``utils/weight_port.py::load_reference_state``)."""
+        if "vae" in files:
+            load_reference_state(vae, files["vae"], "vae")
+        if "unet" in files:
+            load_reference_state(params["unet"], files["unet"], "unet")
+            if has_reference_prefix(files["unet"], "structcond"):
+                load_reference_state(params["structcond"], files["unet"], "structcond")
 
     @property
     def distributed(self) -> bool:

@@ -54,10 +54,15 @@ previews and checkpoints, which are those of a one-rank run.  A save in the
 middle of an accumulation raises at ``data`` > 1 (each rank holds its own
 partial gradients).
 
+The reference's OmegaConf-schema files (``model.target``, such as
+configs/SSL/base.yaml) are read through ``diffusion/ref_config.py``, as the
+JAX CLI reads them: the file is translated, then the overrides apply.
+``model.vae_ckpt`` and ``model.ckpt_path`` (or ``unet_ckpt``) import SD /
+StableSR checkpoints (``StableSRSSL.import_checkpoints``).
+
 Not ported yet, and raising ``NotImplementedError``: a ``compute_dtype``
-other than float32 and bfloat16, ``train.ckpt_backend: orbax``,
-reference-schema configs (``model.target``), and the checkpoint and CLIP
-weight paths."""
+other than float32 and bfloat16, ``train.ckpt_backend: orbax``, and the CLIP
+text weights (``clip_text_ckpt``, ``text_prompt``)."""
 
 from __future__ import annotations
 
@@ -76,6 +81,7 @@ from ssl_tpu_torch.data import build_dataloader, build_dataset
 from ssl_tpu_torch.data.realesr_degradation import RealESRGANDegrader
 from ssl_tpu_torch.diffusion.ddpm_ssl import (DiffusionSSLConfig, StableSRSSL, full_moments,
                                               trainable)
+from ssl_tpu_torch.diffusion.ref_config import is_reference_schema, translate_reference_config
 from ssl_tpu_torch.diffusion.unet import NOT_PORTED, EncoderUNetModelWT, UNetModelDualcondV2
 from ssl_tpu_torch.diffusion.vae import AutoencoderKL
 from ssl_tpu_torch.losses.ssl_loss import SSLSetting, zoo_opts, zoo_strategy
@@ -92,9 +98,12 @@ from ssl_tpu_torch.utils.weight_port import params_to_jax
 def build_from_config(cfg: dict, mesh=None) -> StableSRSSL:
     """The model of ``cfg``, with the (data, model) mesh that ``parallel:``
     asks for (``parallel/mesh.py::dp_tp_mesh``) unless ``mesh`` is given."""
+    if is_reference_schema(cfg):
+        cfg = translate_reference_config(cfg)
+        if cfg.get("kind") == "cfw":
+            raise SystemExit("This is a CFW-decoder (AutoencoderKLResi) config: train it with "
+                             "python -m ssl_tpu_torch.diffusion.cfw_train --base <config>")
     model_cfg = cfg.get("model", {})
-    if "target" in model_cfg:
-        raise NotImplementedError(f"reference-schema configs (model.target) {NOT_PORTED}")
     par = cfg.get("parallel") or {}
     if mesh is None and par:
         mesh = dp_tp_mesh(par)
@@ -144,6 +153,13 @@ def build_from_config(cfg: dict, mesh=None) -> StableSRSSL:
         unet_ckpt=model_cfg.get("ckpt_path") or model_cfg.get("unet_ckpt"),
         mesh=mesh, zero=bool(par.get("zero", False)),
         zero_min_size=int(par.get("zero_min_size", 2 ** 14)))
+
+
+def load_config(path: str) -> dict:
+    """A YAML or JSON config file, a reference-schema one (``model.target``)
+    translated to the native schema (``diffusion/ref_config.py``)."""
+    cfg = ordered_yaml_load(path)
+    return translate_reference_config(cfg) if is_reference_schema(cfg) else cfg
 
 
 def apply_dotlist(cfg: dict, dotlist: list[str]) -> dict:
@@ -275,7 +291,8 @@ def train(args, on_iteration=None):
     ``iter_s``, ``data_s``, ``degrade_s`` and the degrader's
     ``degrade_parts``), the state and the degrader; its time is not an
     iteration's."""
-    cfg = apply_dotlist(ordered_yaml_load(args.base), getattr(args, "overrides", None) or [])
+    cfg = load_config(args.base)
+    cfg = apply_dotlist(cfg, getattr(args, "overrides", None) or [])
     train_cfg = cfg.get("train", {})
     if train_cfg.get("ckpt_backend", "pickle") != "pickle":
         raise NotImplementedError(f"train.ckpt_backend={train_cfg['ckpt_backend']!r} {NOT_PORTED}")

@@ -28,11 +28,18 @@ hands each rank its tile of each group of latent tiles
     torchrun --nproc_per_node 2 -m ssl_tpu_torch.diffusion.test_cli --config cfg.yml \\
         --ckpt ckpt_N.pkl --init-img lq/ --outdir out --tp 2
 
-``--vqgan_ckpt`` (CFW) and ``--prompt`` are not ported yet and raise."""
+``--vqgan_ckpt cfw_N.pkl`` decodes through StableSR's CFW autoencoder
+(``diffusion/vae.py::AutoencoderKLResi``, built from ``model.first_stage``
+with the model's flash switch and ``compute_dtype``; the ``{'params': tree}``
+pickle either package's ``cfw_train`` writes): the upscaled LQ's encoder
+features fused into the decode of latent / ``scale_factor``, once the whole
+latent canvas is sampled (and gathered, with ``--tile_latent``, ``--tp`` or
+``--tile_parallel``).  ``--prompt`` is not ported yet and raises."""
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 import pickle
 import time
@@ -40,14 +47,15 @@ import time
 import torch
 import torch.nn.functional as F
 
+from ssl_tpu_torch.diffusion.cfw_train import read_cfw_params
 from ssl_tpu_torch.diffusion.color_fix import adain_color_fix, wavelet_color_fix
 from ssl_tpu_torch.diffusion.ddpm_ssl import DiffusionState
-from ssl_tpu_torch.diffusion.main import build_from_config
+from ssl_tpu_torch.diffusion.main import build_from_config, load_config
 from ssl_tpu_torch.diffusion.sampler import (ddim_sample, plms_sample, spaced_ddpm_sample,
                                              tiled_sample)
+from ssl_tpu_torch.diffusion.vae import AutoencoderKLResi
 from ssl_tpu_torch.parallel.mesh import dp_tp_mesh, init_distributed, is_main
 from ssl_tpu_torch.utils.img_util import img2array, img2tensor, imread, imwrite, tensor2img
-from ssl_tpu_torch.utils.options import ordered_yaml_load
 from ssl_tpu_torch.utils.weight_port import params_from_jax
 
 SAMPLERS = {"ddpm": spaced_ddpm_sample, "ddim": ddim_sample, "plms": plms_sample}
@@ -67,14 +75,39 @@ def load_jax_params(state: DiffusionState, params: dict) -> None:
             p["null_context"].copy_(carried["null_context"])
 
 
+def load_cfw(cfg: dict, path: str, device) -> AutoencoderKLResi:
+    """The CFW autoencoder of ``--vqgan_ckpt``: built from ``cfg``'s
+    ``model.first_stage`` (its AutoencoderKLResi keys) with the model's
+    ``use_flash_attention`` and ``compute_dtype``, the pickle loaded.  A
+    ``num_fuse_block`` that ``first_stage`` does not give is read from the
+    pickle (the JAX CLI takes the default, 2; a stage-1 config cannot carry
+    the key, which AutoencoderKL does not take)."""
+    tree = read_cfw_params(path)
+    model_cfg = cfg.get("model", {})
+    keys = inspect.signature(AutoencoderKLResi).parameters
+    vae_cfg = {k: v for k, v in (model_cfg.get("first_stage") or {}).items() if k in keys}
+    for key in ("use_flash_attention", "compute_dtype"):
+        if model_cfg.get(key):
+            vae_cfg.setdefault(key, model_cfg[key])
+    fuse = tree["decoder"].get("fusion_layer_1", {})
+    vae_cfg.setdefault("num_fuse_block",
+                       sum(k.startswith("encode_enc_2_") for k in fuse) or 2)
+    with torch.device("meta"):
+        net = AutoencoderKLResi(**vae_cfg)
+    net = net.to_empty(device=device)
+    net.load_state_dict(params_from_jax("AutoencoderKLResi", tree))
+    return net.requires_grad_(False).eval()
+
+
 def restore(model, state: DiffusionState, lq_up: torch.Tensor, generator: torch.Generator,
             sampler: str = "ddpm", steps: int = 200, tile_latent: int = 0,
             colorfix: str = "adain", timings: dict | None = None,
-            tile_parallel: bool = False) -> torch.Tensor:
+            tile_parallel: bool = False, cfw: AutoencoderKLResi | None = None) -> torch.Tensor:
     """One request: the upsampled LQ image (1, 3, H, W) in [0, 1] -> the
     restored image in [0, 1].  VAE encode, ``sampler`` over the struct-cond
     encoder and the UNet with the sampling-time weights (tiled when
-    ``tile_latent`` is set and smaller than the latent), VAE decode, color
+    ``tile_latent`` is set and smaller than the latent), the decode (the VAE,
+    or with ``cfw`` the CFW autoencoder on the LQ's encoder features), color
     fix.  With ``timings``, each stage's seconds go into it, the device
     synchronised after each."""
     vae, params = state.frozen["vae"], model.infer_params(state)
@@ -105,7 +138,11 @@ def restore(model, state: DiffusionState, lq_up: torch.Tensor, generator: torch.
         else:
             z = sample_tile(z_lq)
         lap("sample")
-        img = torch.clamp((model.decode(vae, z) + 1) / 2, 0, 1)
+        if cfw is None:
+            img = model.decode(vae, z)
+        else:
+            img = cfw.decode(z / model.cfg.scale_factor, cfw.encode(lq_up * 2 - 1)[2])
+        img = torch.clamp((img + 1) / 2, 0, 1)
         lap("decode")
     if colorfix == "adain":
         img = adain_color_fix(img, lq_up)
@@ -124,7 +161,8 @@ def parse_args(argv=None):
     parser.add_argument("--ddpm_steps", type=int, default=200)
     parser.add_argument("--upscale", type=float, default=4.0)
     parser.add_argument("--colorfix_type", choices=["nofix", "adain", "wavelet"], default="adain")
-    parser.add_argument("--vqgan_ckpt", default=None, help="CFW decoder (not ported yet)")
+    parser.add_argument("--vqgan_ckpt", default=None,
+                        help="CFW autoencoder params pickle (cfw_train's cfw_N.pkl)")
     parser.add_argument("--tile_latent", type=int, default=0, help="latent tile size (0=off)")
     parser.add_argument("--tile_parallel", action="store_true",
                         help="latent tiles split over the ranks (torchrun)")
@@ -138,9 +176,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for given, flag in ((args.vqgan_ckpt, "--vqgan_ckpt"), (args.prompt is not None, "--prompt")):
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, queue 1)")
+    if args.prompt is not None:
+        raise NotImplementedError("--prompt is not ported yet (ROADMAP.md, queue 1)")
+    if args.vqgan_ckpt and not os.path.isfile(args.vqgan_ckpt):
+        raise FileNotFoundError(args.vqgan_ckpt)
     tp = max(args.tp or 1, 1)
     if tp > 1 and args.tile_parallel:
         raise ValueError("--tp and --tile_parallel split the ranks two ways: take one")
@@ -149,12 +188,14 @@ def main(argv=None):
         device = init_distributed("cuda" if device is None else device)
     if tp > 1:
         mesh = dp_tp_mesh({"data": 1, "tp": tp})
-    model = build_from_config(ordered_yaml_load(args.config), mesh)
+    cfg = load_config(args.config)
+    model = build_from_config(cfg, mesh)
     state = model.init_state(seed=0, device=device)
     with open(args.ckpt, "rb") as f:
         load_jax_params(state, pickle.load(f))
     state = model.place_state(state)
     device = state.params["null_context"].device
+    cfw = load_cfw(cfg, args.vqgan_ckpt, device) if args.vqgan_ckpt else None
     gen = torch.Generator(device=device).manual_seed(42)
     rank0 = is_main()
     if rank0:
@@ -168,7 +209,8 @@ def main(argv=None):
         # which the JAX CLI calls, is this interpolation
         lq_up = F.interpolate(lq, size=(up_h, up_w), mode="bicubic", align_corners=False)
         img = restore(model, state, lq_up.to(device), gen, args.sampler, args.ddpm_steps,
-                      args.tile_latent, args.colorfix_type, tile_parallel=args.tile_parallel)
+                      args.tile_latent, args.colorfix_type, tile_parallel=args.tile_parallel,
+                      cfw=cfw)
         if not rank0:
             continue
         out_path = os.path.join(args.outdir, name)

@@ -12,7 +12,13 @@ Load the result with ``load_state_dict(sd, strict=False)``: batch norms'
 ``num_batches_tracked`` counters have no flax counterpart (the diffusion
 families load strictly).  ``params_to_jax`` goes the other way for the
 diffusion training checkpoint (the UNet, the struct-cond encoder and the
-null context), so the port writes the pickle the JAX CLI writes.
+null context) and the CFW autoencoder, so the port writes the pickles the
+JAX CLIs write.
+
+``load_reference_state`` loads a reference-layout (SD / ldm / StableSR)
+state dict into one of the diffusion nets by its own keys, with the JAX
+package's merge semantics (``convert_ldm_vae`` / ``convert_sd_unet`` /
+``convert_sd_structcond`` and ``merge_into_tree``).
 
 The diffusion families name their torch modules as StableSR and ldm do; the
 flax names encode those paths (``input_blocks_1_0`` / ``in_layers_2`` is
@@ -36,7 +42,7 @@ FAMILIES = ("RRDBNet", "VGGStyleDiscriminator", "UNetDiscriminatorSN", "VGGFeatu
             "EncoderUNetModelWT", "AutoencoderKL", "StableSRSSL",
             "LPIPSAlex", "DISTS", "InceptionV3FID", "CLIPRN50",
             "UNetDiscriminatorSNv1", "MOD", "Discriminator_VGG_192", "DiscriminatorSN_VGG_192",
-            "NLayerDiscriminator", "RRDBPSNet", "RRDBMeanNet")
+            "NLayerDiscriminator", "RRDBPSNet", "RRDBMeanNet", "AutoencoderKLResi")
 
 
 def load_torch_state_dict(path: str, param_key: str = "params") -> dict:
@@ -550,15 +556,27 @@ def _openai_unet(params: dict) -> dict:
 
 _VAE_RESNET = {"GroupNorm_0": "norm1", "Conv_0": "conv1", "GroupNorm_1": "norm2",
                "Conv_1": "conv2", "Conv_2": "nin_shortcut"}
+# a fuse block's bracketing ResBlocks (ldm model.py:797) name their skip conv_out
+_FUSE_RESBLOCK = {**_VAE_RESNET, "Conv_2": "conv_out"}
 
 
 def _ldm_vae(params: dict) -> dict:
-    """AutoencoderKL: the inverse of ssl_tpu.utils.weight_port.convert_ldm_vae."""
+    """AutoencoderKL and AutoencoderKLResi: the inverse of
+    ssl_tpu.utils.weight_port.convert_ldm_vae."""
     sd: dict = {}
     for name in ("quant_conv", "post_quant_conv"):
         _leaves(sd, name, params[name])
     for coder in ("encoder", "decoder"):
         for key, node in params[coder].items():
+            if key.startswith("fusion_layer_"):
+                for inner, sub in node.items():
+                    base = f"{coder}.{key}"
+                    if inner.startswith("encode_enc_2_"):     # the RRDB trunk
+                        _rrdb(sd, f"{base}.encode_enc_2.{inner.rsplit('_', 1)[1]}", sub)
+                    else:
+                        for leaf_name, leaf in sub.items():
+                            _leaves(sd, f"{base}.{inner}.{_FUSE_RESBLOCK[leaf_name]}", leaf)
+                continue
             path = (key.replace("mid_block_", "mid.block_").replace("mid_attn", "mid.attn_1"))
             path = re.sub(r"^(down|up)_(\d+)_block_(\d+)$", r"\1.\2.block.\3", path)
             path = re.sub(r"^(down|up)_(\d+)_(downsample|upsample)$", r"\1.\2.\3.conv", path)
@@ -681,7 +699,7 @@ def params_from_jax(family: str, params: dict, batch_stats: dict | None = None):
     'null_context'} and returns the same keys: two state dicts and a tensor."""
     if family in ("UNetModelDualcondV2", "EncoderUNetModelWT"):
         return _openai_unet(params)
-    if family == "AutoencoderKL":
+    if family in ("AutoencoderKL", "AutoencoderKLResi"):
         return _ldm_vae(params)
     if family == "StableSRSSL":
         return {"unet": _openai_unet(params["unet"]),
@@ -791,20 +809,124 @@ def _np_leaves(tree):
     return np.ascontiguousarray(tree, dtype=np.float32)
 
 
+_VAE_TO_FLAX = {v: k for k, v in _FUSE_RESBLOCK.items()} | {"nin_shortcut": "Conv_2"}
+
+
+def vae_flax_path(key: str) -> list[str]:
+    """The flax path of the port's VAE parameter ``key`` (AutoencoderKL or
+    AutoencoderKLResi), without the leaf: ``decoder.up.2.block.0.norm1`` ->
+    [``decoder``, ``up_2_block_0``, ``GroupNorm_0``]; the inverse of
+    ``_ldm_vae``'s names."""
+    path = key.rsplit(".", 1)[0]
+    rules = (
+        (r"decoder\.(fusion_layer_\d+)\.encode_enc_2\.(\d+)\.rdb(\d)\.conv(\d)",
+         lambda m: ["decoder", m[1], f"encode_enc_2_{m[2]}",
+                    f"ResidualDenseBlock_{int(m[3]) - 1}", f"Conv3x3_{int(m[4]) - 1}", "Conv_0"]),
+        (r"decoder\.(fusion_layer_\d+)\.(encode_enc_[13])\.(\w+)",
+         lambda m: ["decoder", m[1], m[2], _VAE_TO_FLAX[m[3]]]),
+        (r"(encoder|decoder)\.mid\.attn_1\.(\w+)",
+         lambda m: [m[1], "mid_attn", "GroupNorm_0" if m[2] == "norm" else m[2]]),
+        (r"(encoder|decoder)\.mid\.(block_\d)\.(\w+)",
+         lambda m: [m[1], f"mid_{m[2]}", _VAE_TO_FLAX[m[3]]]),
+        (r"(encoder|decoder)\.(down|up)\.(\d+)\.block\.(\d+)\.(\w+)",
+         lambda m: [m[1], f"{m[2]}_{m[3]}_block_{m[4]}", _VAE_TO_FLAX[m[5]]]),
+        (r"(encoder|decoder)\.(down|up)\.(\d+)\.(downsample|upsample)\.conv",
+         lambda m: [m[1], f"{m[2]}_{m[3]}_{m[4]}"]),
+        (r"(encoder|decoder)\.(conv_in|conv_out|norm_out)", lambda m: [m[1], m[2]]),
+        (r"(quant_conv|post_quant_conv)", lambda m: [m[1]]))
+    for pattern, to_path in rules:
+        m = re.fullmatch(pattern, path)
+        if m:
+            return to_path(m)
+    raise KeyError(f"unexpected VAE parameter {key}")
+
+
+def _ldm_vae_to_jax(sd: dict) -> dict:
+    """The inverse of ``_ldm_vae``: OIHW -> HWIO, a 1-d weight a norm's scale."""
+    tree: dict = {}
+    for key, value in sd.items():
+        a = value.detach().cpu().numpy()
+        node = tree
+        for name in vae_flax_path(key):
+            node = node.setdefault(name, {})
+        leaf = "bias" if key.endswith(".bias") else "scale" if a.ndim == 1 else "kernel"
+        node[leaf] = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+    return _np_leaves(tree)
+
+
 def params_to_jax(family: str, params) -> dict:
     """The flax params tree of the port's ``family`` weights, numpy leaves in
     flax's layout; the inverse of ``params_from_jax`` for the diffusion
     families.  ``StableSRSSL`` takes {'unet', 'structcond', 'null_context'}
     (modules or state dicts, and a tensor) and returns the JAX CLI's
-    ``ckpt_{step}.pkl`` payload."""
+    ``ckpt_{step}.pkl`` payload; ``AutoencoderKLResi`` (or ``AutoencoderKL``)
+    the tree that ``save_cfw_params`` writes under ``params``."""
     def sd(x):
         return x.state_dict() if isinstance(x, torch.nn.Module) else x
 
     if family in ("UNetModelDualcondV2", "EncoderUNetModelWT"):
         return _openai_unet_to_jax(sd(params))
+    if family in ("AutoencoderKL", "AutoencoderKLResi"):
+        return _ldm_vae_to_jax(sd(params))
     if family == "StableSRSSL":
         return {"unet": _openai_unet_to_jax(sd(params["unet"])),
                 "structcond": _openai_unet_to_jax(sd(params["structcond"])),
                 "null_context": _np_leaves(params["null_context"].detach().cpu().numpy())}
     raise KeyError(f"no carry to the JAX package for {family!r}; known: UNetModelDualcondV2, "
-                   "EncoderUNetModelWT, StableSRSSL")
+                   "EncoderUNetModelWT, StableSRSSL, AutoencoderKL, AutoencoderKLResi")
+
+
+# reference-layout files: the prefix of a net in a full SD / StableSR
+# checkpoint, and the top-level modules its converter in the JAX package reads
+REFERENCE_LAYOUTS = {
+    "vae": ("first_stage_model.", ("encoder", "decoder", "quant_conv", "post_quant_conv")),
+    "unet": ("model.diffusion_model.",
+             ("input_blocks", "output_blocks", "middle_block", "time_embed", "out", "fea_tran")),
+    "structcond": ("structcond_stage_model.",
+                   ("input_blocks", "output_blocks", "middle_block", "time_embed", "out",
+                    "fea_tran")),
+}
+
+
+def has_reference_prefix(sd: dict, net: str) -> bool:
+    return any(k.startswith(REFERENCE_LAYOUTS[net][0]) for k in sd)
+
+
+@torch.no_grad()
+def load_reference_state(module: torch.nn.Module, sd: dict, net: str) -> list[str]:
+    """Load a reference-layout state dict into ``module`` (the port's ``net``:
+    'vae', 'unet' or 'structcond') by its own keys, with the semantics of the
+    JAX package's converters and ``merge_into_tree``:
+
+    * a full checkpoint's keys under the net's prefix are taken (the prefix
+      dropped); a file without that prefix is read as the bare net;
+    * of those, the weights and biases under the net's top-level modules are
+      the net's (the converters read those and nothing else: an ldm
+      checkpoint's ``loss.*`` is not the VAE's);
+    * a parameter the file lacks keeps its value (the fusion layers of a
+      plain SD VAE keep their init), and a shape mismatch raises;
+    * a key the module lacks is dropped, and returned.  The JAX merge adds
+      such keys to the params tree, where no module reads them (the fusion
+      layers of a CFW file loaded as a plain VAE).
+
+    Values are cast to the parameters' type.  Raises when the file holds
+    none of the module's parameters."""
+    prefix, tops = REFERENCE_LAYOUTS[net]
+    if has_reference_prefix(sd, net):
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    own = dict(module.named_parameters())
+    loaded, dropped = 0, []
+    for key, value in sd.items():
+        if key.split(".", 1)[0] not in tops or key.rsplit(".", 1)[-1] not in ("weight", "bias"):
+            continue
+        if key not in own:
+            dropped.append(key)
+            continue
+        if tuple(own[key].shape) != tuple(value.shape):
+            raise ValueError(f"{net} parameter {key}: shape {tuple(value.shape)} in the file, "
+                             f"{tuple(own[key].shape)} in the model")
+        own[key].copy_(value)
+        loaded += 1
+    if not loaded:
+        raise ValueError(f"no {net} parameters in the state dict (keys like {sorted(sd)[:4]})")
+    return dropped

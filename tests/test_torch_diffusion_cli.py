@@ -83,11 +83,14 @@ def test_cli_color_fixes_write_images(setup):
 @pytest.mark.parametrize("flag", [["--vqgan_ckpt", "x.pkl"], ["--tp", "2"],
                                   ["--tile_parallel", "--tp", "2"], ["--prompt", "a photo"]])
 def test_cli_unported_options_raise(setup, flag):
-    """CFW and prompts are not ported; --tp 2 needs a torchrun world of 2,
-    and --tp with --tile_parallel is refused: each raises before any output."""
+    """Prompts are not ported; a missing --vqgan_ckpt file raises
+    FileNotFoundError (CFW serving: tests/test_torch_cfw.py); --tp 2 needs a
+    torchrun world of 2, and --tp with --tile_parallel is refused: each
+    raises before any output."""
     root, (ckpt_a, _) = setup
     err, match = ((ValueError, "torchrun") if flag == ["--tp", "2"] else
                   (ValueError, "take one") if "--tile_parallel" in flag else
+                  (FileNotFoundError, "x.pkl") if "--vqgan_ckpt" in flag else
                   (NotImplementedError, "ROADMAP"))
     with pytest.raises(err, match=match):
         _run(root, ckpt_a, "unused", *flag)

@@ -159,6 +159,21 @@ def test_k2_calls_per_training_mini_step(monkeypatch):
     {"clip_text_ckpt": "clip.bin"},
 ])
 def test_unported_model_options_raise(change):
+    """float16 and the CLIP text weights are not ported.  A reference-schema
+    model (``model.target``) translates through diffusion/ref_config.py and
+    builds what JAX builds (tests/test_torch_ref_config.py); a ``vae_ckpt``
+    imports at init_state, where a missing file raises FileNotFoundError
+    before any weight is made."""
+    if "target" in change:
+        got, ref = build_from_config(shipped(**change)), jax_build(shipped(**change))
+        assert got.cfg._asdict() == ref.cfg._asdict()
+        return
+    if "vae_ckpt" in change:
+        model = build_from_config(shipped(**change))
+        assert model.vae_ckpt == "vae.ckpt"
+        with pytest.raises(FileNotFoundError):
+            model.init_state(device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_from_config(shipped(**change))
 

@@ -255,10 +255,28 @@ def test_first_degraded_batch_matches_jax(data, tmp_path, monkeypatch):
 @pytest.mark.parametrize("override,what", [
     ("train.ckpt_backend=orbax", "ckpt_backend"), ("parallel.tp=2", "parallel"),
     ("model.target=ldm.models.X", "model.target")])
-def test_unported_options_raise(data, tmp_path, override, what):
-    """orbax and reference-schema configs are not ported; ``parallel`` beyond
-    one rank needs a torchrun world of its size."""
+def test_unported_options_raise(data, tmp_path, override, what, monkeypatch):
+    """orbax is not ported; ``parallel`` beyond one rank needs a torchrun
+    world of its size.  A ``model.target`` makes the model a reference-schema
+    one, which translates (diffusion/ref_config.py) and builds: with no
+    ``params`` the reference's default model (context_dim 1024), stopped
+    here before its full-size weights are made."""
     base = write_cfg(tmp_path, "cfg.json", tiny_cfg(data))
+    if what == "model.target":
+        class Stop(Exception):
+            pass
+
+        built = []
+
+        def stop(self, *args, **kwargs):
+            built.append(self)
+            raise Stop
+        monkeypatch.setattr(StableSRSSL, "init_state", stop)
+        with pytest.raises(Stop):
+            tmain.main(["--train", "--base", base, "--logdir", str(tmp_path), "--device", "cpu",
+                        override])
+        assert built[0].cfg.context_dim == 1024 and built[0].cfg.timesteps == 1000
+        return
     err, match = ((ValueError, "torchrun") if what == "parallel" else
                   (NotImplementedError, "ROADMAP.md"))
     with pytest.raises(err, match=match) as e:
